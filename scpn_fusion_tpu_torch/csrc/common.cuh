@@ -22,38 +22,71 @@ __device__ __forceinline__ void stencil_ew(const float* __restrict__ r, int r_st
   a_w = inv_dr2 + t;
 }
 
-// One red-black SOR update of point idx (an interior point):
-//   gs = (a_E p_E + a_W p_W + a_NS (p_N + p_S) - s) / a_C,  p + omega (gs - p).
-// No 1e12 clip, like the Pallas kernels this replaces.
-__device__ __forceinline__ float rb_update(const float* p, const float* __restrict__ s, int idx,
-                                           int nr, float a_e, float a_w, float a_ns,
-                                           float inv_ac, float omega) {
-  const float q = p[idx];
-  const float gs = (a_e * p[idx + 1] + a_w * p[idx - 1] + a_ns * (p[idx + nr] + p[idx - nr])
-                    - s[idx]) * inv_ac;
+// One red-black SOR update from the point's value q, its four neighbours and
+// its right-hand side s:
+//   gs = (a_E p_E + a_W p_W + a_NS (p_N + p_S) - s) / a_C,  q + omega (gs - q).
+// No 1e12 clip, like the Pallas kernels this replaces.  Every kernel's update
+// goes through this one expression, wherever its operands were loaded from.
+__device__ __forceinline__ float rb_value(float q, float p_e, float p_w, float p_n, float p_s,
+                                          float s, float a_e, float a_w, float a_ns,
+                                          float inv_ac, float omega) {
+  const float gs = (a_e * p_e + a_w * p_w + a_ns * (p_n + p_s) - s) * inv_ac;
   return q + omega * (gs - q);
 }
 
-// The defect s - L[p] at point idx (an interior point), in the plain
-// version's operation order:
-//   lap = a_E p_E + a_W p_W + a_NS (p_N + p_S) - a_C p.
-__device__ __forceinline__ float gs_defect(const float* p, const float* s, int idx, int nr,
-                                          float a_e, float a_w, float a_ns, float a_c) {
-  const float lap = a_e * p[idx + 1] + a_w * p[idx - 1] + a_ns * (p[idx + nr] + p[idx - nr])
-                    - a_c * p[idx];
-  return s[idx] - lap;
+// rb_value at point idx (an interior point) of a row-major level of width nr.
+__device__ __forceinline__ float rb_update(const float* p, const float* __restrict__ s, int idx,
+                                           int nr, float a_e, float a_w, float a_ns,
+                                           float inv_ac, float omega) {
+  return rb_value(p[idx], p[idx + 1], p[idx - 1], p[idx + nr], p[idx - nr], s[idx], a_e, a_w,
+                  a_ns, inv_ac, omega);
 }
 
-// Bilinear prolongation of the compact coarse error e (row length nrc) at
-// fine point (i, j), by phase: coincident copy, edge mid-points average 2,
-// centres average 4 (the plain version's summation order).
+// The defect s - L[p] from the point's value q, its neighbours and s, in the
+// plain version's operation order:
+//   lap = a_E p_E + a_W p_W + a_NS (p_N + p_S) - a_C q.
+__device__ __forceinline__ float defect_value(float q, float p_e, float p_w, float p_n,
+                                              float p_s, float s, float a_e, float a_w,
+                                              float a_ns, float a_c) {
+  const float lap = a_e * p_e + a_w * p_w + a_ns * (p_n + p_s) - a_c * q;
+  return s - lap;
+}
+
+// defect_value at point idx (an interior point) of a row-major level.
+__device__ __forceinline__ float gs_defect(const float* p, const float* s, int idx, int nr,
+                                          float a_e, float a_w, float a_ns, float a_c) {
+  return defect_value(p[idx], p[idx + 1], p[idx - 1], p[idx + nr], p[idx - nr], s[idx], a_e,
+                      a_w, a_ns, a_c);
+}
+
+// Full weighting of the defect around a coarse point: d(di, dj) is the defect
+// at fine offset (di, dj) from it (zero on the fine ring).  Centre 1/4, edges
+// 1/8, corners 1/16, summed in the plain version's order.
+template <typename Defect>
+__device__ __forceinline__ float full_weight(Defect d) {
+  const float c = d(0, 0);
+  const float edge = d(0, 1) + d(0, -1) + d(1, 0) + d(-1, 0);
+  const float diag = d(1, 1) + d(1, -1) + d(-1, 1) + d(-1, -1);
+  return 0.25f * c + 0.125f * edge + 0.0625f * diag;
+}
+
+// Bilinear prolongation of the coarse error at fine point (i, j) from coarse
+// rows i/2 (row0) and i/2 + 1 (row1, read only for odd i), by phase:
+// coincident copy, edge mid-points average 2, centres average 4 (the plain
+// version's summation order).
+__device__ __forceinline__ float prolong_rows(const float* row0, const float* row1, int i,
+                                              int j) {
+  const int jc = j >> 1;
+  if (!(i & 1) && !(j & 1)) return row0[jc];
+  if (!(i & 1)) return 0.5f * (row0[jc + 1] + row0[jc]);
+  if (!(j & 1)) return 0.5f * (row1[jc] + row0[jc]);
+  return 0.25f * (((row1[jc + 1] + row1[jc]) + row0[jc + 1]) + row0[jc]);
+}
+
+// prolong_rows on a compact row-major coarse error e of row length nrc.
 __device__ __forceinline__ float prolong_at(const float* __restrict__ e, int nrc, int i, int j) {
   const float* row = e + (i >> 1) * nrc;
-  const int jc = j >> 1;
-  if (!(i & 1) && !(j & 1)) return row[jc];
-  if (!(i & 1)) return 0.5f * (row[jc + 1] + row[jc]);
-  if (!(j & 1)) return 0.5f * (row[nrc + jc] + row[jc]);
-  return 0.25f * (((row[nrc + jc + 1] + row[nrc + jc]) + row[jc + 1]) + row[jc]);
+  return prolong_rows(row, row + nrc, i, j);
 }
 
 }  // namespace scpn

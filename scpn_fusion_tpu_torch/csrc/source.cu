@@ -1,35 +1,53 @@
-// Fused topology + Grad-Shafranov source, as three launches.
+// Fused topology + Grad-Shafranov source, as one cooperative launch.
 //
-// Replaces: scpn_fusion_tpu/ops/pallas_source.py:_fused_source_kernel (entry
-// fused_topology_source).
+// Replaces: scpn_fusion_tpu/ops/pallas_source.py:59 _fused_source_kernel
+// (entry fused_topology_source).
 //
-//   1. source_reduce_kernel: block partials of max psi, min psi and the
-//      masked first-row-major argmin of |grad psi| over the divertor mask.
-//   2. source_ipsum_kernel: every block finishes pass 1 from the partials
-//      (psi_axis floored at 1e-6; psi_b = psi at the X-point, or min psi when
-//      the mask is empty; the |axis - b| < 0.1 snap), block 0 writes the
-//      scalar readout, then every block sums its share of the unnormalised
-//      J_phi for the Ip renormalisation.
-//   3. source_apply_kernel: every block finishes the Ip sum from the
-//      partials and writes -mu0 R J_phi * scale elementwise.
+// source_fused_kernel runs three phases with a grid-wide barrier between
+// them:
 //
-// What bounds it on an H100: psi is read three times (~3 MB at 513^2, L2
-// resident) and src written once; the reductions need a grid-wide result
-// before the elementwise pass, which on Hopper means separate launches
-// (blocks run in no order and share nothing).  Launch latency dominates.
+//   1. block partials of max psi, min psi and the masked first-row-major
+//      argmin of |grad psi| over the divertor mask;
+//   2. every block finishes pass 1 from the partials (psi_axis floored at
+//      1e-6; psi_b = psi at the X-point, or min psi when the mask is empty;
+//      the |axis - b| < 0.1 snap), block 0 writes the scalar readout, then
+//      every block sums its share of the unnormalised J_phi for the Ip
+//      renormalisation;
+//   3. every block finishes the Ip sum from the partials and writes
+//      -mu0 R J_phi * scale elementwise.
 //
-// What the design does about it: the small finishing reductions are done
-// redundantly by every block of the next launch (a few hundred partials), so
-// there is no extra one-block launch and no atomics, and every sum is taken
-// in a fixed order (deterministic).  The argmin keeps (value, index) pairs
-// and breaks ties toward the lower linear index, which is exactly the
-// "first row-major minimum" of the JAX path.  |grad psi| is computed with
+// What bounds it on an H100: bytes.  psi, the mask and R are read once and
+// src written once (3 n^2 + n floats: 3.2 MB at 513^2, under a microsecond at
+// 3.35 TB/s), and the two reductions each need a grid-wide result before the
+// next phase can start, so two grid barriers of a few microseconds are the
+// floor in practice.
+//
+// What the design does about it: the at most 264 blocks of 256 threads (two
+// a SM on 132 SMs) are all resident at once, so a cooperative launch can put
+// grid.sync() where launch boundaries used to be: one launch, not three.
+// Each thread keeps the psi values of its points in registers across the
+// phases (up to kKeep = 16 a thread, which covers 1025^2; points beyond are
+// read again, from L2), so psi comes from memory once.  The small finishing
+// reductions are done redundantly by every block (a few hundred partials), so
+// there is no one-block phase and no atomics, and every sum is taken in a
+// fixed order (deterministic).  The argmin keeps (value, index) pairs and
+// breaks ties toward the lower linear index, which is exactly the "first
+// row-major minimum" of the JAX path.  |grad psi| is computed with
 // round-to-nearest intrinsics (no contraction into FMA), in the operation
 // order of the plain PyTorch version, so both pick the same X-point site.
+//
+// The same three phases as three launches (source_reduce_kernel,
+// source_ipsum_kernel, source_apply_kernel; entry scpn_fused_source_staged)
+// stay below as the reference that the one-launch kernel must equal bit for
+// bit: same partials, combined in the same order.
 
 #include <climits>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -107,12 +125,15 @@ __device__ float block_sum(float v) {
 
 __device__ __forceinline__ float mtanh(float pn, const float* __restrict__ c) {
   // c = (ped_top, ped_width, ped_height, core_alpha)
+  // pedestal + core_alpha * core adds two products, and 1 - q^2 follows one:
+  // which product the compiler folds into an FMA differed from kernel to
+  // kernel, so the roundings are spelled out (one FMA over the pedestal
+  // product, the others rounded on their own) and every kernel agrees.
   const bool inside = (pn >= 0.0f) && (pn < 1.0f);
   const float y = fminf(fmaxf((c[0] - pn) / c[1], -20.0f), 20.0f);
-  const float pedestal = 0.5f * c[2] * (1.0f + tanhf(y));
   const float q = pn / c[0];
-  const float core = (pn < c[0]) ? fmaxf(0.0f, 1.0f - q * q) : 0.0f;
-  return inside ? pedestal + c[3] * core : 0.0f;
+  const float core = (pn < c[0]) ? fmaxf(0.0f, __fsub_rn(1.0f, __fmul_rn(q, q))) : 0.0f;
+  return inside ? __fmaf_rn(0.5f * c[2], 1.0f + tanhf(y), __fmul_rn(c[3], core)) : 0.0f;
 }
 
 // Unnormalised J_phi = 0.5 R p' + 0.5 FF' / (mu0 R) at one point.
@@ -161,8 +182,8 @@ __global__ void source_reduce_kernel(const float* __restrict__ psi,
 }
 
 // psi_axis and psi_b from the pass-1 partials (same result in every block).
-__device__ void finish_topology(const float* __restrict__ psi, const float* __restrict__ part,
-                                const int* __restrict__ part_idx, int n_part, float& axis,
+__device__ void finish_topology(const float* __restrict__ psi, const float* part,
+                                const int* part_idx, int n_part, float& axis,
                                 float& psi_b, int& x_idx) {
   Red v{-INFINITY, INFINITY, INFINITY, INT_MAX};
   for (int b = threadIdx.x; b < n_part; b += blockDim.x) {
@@ -220,6 +241,93 @@ __global__ void source_apply_kernel(const float* __restrict__ psi, const float* 
   }
 }
 
+// The three phases in one cooperative launch.  A thread's k-th point is
+// k0 + c * stride in every phase, as in the three kernels above, so every
+// partial is the same sum in the same order.
+constexpr int kKeep = 16;
+
+__global__ void __launch_bounds__(kThreads, 2) source_fused_kernel(
+    const float* __restrict__ psi, const float* __restrict__ r, const float* __restrict__ mask,
+    const float* __restrict__ par, int nz, int nr, float d_r, float d_z, float mu0, int h_mode,
+    float* part, int* part_idx, float* ip_part, float* __restrict__ scal,
+    int* __restrict__ x_out, float* __restrict__ src) {
+  // part, part_idx and ip_part are written by one block and read by all after
+  // a grid barrier: plain pointers, so that no load of them is a cached
+  // read-only one.
+  cg::grid_group grid = cg::this_grid();
+  const int n = nz * nr;
+  const int stride = gridDim.x * blockDim.x;
+  const int k0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_part = gridDim.x;
+  float keep[kKeep];
+
+  Red v{-INFINITY, INFINITY, INFINITY, INT_MAX};
+  auto look = [&](int k, float x) {
+    v.mx = fmaxf(v.mx, x);
+    v.mn = fminf(v.mn, x);
+    if (mask[k] > 0.0f) {
+      const int i = k / nr;
+      const float b = grad_mag(psi, i, k - i * nr, nz, nr, d_r, d_z);
+      if (better(b, k, v.b, v.bi)) {
+        v.b = b;
+        v.bi = k;
+      }
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kKeep; ++c) {
+    const int k = k0 + c * stride;
+    keep[c] = k < n ? psi[k] : 0.0f;
+    if (k < n) look(k, keep[c]);
+  }
+  for (int k = k0 + kKeep * stride; k < n; k += stride) look(k, psi[k]);
+  const Red t = block_reduce(v);
+  if (threadIdx.x == 0) {
+    part[3 * blockIdx.x + 0] = t.mx;
+    part[3 * blockIdx.x + 1] = t.mn;
+    part[3 * blockIdx.x + 2] = t.b;
+    part_idx[blockIdx.x] = t.bi;
+  }
+  grid.sync();
+
+  float axis, psi_b;
+  int x_idx;
+  finish_topology(psi, part, part_idx, n_part, axis, psi_b, x_idx);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    scal[0] = axis;
+    scal[1] = psi_b;
+    x_out[0] = x_idx;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kKeep; ++c) {
+    const int k = k0 + c * stride;
+    if (k < n) acc += j_raw(keep[c], r[k % nr], axis, psi_b, par, mu0, h_mode);
+  }
+  for (int k = k0 + kKeep * stride; k < n; k += stride) {
+    acc += j_raw(psi[k], r[k % nr], axis, psi_b, par, mu0, h_mode);
+  }
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) ip_part[blockIdx.x] = s;
+  grid.sync();
+
+  float total = 0.0f;
+  for (int b = threadIdx.x; b < n_part; b += blockDim.x) total += ip_part[b];
+  const float i_current = block_sum(total) * d_r * d_z;
+  const float scale = (fabsf(i_current) > 1e-9f) ? par[8] / i_current : 0.0f;
+  if (blockIdx.x == 0 && threadIdx.x == 0) scal[2] = i_current;
+  auto apply = [&](int k, float x) {
+    const float rk = r[k % nr];
+    src[k] = (-mu0 * rk) * (j_raw(x, rk, axis, psi_b, par, mu0, h_mode) * scale);
+  };
+#pragma unroll
+  for (int c = 0; c < kKeep; ++c) {
+    const int k = k0 + c * stride;
+    if (k < n) apply(k, keep[c]);
+  }
+  for (int k = k0 + kKeep * stride; k < n; k += stride) apply(k, psi[k]);
+}
+
 int n_blocks(int n) {
   const int b = (n + 4 * kThreads - 1) / (4 * kThreads);
   return b < 1 ? 1 : (b > 264 ? 264 : b);
@@ -229,14 +337,48 @@ int n_blocks(int n) {
 
 extern "C" int scpn_source_blocks(int n) { return n_blocks(n); }
 
+// How many blocks of source_fused_kernel the device holds at once (a
+// cooperative launch needs every block resident), or minus the CUDA error.
+extern "C" int scpn_source_resident_blocks() {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, source_fused_kernel, kThreads,
+                                                        0);
+  }
+  return err != cudaSuccess ? -static_cast<int>(err) : per_sm * sms;
+}
+
 // par = (p' ped_top, ped_width, ped_height, core_alpha, FF' same four, I_target).
 // Workspace (allocated by the caller): part[3*B], part_idx[B], ip_part[B],
 // with B = scpn_source_blocks(nz*nr).  Readout: scal = (psi_axis, psi_b,
-// I_current), x_out = X-point linear index.
+// I_current), x_out = X-point linear index.  One cooperative launch.
 extern "C" int scpn_fused_source(const void* psi, const void* r, const void* mask, const void* par,
                                  int nz, int nr, float d_r, float d_z, float mu0, int h_mode,
                                  void* part, void* part_idx, void* ip_part, void* scal,
                                  void* x_out, void* src, void* stream) {
+  static int resident = 0;
+  if (resident == 0) resident = scpn_source_resident_blocks();
+  if (resident < 0) return -resident;
+  const int nb = n_blocks(nz * nr);
+  if (nb > resident) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&psi, &r, &mask, &par, &nz, &nr, &d_r, &d_z, &mu0, &h_mode,
+                  &part, &part_idx, &ip_part, &scal, &x_out, &src};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(source_fused_kernel), dim3(nb), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? static_cast<int>(err) : static_cast<int>(cudaGetLastError());
+}
+
+// The same function as three launches (arguments as scpn_fused_source).
+extern "C" int scpn_fused_source_staged(const void* psi, const void* r, const void* mask,
+                                        const void* par, int nz, int nr, float d_r, float d_z,
+                                        float mu0, int h_mode, void* part, void* part_idx,
+                                        void* ip_part, void* scal, void* x_out, void* src,
+                                        void* stream) {
   const int nb = n_blocks(nz * nr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   source_reduce_kernel<<<nb, kThreads, 0, st>>>(

@@ -154,12 +154,9 @@ __global__ void __launch_bounds__(kThreads) tiled_pre_kernel(
     if (ic >= 1 && ic <= nzc - 2 && jc >= 1 && jc <= nrc - 2) {
       const int h = 2 * ic - sl.row0;
       const int w = 2 * jc - sl.col0;
-#define SCPN_D(di, dj) slab_defect(sl, p, s, ae, aw, h + (di), w + (dj), nz, nr, a_ns, a_c)
-      const float c = SCPN_D(0, 0);
-      const float edge = SCPN_D(0, 1) + SCPN_D(0, -1) + SCPN_D(1, 0) + SCPN_D(-1, 0);
-      const float diag = SCPN_D(1, 1) + SCPN_D(1, -1) + SCPN_D(-1, 1) + SCPN_D(-1, -1);
-#undef SCPN_D
-      out = 0.25f * c + 0.125f * edge + 0.0625f * diag;
+      out = scpn::full_weight([&](int di, int dj) {
+        return slab_defect(sl, p, s, ae, aw, h + di, w + dj, nz, nr, a_ns, a_c);
+      });
     }
     d_c[ic * nrc + jc] = out;
   }

@@ -48,13 +48,9 @@ __global__ void defect_restrict_kernel(const float* __restrict__ psi,
   if (ic >= 1 && ic <= nzc - 2 && jc >= 1 && jc <= nrc - 2) {
     const int i = 2 * ic;
     const int j = 2 * jc;
-#define SCPN_D(di, dj) \
-  defect_at(psi, src, r, r_stride, i + (di), j + (dj), nz, nr, inv_dr2, dr, a_ns, a_c)
-    const float c = SCPN_D(0, 0);
-    const float edge = SCPN_D(0, 1) + SCPN_D(0, -1) + SCPN_D(1, 0) + SCPN_D(-1, 0);
-    const float diag = SCPN_D(1, 1) + SCPN_D(1, -1) + SCPN_D(-1, 1) + SCPN_D(-1, -1);
-#undef SCPN_D
-    out = 0.25f * c + 0.125f * edge + 0.0625f * diag;
+    out = scpn::full_weight([&](int di, int dj) {
+      return defect_at(psi, src, r, r_stride, i + di, j + dj, nz, nr, inv_dr2, dr, a_ns, a_c);
+    });
   }
   d_c[ic * nrc + jc] = out;
 }

@@ -180,12 +180,15 @@ def solve_fixed_boundary_impl(
         return apply_dirichlet(out, psi_bc)
 
     divertor_mask = (zz < (grid.Z_min * 0.5)).to(dtype).contiguous()
+    if use_pallas:
+        # what the source kernel needs of the solve's constants, packed once
+        from scpn_fusion_tpu_torch.ops import cuda_source
+        source_params = cuda_source.pack_source_params(p_coeffs, ff_coeffs, i_target, like=psi0)
 
     def picard_source(psi_k: torch.Tensor) -> torch.Tensor:
         if use_pallas:
-            from scpn_fusion_tpu_torch.ops.cuda_source import fused_topology_source
-            return fused_topology_source(psi_k, r_1d, divertor_mask, p_coeffs, ff_coeffs,
-                                         i_target, d_r=d_r, d_z=d_z, mu0=mu0, h_mode=h_mode)
+            return cuda_source.fused_topology_source(psi_k, r_1d, divertor_mask, source_params,
+                                                     d_r=d_r, d_z=d_z, mu0=mu0, h_mode=h_mode)
         topo = analyze_topology(psi_k, zz, d_r, d_z, grid.Z_min)
         j_phi = plasma_current_density(psi_k, topo.psi_axis, topo.psi_boundary, rr,
                                        h_mode=h_mode, p_coeffs=p_coeffs, ff_coeffs=ff_coeffs,

@@ -12,8 +12,8 @@ missing ``nvcc`` or a failed build raises: nothing here falls back to another
 path.
 
 Launch counts: :data:`LAUNCHES` holds, per C entry, the ``__global__``
-launches it made (raised in :func:`launch`; the source entry makes three a
-call), and :data:`CALLS` holds, per public kernel wrapper, the calls of that
+launches it made (raised in :func:`launch`; only the staged source entry
+makes three a call), and :data:`CALLS` holds, per public kernel wrapper, the calls of that
 wrapper that launched on the device (raised by the wrapper itself).
 """
 
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "scpn_prolong_correct": [_P, _P, _I, _I, _I, _I, _P, _P],
     "scpn_fused_source": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                           _P, _P, _P, _P, _P, _P, _P],
+    "scpn_fused_source_staged": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
+                                 _P, _P, _P, _P, _P, _P, _P],
+    "scpn_fused_vcycle": [_P, _P, _P, _I, _P, _P, _P],
     "scpn_tiled_pre": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                        _P, _P, _P],
     "scpn_tiled_post": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
@@ -131,6 +135,10 @@ def library() -> ctypes.CDLL:
         lib.scpn_cuda_error_string.restype = ctypes.c_char_p
         lib.scpn_source_blocks.argtypes = [ctypes.c_int]
         lib.scpn_source_blocks.restype = ctypes.c_int
+        lib.scpn_source_resident_blocks.argtypes = []
+        lib.scpn_source_resident_blocks.restype = ctypes.c_int
+        lib.scpn_fused_vcycle_clusters.argtypes = [ctypes.c_void_p]
+        lib.scpn_fused_vcycle_clusters.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -146,7 +154,9 @@ def launch(name: str, *args, kernels: int = 1) -> None:
     LAUNCHES[name] += kernels
 
 
+@functools.lru_cache(maxsize=None)
 def source_blocks(n_points: int) -> int:
+    """Blocks the source kernel uses for ``n_points`` grid points."""
     return library().scpn_source_blocks(n_points)
 
 

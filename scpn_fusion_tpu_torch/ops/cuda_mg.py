@@ -3,8 +3,9 @@
 
 The Pallas kernels keep whole levels in VMEM, embedded at stride 2^k in the
 entry-level array.  Here every level is compacted (the ``x[::2, ::2]`` grid
-of the level above, so level-local red/black parity is plain ``(i+j) % 2``)
-and each dependent stage is one launch of a global-memory stencil kernel:
+of the level above, so level-local red/black parity is plain ``(i+j) % 2``).
+The fine legs make one launch of a global-memory stencil kernel per dependent
+stage; the fused V-cycle is one launch in all:
 
 * ``fine_presmooth_restrict`` = ``pre_smooth`` SOR sweeps
   (``csrc/rb_sweep.cu``) + one ``defect_restrict`` launch
@@ -13,9 +14,13 @@ and each dependent stage is one launch of a global-memory stencil kernel:
 * ``fine_prolong_smooth`` = one ``prolong_correct`` launch (bilinear
   prolongation of the compact coarse error, added on the interior) +
   ``post_smooth`` sweeps.
-* ``fused_coarse_vcycle`` = a host loop over the compacted levels
-  ``[n ... min_grid]`` calling the two legs, with ``coarse_sweeps`` sweeps at
-  the coarsest level.
+* ``fused_coarse_vcycle`` = one launch of ``csrc/vcycle_fused.cu``: every
+  level from the entry (at most 257^2) down to ``min_grid`` stays in the
+  shared memory of one 8-CTA thread-block cluster for the whole cycle, laid
+  out by :func:`vcycle_launch_plan`.  ``_fused_coarse_vcycle_staged`` is the
+  same cycle as a host loop over the two legs' launchers: the reference that
+  the one-launch kernel must equal bit for bit, used by ``chip_smoke.py``
+  alone.
 
 Each wrapper takes the JAX signature minus ``interpret``: on CUDA float32
 tensors it launches the kernels, on CPU tensors it runs the ``*_plain``
@@ -24,13 +29,17 @@ version beside it, which does the same arithmetic with PyTorch ops.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
 from scpn_fusion_tpu_torch.ops import _cuda_build as cb
 from scpn_fusion_tpu_torch.ops.cuda_stencil import (
+    check_level,
     ew_rows,
     level_scalars,
-    sor_sweeps,
     sor_sweeps_plain,
     sweeps_in_place,
 )
@@ -132,13 +141,121 @@ def fused_coarse_vcycle_plain(psi, source, r_1d, d_r, d_z, omega, *, pre_smooth=
                            fine_prolong_smooth_plain, sor_sweeps_plain)
 
 
+# ── the one-launch V-cycle's plan ──
+#
+# ``csrc/vcycle_fused.cu`` keeps every level in shared memory.  The layout is
+# made here, where the CPU tests can check it, and handed to the C entry as
+# one struct together with the level constants.
+
+CLUSTER_CTAS = 8            # CTAs of the cluster (the portable maximum)
+BANDED_FROM = 129           # levels this wide and wider are cut into row bands
+WARP_UP_TO = 17             # levels this wide and narrower are swept by one warp
+MAX_ENTRY = 257             # widest entry level the kernel takes
+MAX_LEVELS = 8
+SMEM_LIMIT = 232448         # shared memory one CTA may opt into on an H100
+SCOPE_WARP, SCOPE_BLOCK, SCOPE_CLUSTER = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class VcycleLaunchPlan:
+    """Where each level of a V-cycle from ``n`` lives in the cluster's shared
+    memory.  Per level, entry first: its width ``levels``, the threads that
+    work on it ``scope``, the rows a CTA holds ``rows``, log2 of a band's rows
+    ``band_shift`` (31 where CTA 0 holds the whole level) and the float offset
+    ``offsets`` of its block (psi rows, source rows, a_E row, a_W row) in
+    every CTA's shared memory."""
+
+    levels: tuple[int, ...]
+    n_cta: int
+    scope: tuple[int, ...]
+    rows: tuple[int, ...]
+    band_shift: tuple[int, ...]
+    offsets: tuple[int, ...]
+    smem_bytes: int
+
+    def band(self, level: int, rank: int) -> tuple[int, int]:
+        """Rows ``[lo, hi)`` of ``level`` that CTA ``rank`` holds."""
+        n = self.levels[level]
+        if self.scope[level] != SCOPE_CLUSTER:
+            return (0, n) if rank == 0 else (0, 0)
+        rows = 1 << self.band_shift[level]
+        return rank * rows, n if rank == self.n_cta - 1 else (rank + 1) * rows
+
+
+@functools.lru_cache(maxsize=64)
+def vcycle_launch_plan(n: int, min_grid: int) -> VcycleLaunchPlan:
+    """The shared-memory layout of the one-launch V-cycle from an ``n`` x
+    ``n`` entry level down to ``min_grid``; raises for a shape the kernel
+    does not take."""
+    if not is_pow2_plus1_square((n, n)):
+        raise ValueError(f"fused V-cycle needs a square 2^k+1 grid; got {(n, n)}")
+    if n > MAX_ENTRY:
+        raise ValueError(f"the one-launch V-cycle takes entry levels up to {MAX_ENTRY}^2; "
+                         f"got {n}^2")
+    if min_grid < 3:
+        raise ValueError(f"the one-launch V-cycle needs min_grid >= 3; got {min_grid}")
+    levels = tuple(level_plan(n, min_grid))    # at most MAX_LEVELS: 257 down to 3
+    n_cta = CLUSTER_CTAS if n >= BANDED_FROM else 1
+    scope, rows, band_shift, offsets = [], [], [], []
+    used = 0
+    for m in levels:
+        if m >= BANDED_FROM:
+            band = (m - 1) // n_cta       # a power of two; the last CTA holds one row more
+            scope.append(SCOPE_CLUSTER)
+            rows.append(band + 1)
+            band_shift.append(band.bit_length() - 1)
+        else:
+            scope.append(SCOPE_WARP if m <= WARP_UP_TO else SCOPE_BLOCK)
+            rows.append(m)
+            band_shift.append(31)
+        offsets.append(used)
+        used += 2 * rows[-1] * m + 2 * m
+    if 4 * used > SMEM_LIMIT:
+        raise ValueError(f"V-cycle from {n} needs {4 * used} bytes of shared memory a CTA")
+    return VcycleLaunchPlan(levels, n_cta, tuple(scope), tuple(rows), tuple(band_shift),
+                            tuple(offsets), 4 * used)
+
+
+_INTS, _FLOATS = ctypes.c_int * MAX_LEVELS, ctypes.c_float * MAX_LEVELS
+
+
+class _PlanStruct(ctypes.Structure):
+    """``struct Plan`` of ``csrc/vcycle_fused.cu``, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("n_levels", "n_cta", "pre", "post", "coarse_sweeps", "smem_bytes")] \
+        + [("omega", ctypes.c_float)] \
+        + [(name, _INTS) for name in ("n", "log_half", "band_shift", "scope", "rows", "off")] \
+        + [(name, _FLOATS) for name in ("inv_dr2", "dr", "a_ns", "a_c", "inv_ac")]
+
+
+@functools.lru_cache(maxsize=64)
+def vcycle_plan_struct(n: int, min_grid: int, d_r: float, d_z: float, omega: float,
+                       pre_smooth: int, post_smooth: int, coarse_sweeps: int) -> _PlanStruct:
+    """The launch plan with the level constants, as the C entry reads it.
+    The constants are :func:`level_scalars` of ``d_r * 2^l``, rounded to float
+    as the per-stage launchers round them."""
+    plan = vcycle_launch_plan(n, min_grid)
+    st = _PlanStruct(n_levels=len(plan.levels), n_cta=plan.n_cta, pre=pre_smooth,
+                     post=post_smooth, coarse_sweeps=coarse_sweeps,
+                     smem_bytes=plan.smem_bytes, omega=omega)
+    dr, dz = d_r, d_z
+    for lv, m in enumerate(plan.levels):
+        st.n[lv], st.log_half[lv] = m, ((m - 1) // 2).bit_length() - 1
+        st.band_shift[lv], st.scope[lv] = plan.band_shift[lv], plan.scope[lv]
+        st.rows[lv], st.off[lv] = plan.rows[lv], plan.offsets[lv]
+        st.inv_dr2[lv], st.a_ns[lv], st.a_c[lv], st.inv_ac[lv] = level_scalars(dr, dz)
+        st.dr[lv] = dr
+        dr, dz = dr * 2.0, dz * 2.0
+    return st
+
+
 # ── kernel wrappers ──
 #
 # Each public wrapper adds one to ``cb.CALLS[<its name>]`` per call in which
-# it launched.  ``fused_coarse_vcycle`` runs its per-level legs through the
-# private launchers below, so the fine-leg counts come only from the fine
-# route of ``ops/multigrid._vcycle_impl``; its coarsest solve is one call of
-# ``sor_sweeps`` and counts there.
+# it launched.  The fine-leg counts come only from the fine route of
+# ``ops/multigrid._vcycle_impl``: the staged V-cycle below runs its per-level
+# legs through the private launchers and counts nowhere.
 
 
 def _presmooth_restrict_launch(psi, source, r_1d, d_r, d_z, omega, *, pre_smooth):
@@ -195,17 +312,39 @@ def fine_prolong_smooth(psi_s: torch.Tensor, source: torch.Tensor, e_coarse: tor
     return out
 
 
+def _fused_coarse_vcycle_staged(psi, source, r_1d, d_r, d_z, omega, *, pre_smooth=3,
+                                post_smooth=3, min_grid=5, coarse_sweeps=50):
+    """The V-cycle as a host loop over the legs' launchers, one launch per
+    dependent stage: what :func:`fused_coarse_vcycle` must equal bit for bit.
+    Off every solver path; adds to no wrapper's count."""
+    def coarsest(p, s, r, dr, dz, om, n_sweeps):
+        out = p.clone()
+        sweeps_in_place(out, s, r, dr, dz, om, n_sweeps)
+        return out
+
+    return _compact_vcycle(psi, source, r_1d, d_r, d_z, omega, pre_smooth, post_smooth,
+                           min_grid, coarse_sweeps, _presmooth_restrict_launch,
+                           _prolong_smooth_launch, coarsest)
+
+
 def fused_coarse_vcycle(psi: torch.Tensor, source: torch.Tensor, r_1d: torch.Tensor,
                         d_r: float, d_z: float, omega: float, *, pre_smooth: int = 3,
                         post_smooth: int = 3, min_grid: int = 5,
                         coarse_sweeps: int = 50) -> torch.Tensor:
-    """One V-cycle on a square 2^k+1 grid down to ``min_grid`` and back."""
+    """One V-cycle on a square 2^k+1 grid down to ``min_grid`` and back.  On
+    a CUDA tensor (up to 257^2, ``min_grid`` >= 3) it is one kernel launch
+    and one allocation, the output's."""
     if not psi.is_cuda:
         return fused_coarse_vcycle_plain(psi, source, r_1d, d_r, d_z, omega,
                                          pre_smooth=pre_smooth, post_smooth=post_smooth,
                                          min_grid=min_grid, coarse_sweeps=coarse_sweeps)
-    out = _compact_vcycle(psi, source, r_1d, d_r, d_z, omega, pre_smooth, post_smooth,
-                          min_grid, coarse_sweeps, _presmooth_restrict_launch,
-                          _prolong_smooth_launch, sor_sweeps)
+    check_level("fused_coarse_vcycle", psi, source, r_1d)
+    if psi.shape[0] != psi.shape[1]:
+        raise ValueError(f"fused V-cycle needs a square 2^k+1 grid; got {tuple(psi.shape)}")
+    plan = vcycle_plan_struct(psi.shape[0], int(min_grid), float(d_r), float(d_z), float(omega),
+                              int(pre_smooth), int(post_smooth), int(coarse_sweeps))
+    out = torch.empty_like(psi)
+    cb.launch("scpn_fused_vcycle", psi.data_ptr(), source.data_ptr(), r_1d.data_ptr(),
+              r_1d.stride(0), ctypes.addressof(plan), out.data_ptr())
     cb.CALLS["fused_coarse_vcycle"] += 1
     return out

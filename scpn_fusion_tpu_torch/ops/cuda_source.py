@@ -5,9 +5,16 @@ Per Picard iteration: psi_axis = max psi (floored at 1e-6); the X-point as
 the first row-major minimum of |grad psi| over the divertor mask (the global
 psi minimum when the mask is empty); the |axis - boundary| < 0.1 snap; the
 L/H-mode profiles, the Ip renormalisation and ``-mu0 R J_phi``.  On a CUDA
-float32 tensor this launches ``csrc/source.cu`` (grid-wide reductions, then
-an elementwise pass); on a CPU tensor it runs
-:func:`fused_topology_source_plain`, the same chain in PyTorch ops.
+float32 tensor this is one cooperative launch of ``csrc/source.cu`` (two
+grid-wide reductions and an elementwise pass, a grid barrier apart); on a CPU
+tensor it runs :func:`fused_topology_source_plain`, the same chain in PyTorch
+ops.
+
+What a solve fixes once is paid once: :func:`pack_source_params` packs the
+nine profile and current parameters for the kernel before the Picard loop,
+and the kernel's scratch is one workspace cached per device and size, so a
+call allocates only its output.  The workspace is shared by every call on
+the device: calls must be ordered on one stream, as a solve's are.
 """
 
 from __future__ import annotations
@@ -63,35 +70,114 @@ def fused_topology_source_plain(psi, r_1d, divertor_mask, p_coeffs, ff_coeffs, i
     return src
 
 
+class SourceParams(NamedTuple):
+    """The parameters a solve fixes, packed once (:func:`pack_source_params`)."""
+
+    packed: torch.Tensor   # (9,): p' coefficients, FF' coefficients, I_target
+    p_coeffs: ProfileCoeffs
+    ff_coeffs: ProfileCoeffs
+    i_target: torch.Tensor
+
+
+def pack_source_params(p_coeffs: ProfileCoeffs, ff_coeffs: ProfileCoeffs, i_target, *,
+                       like: torch.Tensor | None = None) -> SourceParams:
+    """Pack the profile coefficients and the target current in the order
+    ``csrc/source.cu`` reads them, in the dtype and on the device of ``like``
+    (by default those of the first tensor among the values)."""
+    if like is None:
+        tensors = [v for v in (*p_coeffs, *ff_coeffs, i_target) if isinstance(v, torch.Tensor)]
+        like = tensors[0] if tensors else torch.zeros((), dtype=torch.float32)
+    packed = torch.stack([_scalar(v, like) for v in (*p_coeffs, *ff_coeffs, i_target)])
+    return SourceParams(packed, p_coeffs, ff_coeffs, packed[8])
+
+
+_WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, ...]] = {}
+
+
+def _workspace(device: torch.device, n_blocks: int) -> tuple[torch.Tensor, ...]:
+    """The kernel's scratch for ``n_blocks`` blocks on ``device``: block
+    partials ``part`` (3 a block), ``part_idx`` and ``ip_part`` (1 a block),
+    and the readout ``scal`` (3) and ``x_idx`` (1), as views of one buffer
+    (the index views as int32), made once and cached."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), n_blocks)
+    views = _WORKSPACES.get(key)
+    if views is None:
+        nb = n_blocks
+        buf = torch.empty(5 * nb + 4, dtype=torch.float32, device=device)
+        ints = buf.view(torch.int32)
+        views = _WORKSPACES[key] = (buf[:3 * nb], ints[3 * nb:4 * nb], buf[4 * nb:5 * nb],
+                                    buf[5 * nb:5 * nb + 3], ints[5 * nb + 3:])
+    return views
+
+
+def _launch_source(entry, kernels, workspace, psi, r_1d, divertor_mask, params, d_r, d_z, mu0,
+                   h_mode, with_scalars):
+    part, part_idx, ip_part, scal, x_idx = workspace
+    src = torch.empty_like(psi)
+    cb.launch(entry, psi.data_ptr(), r_1d.data_ptr(), divertor_mask.data_ptr(),
+              params.packed.data_ptr(), psi.shape[0], psi.shape[1], d_r, d_z, mu0, int(h_mode),
+              part.data_ptr(), part_idx.data_ptr(), ip_part.data_ptr(), scal.data_ptr(),
+              x_idx.data_ptr(), src.data_ptr(), kernels=kernels)
+    if with_scalars:
+        scal = scal.clone()
+        return src, SourceScalars(scal[0], scal[1], x_idx[0].long(), scal[2])
+    return src
+
+
+def _check_source(psi, r_1d, divertor_mask, params) -> None:
+    cb.check_f32_cuda("fused_topology_source", psi=psi, r_1d=r_1d,
+                      divertor_mask=divertor_mask, params=params.packed)
+    if divertor_mask.shape != psi.shape or r_1d.shape != (psi.shape[1],):
+        raise ValueError("fused_topology_source: psi, r_1d and divertor_mask shapes differ")
+
+
+def _as_params(p_coeffs, ff_coeffs, i_target, like: torch.Tensor) -> SourceParams:
+    if isinstance(p_coeffs, SourceParams):
+        if ff_coeffs is not None or i_target is not None:
+            raise TypeError("fused_topology_source: packed parameters take the place of "
+                            "p_coeffs, ff_coeffs and i_target")
+        return p_coeffs
+    return pack_source_params(p_coeffs, ff_coeffs, i_target, like=like)
+
+
+def _fused_topology_source_staged(psi, r_1d, divertor_mask, p_coeffs, ff_coeffs=None,
+                                  i_target=None, *, d_r, d_z, mu0, h_mode, with_scalars=False):
+    """The same function as three launches (reduce, Ip sum, apply) with the
+    scratch allocated anew in every call: what :func:`fused_topology_source`
+    must equal bit for bit, and what a call cost before it became one launch.
+    Off every solver path; adds to no wrapper's count."""
+    params = _as_params(p_coeffs, ff_coeffs, i_target, psi)
+    _check_source(psi, r_1d, divertor_mask, params)
+    nb = cb.source_blocks(psi.numel())
+    f32, i32 = dict(dtype=torch.float32, device=psi.device), dict(dtype=torch.int32,
+                                                                  device=psi.device)
+    workspace = (torch.empty(3 * nb, **f32), torch.empty(nb, **i32), torch.empty(nb, **f32),
+                 torch.empty(3, **f32), torch.empty(1, **i32))
+    return _launch_source("scpn_fused_source_staged", 3, workspace, psi, r_1d, divertor_mask,
+                          params, d_r, d_z, mu0, h_mode, with_scalars)
+
+
 def fused_topology_source(psi: torch.Tensor, r_1d: torch.Tensor, divertor_mask: torch.Tensor,
-                          p_coeffs: ProfileCoeffs, ff_coeffs: ProfileCoeffs, i_target, *,
+                          p_coeffs: ProfileCoeffs | SourceParams,
+                          ff_coeffs: ProfileCoeffs | None = None, i_target=None, *,
                           d_r: float, d_z: float, mu0: float, h_mode: bool,
                           with_scalars: bool = False):
     """GS source ``-mu0 R J_phi`` from psi (signature of the JAX entry minus
     ``interpret``).  ``divertor_mask`` is the float mask ``ZZ < Z_min/2``.
-    With ``with_scalars`` also returns a :class:`SourceScalars` readout."""
+    The result of :func:`pack_source_params` may stand in place of
+    ``p_coeffs, ff_coeffs, i_target``; given those three, the call packs them
+    itself.  With ``with_scalars`` also returns a :class:`SourceScalars`
+    readout (fresh tensors)."""
     if not psi.is_cuda:
+        if isinstance(p_coeffs, SourceParams):
+            _, p_coeffs, ff_coeffs, i_target = _as_params(p_coeffs, ff_coeffs, i_target, psi)
         return fused_topology_source_plain(psi, r_1d, divertor_mask, p_coeffs, ff_coeffs,
                                            i_target, d_r=d_r, d_z=d_z, mu0=mu0,
                                            h_mode=h_mode, with_scalars=with_scalars)
-    cb.check_f32_cuda("fused_topology_source", psi=psi, r_1d=r_1d,
-                      divertor_mask=divertor_mask)
-    nz, nr = psi.shape
-    if divertor_mask.shape != psi.shape or r_1d.shape != (nr,):
-        raise ValueError("fused_topology_source: psi, r_1d and divertor_mask shapes differ")
-    par = torch.stack([_scalar(v, psi) for v in (*p_coeffs, *ff_coeffs, i_target)])
-    nb = cb.source_blocks(nz * nr)
-    part = torch.empty(3 * nb, dtype=torch.float32, device=psi.device)
-    part_idx = torch.empty(nb, dtype=torch.int32, device=psi.device)
-    ip_part = torch.empty(nb, dtype=torch.float32, device=psi.device)
-    scal = torch.empty(3, dtype=torch.float32, device=psi.device)
-    x_idx = torch.empty(1, dtype=torch.int32, device=psi.device)
-    src = torch.empty_like(psi)
-    cb.launch("scpn_fused_source", psi.data_ptr(), r_1d.data_ptr(), divertor_mask.data_ptr(),
-              par.data_ptr(), nz, nr, d_r, d_z, mu0, int(h_mode), part.data_ptr(),
-              part_idx.data_ptr(), ip_part.data_ptr(), scal.data_ptr(), x_idx.data_ptr(),
-              src.data_ptr(), kernels=3)
+    params = _as_params(p_coeffs, ff_coeffs, i_target, psi)
+    _check_source(psi, r_1d, divertor_mask, params)
+    out = _launch_source("scpn_fused_source", 1,
+                         _workspace(psi.device, cb.source_blocks(psi.numel())), psi, r_1d,
+                         divertor_mask, params, d_r, d_z, mu0, h_mode, with_scalars)
     cb.CALLS["fused_topology_source"] += 1
-    if with_scalars:
-        return src, SourceScalars(scal[0], scal[1], x_idx[0].long(), scal[2])
-    return src
+    return out

@@ -30,7 +30,8 @@ def _t(x):
     return to_torch(x, np.float32)
 
 
-@pytest.mark.parametrize("n,pre,post", [(17, 3, 3), (65, 3, 3), (129, 3, 3), (65, 1, 2)])
+@pytest.mark.parametrize("n,pre,post", [(17, 3, 3), (65, 3, 3), (129, 3, 3), (65, 1, 2),
+                                        (257, 1, 2), (129, 1, 2)])
 def test_fused_coarse_vcycle_plain_matches_pallas(n, pre, post):
     psi, src, r, dr = _problem(n, seed=n + pre)
     ref = pallas_mg.fused_coarse_vcycle(jnp.asarray(psi), jnp.asarray(src), jnp.asarray(r),
