@@ -23,25 +23,26 @@ Phases:
 3. holds every kernel against its plain PyTorch version on the card, in
    float32 on numpy-seeded inputs at the paths' shapes (``sor_sweeps`` at the
    ``anderson`` path's 129^2, at a 5^2 coarsest solve and at 513^2; the tiled
-   legs at 1025^2, 2049^2, 4097^2 and a ragged 129^2 tiling, and against the
-   fine legs at 513^2 and 1025^2).  The one-launch V-cycle and the
-   one-launch source must also equal their staged predecessors (one launch
-   per dependent stage; three launches) bit for bit, and make one
-   ``__global__`` launch a call;
+   legs at 1025^2, 2049^2, 4097^2, a ragged 129^2 tiling and 513^2, and
+   against the fine legs at 513^2 and 1025^2).  The one-launch V-cycle, the
+   one-launch source and the tiled legs must also equal their predecessors
+   (one launch per dependent stage; three launches; the first design of the
+   tiled kernels) bit for bit, and make one ``__global__`` launch a call;
 4. runs the 513^2 FMG cascade with the kernels (counters reset just before
    and read just after: every wrapper must have been called as often as the
    cascade's Picard iterations say), against the same cascade with the
    staged kernels (bit-identical), with plain ops in float32 and float64,
    and the direct 513^2 solve;
 5. runs the 2049^2 mixed cascade with the kernels (counters likewise), against
-   the same cascade with the staged kernels (bit-identical) and with plain
-   ops, and counts one 2049^2 V-cycle;
+   the same cascade with the staged kernels and with the first design of the
+   tiled legs (both bit-identical) and with plain ops, and counts one 2049^2
+   V-cycle;
 6. runs the ``anderson`` 129^2 solve with the kernels (counters likewise)
    against the same solve with plain ops;
 7. times each kernel beside its plain version at a shape its path gives it
-   (the tiled legs also beside the fine legs at 513^2 and 2049^2; the two
-   one-launch kernels alternately with their staged predecessors, and as 50
-   calls back to back), the cascades with kernels and with plain ops (CUDA
+   (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
+   one-launch kernels and the tiled legs alternately with their
+   predecessors, and as 50 calls back to back), the cascades with kernels and with plain ops (CUDA
    events, one warm-up, median of 5; 2 for the plain 2049^2 cascade), and
    computes each kernel's bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, whichever is larger, at the timed shape).
@@ -74,6 +75,9 @@ GS_TOL = 3e-5        # f64 GS-residual gate of the 2049^2 mixed solve
 SOR_SWEEPS, SOR_OMEGA = 50, 1.9   # the ``anderson`` path's inner SOR sweeps
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# (level, pre, posts, t_rows) at which the tiled legs are checked
+TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), None),
+                (129, 3, (0, 3), 24), (513, 1, (2,), None))
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth")
@@ -252,10 +256,20 @@ def main() -> int:
     cb.library()
     print(f"build: {time.perf_counter() - t_phase:.2f} s (one nvcc per source, "
           f"{' '.join(cb.NVCC_FLAGS)})")
-    for source in ("tiled_legs.cu", "vcycle_fused.cu", "source.cu"):
+    for source in ("tiled_legs.cu", "tiled_legs_slab.cu", "vcycle_fused.cu", "source.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
+    for n, pre, posts, t_rows in TILED_SHAPES:
+        for leg, sweeps in (("down", pre), *(("up", post) for post in posts)):
+            plan = cuda_mg_tiled.launch_plan(leg, n, n, sweeps, t_rows)
+            occ = cuda_mg_tiled.launch_occupancy(plan)
+            print(f"  tiled {leg} leg {n}^2 sweeps={sweeps}: tile {plan.tile_rows}x"
+                  f"{plan.tile_cols}, halo {plan.halo}, {plan.n_seg} bands of {plan.seg_len} rows, "
+                  f"{plan.threads} threads, {plan.smem_bytes} B shared; {occ['ctas_per_sm']} CTAs "
+                  f"an SM, {occ['resident']} resident, grid {occ['grid']} = {occ['waves']:.2f} "
+                  f"waves")
+            require(occ["ctas_per_sm"] >= 1, f"the tiled {leg} leg's block does not fit an SM")
     # A refused launch raises below; these two lines say how much room there is.
     plan_257 = cuda_mg.vcycle_launch_plan(257, 5)
     clusters = cb.library().scpn_fused_vcycle_clusters(
@@ -307,7 +321,7 @@ def main() -> int:
     src = rand(513, 513)
     timing = {}     # name -> (kernel call, plain call, shape, work) at the path's shape
     extra_times = []    # (label, (name, call), (name, call), work or None): printed only
-    staged = {}     # name -> the staged predecessor's call at the timed shape
+    staged = {}     # name -> the predecessor's call at the timed shape
 
     # sor_sweeps at the shape its path gives it: the ``anderson`` solve's
     # inner sweeps at 129^2 (50 sweeps, omega 1.9, the half-sweep kernel); at
@@ -483,18 +497,27 @@ def main() -> int:
             raise AssertionError(f"fused_coarse_vcycle took {bad_n}^2 min_grid={bad_min}")
 
     # tiled legs (kernels 6 and 7): the cascade's 1025^2 level (1, 2), the
-    # 2049^2 V-cycle's (3, 3) at 2049^2 and 4097^2, and a ragged 129^2 tiling
+    # 2049^2 V-cycle's (3, 3) at 2049^2 and 4097^2, a ragged 129^2 tiling and
+    # 513^2 (1, 2); against the plain version and, bit for bit, against the
+    # first design of the kernels; one launch a call
     versus_fine = {}
-    for n, pre, posts, t_rows in ((1025, 1, (2,), None), (2049, 3, (0, 3), None),
-                                  (4097, 3, (3,), None), (129, 3, (0, 3), 24)):
+    turn_times = []     # (label, new call, earlier call, work): timed in turns, printed only
+    for n, pre, posts, t_rows in TILED_SHAPES:
         _, r_n, dr_n, dz_n = level(n)
         psi_n, src_n, e_n = rand(n, n), rand(n, n), rand_coarse(n)
         a = (psi_n, src_n, r_n, dr_n, dz_n, 1.0)
         pa = (psi_n, src_n, e_n, r_n, dr_n, dz_n, 1.0)
         tag = f"{n}^2" + ("" if t_rows is None else f" t_rows={t_rows}")
+        cb.reset_launch_counts()
         ps_k, dc_k = cuda_mg_tiled.tiled_presmooth_restrict(*a, pre_smooth=pre, t_rows=t_rows)
+        require(dict(cb.LAUNCHES) == {"scpn_tiled_pre": 1},
+                f"tiled_presmooth_restrict made {dict(cb.LAUNCHES)}, not one launch")
         ps_p, dc_p = cuda_mg_tiled.tiled_presmooth_restrict_plain(*a, pre_smooth=pre)
+        ps_e, dc_e = cuda_mg_tiled._tiled_presmooth_restrict_slab(*a, pre_smooth=pre,
+                                                                  t_rows=t_rows)
         torch.cuda.synchronize()
+        require(torch.equal(ps_k, ps_e) and torch.equal(dc_k, dc_e),
+                f"tiled_presmooth_restrict differs from its first design at {tag} pre={pre}")
         record("tiled_presmooth_restrict", span_rel(ps_k, ps_p), SPAN_TOL, f"{tag} pre={pre} psi_s")
         record("tiled_presmooth_restrict", span_rel(dc_k, dc_p), SPAN_TOL, f"{tag} pre={pre} d_c")
         abs_err("tiled_presmooth_restrict", ps_k, ps_p)
@@ -503,15 +526,37 @@ def main() -> int:
         require(ring_equal(dc_k, torch.zeros_like(dc_k)), f"coarse defect ring not zero at {tag}")
         po_k = {}
         for post in posts:
+            cb.reset_launch_counts()
             po_k[post] = cuda_mg_tiled.tiled_prolong_smooth(*pa, post_smooth=post, t_rows=t_rows)
+            require(dict(cb.LAUNCHES) == {"scpn_tiled_post": 1},
+                    f"tiled_prolong_smooth made {dict(cb.LAUNCHES)}, not one launch")
             po_p = cuda_mg_tiled.tiled_prolong_smooth_plain(*pa, post_smooth=post)
+            po_e = cuda_mg_tiled._tiled_prolong_smooth_slab(*pa, post_smooth=post, t_rows=t_rows)
             torch.cuda.synchronize()
+            require(torch.equal(po_k[post], po_e),
+                    f"tiled_prolong_smooth differs from its first design at {tag} post={post}")
             record("tiled_prolong_smooth", span_rel(po_k[post], po_p), SPAN_TOL,
                    f"{tag} post={post}")
             abs_err("tiled_prolong_smooth", po_k[post], po_p)
             require(ring_equal(po_k[post], psi_n),
                     f"tiled_prolong_smooth changed the ring at {tag}")
+        print(f"  tiled legs {tag} pre={pre} post={posts}: psi and coarse defect equal to the "
+              f"first design's; one launch a call")
         if n == 1025:
+            for sweeps in (3, 1):
+                turn_times.append((
+                    f"tiled down leg 1025^2 pre={sweeps}",
+                    lambda a=a, k=sweeps: cuda_mg_tiled.tiled_presmooth_restrict(*a, pre_smooth=k),
+                    lambda a=a, k=sweeps: cuda_mg_tiled._tiled_presmooth_restrict_slab(
+                        *a, pre_smooth=k),
+                    leg_work(1025, sweeps, "down")))
+            for sweeps in (3, 2):
+                turn_times.append((
+                    f"tiled up leg 1025^2 post={sweeps}",
+                    lambda pa=pa, k=sweeps: cuda_mg_tiled.tiled_prolong_smooth(*pa, post_smooth=k),
+                    lambda pa=pa, k=sweeps: cuda_mg_tiled._tiled_prolong_smooth_slab(
+                        *pa, post_smooth=k),
+                    leg_work(1025, sweeps, "up")))
             # against the fine legs, which take any size
             fs_k, fd_k = cuda_mg.fine_presmooth_restrict(*a, pre_smooth=pre)
             fo_k = cuda_mg.fine_prolong_smooth(*pa, post_smooth=2)
@@ -531,6 +576,10 @@ def main() -> int:
                 lambda pa=pa: cuda_mg_tiled.tiled_prolong_smooth(*pa, post_smooth=3),
                 lambda pa=pa: cuda_mg_tiled.tiled_prolong_smooth_plain(*pa, post_smooth=3),
                 "2049^2 post=3", leg_work(2049, 3, "up"))
+            staged["tiled_presmooth_restrict"] = (
+                lambda a=a: cuda_mg_tiled._tiled_presmooth_restrict_slab(*a, pre_smooth=3))
+            staged["tiled_prolong_smooth"] = (
+                lambda pa=pa: cuda_mg_tiled._tiled_prolong_smooth_slab(*pa, post_smooth=3))
             versus_fine["tiled_presmooth_restrict"] = (
                 lambda a=a: cuda_mg.fine_presmooth_restrict(*a, pre_smooth=3))
             versus_fine["tiled_prolong_smooth"] = (
@@ -551,6 +600,16 @@ def main() -> int:
            "513^2 pre=1 d_c vs fine_presmooth_restrict")
     record("tiled_prolong_smooth", span_rel(to_k, fo_k), SPAN_TOL,
            "513^2 post=2 vs fine_prolong_smooth")
+    turn_times.append((
+        "tiled down leg 513^2 pre=1",
+        lambda a=a: cuda_mg_tiled.tiled_presmooth_restrict(*a, pre_smooth=1),
+        lambda a=a: cuda_mg_tiled._tiled_presmooth_restrict_slab(*a, pre_smooth=1),
+        leg_work(513, 1, "down")))
+    turn_times.append((
+        "tiled up leg 513^2 post=2",
+        lambda pa=pa: cuda_mg_tiled.tiled_prolong_smooth(*pa, post_smooth=2),
+        lambda pa=pa: cuda_mg_tiled._tiled_prolong_smooth_slab(*pa, post_smooth=2),
+        leg_work(513, 2, "up")))
     extra_times.append((
         "down leg 513^2 pre=1",
         ("tiled", lambda a=a: cuda_mg_tiled.tiled_presmooth_restrict(*a, pre_smooth=1)),
@@ -579,6 +638,18 @@ def main() -> int:
             yield
         finally:
             cuda_mg.fused_coarse_vcycle, cuda_source.fused_topology_source = saved
+
+    @contextlib.contextmanager
+    def first_design_tiled_legs():
+        """Run the solvers' tiled levels through the first design of the
+        tiled kernels (``_vcycle_impl`` looks the legs up in their module)."""
+        saved = cuda_mg_tiled.tiled_presmooth_restrict, cuda_mg_tiled.tiled_prolong_smooth
+        cuda_mg_tiled.tiled_presmooth_restrict = cuda_mg_tiled._tiled_presmooth_restrict_slab
+        cuda_mg_tiled.tiled_prolong_smooth = cuda_mg_tiled._tiled_prolong_smooth_slab
+        try:
+            yield
+        finally:
+            cuda_mg_tiled.tiled_presmooth_restrict, cuda_mg_tiled.tiled_prolong_smooth = saved
 
     # ── 4. the first slice: FMG 129 -> 257 -> 513 on the card ──
     cfg_k = bench_config(513, use_pallas=True)
@@ -719,6 +790,22 @@ def main() -> int:
     if info2_s != info2_k or not torch.equal(res2_s.psi, psi2_k):
         raise AssertionError("the mixed cascade differs between one-launch and staged kernels")
 
+    cb.reset_launch_counts()
+    with first_design_tiled_legs():
+        res2_e, info2_e = solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+    torch.cuda.synchronize()
+    print(f"mixed 2049^2 cascade with the first design of the tiled legs: levels {info2_e}, "
+          f"final f64 GS residual {float(res2_e.gs_residual)!r}; psi equal to the redesigned "
+          f"kernels' {torch.equal(res2_e.psi, psi2_k)}; launches {dict(cb.LAUNCHES)}")
+    if (info2_e != info2_k or not torch.equal(res2_e.psi, psi2_k)
+            or float(res2_e.gs_residual) != gs_k):
+        raise AssertionError("the mixed cascade differs between the tiled legs and their "
+                             "first design")
+    if (cb.LAUNCHES["scpn_tiled_pre_slab"], cb.LAUNCHES["scpn_tiled_post_slab"],
+            cb.LAUNCHES["scpn_tiled_pre"], cb.LAUNCHES["scpn_tiled_post"]) != (
+                launches["tiled_presmooth_restrict"], launches["tiled_prolong_smooth"], 0, 0):
+        raise AssertionError(f"the first-design run launched {dict(cb.LAUNCHES)}")
+
     res2_p, info2_p = solve_equilibrium_mixed_fmg(cfg2_p, min_coarse=129, use_pallas=False,
                                                   device=dev)
     torch.cuda.synchronize()
@@ -793,7 +880,7 @@ def main() -> int:
         fk, fp, shape, work = timing[name]
         earlier_ms = None
         if name in staged:
-            # the one-launch kernel and its staged predecessor in turns
+            # the kernel and its predecessor in turns
             ms_k, earlier_ms = cuda_ms_pair(fk, staged[name])
             ms_p = cuda_ms(fp)
         else:
@@ -803,9 +890,9 @@ def main() -> int:
         if name in versus_fine:
             extra = f", fine leg {cuda_ms(versus_fine[name]):.4f} ms"
         if name in staged:
-            extra = (f", staged {earlier_ms:.4f} ms (in turns); 50 calls back to back "
-                     f"{back_to_back_ms(fk):.4f} ms a call, staged "
-                     f"{back_to_back_ms(staged[name]):.4f} ms a call")
+            extra += (f", earlier design {earlier_ms:.4f} ms (in turns); 50 calls back to back "
+                      f"{back_to_back_ms(fk):.4f} ms a call, earlier design "
+                      f"{back_to_back_ms(staged[name]):.4f} ms a call")
         if name == "fused_coarse_vcycle":
             extra += (f"; {vcycle_stages(257, 1, 2, 5, 50)} dependent stages bound it, "
                       "not the bytes")
@@ -821,6 +908,13 @@ def main() -> int:
         if earlier_ms is not None:
             row["earlier_ms"] = earlier_ms
         kernels.append(row)
+    for label, fn_new, fn_earlier, work in turn_times:
+        bound_ms, bound_by = bound(work)
+        ms_new, ms_earlier = cuda_ms_pair(fn_new, fn_earlier)
+        print(f"time {label}: kernel {ms_new:.4f} ms, earlier design {ms_earlier:.4f} ms (in "
+              f"turns), 50 calls back to back {back_to_back_ms(fn_new):.4f} vs "
+              f"{back_to_back_ms(fn_earlier):.4f} ms a call, bound {bound_ms:.4g} ms "
+              f"({bound_by}) [{card}]")
     for label, (name_a, fn_a), (name_b, fn_b), work in extra_times:
         bound_ms, bound_by = bound(work)
         print(f"time {label}: {name_a} {cuda_ms(fn_a):.4f} ms, {name_b} {cuda_ms(fn_b):.4f} ms, "
@@ -847,6 +941,13 @@ def main() -> int:
                                                         use_pallas=False, device=dev), reps=2)
     print(f"time mixed FMG 129->...->2049: kernels {mix_k:.3f} ms, with the staged kernels "
           f"{mix_s:.3f} ms (in turns, median of 5), plain {mix_p:.3f} ms (median of 2) [{card}]")
+    def first_design_run():
+        with first_design_tiled_legs():
+            mixed_run()
+
+    mix_n, mix_e = cuda_ms_pair(mixed_run, first_design_run)
+    print(f"time mixed FMG 129->...->2049: kernels {mix_n:.3f} ms, with the first design of the "
+          f"tiled legs {mix_e:.3f} ms (in turns, median of 5) [{card}]")
     sor_k = cuda_ms(lambda: solve_equilibrium(sor_cfg(True), dtype=torch.float32, device=dev))
     sor_p = cuda_ms(lambda: solve_equilibrium(sor_cfg(False), dtype=torch.float32, device=dev),
                     reps=2)

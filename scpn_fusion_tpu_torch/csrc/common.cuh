@@ -83,6 +83,16 @@ __device__ __forceinline__ float prolong_rows(const float* row0, const float* ro
   return 0.25f * (((row1[jc + 1] + row1[jc]) + row0[jc + 1]) + row0[jc]);
 }
 
+// prolong_rows from the four coarse values around the fine point, already
+// loaded: a = row0[jc], b = row0[jc + 1], c = row1[jc], d = row1[jc + 1]
+// (b, c, d are ignored where the phase does not use them).  The same sums,
+// chosen without a branch.
+__device__ __forceinline__ float prolong_values(float a, float b, float c, float d, bool odd_i,
+                                                bool odd_j) {
+  if (!odd_i) return odd_j ? 0.5f * (b + a) : a;
+  return odd_j ? 0.25f * (((d + c) + b) + a) : 0.5f * (c + a);
+}
+
 // prolong_rows on a compact row-major coarse error e of row length nrc.
 __device__ __forceinline__ float prolong_at(const float* __restrict__ e, int nrc, int i, int j) {
   const float* row = e + (i >> 1) * nrc;

@@ -1,5 +1,5 @@
 // Tiled fine-level V-cycle legs: one launch per leg, every stage of the leg
-// in shared memory.
+// in shared memory and registers.
 //
 // Replaces: scpn_fusion_tpu/ops/pallas_mg_tiled.py:_tiled_pre_kernel
 // (tiled_presmooth_restrict: pre red-black SOR sweeps, the defect s - L[psi]
@@ -12,176 +12,359 @@
 // psi and src (8 bytes a fine point) and write psi (4 bytes) plus a
 // quarter-size coarse array (1 byte a fine point): ~13 bytes a fine point,
 // 55 MB at 2049^2, ~16 us at 3.35 TB/s.  The arithmetic (about 11 flops a
-// point a sweep) is far below the f32 rate.  PR 1's fine legs
-// (csrc/transfer.cu + rb_sweep.cu) take one launch per dependent stage and
-// so pass over the whole grid 2*sweeps + 1 times per leg.
+// point a sweep) is far below the f32 rate, so what a design can lose is
+// instruction slots, shared-memory words and idle SMs.  The first design
+// (tiled_legs_slab.cu) lost all three.
 //
-// What the design does about it: one CTA per TILE x TILE output tile (tile
-// origin even, so a down-leg tile owns the coarse points of its even rows and
-// columns).  It loads the (TILE + 2H)^2 slab of psi and src, with zeros
-// outside the grid, and the east/west coefficients of its columns into
-// shared memory, runs every half-sweep there with __syncthreads() between
-// them, and writes only the tile's core: each leg reads the grid once (plus
-// the halo overlap, (TILE + 2H)^2 / TILE^2 = 1.56 at TILE 64, H 8) and
-// writes it once.  The halo contract is the Pallas one
-// (pallas_mg_tiled.py:21-36): H >= 2 * sweeps + 2, red/black parity and the
-// interior mask from GLOBAL indices, Dirichlet rows never updated, slab-edge
-// points never updated (staleness creeps in one point per half-sweep and
-// stops short of the core).  The down-leg computes the defect at the nine
-// fine points of each coarse core point from the slab (as transfer.cu's
-// defect_restrict does from global memory) and writes the compact coarse
-// defect with a zero ring; the up-leg adds the prolonged compact coarse error
-// while it loads the slab.  Updates and defects use common.cuh's helpers, so
-// the operation order is the plain version's.  Tiles above 48 KB of shared
-// memory (TILE 64 at H 8 is 51 KB) get the opt-in attribute first.
+// What this design does about it:
+//
+// * Tiles.  One CTA per TH x TW output tile, tile origin k * TH (even).  The
+//   last tile of each direction also takes the grid's last row or column
+//   (2049 = 32 * 64 + 1: a last tile of 65, no 33rd tile of one point), so
+//   2049^2 is 1024 CTAs of 320 threads.  The launch plan (tile, halo, bands,
+//   kernel variant, threads, shared memory) is made in Python
+//   (ops/cuda_mg_tiled.launch_plan), where the CPU tests reach it.
+// * Threads own columns.  The slab of (TH + 2H) x (TW + 2H) points is cut
+//   into n_seg bands of L rows; a thread owns L consecutive points of one
+//   column: rows seg * L + (w & 1) + k, k = 0..L-1, of slab column w.  It
+//   keeps them in registers for the whole leg with its column's a_E, a_W.
+//   North and south neighbours are registers (shared memory at the two ends
+//   of the band); only east, west and the source come from shared memory,
+//   and each new value is stored there for the neighbours: four
+//   shared-memory words a point update where the first design took nine.
+//   The slab's pitch P is a template parameter, so every shared-memory
+//   address of the unrolled loops is a register plus a constant.
+// * Loads.  The slab is loaded band by band without the skew, so that a warp
+//   reads whole rows: L independent loads in flight a thread, a few
+//   instructions a word.  It goes through shared memory once and comes back
+//   into the registers with the skew.
+// * The skew (w & 1).  With L, H and the tile origin even, register k has
+//   colour k & 1 in EVERY thread: a half-sweep is the unrolled loop over the
+//   registers of one parity, no index arithmetic, no division, no branch (a
+//   point outside the half-sweep's region is computed and not kept; one
+//   guard row above and below the slab keeps its reads inside).  And the 32
+//   lanes of a warp touch rows r (even w) and r + 1 (odd w) of a slab whose
+//   pitch is even, so their east, west and own words fall in 32 different
+//   banks: the stride-2 bank conflict of a row-major colour sweep is gone
+//   without splitting the colours into two arrays.
+// * Only the needed ring.  Half-sweep t of T = 2 * sweeps updates the core
+//   grown by g_t = T - 1 - t (+ 2 on the down leg) points, clipped to the
+//   grid's interior.  Proof that the core comes out as the untiled sweep's
+//   (the halo contract of pallas_mg_tiled.py:27-33 restated for the shrinking
+//   region): an update at half-sweep t reads its four neighbours, which have
+//   the other colour and were last written at half-sweep t - 1, and its own
+//   old value, last written at t - 2.  If every point of the core grown by
+//   g_t + 1 holds the untiled value after half-sweep t - 1, every point of
+//   the core grown by g_t does after half-sweep t; before the first
+//   half-sweep the loaded slab holds the untiled values on the core grown by
+//   H >= T (+ 2).  After the last half-sweep the core is right (g = 0), and
+//   on the down leg the core grown by 2: the defect of the points within 1
+//   of a coarse point of the core (full-weighting radius) reads psi within
+//   1 of those (defect radius).  So the down leg needs H >= 2 * pre + 2 and
+//   the up leg H >= 2 * post.  Parity and the interior mask come from GLOBAL
+//   indices; Dirichlet rows and columns are never updated; points outside
+//   the grid load as zero and are never read by an update that counts.
+// * The defect once a point.  Each thread turns its registers into defects,
+//   written over the source in shared memory (zero off the interior); the
+//   full weighting of a coarse point then reads nine words, not seventy.
+// * Prolongation without a branch.  While its band of psi is in flight a
+//   thread reads the L / 2 + 1 coarse rows of its column (two words a row)
+//   and forms the phase of each register from them with selects: the row
+//   parity of a register is a constant of the unrolled loop.
+//
+// Updates, defects, weighting and prolongation go through common.cuh's
+// helpers in the first design's operand order, so the results are bit for
+// bit the same.  The core is stored one warp a row (a contiguous run; rows
+// of 2^k+1 floats have no 16-byte pitch, so 4-byte accesses).  Nothing is
+// double-buffered: the three resident CTAs of an SM overlap one's loads with
+// another's sweeps, and that is what still holds the legs at about twice
+// their bound, with the halo's share of the reads ((64 + 16)^2 / 64^2 = 1.56
+// on the down leg).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-struct Slab {
-  int row0, col0;  // global index of slab point (0, 0): tile origin minus the halo
-  int n;           // slab edge, TILE + 2H
+struct LegArgs {
+  int nz, nr;          // level shape
+  int th, tw;          // tile: core rows and columns
+  int halo;            // H, even
+  int n_sweeps;
+  int n_seg;           // row bands a slab; n_seg * L >= th + 2 * halo - 1
+  int r_stride;
+  int stages;          // stop after this many stages (timing only; 5 or more runs the leg):
+                       // down: load, sweep, defect, store the core, full weighting;
+                       // up: load and correct, sweep, store the core
+  float inv_dr2, dr, a_ns, a_c, inv_ac, omega;
 };
 
-__device__ __forceinline__ void load_slab(const Slab& sl, const float* __restrict__ psi,
-                                          const float* __restrict__ src,
-                                          const float* __restrict__ e, int nrc,
-                                          const float* __restrict__ r, int r_stride, int nz,
-                                          int nr, float inv_dr2, float dr, float* p, float* s,
-                                          float* ae, float* aw) {
-  const int n2 = sl.n * sl.n;
-  for (int k = threadIdx.x; k < n2; k += blockDim.x) {
-    const int h = k / sl.n;
-    const int w = k - h * sl.n;
-    const int i = sl.row0 + h;
-    const int j = sl.col0 + w;
-    float pv = 0.0f, sv = 0.0f;
-    if (i >= 0 && i < nz && j >= 0 && j < nr) {
-      const int g = i * nr + j;
-      pv = psi[g];
-      sv = src[g];
-      if (e != nullptr && i >= 1 && i <= nz - 2 && j >= 1 && j <= nr - 2) {
-        pv = pv + scpn::prolong_at(e, nrc, i, j);
+struct Tile {
+  int z0, z1, c0, c1;  // core rows [z0, z1) and columns [c0, c1), global
+  int row0, col0;      // global index of slab point (0, 0)
+  int sh, sw;          // slab rows and columns
+};
+
+__device__ __forceinline__ int core_end(int start, int tile, int n) {
+  const int end = min(start + tile, n - 1);
+  return end == n - 1 ? n : end;   // the last tile takes the grid's last line too
+}
+
+__device__ __forceinline__ Tile make_tile(const LegArgs& a) {
+  Tile t;
+  t.z0 = static_cast<int>(blockIdx.y) * a.th;
+  t.c0 = static_cast<int>(blockIdx.x) * a.tw;
+  t.z1 = core_end(t.z0, a.th, a.nz);
+  t.c1 = core_end(t.c0, a.tw, a.nr);
+  t.row0 = t.z0 - a.halo;
+  t.col0 = t.c0 - a.halo;
+  t.sh = a.th + 2 * a.halo;
+  t.sw = a.tw + 2 * a.halo;
+  return t;
+}
+
+// Rows of one field in shared memory: slab rows -1 .. n_seg * L + 1 (the
+// guard rows are read by updates that are not kept, never written).
+template <int L>
+__device__ __forceinline__ int field_rows(const LegArgs& a) {
+  return a.n_seg * L + 3;
+}
+
+// The thread's band of one slab column.
+struct Column {
+  bool owns;      // false for the threads beyond n_seg * sw: they store the core and wait
+  int w;          // slab column
+  int hb;         // first slab row of the band as it is loaded: seg * L
+  int h0;         // slab row of register 0: hb + (w & 1)
+  int i0, j;      // global row of register 0, global column
+  int base;       // slab index of register 0 (pitch P)
+  float a_e, a_w;
+};
+
+template <int L, int P>
+__device__ __forceinline__ Column make_column(const LegArgs& a, const Tile& t,
+                                              const float* __restrict__ r) {
+  Column c;
+  const int seg = static_cast<int>(threadIdx.x) / t.sw;
+  c.w = static_cast<int>(threadIdx.x) - seg * t.sw;
+  c.owns = seg < a.n_seg;
+  c.hb = seg * L;
+  c.h0 = c.hb + (c.w & 1);
+  c.i0 = t.row0 + c.h0;
+  c.j = t.col0 + c.w;
+  c.base = c.h0 * P + c.w;
+  c.a_e = 0.0f;
+  c.a_w = 0.0f;
+  if (c.owns && c.j >= 0 && c.j < a.nr) {
+    scpn::stencil_ew(r, a.r_stride, c.j, a.inv_dr2, a.dr, c.a_e, c.a_w);
+  }
+  return c;
+}
+
+// Rows hb .. hb + L - 1 of the thread's column of f into v: L independent
+// loads, each a contiguous run across a warp; zero outside the grid.  (The
+// bands are loaded without the skew, so that a warp reads whole rows, stored
+// to shared memory, and read back with it.)
+template <int L>
+__device__ __forceinline__ void load_band(const LegArgs& a, const Tile& t, const Column& c,
+                                          const float* __restrict__ f, float (&v)[L]) {
+  const bool col_in = c.owns && c.j >= 0 && c.j < a.nr;
+  const int ib = t.row0 + c.hb;
+  const int k_lo = col_in ? -ib : L;
+  const int k_hi = a.nz - 1 - ib;
+  const float* at = f + c.j;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    v[k] = (k >= k_lo && k <= k_hi) ? at[(ib + k) * a.nr] : 0.0f;
+  }
+}
+
+template <int L, int P>
+__device__ __forceinline__ void store_band(const Column& c, float* dst, const float (&v)[L]) {
+  if (!c.owns) return;
+#pragma unroll
+  for (int k = 0; k < L; ++k) dst[(c.hb + k) * P + c.w] = v[k];
+}
+
+// The thread's registers from the slab: rows h0 .. h0 + L - 1 of its column.
+template <int L, int P>
+__device__ __forceinline__ void fill_registers(const Column& c, const float* p, float (&q)[L]) {
+  if (!c.owns) return;
+#pragma unroll
+  for (int k = 0; k < L; ++k) q[k] = p[c.base + k * P];
+}
+
+// The registers of parity C; kept where k_lo <= k <= k_hi.
+template <int L, int P, int C>
+__device__ __forceinline__ void half_sweep(const LegArgs& a, const Column& c, float* p,
+                                           const float* s, float (&q)[L], int k_lo, int k_hi) {
+  float* at = p + c.base;
+  const float* src = s + c.base;
+#pragma unroll
+  for (int k = C; k < L; k += 2) {
+    const float below = (k == L - 1) ? at[(k + 1) * P] : q[k < L - 1 ? k + 1 : k];
+    const float above = (k == 0) ? at[-P] : q[k > 0 ? k - 1 : k];
+    const float v = scpn::rb_value(q[k], at[k * P + 1], at[k * P - 1], below, above, src[k * P],
+                                   c.a_e, c.a_w, a.a_ns, a.inv_ac, a.omega);
+    q[k] = (k >= k_lo && k <= k_hi) ? v : q[k];
+    at[k * P] = q[k];
+  }
+}
+
+// n_sweeps red-black sweeps, each half-sweep over the core grown by what the
+// half-sweeps after it (and `extra` more rings) still need.
+template <int L, int P>
+__device__ __forceinline__ void sweep_columns(const LegArgs& a, const Tile& t, const Column& c,
+                                              float* p, const float* s, float (&q)[L],
+                                              int extra) {
+  const int n_half = 2 * a.n_sweeps;
+  for (int half = 0; half < n_half; ++half) {
+    const int g = n_half - 1 - half + extra;
+    const int i_lo = max(1, t.z0 - g), i_hi = min(a.nz - 2, t.z1 - 1 + g);
+    const int j_lo = max(1, t.c0 - g), j_hi = min(a.nr - 2, t.c1 - 1 + g);
+    const int k_lo = (c.j >= j_lo && c.j <= j_hi) ? i_lo - c.i0 : L;
+    const int k_hi = i_hi - c.i0;
+    if (c.owns) {
+      if (half & 1) {
+        half_sweep<L, P, 1>(a, c, p, s, q, k_lo, k_hi);
+      } else {
+        half_sweep<L, P, 0>(a, c, p, s, q, k_lo, k_hi);
       }
     }
-    p[k] = pv;
-    s[k] = sv;
+    __syncthreads();
   }
-  for (int w = threadIdx.x; w < sl.n; w += blockDim.x) {
-    const int j = sl.col0 + w;
-    float a_e = 0.0f, a_w = 0.0f;
-    if (j >= 0 && j < nr) scpn::stencil_ew(r, r_stride, j, inv_dr2, dr, a_e, a_w);
-    ae[w] = a_e;
-    aw[w] = a_w;
+}
+
+// One warp a core row.
+template <int P>
+__device__ __forceinline__ void store_core(const LegArgs& a, const Tile& t, const float* p,
+                                           float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  for (int i = t.z0 + warp; i < t.z1; i += n_warps) {
+    const int at = (i - t.row0) * P - t.col0;
+    for (int j = t.c0 + lane; j < t.c1; j += 32) out[i * a.nr + j] = p[at + j];
+  }
+}
+
+template <int L, int P, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) tiled_pre_kernel(
+    const LegArgs a, const float* __restrict__ psi, const float* __restrict__ src,
+    const float* __restrict__ r, float* __restrict__ psi_out, float* __restrict__ d_c) {
+  extern __shared__ float sm[];
+  if (a.stages < 1) return;
+  const Tile t = make_tile(a);
+  float* p = sm + P;
+  float* s = p + field_rows<L>(a) * P;
+  const Column c = make_column<L, P>(a, t, r);
+  float q[L];
+  {
+    float v[L];
+    load_band<L>(a, t, c, psi, q);
+    load_band<L>(a, t, c, src, v);
+    store_band<L, P>(c, p, q);
+    store_band<L, P>(c, s, v);
   }
   __syncthreads();
-}
+  fill_registers<L, P>(c, p, q);
+  if (a.stages < 2) return;
 
-// n_sweeps red-black sweeps over the slab points that are inside the global
-// interior and off the slab edge.
-__device__ __forceinline__ void sweep_slab(const Slab& sl, float* p, const float* s,
-                                           const float* ae, const float* aw, int nz, int nr,
-                                           float a_ns, float inv_ac, float omega,
-                                           int n_sweeps) {
-  const int h_lo = max(1, 1 - sl.row0), h_hi = min(sl.n - 2, nz - 2 - sl.row0);
-  const int w_lo = max(1, 1 - sl.col0), w_hi = min(sl.n - 2, nr - 2 - sl.col0);
-  const int rows = max(0, h_hi - h_lo + 1);
-  const int per_row = max(0, (w_hi - w_lo + 2) / 2);  // points of one colour a row, at most
-  for (int sweep = 0; sweep < n_sweeps; ++sweep) {
-    for (int parity = 0; parity < 2; ++parity) {
-      for (int k = threadIdx.x; k < rows * per_row; k += blockDim.x) {
-        const int q = k / per_row;
-        const int h = h_lo + q;
-        // first column of this colour in the row: (i + j) % 2 == parity, global i, j
-        const int w = w_lo + ((sl.row0 + h + sl.col0 + w_lo + parity) & 1) + 2 * (k - q * per_row);
-        if (w <= w_hi) {
-          const int idx = h * sl.n + w;
-          p[idx] = scpn::rb_update(p, s, idx, sl.n, ae[w], aw[w], a_ns, inv_ac, omega);
-        }
+  sweep_columns<L, P>(a, t, c, p, s, q, 2);
+  if (a.stages < 3) return;
+
+  // The defect of the columns of the core grown by 1, written over the
+  // source: every register's, without a branch; zero off the global interior.
+  if (c.owns && c.j >= t.c0 - 1 && c.j <= min(t.c1, a.nr - 1)) {
+    const int k_lo = (c.j >= 1 && c.j <= a.nr - 2) ? 1 - c.i0 : L;
+    const int k_hi = a.nz - 2 - c.i0;
+    float* at = p + c.base;
+    float* dst = s + c.base;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const float below = (k == L - 1) ? at[(k + 1) * P] : q[k < L - 1 ? k + 1 : k];
+      const float above = (k == 0) ? at[-P] : q[k > 0 ? k - 1 : k];
+      const float d = scpn::defect_value(q[k], at[k * P + 1], at[k * P - 1], below, above,
+                                         dst[k * P], c.a_e, c.a_w, a.a_ns, a.a_c);
+      dst[k * P] = (k >= k_lo && k <= k_hi) ? d : 0.0f;
+    }
+  }
+  if (a.stages < 4) return;
+  // The core's stores drain while the coarse defect is formed.
+  store_core<P>(a, t, p, psi_out);
+  __syncthreads();
+  if (a.stages < 5) return;
+
+  // Coarse points of the core: fine rows and columns 2 * ic in [z0, z1).
+  const int nzc = (a.nz + 1) / 2, nrc = (a.nr + 1) / 2;
+  const int ic0 = t.z0 / 2, jc0 = t.c0 / 2;
+  const int ic1 = (t.z1 + 1) / 2, jc1 = (t.c1 + 1) / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  for (int ic = ic0 + warp; ic < ic1; ic += n_warps) {
+    const bool row_in = ic >= 1 && ic <= nzc - 2;
+    for (int jc = jc0 + lane; jc < jc1; jc += 32) {
+      float out = 0.0f;
+      if (row_in && jc >= 1 && jc <= nrc - 2) {
+        const float* d = s + (2 * ic - t.row0) * P + 2 * jc - t.col0;
+        out = scpn::full_weight([&](int di, int dj) { return d[di * P + dj]; });
       }
-      __syncthreads();
+      d_c[ic * nrc + jc] = out;
     }
   }
 }
 
-__device__ __forceinline__ void store_core(const Slab& sl, const float* p, int tile, int halo,
-                                           int nz, int nr, float* __restrict__ out) {
-  const int z0 = sl.row0 + halo, r0 = sl.col0 + halo;
-  const int rows = min(tile, nz - z0), cols = min(tile, nr - r0);
-  for (int k = threadIdx.x; k < rows * cols; k += blockDim.x) {
-    const int h = k / cols;
-    const int w = k - h * cols;
-    out[(z0 + h) * nr + r0 + w] = p[(halo + h) * sl.n + halo + w];
-  }
-}
-
-// Defect at global fine point (i, j) = slab point (h, w); zero off the interior.
-__device__ __forceinline__ float slab_defect(const Slab& sl, const float* p, const float* s,
-                                             const float* ae, const float* aw, int h, int w,
-                                             int nz, int nr, float a_ns, float a_c) {
-  const int i = sl.row0 + h, j = sl.col0 + w;
-  if (i < 1 || i > nz - 2 || j < 1 || j > nr - 2) return 0.0f;
-  return scpn::gs_defect(p, s, h * sl.n + w, sl.n, ae[w], aw[w], a_ns, a_c);
-}
-
-__global__ void __launch_bounds__(kThreads) tiled_pre_kernel(
-    const float* __restrict__ psi, const float* __restrict__ src, const float* __restrict__ r,
-    int r_stride, int nz, int nr, int tile, int halo, int n_sweeps, float inv_dr2, float dr,
-    float a_ns, float a_c, float inv_ac, float omega, float* __restrict__ psi_out,
-    float* __restrict__ d_c) {
+template <int L, int P, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) tiled_post_kernel(
+    const LegArgs a, const float* __restrict__ psi_s, const float* __restrict__ src,
+    const float* __restrict__ e, const float* __restrict__ r, float* __restrict__ out) {
   extern __shared__ float sm[];
-  const Slab sl{static_cast<int>(blockIdx.y) * tile - halo,
-                static_cast<int>(blockIdx.x) * tile - halo, tile + 2 * halo};
-  float* p = sm;
-  float* s = p + sl.n * sl.n;
-  float* ae = s + sl.n * sl.n;
-  float* aw = ae + sl.n;
-  load_slab(sl, psi, src, nullptr, 0, r, r_stride, nz, nr, inv_dr2, dr, p, s, ae, aw);
-  sweep_slab(sl, p, s, ae, aw, nz, nr, a_ns, inv_ac, omega, n_sweeps);
-  store_core(sl, p, tile, halo, nz, nr, psi_out);
+  if (a.stages < 1) return;
+  const Tile t = make_tile(a);
+  float* p = sm + P;
+  float* s = p + field_rows<L>(a) * P;
+  const Column c = make_column<L, P>(a, t, r);
+  float q[L];
+  {
+    float v[L];
+    load_band<L>(a, t, c, src, v);
+    store_band<L, P>(c, s, v);
+  }
+  load_band<L>(a, t, c, psi_s, q);
 
-  // Coarse points of the core: fine rows/columns 2*ic in [z0, z0 + tile).
-  const int nzc = (nz + 1) / 2, nrc = (nr + 1) / 2;
-  const int ic0 = (sl.row0 + halo) / 2, jc0 = (sl.col0 + halo) / 2;
-  const int crows = min(tile / 2, nzc - ic0), ccols = min(tile / 2, nrc - jc0);
-  for (int k = threadIdx.x; k < crows * ccols; k += blockDim.x) {
-    const int ic = ic0 + k / ccols;
-    const int jc = jc0 + k % ccols;
-    float out = 0.0f;
-    if (ic >= 1 && ic <= nzc - 2 && jc >= 1 && jc <= nrc - 2) {
-      const int h = 2 * ic - sl.row0;
-      const int w = 2 * jc - sl.col0;
-      out = scpn::full_weight([&](int di, int dj) {
-        return slab_defect(sl, p, s, ae, aw, h + di, w + dj, nz, nr, a_ns, a_c);
-      });
+  // psi plus the prolonged error on the global interior.  The band starts on
+  // an even global row ib (tile origin, halo and L are even), so row ib + k
+  // lies between coarse rows ib / 2 + k / 2 and the next, and the parities of
+  // slab indices are the global ones.  Coarse rows and columns are read from
+  // global memory: two words a coarse row, L / 2 + 1 rows a thread.
+  {
+    const int nzc = (a.nz + 1) / 2, nrc = (a.nr + 1) / 2;
+    const int ib = t.row0 + c.hb;
+    const bool col_in = c.owns && c.j >= 1 && c.j <= a.nr - 2;
+    const bool odd_j = c.j & 1;
+    const float* at = e + (c.j >> 1);
+    float e0[L / 2 + 1], e1[L / 2 + 1];
+#pragma unroll
+    for (int m = 0; m <= L / 2; ++m) {
+      const int ic = ib / 2 + m;
+      const bool in = col_in && ic >= 0 && ic < nzc;
+      e0[m] = in ? at[ic * nrc] : 0.0f;
+      e1[m] = (in && odd_j) ? at[ic * nrc + 1] : 0.0f;
     }
-    d_c[ic * nrc + jc] = out;
+    const int k_lo = col_in ? 1 - ib : L;
+    const int k_hi = a.nz - 2 - ib;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int m = k / 2;
+      const float up = scpn::prolong_values(e0[m], e1[m], e0[m + (k & 1)], e1[m + (k & 1)],
+                                            k & 1, odd_j);
+      q[k] = (k >= k_lo && k <= k_hi) ? q[k] + up : q[k];
+    }
   }
-}
+  store_band<L, P>(c, p, q);
+  __syncthreads();
+  fill_registers<L, P>(c, p, q);
+  if (a.stages < 2) return;
 
-__global__ void __launch_bounds__(kThreads) tiled_post_kernel(
-    const float* __restrict__ psi_s, const float* __restrict__ src,
-    const float* __restrict__ e, const float* __restrict__ r, int r_stride, int nz, int nr,
-    int tile, int halo, int n_sweeps, float inv_dr2, float dr, float a_ns, float inv_ac,
-    float omega, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  const Slab sl{static_cast<int>(blockIdx.y) * tile - halo,
-                static_cast<int>(blockIdx.x) * tile - halo, tile + 2 * halo};
-  float* p = sm;
-  float* s = p + sl.n * sl.n;
-  float* ae = s + sl.n * sl.n;
-  float* aw = ae + sl.n;
-  load_slab(sl, psi_s, src, e, (nr + 1) / 2, r, r_stride, nz, nr, inv_dr2, dr, p, s, ae, aw);
-  sweep_slab(sl, p, s, ae, aw, nz, nr, a_ns, inv_ac, omega, n_sweeps);
-  store_core(sl, p, tile, halo, nz, nr, out);
-}
-
-size_t slab_bytes(int tile, int halo) {
-  const size_t n = static_cast<size_t>(tile) + 2 * static_cast<size_t>(halo);
-  return (2 * n * n + 2 * n) * sizeof(float);
+  sweep_columns<L, P>(a, t, c, p, s, q, 0);
+  if (a.stages < 3) return;
+  store_core<P>(a, t, p, out);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory once per kernel and size.
@@ -195,36 +378,118 @@ int allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return 0;
 }
 
-}  // namespace
+struct Launch {
+  LegArgs a;
+  int threads;
+  size_t smem;
+  cudaStream_t stream;
+  int* ctas_per_sm;   // not null: write the resident CTAs an SM there instead of launching
+};
 
-extern "C" int scpn_tiled_pre(const void* psi, const void* src, const void* r, int r_stride,
-                              int nz, int nr, int tile, int halo, int n_sweeps, float inv_dr2,
-                              float dr, float a_ns, float a_c, float inv_ac, float omega,
-                              void* psi_out, void* d_c, void* stream) {
-  static size_t allowed = 48 * 1024;
-  const size_t smem = slab_bytes(tile, halo);
-  const int err = allow_smem(tiled_pre_kernel, smem, allowed);
+bool plan_ok(const Launch& l, int seg_len, int pitch, int max_threads, bool up) {
+  const LegArgs& a = l.a;
+  const int sh = a.th + 2 * a.halo, sw = a.tw + 2 * a.halo;
+  const size_t words = 2 * static_cast<size_t>(a.n_seg * seg_len + 3) * pitch;
+  return a.nz >= 3 && a.nr >= 3 && a.th >= 2 && a.tw >= 2 && !(a.th & 1) && !(a.tw & 1) &&
+         !(a.halo & 1) && a.n_sweeps >= 0 && a.halo >= 2 * a.n_sweeps + (up ? 0 : 2) &&
+         a.halo >= 2 && sw <= pitch && a.n_seg * seg_len >= sh - 1 &&
+         l.threads >= a.n_seg * sw && l.threads <= max_threads && l.threads % 32 == 0 &&
+         l.smem >= words * sizeof(float);
+}
+
+template <typename Kernel, typename... Args>
+int run(const Launch& l, Kernel kernel, size_t& allowed, Args... args) {
+  const int err = allow_smem(kernel, l.smem, allowed);
   if (err != 0) return err;
-  const dim3 grid((nr + tile - 1) / tile, (nz + tile - 1) / tile);
-  tiled_pre_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(psi), static_cast<const float*>(src),
-      static_cast<const float*>(r), r_stride, nz, nr, tile, halo, n_sweeps, inv_dr2, dr, a_ns,
-      a_c, inv_ac, omega, static_cast<float*>(psi_out), static_cast<float*>(d_c));
+  if (l.ctas_per_sm != nullptr) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        l.ctas_per_sm, kernel, l.threads, l.smem));
+  }
+  const dim3 grid((l.a.nr - 1 + l.a.tw - 1) / l.a.tw, (l.a.nz - 1 + l.a.th - 1) / l.a.th);
+  kernel<<<grid, l.threads, l.smem, l.stream>>>(l.a, args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int scpn_tiled_post(const void* psi_s, const void* src, const void* e, const void* r,
-                               int r_stride, int nz, int nr, int tile, int halo, int n_sweeps,
-                               float inv_dr2, float dr, float a_ns, float inv_ac, float omega,
-                               void* out, void* stream) {
+template <int L, int P, int MAXT, int MINB>
+int run_pre(const Launch& l, const float* psi, const float* src, const float* r, float* psi_out,
+            float* d_c) {
   static size_t allowed = 48 * 1024;
-  const size_t smem = slab_bytes(tile, halo);
-  const int err = allow_smem(tiled_post_kernel, smem, allowed);
-  if (err != 0) return err;
-  const dim3 grid((nr + tile - 1) / tile, (nz + tile - 1) / tile);
-  tiled_post_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(psi_s), static_cast<const float*>(src),
-      static_cast<const float*>(e), static_cast<const float*>(r), r_stride, nz, nr, tile, halo,
-      n_sweeps, inv_dr2, dr, a_ns, inv_ac, omega, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  if (!plan_ok(l, L, P, MAXT, false)) return static_cast<int>(cudaErrorInvalidValue);
+  return run(l, tiled_pre_kernel<L, P, MAXT, MINB>, allowed, psi, src, r, psi_out, d_c);
+}
+
+template <int L, int P, int MAXT, int MINB>
+int run_post(const Launch& l, const float* psi_s, const float* src, const float* e,
+             const float* r, float* out) {
+  static size_t allowed = 48 * 1024;
+  if (!plan_ok(l, L, P, MAXT, true)) return static_cast<int>(cudaErrorInvalidValue);
+  return run(l, tiled_post_kernel<L, P, MAXT, MINB>, allowed, psi_s, src, e, r, out);
+}
+
+// The instantiations, in the order of ops/cuda_mg_tiled.VARIANTS: (band
+// length L, slab pitch P, most threads a CTA, CTAs an SM the registers allow).
+#define SCPN_TILED_VARIANTS(RUN, ...)                            \
+  switch (variant) {                                             \
+    case 0: return RUN<20, 80, 320, 3>(__VA_ARGS__);             \
+    case 1: return RUN<36, 176, 1024, 1>(__VA_ARGS__);           \
+    default: return static_cast<int>(cudaErrorInvalidValue);     \
+  }
+
+int dispatch_pre(int variant, const Launch& l, const float* psi, const float* src,
+                 const float* r, float* psi_out, float* d_c) {
+  SCPN_TILED_VARIANTS(run_pre, l, psi, src, r, psi_out, d_c)
+}
+
+int dispatch_post(int variant, const Launch& l, const float* psi_s, const float* src,
+                  const float* e, const float* r, float* out) {
+  SCPN_TILED_VARIANTS(run_post, l, psi_s, src, e, r, out)
+}
+
+}  // namespace
+
+// `plan` points at eleven ints: nz, nr, tile rows, tile columns, halo, sweeps,
+// bands, variant, threads, shared-memory bytes, stages
+// (cuda_mg_tiled.TiledLaunchPlan).
+static Launch make_launch(const int* plan, int r_stride, float inv_dr2, float dr, float a_ns,
+                          float a_c, float inv_ac, float omega, void* stream,
+                          int* ctas_per_sm) {
+  Launch l;
+  l.a = LegArgs{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], r_stride, plan[10],
+                inv_dr2, dr, a_ns, a_c, inv_ac, omega};
+  l.threads = plan[8];
+  l.smem = static_cast<size_t>(plan[9]);
+  l.stream = static_cast<cudaStream_t>(stream);
+  l.ctas_per_sm = ctas_per_sm;
+  return l;
+}
+
+extern "C" int scpn_tiled_pre(const void* psi, const void* src, const void* r, int r_stride,
+                              const void* plan, float inv_dr2, float dr, float a_ns, float a_c,
+                              float inv_ac, float omega, void* psi_out, void* d_c,
+                              void* stream) {
+  const int* pl = static_cast<const int*>(plan);
+  const Launch l = make_launch(pl, r_stride, inv_dr2, dr, a_ns, a_c, inv_ac, omega, stream, nullptr);
+  return dispatch_pre(pl[7], l, static_cast<const float*>(psi), static_cast<const float*>(src),
+                      static_cast<const float*>(r), static_cast<float*>(psi_out),
+                      static_cast<float*>(d_c));
+}
+
+extern "C" int scpn_tiled_post(const void* psi_s, const void* src, const void* e, const void* r,
+                               int r_stride, const void* plan, float inv_dr2, float dr,
+                               float a_ns, float inv_ac, float omega, void* out, void* stream) {
+  const int* pl = static_cast<const int*>(plan);
+  const Launch l = make_launch(pl, r_stride, inv_dr2, dr, a_ns, 0.0f, inv_ac, omega, stream, nullptr);
+  return dispatch_post(pl[7], l, static_cast<const float*>(psi_s),
+                       static_cast<const float*>(src), static_cast<const float*>(e),
+                       static_cast<const float*>(r), static_cast<float*>(out));
+}
+
+// CTAs of the plan's kernel that one SM holds at once (leg 0 down, 1 up),
+// written to *ctas_per_sm; returns the CUDA error (a refused plan: invalid value).
+extern "C" int scpn_tiled_ctas_per_sm(int leg, const void* plan, int* ctas_per_sm) {
+  const int* pl = static_cast<const int*>(plan);
+  const Launch l =
+      make_launch(pl, 1, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, nullptr, ctas_per_sm);
+  return leg == 0 ? dispatch_pre(pl[7], l, nullptr, nullptr, nullptr, nullptr, nullptr)
+                  : dispatch_post(pl[7], l, nullptr, nullptr, nullptr, nullptr, nullptr);
 }

@@ -48,10 +48,12 @@ _SIGNATURES = {
     "scpn_fused_source_staged": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                                  _P, _P, _P, _P, _P, _P, _P],
     "scpn_fused_vcycle": [_P, _P, _P, _I, _P, _P, _P],
-    "scpn_tiled_pre": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                       _P, _P, _P],
-    "scpn_tiled_post": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                        _P, _P],
+    "scpn_tiled_pre": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _P, _P, _P],
+    "scpn_tiled_post": [_P, _P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P, _P],
+    "scpn_tiled_pre_slab": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                            _P, _P, _P],
+    "scpn_tiled_post_slab": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                             _P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()
@@ -137,6 +139,8 @@ def library() -> ctypes.CDLL:
         lib.scpn_source_blocks.restype = ctypes.c_int
         lib.scpn_source_resident_blocks.argtypes = []
         lib.scpn_source_resident_blocks.restype = ctypes.c_int
+        lib.scpn_tiled_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.scpn_tiled_ctas_per_sm.restype = ctypes.c_int
         lib.scpn_fused_vcycle_clusters.argtypes = [ctypes.c_void_p]
         lib.scpn_fused_vcycle_clusters.restype = ctypes.c_int
         _lib = lib

@@ -15,15 +15,25 @@ to warm up and once under ``torch.profiler``, and prints:
 * the chrome trace, written to ``chiprun_out/torch_fmg_trace.json``
   (``torch_mixed_trace.json`` with ``--mixed``).
 
-With ``--kernels`` it profiles, instead of a solve, single calls of the two
-one-launch kernels and of their staged predecessors (the fused V-cycle at
-257^2 and 129^2, the fused source at 513^2 and 1025^2) and prints for each
-the device launches a call and the device time a call, summed over every
-device kernel the call ran (mean of 5 profiled calls after a warm-up).
+With ``--kernels`` it profiles, instead of a solve, single calls of the
+one-launch kernels and of their predecessors (the fused V-cycle at 257^2 and
+129^2, the fused source at 513^2 and 1025^2, the tiled legs at 2049^2 (3,3)
+and 1025^2 (1,2)) and one ``sor_sweeps`` call at 129^2 with 50 sweeps, and
+prints for each the device launches a call and the device time a call, summed
+over every device kernel the call ran (mean of 5 profiled calls after a
+warm-up).
+
+With ``--tiled`` it takes the tiled legs alone: for each level and smoothing
+count, the launch plan and its occupancy, whether psi (and the coarse defect)
+equal the predecessor's bit for bit, and the device time of one launch of the
+kernel, of the kernel cut short after each of its stages (launch alone, up
+to the load, up to the sweeps, ...) and of its predecessor, profiled in turns (new, earlier,
+new, ...; median of 7 each).  ``--tiles 32x64,128x128`` adds other tile shapes (rows x
+columns) of the new kernels to the turns.
 
 Run from the repository root on a machine with a CUDA device:
-``python3 tools/torch_fmg_profile.py [--mixed | --kernels]``.  Exits non-zero
-without one.
+``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled]``.
+Exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -43,9 +53,15 @@ CALLS_PROFILED = 5
 PORT_PREFIX = "(anonymous namespace)::"   # the port's kernels live in anonymous namespaces
 
 
+def is_port_kernel(name: str) -> bool:
+    """The port's kernels, templates among them ("void (anonymous namespace)::...")."""
+    return name.removeprefix("void ").startswith(PORT_PREFIX)
+
+
 def kernel_name(name: str) -> str:
     """A device event's name without namespaces, template and argument lists."""
-    return name.removeprefix(PORT_PREFIX).split("(")[0].split("<")[0].split("::")[-1].strip()
+    name = name.removeprefix("void ").replace(PORT_PREFIX, "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
 def device_events(prof):
@@ -53,14 +69,101 @@ def device_events(prof):
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def coarse_error(rand, n):
+    """A compact coarse error for an n x n level, zero on its ring."""
+    e = rand((n + 1) // 2, (n + 1) // 2)
+    e[0, :] = 0.0
+    e[-1, :] = 0.0
+    e[:, 0] = 0.0
+    e[:, -1] = 0.0
+    return e
+
+
+def profile_tiled_legs(card: str, tiles: list[tuple[int, int]]) -> None:
+    """Plan, occupancy, identity with the predecessor and device time in
+    turns of the tiled legs at the shapes the paths give them."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_mg_tiled as mt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261016)
+
+    def rand(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    cb.library()
+    for line in cb.BUILD_LOG.get("tiled_legs.cu", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas tiled_legs.cu: {line.strip()}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    turns = 7
+    for n, pre, post in ((2049, 3, 3), (1025, 3, 3), (1025, 1, 2), (513, 1, 2), (4097, 3, 3)):
+        g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+        psi, src, e_c = rand(n, n), rand(n, n), coarse_error(rand, n)
+        down_args = (psi, src, g.R, g.dR, g.dZ, 1.0)
+        up_args = (psi, src, e_c, g.R, g.dR, g.dZ, 1.0)
+        ref_down = mt._tiled_presmooth_restrict_slab(*down_args, pre_smooth=pre)
+        ref_up = mt._tiled_prolong_smooth_slab(*up_args, post_smooth=post)
+        calls = {"down earlier": lambda: mt._tiled_presmooth_restrict_slab(*down_args,
+                                                                          pre_smooth=pre),
+                 "up earlier": lambda: mt._tiled_prolong_smooth_slab(*up_args, post_smooth=post)}
+        for shape in [None, *tiles]:
+            t_rows, t_cols = shape or (None, None)
+            for leg, sweeps in (("down", pre), ("up", post)):
+                plan = mt.launch_plan(leg, n, n, sweeps, t_rows, t_cols)
+                occ = mt.launch_occupancy(plan)
+                if leg == "down":
+                    got = mt._launch_down(plan, *down_args)
+                    same = torch.equal(got[0], ref_down[0]) and torch.equal(got[1], ref_down[1])
+                    call = lambda plan=plan: mt._launch_down(plan, *down_args)   # noqa: E731
+                else:
+                    got = mt._launch_up(plan, *up_args)
+                    same = torch.equal(got, ref_up)
+                    call = lambda plan=plan: mt._launch_up(plan, *up_args)   # noqa: E731
+                label = f"{leg} {plan.tile_rows}x{plan.tile_cols}"
+                calls[label] = call
+                if shape is None:
+                    # the leg cut short after each stage (results incomplete, times only)
+                    names = ("launch alone", "up to the load", "up to the sweeps",
+                             "up to the defect", "up to the core's store")
+                    for stages, name in enumerate(names[:5 if leg == "down" else 3]):
+                        part = dataclasses.replace(plan, stages=stages)
+                        calls[f"{label}, {name}"] = (
+                            (lambda part=part: mt._launch_down(part, *down_args))
+                            if leg == "down"
+                            else (lambda part=part: mt._launch_up(part, *up_args)))
+                print(f"{n}^2 ({pre},{post}) {label}: halo {plan.halo}, bands {plan.n_seg} x "
+                      f"{plan.seg_len} rows, {plan.threads} threads, {plan.smem_bytes} B shared; "
+                      f"{occ['ctas_per_sm']} CTAs an SM, {occ['resident']} resident, grid "
+                      f"{occ['grid']} = {occ['waves']:.2f} waves; equal to the predecessor "
+                      f"{same}")
+        torch.cuda.synchronize()
+        times: dict[str, list[float]] = {label: [] for label in calls}
+        for _ in range(turns):
+            for label, call in calls.items():
+                with torch.profiler.profile(activities=acts) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                times[label].append(sum(e.device_time for e in device_events(prof)))
+        for label, ts in times.items():
+            print(f"{n}^2 ({pre},{post}) {label}: device {statistics.median(ts):.3f} us a launch "
+                  f"(median of {turns} in turns; min {min(ts):.3f}, max {max(ts):.3f}) [{card}]")
+
+
 def profile_kernel_calls(card: str) -> None:
     """Device launches and device time of one call of each one-launch kernel
-    and of its staged predecessor."""
+    and of its predecessor, and of one ``sor_sweeps`` call."""
     import numpy as np
     import torch
     from scpn_fusion_tpu_torch.core.grid import Grid
     from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
-    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_source
+    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_mg_tiled, cuda_source, cuda_stencil
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261016)
@@ -92,6 +195,25 @@ def profile_kernel_calls(card: str) -> None:
             cases.append((f"fused_topology_source {n}^2 L-mode {label}",
                           lambda fn=fn, a=(psi, g.R, mask, params), kw=kw: fn(*a, **kw)))
 
+    for n, pre, post in ((2049, 3, 3), (1025, 1, 2)):
+        g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+        psi, src, e_c = rand(n, n), rand(n, n), coarse_error(rand, n)
+        down = (psi, src, g.R, g.dR, g.dZ, 1.0)
+        up = (psi, src, e_c, g.R, g.dR, g.dZ, 1.0)
+        for label, fn_down, fn_up in (
+                ("one launch", cuda_mg_tiled.tiled_presmooth_restrict,
+                 cuda_mg_tiled.tiled_prolong_smooth),
+                ("earlier design", cuda_mg_tiled._tiled_presmooth_restrict_slab,
+                 cuda_mg_tiled._tiled_prolong_smooth_slab)):
+            cases.append((f"tiled_presmooth_restrict {n}^2 pre={pre} {label}",
+                          lambda fn=fn_down, a=down, k=pre: fn(*a, pre_smooth=k)))
+            cases.append((f"tiled_prolong_smooth {n}^2 post={post} {label}",
+                          lambda fn=fn_up, a=up, k=post: fn(*a, post_smooth=k)))
+    g = Grid.from_bounds(129, 129, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+    sor_args = (rand(129, 129), rand(129, 129), g.R, g.dR, g.dZ, 1.9, 50)
+    cases.append(("sor_sweeps 129^2 n=50 omega=1.9",
+                  lambda a=sor_args: cuda_stencil.sor_sweeps(*a)))
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for label, call in cases:
         call()
@@ -117,6 +239,11 @@ def main() -> int:
     group.add_argument("--kernels", action="store_true",
                        help="profile single calls of the one-launch kernels and their "
                             "staged predecessors")
+    group.add_argument("--tiled", action="store_true",
+                       help="plan, occupancy, identity and device time in turns of the "
+                            "tiled legs and their predecessors")
+    parser.add_argument("--tiles", default="",
+                        help="with --tiled: other tile shapes to time, as ROWSxCOLS,...")
     opts = parser.parse_args()
     mixed = opts.mixed
     import torch
@@ -130,6 +257,10 @@ def main() -> int:
     print(f"card: {card}")
     if opts.kernels:
         profile_kernel_calls(card)
+        return 0
+    if opts.tiled:
+        tiles = [tuple(int(v) for v in item.split("x")) for item in opts.tiles.split(",") if item]
+        profile_tiled_legs(card, tiles)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium_fmg
@@ -163,7 +294,7 @@ def main() -> int:
     print(f"levels {info}")
     print(f"wall {wall_ms:.3f} ms, device kernels {dev_us / 1e3:.3f} ms, "
           f"idle share {1.0 - dev_us / 1e3 / wall_ms:.3f}, device launches {len(events)}")
-    port_us = sum(e.device_time for e in events if e.name.startswith(PORT_PREFIX))
+    port_us = sum(e.device_time for e in events if is_port_kernel(e.name))
     f64_us = sum(e.device_time for e in events if "double" in e.name)
     print(f"device ms in the port's kernels {port_us / 1e3:.3f}, "
           f"in float64 PyTorch ops {f64_us / 1e3:.3f}")
@@ -175,7 +306,7 @@ def main() -> int:
         print(f"  {sum(ts) / 1e3:9.3f} ms  {len(ts):6d}x  {name[:90]}")
     print("the port's kernels per launch (us): min / median / max, launches within 5% of max")
     for name, ts in rows:
-        if name.startswith(PORT_PREFIX):
+        if is_port_kernel(name):
             ts = sorted(ts)
             near_max = sum(t >= 0.95 * ts[-1] for t in ts)
             print(f"  {ts[0]:8.3f} / {ts[len(ts) // 2]:8.3f} / {ts[-1]:8.3f}  {near_max:5d} of "
