@@ -24,25 +24,29 @@ Phases:
    float32 on numpy-seeded inputs at the paths' shapes (``sor_sweeps`` at the
    ``anderson`` path's 129^2, at a 5^2 coarsest solve and at 513^2; the tiled
    legs at 1025^2, 2049^2, 4097^2, a ragged 129^2 tiling and 513^2, and
-   against the fine legs at 513^2 and 1025^2).  The one-launch V-cycle, the
-   one-launch source and the tiled legs must also equal their predecessors
-   (one launch per dependent stage; three launches; the first design of the
-   tiled kernels) bit for bit, and make one ``__global__`` launch a call;
+   against the fine legs at 513^2 and 1025^2; the fine legs at 513^2 with
+   (1,2) and (3,3) smoothing, at 1025^2, on a rectangular and on a ragged
+   level).  The one-launch V-cycle, the one-launch source, the fine legs and
+   the tiled legs must also equal their predecessors (one launch per
+   dependent stage; three launches; three and five launches; the first
+   design of the tiled kernels) bit for bit, and make one ``__global__``
+   launch a call;
 4. runs the 513^2 FMG cascade with the kernels (counters reset just before
    and read just after: every wrapper must have been called as often as the
    cascade's Picard iterations say), against the same cascade with the
-   staged kernels (bit-identical), with plain ops in float32 and float64,
-   and the direct 513^2 solve;
+   staged kernels and with the staged fine legs (both bit-identical), with
+   plain ops in float32 and float64, and the direct 513^2 solve;
 5. runs the 2049^2 mixed cascade with the kernels (counters likewise), against
-   the same cascade with the staged kernels and with the first design of the
-   tiled legs (both bit-identical) and with plain ops, and counts one 2049^2
-   V-cycle;
+   the same cascade with the staged kernels, with the staged fine legs and
+   with the first design of the tiled legs (all bit-identical) and with plain
+   ops, and counts one 2049^2 V-cycle;
 6. runs the ``anderson`` 129^2 solve with the kernels (counters likewise)
    against the same solve with plain ops;
 7. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
-   one-launch kernels and the tiled legs alternately with their
-   predecessors, and as 50 calls back to back), the cascades with kernels and with plain ops (CUDA
+   one-launch kernels, the fine legs and the tiled legs alternately with
+   their predecessors, and as 50 calls back to back), the cascades with
+   kernels, with their predecessors and with plain ops (CUDA
    events, one warm-up, median of 5; 2 for the plain 2049^2 cascade), and
    computes each kernel's bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, whichever is larger, at the timed shape).
@@ -75,6 +79,12 @@ GS_TOL = 3e-5        # f64 GS-residual gate of the 2049^2 mixed solve
 SOR_SWEEPS, SOR_OMEGA = 50, 1.9   # the ``anderson`` path's inner SOR sweeps
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# (rows, columns, pre, posts) at which the fine legs are checked: the cascades'
+# 513^2 (1,2) and (3,3), 1025^2, a rectangular level, a level that is not
+# 2^k+1 (a ragged last tile, even sizes), and 513^2 (4,5), whose halo takes
+# the wide-pitch instantiation
+FINE_SHAPES = ((513, 513, 1, (2, 0)), (513, 513, 3, (3,)), (1025, 1025, 1, (2,)),
+               (257, 385, 1, (2,)), (300, 700, 2, (1, 0)), (513, 513, 4, (5,)))
 # (level, pre, posts, t_rows) at which the tiled legs are checked
 TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), None),
                 (129, 3, (0, 3), 24), (513, 1, (2,), None))
@@ -84,8 +94,8 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
 SOURCES = {
     "sor_sweeps": ("csrc/rb_sweep.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
-    "fine_presmooth_restrict": ("csrc/transfer.cu", "scpn_fusion_tpu/ops/pallas_mg.py:272"),
-    "fine_prolong_smooth": ("csrc/transfer.cu", "scpn_fusion_tpu/ops/pallas_mg.py:299"),
+    "fine_presmooth_restrict": ("csrc/fine_legs.cu", "scpn_fusion_tpu/ops/pallas_mg.py:272"),
+    "fine_prolong_smooth": ("csrc/fine_legs.cu", "scpn_fusion_tpu/ops/pallas_mg.py:299"),
     "fused_coarse_vcycle": ("csrc/vcycle_fused.cu", "scpn_fusion_tpu/ops/pallas_mg.py:52"),
     "tiled_presmooth_restrict": ("csrc/tiled_legs.cu",
                                  "scpn_fusion_tpu/ops/pallas_mg_tiled.py:97"),
@@ -256,7 +266,8 @@ def main() -> int:
     cb.library()
     print(f"build: {time.perf_counter() - t_phase:.2f} s (one nvcc per source, "
           f"{' '.join(cb.NVCC_FLAGS)})")
-    for source in ("tiled_legs.cu", "tiled_legs_slab.cu", "vcycle_fused.cu", "source.cu"):
+    for source in ("fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu", "vcycle_fused.cu",
+                   "source.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -270,6 +281,16 @@ def main() -> int:
                   f"an SM, {occ['resident']} resident, grid {occ['grid']} = {occ['waves']:.2f} "
                   f"waves")
             require(occ["ctas_per_sm"] >= 1, f"the tiled {leg} leg's block does not fit an SM")
+    for nz, nr, pre, posts in FINE_SHAPES:
+        for leg, sweeps in (("down", pre), *(("up", post) for post in posts)):
+            plan = cuda_mg.fine_launch_plan(leg, nz, nr, sweeps)
+            occ = cuda_mg.fine_launch_occupancy(plan)
+            print(f"  fine {leg} leg {nz}x{nr} sweeps={sweeps}: tile {plan.tile_rows}x"
+                  f"{plan.tile_cols}, halo {plan.halo}, {plan.n_seg} bands of {plan.seg_len} rows, "
+                  f"{plan.threads} threads, {plan.smem_bytes} B shared; {occ['ctas_per_sm']} CTAs "
+                  f"an SM, {occ['resident']} resident, grid {occ['grid']} = {occ['waves']:.2f} "
+                  f"waves, {occ['grid'] * plan.threads / 32 / cuda_mg.SM_COUNT:.1f} warps an SM")
+            require(occ["ctas_per_sm"] >= 1, f"the fine {leg} leg's block does not fit an SM")
     # A refused launch raises below; these two lines say how much room there is.
     plan_257 = cuda_mg.vcycle_launch_plan(257, 5)
     clusters = cb.library().scpn_fused_vcycle_clusters(
@@ -423,38 +444,73 @@ def main() -> int:
                 lambda: cuda_source._fused_topology_source_staged(*src_args, p_c, ff_c, i_t,
                                                                   **src_kw))
 
-    # fine_presmooth_restrict (pre = 1), 513^2
+    # fine legs (kernels 4 and 5): against the plain versions and, bit for
+    # bit, against the staged launchers (one launch per dependent stage); one
+    # launch a call.  post = 0 checks the prolongation alone (omega = 1
+    # sweeps overwrite the red phases of the correction).
+    e_c = rand_coarse(513)
     pre_args = (psi, src, r513, dr513, dz513, 1.0)
-    ps_k, dc_k = cuda_mg.fine_presmooth_restrict(*pre_args, pre_smooth=1)
-    ps_p, dc_p = cuda_mg.fine_presmooth_restrict_plain(*pre_args, pre_smooth=1)
-    torch.cuda.synchronize()
-    record("fine_presmooth_restrict", span_rel(ps_k, ps_p), SPAN_TOL, "513^2 psi_s")
-    record("fine_presmooth_restrict", span_rel(dc_k, dc_p), SPAN_TOL, "513^2 d_c")
-    abs_err("fine_presmooth_restrict", ps_k, ps_p)
-    abs_err("fine_presmooth_restrict", dc_k, dc_p)
-    require(ring_equal(ps_k, psi), "fine_presmooth_restrict changed the Dirichlet ring")
-    require(ring_equal(dc_k, torch.zeros_like(dc_k)), "coarse defect ring is not zero")
+    post_args = (psi, src, e_c, r513, dr513, dz513, 1.0)
+    for nz, nr, pre, posts in FINE_SHAPES:
+        if (nz, nr) == (513, 513):
+            a, pa = pre_args, post_args
+        else:
+            g_n = Grid.from_bounds(nr, nz, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32,
+                                   device=dev)
+            e_n = rand((nz + 1) // 2, (nr + 1) // 2)
+            e_n[0, :] = e_n[-1, :] = 0.0
+            e_n[:, 0] = e_n[:, -1] = 0.0
+            a = (rand(nz, nr), rand(nz, nr), g_n.R, g_n.dR, g_n.dZ, 1.0)
+            pa = (a[0], a[1], e_n, g_n.R, g_n.dR, g_n.dZ, 1.0)
+        tag = f"{nz}^2" if nz == nr else f"{nz}x{nr}"
+        cb.reset_launch_counts()
+        ps_k, dc_k = cuda_mg.fine_presmooth_restrict(*a, pre_smooth=pre)
+        require(dict(cb.LAUNCHES) == {"scpn_fine_pre": 1},
+                f"fine_presmooth_restrict made {dict(cb.LAUNCHES)}, not one launch")
+        ps_p, dc_p = cuda_mg.fine_presmooth_restrict_plain(*a, pre_smooth=pre)
+        ps_s, dc_s = cuda_mg._presmooth_restrict_launch(*a, pre_smooth=pre)
+        torch.cuda.synchronize()
+        require(torch.equal(ps_k, ps_s) and torch.equal(dc_k, dc_s),
+                f"fine_presmooth_restrict differs from the staged launchers at {tag} pre={pre}")
+        record("fine_presmooth_restrict", span_rel(ps_k, ps_p), SPAN_TOL, f"{tag} pre={pre} psi_s")
+        record("fine_presmooth_restrict", span_rel(dc_k, dc_p), SPAN_TOL, f"{tag} pre={pre} d_c")
+        abs_err("fine_presmooth_restrict", ps_k, ps_p)
+        abs_err("fine_presmooth_restrict", dc_k, dc_p)
+        require(ring_equal(ps_k, a[0]), f"fine_presmooth_restrict changed the ring at {tag}")
+        require(ring_equal(dc_k, torch.zeros_like(dc_k)), f"coarse defect ring not zero at {tag}")
+        for post in posts:
+            cb.reset_launch_counts()
+            po_k = cuda_mg.fine_prolong_smooth(*pa, post_smooth=post)
+            require(dict(cb.LAUNCHES) == {"scpn_fine_post": 1},
+                    f"fine_prolong_smooth made {dict(cb.LAUNCHES)}, not one launch")
+            po_p = cuda_mg.fine_prolong_smooth_plain(*pa, post_smooth=post)
+            po_s = cuda_mg._prolong_smooth_launch(*pa, post_smooth=post)
+            torch.cuda.synchronize()
+            require(torch.equal(po_k, po_s),
+                    f"fine_prolong_smooth differs from the staged launchers at {tag} post={post}")
+            record("fine_prolong_smooth", span_rel(po_k, po_p), SPAN_TOL, f"{tag} post={post}")
+            abs_err("fine_prolong_smooth", po_k, po_p)
+            require(ring_equal(po_k, pa[0]), f"fine_prolong_smooth changed the ring at {tag}")
+        print(f"  fine legs {tag} pre={pre} post={posts}: psi and coarse defect equal to the "
+              f"staged launchers'; one launch a call")
     timing["fine_presmooth_restrict"] = (
         lambda: cuda_mg.fine_presmooth_restrict(*pre_args, pre_smooth=1),
         lambda: cuda_mg.fine_presmooth_restrict_plain(*pre_args, pre_smooth=1),
         "513^2 pre=1", leg_work(513, 1, "down"))
-
-    # fine_prolong_smooth (post = 2), 513^2
-    e_c = rand_coarse(513)
-    post_args = (psi, src, e_c, r513, dr513, dz513, 1.0)
-    # post = 0 checks the prolongation alone (omega = 1 sweeps overwrite the
-    # red phases of the correction); post = 2 is the slice's setting.
-    for post in (0, 2):
-        po_k = cuda_mg.fine_prolong_smooth(*post_args, post_smooth=post)
-        po_p = cuda_mg.fine_prolong_smooth_plain(*post_args, post_smooth=post)
-        torch.cuda.synchronize()
-        record("fine_prolong_smooth", span_rel(po_k, po_p), SPAN_TOL, f"513^2 post={post}")
-        abs_err("fine_prolong_smooth", po_k, po_p)
-        require(ring_equal(po_k, psi), "fine_prolong_smooth changed the Dirichlet ring")
     timing["fine_prolong_smooth"] = (
         lambda: cuda_mg.fine_prolong_smooth(*post_args, post_smooth=2),
         lambda: cuda_mg.fine_prolong_smooth_plain(*post_args, post_smooth=2),
         "513^2 post=2", leg_work(513, 2, "up"))
+    staged["fine_presmooth_restrict"] = (
+        lambda: cuda_mg._presmooth_restrict_launch(*pre_args, pre_smooth=1))
+    staged["fine_prolong_smooth"] = (
+        lambda: cuda_mg._prolong_smooth_launch(*post_args, post_smooth=2))
+    try:
+        cuda_mg.fine_presmooth_restrict(*pre_args, pre_smooth=40)
+    except ValueError as exc:
+        print(f"  fine_presmooth_restrict 513^2 pre=40 raises: {exc}")
+    else:
+        raise AssertionError("fine_presmooth_restrict took pre_smooth=40")
 
     # fused_coarse_vcycle: the cascades' (1, 2) and the mixed path's (3, 3) at
     # 257^2 and 129^2, and a small entry; against the plain version and, bit
@@ -640,6 +696,19 @@ def main() -> int:
             cuda_mg.fused_coarse_vcycle, cuda_source.fused_topology_source = saved
 
     @contextlib.contextmanager
+    def staged_fine_legs():
+        """Run the solvers' 513^2 levels through the staged fine legs, one
+        launch per dependent stage (``_vcycle_impl`` looks the legs up in
+        their module)."""
+        saved = cuda_mg.fine_presmooth_restrict, cuda_mg.fine_prolong_smooth
+        cuda_mg.fine_presmooth_restrict = cuda_mg._presmooth_restrict_launch
+        cuda_mg.fine_prolong_smooth = cuda_mg._prolong_smooth_launch
+        try:
+            yield
+        finally:
+            cuda_mg.fine_presmooth_restrict, cuda_mg.fine_prolong_smooth = saved
+
+    @contextlib.contextmanager
     def first_design_tiled_legs():
         """Run the solvers' tiled levels through the first design of the
         tiled kernels (``_vcycle_impl`` looks the legs up in their module)."""
@@ -713,6 +782,18 @@ def main() -> int:
     if info_s != info_k or not torch.equal(res_s.psi, psi_k):
         raise AssertionError("the 513^2 cascade differs between one-launch and staged kernels")
 
+    cb.reset_launch_counts()
+    with staged_fine_legs():
+        res_f, info_f = solve_equilibrium_fmg(cfg_k, dtype=torch.float32, **fmg)
+    torch.cuda.synchronize()
+    print(f"FMG with the staged fine legs: levels {info_f}; psi equal to the one-launch "
+          f"legs' {torch.equal(res_f.psi, psi_k)}; launches {dict(cb.LAUNCHES)}")
+    if info_f != info_k or not torch.equal(res_f.psi, psi_k):
+        raise AssertionError("the 513^2 cascade differs between one-launch and staged fine legs")
+    if (cb.LAUNCHES["scpn_defect_restrict"], cb.LAUNCHES["scpn_prolong_correct"],
+            cb.LAUNCHES["scpn_fine_pre"], cb.LAUNCHES["scpn_fine_post"]) != (fine, fine, 0, 0):
+        raise AssertionError(f"the staged-fine-leg run launched {dict(cb.LAUNCHES)}")
+
     res_d = solve_equilibrium(cfg_k, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     print(f"direct 513^2 solve with kernels: converged {res_d.converged}, "
@@ -727,10 +808,9 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"one 513^2 V-cycle (1,2) with kernels: {cb.kernel_launches()} __global__ launches "
           f"({dict(cb.LAUNCHES)}), wrapper calls {dict(cb.CALLS)}")
-    if dict(cb.LAUNCHES) != {"scpn_rb_half_sweep": 6, "scpn_defect_restrict": 1,
-                             "scpn_prolong_correct": 1, "scpn_fused_vcycle": 1}:
-        raise AssertionError(f"513^2 V-cycle made {dict(cb.LAUNCHES)}, not the fine legs' 8 "
-                             "launches and one fused V-cycle")
+    if dict(cb.LAUNCHES) != {"scpn_fine_pre": 1, "scpn_fine_post": 1, "scpn_fused_vcycle": 1}:
+        raise AssertionError(f"513^2 V-cycle made {dict(cb.LAUNCHES)}, not one launch a fine "
+                             "leg and one fused V-cycle")
     if dict(cb.CALLS) != {"fine_presmooth_restrict": 1, "fine_prolong_smooth": 1,
                           "fused_coarse_vcycle": 1}:
         raise AssertionError(f"513^2 V-cycle did not take the fine route: {dict(cb.CALLS)}")
@@ -789,6 +869,21 @@ def main() -> int:
           f"{torch.equal(res2_s.psi, psi2_k)}")
     if info2_s != info2_k or not torch.equal(res2_s.psi, psi2_k):
         raise AssertionError("the mixed cascade differs between one-launch and staged kernels")
+
+    fine2 = launches["fine_presmooth_restrict"]
+    cb.reset_launch_counts()
+    with staged_fine_legs():
+        res2_f, info2_f = solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+    torch.cuda.synchronize()
+    print(f"mixed 2049^2 cascade with the staged fine legs: levels {info2_f}, final f64 GS "
+          f"residual {float(res2_f.gs_residual)!r}; psi equal to the one-launch legs' "
+          f"{torch.equal(res2_f.psi, psi2_k)}; launches {dict(cb.LAUNCHES)}")
+    if (info2_f != info2_k or not torch.equal(res2_f.psi, psi2_k)
+            or float(res2_f.gs_residual) != gs_k):
+        raise AssertionError("the mixed cascade differs between one-launch and staged fine legs")
+    if (cb.LAUNCHES["scpn_defect_restrict"], cb.LAUNCHES["scpn_prolong_correct"],
+            cb.LAUNCHES["scpn_fine_pre"], cb.LAUNCHES["scpn_fine_post"]) != (fine2, fine2, 0, 0):
+        raise AssertionError(f"the staged-fine-leg run launched {dict(cb.LAUNCHES)}")
 
     cb.reset_launch_counts()
     with first_design_tiled_legs():
@@ -920,9 +1015,10 @@ def main() -> int:
         print(f"time {label}: {name_a} {cuda_ms(fn_a):.4f} ms, {name_b} {cuda_ms(fn_b):.4f} ms, "
               f"bound {bound_ms:.4g} ms ({bound_by}) [{card}]")
 
-    def staged_run(solve):
+    def under(context, solve):
+        """``solve`` run inside the context manager ``context()``."""
         def run():
-            with staged_kernels():
+            with context():
                 solve()
         return run
 
@@ -932,20 +1028,22 @@ def main() -> int:
     def mixed_run():
         solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
 
-    fmg_k, fmg_s = cuda_ms_pair(fmg_run, staged_run(fmg_run))
+    fmg_k, fmg_s = cuda_ms_pair(fmg_run, under(staged_kernels, fmg_run))
     fmg_p = cuda_ms(lambda: solve_equilibrium_fmg(cfg_p, dtype=torch.float32, **fmg))
     print(f"time FMG 129->257->513 f32: kernels {fmg_k:.3f} ms, with the staged kernels "
           f"{fmg_s:.3f} ms (in turns), plain {fmg_p:.3f} ms [{card}]")
-    mix_k, mix_s = cuda_ms_pair(mixed_run, staged_run(mixed_run))
+    mix_k, mix_s = cuda_ms_pair(mixed_run, under(staged_kernels, mixed_run))
     mix_p = cuda_ms(lambda: solve_equilibrium_mixed_fmg(cfg2_p, min_coarse=129,
                                                         use_pallas=False, device=dev), reps=2)
     print(f"time mixed FMG 129->...->2049: kernels {mix_k:.3f} ms, with the staged kernels "
           f"{mix_s:.3f} ms (in turns, median of 5), plain {mix_p:.3f} ms (median of 2) [{card}]")
-    def first_design_run():
-        with first_design_tiled_legs():
-            mixed_run()
-
-    mix_n, mix_e = cuda_ms_pair(mixed_run, first_design_run)
+    fmg_n, fmg_f = cuda_ms_pair(fmg_run, under(staged_fine_legs, fmg_run))
+    print(f"time FMG 129->257->513 f32: kernels {fmg_n:.3f} ms, with the staged fine legs "
+          f"{fmg_f:.3f} ms (in turns, median of 5) [{card}]")
+    mix_n, mix_f = cuda_ms_pair(mixed_run, under(staged_fine_legs, mixed_run))
+    print(f"time mixed FMG 129->...->2049: kernels {mix_n:.3f} ms, with the staged fine legs "
+          f"{mix_f:.3f} ms (in turns, median of 5) [{card}]")
+    mix_n, mix_e = cuda_ms_pair(mixed_run, under(first_design_tiled_legs, mixed_run))
     print(f"time mixed FMG 129->...->2049: kernels {mix_n:.3f} ms, with the first design of the "
           f"tiled legs {mix_e:.3f} ms (in turns, median of 5) [{card}]")
     sor_k = cuda_ms(lambda: solve_equilibrium(sor_cfg(True), dtype=torch.float32, device=dev))

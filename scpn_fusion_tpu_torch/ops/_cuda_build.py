@@ -48,6 +48,8 @@ _SIGNATURES = {
     "scpn_fused_source_staged": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                                  _P, _P, _P, _P, _P, _P, _P],
     "scpn_fused_vcycle": [_P, _P, _P, _I, _P, _P, _P],
+    "scpn_fine_pre": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _P, _P, _P],
+    "scpn_fine_post": [_P, _P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P, _P],
     "scpn_tiled_pre": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _P, _P, _P],
     "scpn_tiled_post": [_P, _P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P, _P],
     "scpn_tiled_pre_slab": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
@@ -139,8 +141,9 @@ def library() -> ctypes.CDLL:
         lib.scpn_source_blocks.restype = ctypes.c_int
         lib.scpn_source_resident_blocks.argtypes = []
         lib.scpn_source_resident_blocks.restype = ctypes.c_int
-        lib.scpn_tiled_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.scpn_tiled_ctas_per_sm.restype = ctypes.c_int
+        for name in ("scpn_tiled_ctas_per_sm", "scpn_fine_ctas_per_sm"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            getattr(lib, name).restype = ctypes.c_int
         lib.scpn_fused_vcycle_clusters.argtypes = [ctypes.c_void_p]
         lib.scpn_fused_vcycle_clusters.restype = ctypes.c_int
         _lib = lib

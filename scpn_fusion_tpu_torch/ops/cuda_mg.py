@@ -4,16 +4,23 @@
 The Pallas kernels keep whole levels in VMEM, embedded at stride 2^k in the
 entry-level array.  Here every level is compacted (the ``x[::2, ::2]`` grid
 of the level above, so level-local red/black parity is plain ``(i+j) % 2``).
-The fine legs make one launch of a global-memory stencil kernel per dependent
-stage; the fused V-cycle is one launch in all:
+Each fine leg is one launch, and so is the fused V-cycle:
 
-* ``fine_presmooth_restrict`` = ``pre_smooth`` SOR sweeps
-  (``csrc/rb_sweep.cu``) + one ``defect_restrict`` launch
-  (``csrc/transfer.cu``): the 9-point full weighting of ``s - L[psi]``,
-  written compact with a zero ring.
-* ``fine_prolong_smooth`` = one ``prolong_correct`` launch (bilinear
-  prolongation of the compact coarse error, added on the interior) +
-  ``post_smooth`` sweeps.
+* ``fine_presmooth_restrict`` = ``pre_smooth`` SOR sweeps, the defect
+  ``s - L[psi]`` and its 9-point full weighting, written compact with a zero
+  ring: one launch of ``csrc/fine_legs.cu`` (entry ``scpn_fine_pre``).
+* ``fine_prolong_smooth`` = bilinear prolongation of the compact coarse error,
+  added on the interior, and ``post_smooth`` sweeps: one launch of
+  ``csrc/fine_legs.cu`` (entry ``scpn_fine_post``).
+  Both kernels cut the level into small tiles, one block a tile, each block
+  recomputing the halo its half-sweeps need, so that a 513^2 level fills the
+  card once with many short-lived warps and no stage waits on another block;
+  :func:`fine_launch_plan` chooses the tile and makes the launch's plan.
+  ``_presmooth_restrict_launch`` / ``_prolong_smooth_launch`` are the staged
+  route they replace (``csrc/rb_sweep.cu`` + ``csrc/transfer.cu``, one launch
+  per dependent stage: three and five at (1, 2) smoothing): the reference the
+  one-launch legs must equal bit for bit and the earlier time measured beside
+  them.  No solver path calls them.
 * ``fused_coarse_vcycle`` = one launch of ``csrc/vcycle_fused.cu``: every
   level from the entry (at most 257^2) down to ``min_grid`` stays in the
   shared memory of one 8-CTA thread-block cluster for the whole cycle, laid
@@ -36,6 +43,7 @@ import functools
 import torch
 
 from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+from scpn_fusion_tpu_torch.ops import leg_plan
 from scpn_fusion_tpu_torch.ops.cuda_stencil import (
     check_level,
     ew_rows,
@@ -250,15 +258,74 @@ def vcycle_plan_struct(n: int, min_grid: int, d_r: float, d_z: float, omega: flo
     return st
 
 
+# ── the one-launch fine legs' plan ──
+#
+# ``csrc/fine_legs.cu`` instantiates the band kernels of
+# ``csrc/tiled_band.cuh`` for levels that fill the card about once.
+
+SM_COUNT = 132              # streaming multiprocessors of an H100
+# The kernels' instantiations, in the order of csrc/fine_legs.cu: (rows of a
+# thread's band, pitch of a slab row in shared memory, most threads a block,
+# blocks an SM the registers allow).  Of those that hold a slab in the same
+# shared memory the first is taken: 4-row bands while the block stays within
+# 512 threads, 8-row bands beyond, the wide pitch for large halos.
+FINE_VARIANTS = ((4, 80, 512, 1), (8, 80, 512, 1), (8, 176, 1024, 1))
+# Tiles (rows, columns), largest first: a level takes the first that gives
+# every SM a block, or else the smallest.
+FINE_TILES = ((32, 64), (16, 64), (16, 32))
+
+
+@functools.lru_cache(maxsize=256)
+def fine_launch_plan(leg: str, nz: int, nr: int, sweeps: int,
+                     tile: tuple[int, int] | None = None,
+                     seg_len: int | None = None) -> leg_plan.LegLaunchPlan:
+    """The launch of one fine leg (``"down"`` or ``"up"``) on an ``nz`` x
+    ``nr`` level: tile, halo (``2 * sweeps + 2`` down, ``2 * sweeps`` up, at
+    least 2), bands, kernel variant, threads, shared-memory bytes and grid.
+    The tile is the largest of :data:`FINE_TILES` whose grid has a block for
+    every SM, the smallest where none has; ``tile`` and ``seg_len`` override
+    the choice (measurements).  Raises ``ValueError`` for a shape or a
+    smoothing count no kernel variant serves."""
+    if tile is not None:
+        return leg_plan.plan_launch(leg, nz, nr, sweeps, tile[0], tile[1], FINE_VARIANTS,
+                                    seg_len)
+    plan, refusal = None, None
+    for rows, cols in FINE_TILES:
+        try:
+            plan = leg_plan.plan_launch(leg, nz, nr, sweeps, rows, cols, FINE_VARIANTS, seg_len)
+        except ValueError as exc:
+            refusal = exc
+            continue
+        if plan.grid[0] * plan.grid[1] >= SM_COUNT:
+            break
+    if plan is None:
+        raise refusal
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _fine_plan_ints(leg: str, nz: int, nr: int, sweeps: int) -> ctypes.Array:
+    """The plan as the C entries read it, made once a shape."""
+    return fine_launch_plan(leg, nz, nr, sweeps).as_ints()
+
+
+def fine_launch_occupancy(plan: leg_plan.LegLaunchPlan) -> dict:
+    """Blocks of ``plan``'s kernel one SM holds, blocks resident on the card
+    and the grid's size, asked of the CUDA occupancy API (needs the card)."""
+    return leg_plan.launch_occupancy("scpn_fine_ctas_per_sm", plan)
+
+
 # ── kernel wrappers ──
 #
 # Each public wrapper adds one to ``cb.CALLS[<its name>]`` per call in which
 # it launched.  The fine-leg counts come only from the fine route of
 # ``ops/multigrid._vcycle_impl``: the staged V-cycle below runs its per-level
-# legs through the private launchers and counts nowhere.
+# legs through the private staged launchers and counts nowhere.
 
 
 def _presmooth_restrict_launch(psi, source, r_1d, d_r, d_z, omega, *, pre_smooth):
+    """The down leg as one launch per dependent stage (the predecessor of the
+    one-launch kernel; no call counted)."""
     nz, nr = psi.shape
     nzc, nrc = (nz + 1) // 2, (nr + 1) // 2
     psi_s = psi.clone()
@@ -271,6 +338,8 @@ def _presmooth_restrict_launch(psi, source, r_1d, d_r, d_z, omega, *, pre_smooth
 
 
 def _prolong_smooth_launch(psi_s, source, e_coarse, r_1d, d_r, d_z, omega, *, post_smooth):
+    """The up leg as one launch per dependent stage (the predecessor of the
+    one-launch kernel; no call counted)."""
     cb.check_f32_cuda("fine_prolong_smooth", psi_s=psi_s, e_coarse=e_coarse)
     nz, nr = psi_s.shape
     nzc, nrc = e_coarse.shape
@@ -288,12 +357,14 @@ def fine_presmooth_restrict(psi: torch.Tensor, source: torch.Tensor, r_1d: torch
                             d_r: float, d_z: float, omega: float, *,
                             pre_smooth: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
     """Fine-level down leg: ``(psi_smoothed, d_coarse)``, the coarse defect
-    compact with a zero ring."""
+    compact with a zero ring.  On a CUDA tensor it is one kernel launch and
+    two allocations, the outputs'."""
     if not psi.is_cuda:
         return fine_presmooth_restrict_plain(psi, source, r_1d, d_r, d_z, omega,
                                              pre_smooth=pre_smooth)
-    out = _presmooth_restrict_launch(psi, source, r_1d, d_r, d_z, omega,
-                                     pre_smooth=pre_smooth)
+    check_level("fine_presmooth_restrict", psi, source, r_1d)
+    ints = _fine_plan_ints("down", psi.shape[0], psi.shape[1], int(pre_smooth))
+    out = leg_plan.launch_down("scpn_fine_pre", ints, psi, source, r_1d, d_r, d_z, omega)
     cb.CALLS["fine_presmooth_restrict"] += 1
     return out
 
@@ -302,12 +373,15 @@ def fine_prolong_smooth(psi_s: torch.Tensor, source: torch.Tensor, e_coarse: tor
                         r_1d: torch.Tensor, d_r: float, d_z: float, omega: float, *,
                         post_smooth: int = 3) -> torch.Tensor:
     """Fine-level up leg: bilinear prolongation of the compact coarse error,
-    correction on the interior, then ``post_smooth`` sweeps."""
+    correction on the interior, then ``post_smooth`` sweeps.  On a CUDA
+    tensor it is one kernel launch and one allocation, the output's."""
     if not psi_s.is_cuda:
         return fine_prolong_smooth_plain(psi_s, source, e_coarse, r_1d, d_r, d_z, omega,
                                          post_smooth=post_smooth)
-    out = _prolong_smooth_launch(psi_s, source, e_coarse, r_1d, d_r, d_z, omega,
-                                 post_smooth=post_smooth)
+    leg_plan.check_up("fine_prolong_smooth", psi_s, source, e_coarse, r_1d)
+    ints = _fine_plan_ints("up", psi_s.shape[0], psi_s.shape[1], int(post_smooth))
+    out = leg_plan.launch_up("scpn_fine_post", ints, psi_s, source, e_coarse, r_1d, d_r, d_z,
+                             omega)
     cb.CALLS["fine_prolong_smooth"] += 1
     return out
 

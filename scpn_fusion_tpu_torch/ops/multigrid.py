@@ -14,10 +14,12 @@ Pallas ones (``use_pallas`` means "use the hand-written kernels"):
 * a square 2^k+1 level up to 257^2 runs the whole sub-cycle through
   ``ops/cuda_mg.fused_coarse_vcycle``;
 * a square 2^k+1 level above 257^2 up to 513^2 runs its smoothing and
-  transfer legs through ``fine_presmooth_restrict`` / ``fine_prolong_smooth``;
+  transfer legs through ``ops/cuda_mg.fine_presmooth_restrict`` /
+  ``fine_prolong_smooth``, one launch each (small tiles, a grid that fills
+  the card once), so that a 513^2 V-cycle is three launches;
 * a square 2^k+1 level above 513^2 up to 4097^2 runs its legs through the
   tiled one-launch kernels ``ops/cuda_mg_tiled.tiled_presmooth_restrict`` /
-  ``tiled_prolong_smooth``;
+  ``tiled_prolong_smooth`` (the same band code on 64 x 64 tiles);
 * any other level runs the plain ops here, with its smoothing through
   ``ops/cuda_stencil.sor_sweeps``, as the JAX module runs XLA ops there.
 """

@@ -99,3 +99,20 @@ def test_composed_257_vcycle_matches_xla():
     # the kernel route of _vcycle_impl at 257^2 is the fused coarse cycle
     whole = _vcycle_impl(_t(psi), _t(src), _t(r), dr, dr, 1.0, 1, 2, 5, 50, True)
     assert span_rel(whole, ref) <= 1e-5
+
+
+def test_composed_129_vcycle_matches_xla():
+    """The (1, 2) smoothing at 129^2 as down leg + coarse V-cycle + up leg ==
+    XLA _vcycle_impl (the fine legs take any level, not only 513^2)."""
+    n = 129
+    psi, src, r, dr = _problem(n, seed=19)
+    ref = jmg.vcycle(jnp.asarray(psi), jnp.asarray(src), jnp.asarray(r), dr, dr,
+                     omega=1.0, pre_smooth=1, post_smooth=2)
+    psi_s, d_c = cuda_mg.fine_presmooth_restrict(_t(psi), _t(src), _t(r), dr, dr, 1.0,
+                                                 pre_smooth=1)
+    assert ring_equal(d_c, np.zeros(d_c.shape, np.float32))
+    e_c = cuda_mg.fused_coarse_vcycle(torch.zeros_like(d_c), d_c, _t(r)[::2], dr * 2, dr * 2,
+                                      1.0, pre_smooth=1, post_smooth=2)
+    ours = cuda_mg.fine_prolong_smooth(psi_s, _t(src), e_c, _t(r), dr, dr, 1.0, post_smooth=2)
+    assert span_rel(ours, ref) <= 1e-5
+    assert ring_equal(ours, psi)

@@ -18,7 +18,8 @@ to warm up and once under ``torch.profiler``, and prints:
 With ``--kernels`` it profiles, instead of a solve, single calls of the
 one-launch kernels and of their predecessors (the fused V-cycle at 257^2 and
 129^2, the fused source at 513^2 and 1025^2, the tiled legs at 2049^2 (3,3)
-and 1025^2 (1,2)) and one ``sor_sweeps`` call at 129^2 with 50 sweeps, and
+and 1025^2 (1,2), the fine legs at 513^2 (1,2) and (3,3)) and one
+``sor_sweeps`` call at 129^2 with 50 sweeps, and
 prints for each the device launches a call and the device time a call, summed
 over every device kernel the call ran (mean of 5 profiled calls after a
 warm-up).
@@ -31,8 +32,16 @@ to the load, up to the sweeps, ...) and of its predecessor, profiled in turns (n
 new, ...; median of 7 each).  ``--tiles 32x64,128x128`` adds other tile shapes (rows x
 columns) of the new kernels to the turns.
 
+With ``--fine`` it takes the one-launch fine legs (levels up to 513^2) alone,
+at 513^2 with (1,2) and (3,3) smoothing: the launch plan and its occupancy,
+whether the results equal the staged route's bit for bit, and the device time
+of one call of the kernel, of the kernel cut short after each of its stages,
+of the staged route (three and five launches at (1,2)) and of the tiled legs
+at the same shape, profiled in turns.  ``--tiles 32x64,16x32`` and ``--bands
+4,8`` add other tile shapes and band lengths of the fine kernels to the turns.
+
 Run from the repository root on a machine with a CUDA device:
-``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled]``.
+``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine]``.
 Exits non-zero without one.
 """
 
@@ -101,7 +110,6 @@ def profile_tiled_legs(card: str, tiles: list[tuple[int, int]]) -> None:
     for line in cb.BUILD_LOG.get("tiled_legs.cu", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas tiled_legs.cu: {line.strip()}")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     turns = 7
     for n, pre, post in ((2049, 3, 3), (1025, 3, 3), (1025, 1, 2), (513, 1, 2), (4097, 3, 3)):
         g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
@@ -143,22 +151,115 @@ def profile_tiled_legs(card: str, tiles: list[tuple[int, int]]) -> None:
                       f"{occ['ctas_per_sm']} CTAs an SM, {occ['resident']} resident, grid "
                       f"{occ['grid']} = {occ['waves']:.2f} waves; equal to the predecessor "
                       f"{same}")
-        torch.cuda.synchronize()
-        times: dict[str, list[float]] = {label: [] for label in calls}
-        for _ in range(turns):
-            for label, call in calls.items():
-                with torch.profiler.profile(activities=acts) as prof:
-                    call()
-                    torch.cuda.synchronize()
-                times[label].append(sum(e.device_time for e in device_events(prof)))
-        for label, ts in times.items():
+        for label, ts in device_us_in_turns(calls, turns).items():
             print(f"{n}^2 ({pre},{post}) {label}: device {statistics.median(ts):.3f} us a launch "
+                  f"(median of {turns} in turns; min {min(ts):.3f}, max {max(ts):.3f}) [{card}]")
+
+
+def device_us_in_turns(calls: dict, turns: int) -> dict[str, list[float]]:
+    """Summed device time (us) of each call, profiled ``turns`` times in turns."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    times: dict[str, list[float]] = {label: [] for label in calls}
+    for _ in range(turns):
+        for label, call in calls.items():
+            with torch.profiler.profile(activities=acts) as prof:
+                call()
+                torch.cuda.synchronize()
+            times[label].append(sum(e.device_time for e in device_events(prof)))
+    return times
+
+
+def profile_fine_legs(card: str, tiles: list[tuple[int, int]], bands: list[int]) -> None:
+    """Plan, occupancy, identity with the staged route and device time in
+    turns of the one-launch fine legs at 513^2."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_mg_tiled, leg_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261016)
+
+    def rand(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    cb.library()
+    for line in cb.BUILD_LOG.get("fine_legs.cu", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas fine_legs.cu: {line.strip()}")
+    turns = 7
+    n = 513
+    g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+    psi, src, e_c = rand(n, n), rand(n, n), coarse_error(rand, n)
+    down_args = (psi, src, g.R, g.dR, g.dZ, 1.0)
+    up_args = (psi, src, e_c, g.R, g.dR, g.dZ, 1.0)
+    for pre, post in ((1, 2), (3, 3)):
+        ref_down = cuda_mg._presmooth_restrict_launch(*down_args, pre_smooth=pre)
+        ref_up = cuda_mg._prolong_smooth_launch(*up_args, post_smooth=post)
+        calls = {
+            "down staged": lambda: cuda_mg._presmooth_restrict_launch(*down_args, pre_smooth=pre),
+            "up staged": lambda: cuda_mg._prolong_smooth_launch(*up_args, post_smooth=post),
+            "down tiled 64x64": lambda: cuda_mg_tiled.tiled_presmooth_restrict(*down_args,
+                                                                             pre_smooth=pre),
+            "up tiled 64x64": lambda: cuda_mg_tiled.tiled_prolong_smooth(*up_args,
+                                                                         post_smooth=post),
+        }
+        shapes = [(None, None)] + [(tile, band) for tile in tiles or [None]
+                                   for band in bands or [None] if (tile, band) != (None, None)]
+        for tile, band in shapes:
+            for leg, sweeps in (("down", pre), ("up", post)):
+                try:
+                    plan = cuda_mg.fine_launch_plan(leg, n, n, sweeps, tile, band)
+                except ValueError as exc:
+                    print(f"{n}^2 ({pre},{post}) {leg} tile {tile} band {band}: no plan ({exc})")
+                    continue
+                occ = cuda_mg.fine_launch_occupancy(plan)
+                ints = plan.as_ints()
+                if leg == "down":
+                    call = lambda ints=ints: leg_plan.launch_down(   # noqa: E731
+                        "scpn_fine_pre", ints, *down_args)
+                    got = call()
+                    same = torch.equal(got[0], ref_down[0]) and torch.equal(got[1], ref_down[1])
+                else:
+                    call = lambda ints=ints: leg_plan.launch_up(   # noqa: E731
+                        "scpn_fine_post", ints, *up_args)
+                    same = torch.equal(call(), ref_up)
+                label = f"{leg} {plan.tile_rows}x{plan.tile_cols} bands of {plan.seg_len}"
+                if tile is None and band is None:
+                    label += " (the plan's choice)"
+                    # the leg cut short after each stage (results incomplete, times only)
+                    names = ("launch alone", "up to the load", "up to the sweeps",
+                             "up to the defect", "up to the core's store")
+                    for stages, name in enumerate(names[:5 if leg == "down" else 3]):
+                        part = dataclasses.replace(plan, stages=stages).as_ints()
+                        calls[f"{label}, {name}"] = (
+                            (lambda part=part: leg_plan.launch_down("scpn_fine_pre", part,
+                                                                    *down_args))
+                            if leg == "down"
+                            else (lambda part=part: leg_plan.launch_up("scpn_fine_post", part,
+                                                                       *up_args)))
+                calls[label] = call
+                warps = plan.threads // 32
+                print(f"{n}^2 ({pre},{post}) {label}: halo {plan.halo}, bands {plan.n_seg} x "
+                      f"{plan.seg_len} rows, {plan.threads} threads, {plan.smem_bytes} B shared; "
+                      f"{occ['ctas_per_sm']} CTAs an SM, {occ['resident']} resident, grid "
+                      f"{occ['grid']} = {occ['waves']:.2f} waves, {occ['grid'] * warps / 132:.1f} "
+                      f"warps an SM; equal to the staged route {same}")
+        for label, ts in device_us_in_turns(calls, turns).items():
+            print(f"{n}^2 ({pre},{post}) {label}: device {statistics.median(ts):.3f} us a call "
                   f"(median of {turns} in turns; min {min(ts):.3f}, max {max(ts):.3f}) [{card}]")
 
 
 def profile_kernel_calls(card: str) -> None:
     """Device launches and device time of one call of each one-launch kernel
-    and of its predecessor, and of one ``sor_sweeps`` call."""
+    and of its predecessor (new and earlier one after the other, case by
+    case), and of one ``sor_sweeps`` call."""
     import numpy as np
     import torch
     from scpn_fusion_tpu_torch.core.grid import Grid
@@ -209,6 +310,18 @@ def profile_kernel_calls(card: str) -> None:
                           lambda fn=fn_down, a=down, k=pre: fn(*a, pre_smooth=k)))
             cases.append((f"tiled_prolong_smooth {n}^2 post={post} {label}",
                           lambda fn=fn_up, a=up, k=post: fn(*a, post_smooth=k)))
+    g = Grid.from_bounds(513, 513, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+    psi, src, e_c = rand(513, 513), rand(513, 513), coarse_error(rand, 513)
+    down = (psi, src, g.R, g.dR, g.dZ, 1.0)
+    up = (psi, src, e_c, g.R, g.dR, g.dZ, 1.0)
+    for pre, post in ((1, 2), (3, 3)):
+        for label, fn_down, fn_up in (
+                ("one launch", cuda_mg.fine_presmooth_restrict, cuda_mg.fine_prolong_smooth),
+                ("staged", cuda_mg._presmooth_restrict_launch, cuda_mg._prolong_smooth_launch)):
+            cases.append((f"fine_presmooth_restrict 513^2 pre={pre} {label}",
+                          lambda fn=fn_down, a=down, k=pre: fn(*a, pre_smooth=k)))
+            cases.append((f"fine_prolong_smooth 513^2 post={post} {label}",
+                          lambda fn=fn_up, a=up, k=post: fn(*a, post_smooth=k)))
     g = Grid.from_bounds(129, 129, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
     sor_args = (rand(129, 129), rand(129, 129), g.R, g.dR, g.dZ, 1.9, 50)
     cases.append(("sor_sweeps 129^2 n=50 omega=1.9",
@@ -242,8 +355,14 @@ def main() -> int:
     group.add_argument("--tiled", action="store_true",
                        help="plan, occupancy, identity and device time in turns of the "
                             "tiled legs and their predecessors")
+    group.add_argument("--fine", action="store_true",
+                       help="plan, occupancy, identity and device time in turns of the "
+                            "one-launch fine legs, the staged route and the tiled legs at 513^2")
     parser.add_argument("--tiles", default="",
-                        help="with --tiled: other tile shapes to time, as ROWSxCOLS,...")
+                        help="with --tiled or --fine: other tile shapes to time, as "
+                             "ROWSxCOLS,...")
+    parser.add_argument("--bands", default="",
+                        help="with --fine: other band lengths (rows a thread) to time, as N,...")
     opts = parser.parse_args()
     mixed = opts.mixed
     import torch
@@ -258,9 +377,12 @@ def main() -> int:
     if opts.kernels:
         profile_kernel_calls(card)
         return 0
+    tiles = [tuple(int(v) for v in item.split("x")) for item in opts.tiles.split(",") if item]
     if opts.tiled:
-        tiles = [tuple(int(v) for v in item.split("x")) for item in opts.tiles.split(",") if item]
         profile_tiled_legs(card, tiles)
+        return 0
+    if opts.fine:
+        profile_fine_legs(card, tiles, [int(v) for v in opts.bands.split(",") if v])
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium_fmg
