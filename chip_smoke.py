@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths through the hand-written CUDA kernels and
+Drives the port's four paths through the hand-written CUDA kernels and
 checks them:
 
 * the converged 129^2 -> 257^2 -> 513^2 FMG Anderson-multigrid Picard solve
@@ -12,8 +12,12 @@ checks them:
   iterate, f32 V-cycle defect correction), which runs kernels 2-7, the tiled
   1025^2+ legs (kernels 6 and 7) included;
 * the ``anderson`` solver method (inner SOR sweeps, no multigrid) on the same
-  machine at 129^2: the path that launches kernel 1, ``sor_sweeps``, now that
-  the coarsest solve of every V-cycle runs inside the one-launch V-cycle.
+  machine at 129^2: 50 sweeps of kernel 1, ``sor_sweeps``, an iteration;
+* the rectangular solve: the DIII-D-like machine on the tall 257 x 129 grid
+  (``bench_config.rect_config``), not a square 2^k+1, so every level of its
+  V-cycle (257 x 129 down to 17 x 9 at (1,2) smoothing, 50 sweeps at 9 x 5)
+  smooths through ``sor_sweeps`` and every iteration runs the source kernel
+  on the 257 x 129 grid: kernels 1 and 2.
 
 Phases:
 
@@ -21,16 +25,19 @@ Phases:
    limit (``nvidia-smi``);
 2. builds the kernels from ``scpn_fusion_tpu_torch/csrc`` with ``nvcc``;
 3. holds every kernel against its plain PyTorch version on the card, in
-   float32 on numpy-seeded inputs at the paths' shapes (``sor_sweeps`` at the
-   ``anderson`` path's 129^2, at a 5^2 coarsest solve and at 513^2; the tiled
+   float32 on numpy-seeded inputs at the paths' shapes (``sor_sweeps`` on
+   each of its routes: the paths' levels and counts, a ragged level and the
+   sizes where a route stops; the source also at 2049^2, 4097^2 and on the
+   rectangular grid, with its cooperative grid beside the resident limit; the tiled
    legs at 1025^2, 2049^2, 4097^2, a ragged 129^2 tiling and 513^2, and
    against the fine legs at 513^2 and 1025^2; the fine legs at 513^2 with
    (1,2) and (3,3) smoothing, at 1025^2, on a rectangular and on a ragged
-   level).  The one-launch V-cycle, the one-launch source, the fine legs and
-   the tiled legs must also equal their predecessors (one launch per
-   dependent stage; three launches; three and five launches; the first
-   design of the tiled kernels) bit for bit, and make one ``__global__``
-   launch a call;
+   level).  ``sor_sweeps``, the one-launch V-cycle, the one-launch source,
+   the fine legs and the tiled legs must also equal their predecessors (one
+   launch a half-sweep after a copy; one launch per dependent stage; three
+   launches; three and five launches; the first design of the tiled
+   kernels) bit for bit, and make one ``__global__`` launch a call
+   (``sor_sweeps``: 2 n on its staged route D);
 4. runs the 513^2 FMG cascade with the kernels (counters reset just before
    and read just after: every wrapper must have been called as often as the
    cascade's Picard iterations say), against the same cascade with the
@@ -41,12 +48,17 @@ Phases:
    with the first design of the tiled legs (all bit-identical) and with plain
    ops, and counts one 2049^2 V-cycle;
 6. runs the ``anderson`` 129^2 solve with the kernels (counters likewise)
-   against the same solve with plain ops;
-7. times each kernel beside its plain version at a shape its path gives it
+   against the same solve with plain ops and through the staged
+   ``sor_sweeps`` (bit-identical);
+7. runs the rectangular 257 x 129 solve with the kernels (counters likewise:
+   11 ``sor_sweeps`` calls a V-cycle, one launch each) against the same solve
+   with plain ops and through the staged ``sor_sweeps`` (bit-identical);
+8. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
-   their predecessors, and as 50 calls back to back), the cascades with
-   kernels, with their predecessors and with plain ops (CUDA
+   their predecessors, and as 50 calls back to back; ``sor_sweeps`` at each
+   route's shape), the cascades and solves with kernels, with their
+   predecessors and with plain ops (CUDA
    events, one warm-up, median of 5; 2 for the plain 2049^2 cascade), and
    computes each kernel's bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, whichever is larger, at the timed shape).
@@ -55,7 +67,7 @@ Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade (the path that runs six
-of the seven; ``sor_sweeps`` over the ``anderson`` solve).
+of the seven; ``sor_sweeps`` over the rectangular solve).
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +98,16 @@ F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # the wide-pitch instantiation
 FINE_SHAPES = ((513, 513, 1, (2, 0)), (513, 513, 3, (3,)), (1025, 1025, 1, (2,)),
                (257, 385, 1, (2,)), (300, 700, 2, (1, 0)), (513, 513, 4, (5,)))
+# (rows, columns, sweeps) at which sor_sweeps is checked: the coarsest levels
+# of square and rectangular V-cycles, the rectangular V-cycle's 17 x 9 and
+# 257 x 129 levels, the anderson path's 129^2 and the default sor method's
+# single sweep there, a ragged level, and the sizes where routes A and B stop
+# (65^2 and 257^2 at 50 sweeps, 513^2 at 3 and 50)
+SOR_SHAPES = ((5, 5, 50), (9, 5, 50), (17, 9, 1), (65, 65, 50), (129, 129, 1), (129, 129, 2),
+              (129, 129, 50), (257, 129, 1), (257, 129, 2), (257, 257, 50), (300, 700, 2),
+              (513, 513, 3), (513, 513, 50))
+# (rows, columns, label) at which the source kernel is also checked, L-mode
+SOURCE_SHAPES = ((2049, 2049, "2049^2"), (4097, 4097, "4097^2"), (257, 129, "257x129"))
 # (level, pre, posts, t_rows) at which the tiled legs are checked
 TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), None),
                 (129, 3, (0, 3), 24), (513, 1, (2,), None))
@@ -92,7 +115,7 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth")
 SOURCES = {
-    "sor_sweeps": ("csrc/rb_sweep.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
+    "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
     "fine_presmooth_restrict": ("csrc/fine_legs.cu", "scpn_fusion_tpu/ops/pallas_mg.py:272"),
     "fine_prolong_smooth": ("csrc/fine_legs.cu", "scpn_fusion_tpu/ops/pallas_mg.py:299"),
@@ -179,6 +202,24 @@ def back_to_back_ms(fn, calls: int = 50) -> float:
 # red-black update, 9 a defect, 11 a full weighting (per coarse point), 2 a
 # prolongation, 28 the source (|grad psi|, profiles, Ip sum and scale).
 
+def sor_work(nz: int, nr: int, sweeps: int) -> tuple[float, float]:
+    """psi, src, R in and psi out; 11 flops an interior point a sweep."""
+    return 4.0 * (3 * nz * nr + nr), 11.0 * (nz - 2) * (nr - 2) * sweeps
+
+
+def ptxas_registers(log: str) -> dict[str, str]:
+    """``ptxas`` lines of a source's build, by mangled kernel name: registers
+    and spills of each instantiation."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            found[name] = (found.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return found
+
+
 def leg_work(n: int, sweeps: int, leg: str) -> tuple[float, float]:
     nc = (n + 1) // 2
     inner, inner_c = (n - 2) ** 2, (nc - 2) ** 2
@@ -226,7 +267,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
 
-    from scpn_fusion_tpu_torch.bench_config import BENCH_SOLVER, bench_config, config_dict
+    from scpn_fusion_tpu_torch.bench_config import (
+        BENCH_SOLVER, bench_config, config_dict, rect_config,
+    )
     from scpn_fusion_tpu_torch.core.config import config_from_dict
     from scpn_fusion_tpu_torch.core.grid import Grid
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
@@ -237,7 +280,7 @@ def main() -> int:
     )
     from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
-    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_mg_tiled, cuda_source, cuda_stencil
+    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_mg_tiled, cuda_source, cuda_stencil, leg_plan
     from scpn_fusion_tpu_torch.ops.cuda_mg import level_plan
     from scpn_fusion_tpu_torch.ops.multigrid import _vcycle_impl
 
@@ -266,8 +309,8 @@ def main() -> int:
     cb.library()
     print(f"build: {time.perf_counter() - t_phase:.2f} s (one nvcc per source, "
           f"{' '.join(cb.NVCC_FLAGS)})")
-    for source in ("fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu", "vcycle_fused.cu",
-                   "source.cu"):
+    for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
+                   "vcycle_fused.cu", "source.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -343,36 +386,62 @@ def main() -> int:
     timing = {}     # name -> (kernel call, plain call, shape, work) at the path's shape
     extra_times = []    # (label, (name, call), (name, call), work or None): printed only
     staged = {}     # name -> the predecessor's call at the timed shape
+    turn_times = []     # (label, new call, earlier call, work): timed in turns, printed only
 
-    # sor_sweeps at the shape its path gives it: the ``anderson`` solve's
-    # inner sweeps at 129^2 (50 sweeps, omega 1.9, the half-sweep kernel); at
-    # a 5^2 level with 50 sweeps (the single-block shared-memory kernel); and
-    # at 513^2, n = 3 (the half-sweep kernel that the fine legs share).
-    _, r257, dr257, dz257 = level(257)
-    _, r129, dr129, dz129 = level(129)
-    n_c = level_plan(257, 5)[-1]
-    step = (257 - 1) // (n_c - 1)
-    r_c, dr_c, dz_c = r257[::step], dr257 * step, dz257 * step
-    for what, args in (
-            (f"129^2 n={SOR_SWEEPS} omega={SOR_OMEGA}",
-             (rand(129, 129), rand(129, 129), r129, dr129, dz129, SOR_OMEGA, SOR_SWEEPS)),
-            (f"{n_c}^2 n=50",
-             (torch.zeros(n_c, n_c, device=dev), rand_coarse(2 * n_c - 1), r_c, dr_c, dz_c,
-              1.0, 50)),
-            ("513^2 n=3", (psi, src, r513, dr513, dz513, 1.0, 3))):
+    # sor_sweeps on each route (A: one CTA holds the level; B: tiles; D: the
+    # staged half-sweeps without the copy): against the plain version and, bit
+    # for bit, against the staged route it replaced (a copy, then a launch a
+    # half-sweep); launches a call as the plan says
+    sor_regs = ptxas_registers(cb.BUILD_LOG.get("sor_band.cu", ""))
+    for nz, nr, n in SOR_SHAPES:
+        g_n = Grid.from_bounds(nr, nz, 0.9, 2.6, -1.5, 1.5, dtype=torch.float32, device=dev)
+        omega = SOR_OMEGA if n == SOR_SWEEPS else 1.0
+        args = (rand(nz, nr), rand(nz, nr), g_n.R, g_n.dR, g_n.dZ, omega, n)
+        what = f"{nz}x{nr} n={n} omega={omega}"
+        plan = leg_plan.sor_launch_plan(nz, nr, n)
+        cb.reset_launch_counts()
         out_k = cuda_stencil.sor_sweeps(*args)
+        made = cb.kernel_launches()
         out_p = cuda_stencil.sor_sweeps_plain(*args)
+        out_s = cuda_stencil._sor_sweeps_staged(*args)
         torch.cuda.synchronize()
         record("sor_sweeps", span_rel(out_k, out_p), SPAN_TOL, what)
         abs_err("sor_sweeps", out_k, out_p)
         require(ring_equal(out_k, args[0]), f"sor_sweeps changed the Dirichlet ring at {what}")
+        require(torch.equal(out_k, out_s), f"sor_sweeps differs from the staged route at {what}")
+        require(made == plan.launches, f"sor_sweeps made {made} launches at {what}, its route "
+                                       f"{plan.route} {plan.launches}")
+        detail = ""
+        if plan.launch is not None:
+            lp = plan.launch
+            occ = leg_plan.launch_occupancy("scpn_sor_ctas_per_sm", lp)
+            require(occ["ctas_per_sm"] >= 1, f"the sor_sweeps block does not fit an SM at {what}")
+            key = f"ILi{lp.seg_len}ELi{leg_plan.SOR_VARIANTS[lp.variant][1]}E"
+            regs = [v for name, v in sor_regs.items() if key in name]
+            detail = (f": tile {lp.tile_rows}x{lp.tile_cols}, halo {lp.halo}, {lp.n_seg} bands "
+                      f"of {lp.seg_len} rows, {lp.threads} threads, {lp.smem_bytes} B shared; "
+                      f"{occ['ctas_per_sm']} CTAs an SM, grid {occ['grid']}; ptxas "
+                      f"{regs[0] if regs else '(no line)'}")
+        print(f"  sor_sweeps {what}: route {plan.route}, {made} launch(es){detail}; equal to "
+              f"the staged route")
         kernel = lambda a=args: cuda_stencil.sor_sweeps(*a)   # noqa: E731
-        plain = lambda a=args: cuda_stencil.sor_sweeps_plain(*a)   # noqa: E731
-        work = leg_work(args[0].shape[0], args[-1], "sweeps")
-        if args[0].shape[0] == 129:
-            timing["sor_sweeps"] = (kernel, plain, what, work)
+        staged_call = lambda a=args: cuda_stencil._sor_sweeps_staged(*a)   # noqa: E731
+        work = sor_work(nz, nr, n)
+        if (nz, nr, n) == (129, 129, SOR_SWEEPS):
+            timing["sor_sweeps"] = (kernel, lambda a=args: cuda_stencil.sor_sweeps_plain(*a),
+                                    what, work)
+            staged["sor_sweeps"] = staged_call
+        elif (nz, nr, n) in ((257, 129, 2), (9, 5, 50), (513, 513, 50)):
+            turn_times.append((f"sor_sweeps {what} (route {plan.route})", kernel, staged_call,
+                               work))
+    for bad in ((2, 9, 1), (9, 2, 1)):
+        try:
+            cuda_stencil.sor_sweeps(rand(bad[0], bad[1]), rand(bad[0], bad[1]),
+                                    torch.ones(bad[1], device=dev), 0.1, 0.1, 1.0, bad[2])
+        except ValueError as exc:
+            print(f"  sor_sweeps {bad[0]}x{bad[1]} raises: {exc}")
         else:
-            extra_times.append((f"sor_sweeps {what}", ("kernel", kernel), ("plain", plain), work))
+            raise AssertionError(f"sor_sweeps took a {bad[0]}x{bad[1]} level")
 
     # fused topology + source: 513^2 in L and H mode, 1025^2 (the cascade's
     # own 1025^2 level runs the kernel) in L mode; against the plain version
@@ -382,14 +451,28 @@ def main() -> int:
     ff_c = ProfileCoeffs(*torch.tensor(vals[4:], dtype=torch.float32, device=dev).unbind())
     i_t = torch.full((), 15.0, dtype=torch.float32, device=dev)
     packed = cuda_source.pack_source_params(p_c, ff_c, i_t)
-    for n, modes in ((513, (False, True)), (1025, (False,))):
-        g_n, r_n, dr_n, dz_n = level(n)
+    source_shapes = ((513, 513, "513^2", (False, True)), (1025, 1025, "1025^2", (False,)),
+                     *((nz, nr, tag, (False,)) for nz, nr, tag in SOURCE_SHAPES))
+    for nz, nr, tag, modes in source_shapes:
+        if nz == nr:
+            g_n, r_n, dr_n, dz_n = level(nz)
+            centre, width = (6.0, 0.0), 2.0
+        else:       # the rectangular path's grid
+            g_n = Grid.from_bounds(nr, nz, 0.9, 2.6, -1.5, 1.5, dtype=torch.float32, device=dev)
+            r_n, dr_n, dz_n = g_n.R, g_n.dR, g_n.dZ
+            centre, width = (1.75, 0.0), 0.5
         rr, zz = g_n.RR, g_n.ZZ
-        blob = torch.exp(-(((rr - 6.0) / 2.0) ** 2 + (zz / 2.0) ** 2))
-        psi_src = 3.0 * blob + 0.01 * rand(n, n)
-        psi_other = 2.0 * torch.exp(-(((rr - 5.0) / 1.5) ** 2 + ((zz - 0.5) / 2.5) ** 2)) \
-            + 0.01 * rand(n, n)
+        blob = torch.exp(-(((rr - centre[0]) / width) ** 2 + (zz / width) ** 2))
+        psi_src = 3.0 * blob + 0.01 * rand(nz, nr)
+        psi_other = 2.0 * torch.exp(-(((rr - centre[0] + 0.5 * width) / (0.75 * width)) ** 2
+                                      + ((zz - 0.25 * width) / (1.25 * width)) ** 2)) \
+            + 0.01 * rand(nz, nr)
         mask = (zz < g_n.Z_min * 0.5).to(torch.float32).contiguous()
+        blocks = cb.source_blocks(nz * nr)
+        print(f"  fused source {tag}: {blocks} blocks in one cooperative launch; the device "
+              f"holds {resident} at once")
+        require(blocks <= resident, f"the fused source's {blocks} blocks at {tag} are not all "
+                                    f"resident ({resident})")
         for h_mode in modes:
             kw = dict(d_r=dr_n, d_z=dz_n, mu0=1.0, h_mode=h_mode, with_scalars=True)
             mode = "H" if h_mode else "L"
@@ -402,15 +485,14 @@ def main() -> int:
             s_s, sc_s = cuda_source._fused_topology_source_staged(psi_src, r_n, mask, p_c, ff_c,
                                                                   i_t, **kw)
             torch.cuda.synchronize()
-            record("fused_topology_source", span_rel(s_k, s_p), SPAN_TOL,
-                   f"{n}^2 {mode}-mode")
+            record("fused_topology_source", span_rel(s_k, s_p), SPAN_TOL, f"{tag} {mode}-mode")
             abs_err("fused_topology_source", s_k, s_p)
             if int(sc_k.x_index) != int(sc_p.x_index):
                 raise AssertionError(f"X-point index {int(sc_k.x_index)} != {int(sc_p.x_index)}")
             if not torch.equal(sc_k.psi_axis, sc_p.psi_axis):
                 raise AssertionError("psi_axis differs between kernel and plain version")
             require(torch.equal(s_k, s_s) and all(torch.equal(a, b) for a, b in zip(sc_k, sc_s)),
-                    f"one-launch source differs from the three-launch entry at {n}^2 {mode}-mode")
+                    f"one-launch source differs from the three-launch entry at {tag} {mode}-mode")
             # another psi through the same cached workspace, then the first
             # again (given as the three arguments, packed on the fly): the
             # workspace carries nothing from call to call
@@ -421,7 +503,7 @@ def main() -> int:
                                                           **kw)
             torch.cuda.synchronize()
             record("fused_topology_source", span_rel(o_k, o_p), SPAN_TOL,
-                   f"{n}^2 {mode}-mode, second psi on the same workspace")
+                   f"{tag} {mode}-mode, second psi on the same workspace")
             require(int(oc_k.x_index) == int(oc_p.x_index)
                     and torch.equal(oc_k.psi_axis, oc_p.psi_axis),
                     "second call on the same workspace: X-point or psi_axis differ from plain")
@@ -431,7 +513,8 @@ def main() -> int:
                   f"{float(sc_k.psi_axis)!r} (same), psi_b {float(sc_k.psi_boundary)!r} vs "
                   f"{float(sc_p.psi_boundary)!r}, I_current {float(sc_k.i_current)!r} vs "
                   f"{float(sc_p.i_current)!r}; equal to the three-launch entry; one launch")
-        if n == 513:
+        if tag == "513^2":
+            n = nz
             src_args = (psi_src, r_n, mask)
             src_kw = dict(d_r=dr_n, d_z=dz_n, mu0=1.0, h_mode=False)
             timing["fused_topology_source"] = (
@@ -557,7 +640,6 @@ def main() -> int:
     # 513^2 (1, 2); against the plain version and, bit for bit, against the
     # first design of the kernels; one launch a call
     versus_fine = {}
-    turn_times = []     # (label, new call, earlier call, work): timed in turns, printed only
     for n, pre, posts, t_rows in TILED_SHAPES:
         _, r_n, dr_n, dz_n = level(n)
         psi_n, src_n, e_n = rand(n, n), rand(n, n), rand_coarse(n)
@@ -709,6 +791,18 @@ def main() -> int:
             cuda_mg.fine_presmooth_restrict, cuda_mg.fine_prolong_smooth = saved
 
     @contextlib.contextmanager
+    def staged_sor():
+        """Run the solvers' ``sor_sweeps`` calls through the staged route (a
+        copy, then one launch a half-sweep; the solvers and ``multigrid.smooth``
+        look the wrapper up in its module)."""
+        saved = cuda_stencil.sor_sweeps
+        cuda_stencil.sor_sweeps = cuda_stencil._sor_sweeps_staged
+        try:
+            yield
+        finally:
+            cuda_stencil.sor_sweeps = saved
+
+    @contextlib.contextmanager
     def first_design_tiled_legs():
         """Run the solvers' tiled levels through the first design of the
         tiled kernels (``_vcycle_impl`` looks the legs up in their module)."""
@@ -816,7 +910,7 @@ def main() -> int:
         raise AssertionError(f"513^2 V-cycle did not take the fine route: {dict(cb.CALLS)}")
     phase_done("513^2 slice")
 
-    # ── 5. this slice: FMG 129 -> ... -> 1025 (f32) -> 2049 mixed on the card ──
+    # ── 5. the second slice: FMG 129 -> ... -> 1025 (f32) -> 2049 mixed on the card ──
     cfg2_k = bench_config(2049, use_pallas=True, gs_residual_threshold=GS_TOL)
     cfg2_p = bench_config(2049, use_pallas=False, gs_residual_threshold=GS_TOL)
     base_bytes = torch.cuda.memory_allocated()
@@ -932,7 +1026,7 @@ def main() -> int:
         raise AssertionError(f"2049^2 V-cycle made {dict(cb.LAUNCHES)}: not one fused launch")
     phase_done("2049^2 mixed slice")
 
-    # ── 6. the path that launches sor_sweeps: the anderson solver at 129^2 ──
+    # ── 6. the anderson solver at 129^2: 50 sweeps of sor_sweeps an iteration ──
     def sor_cfg(use_pallas):
         return config_from_dict(config_dict(
             129, **{**BENCH_SOLVER, "solver_method": "anderson", "inner_sweeps": SOR_SWEEPS,
@@ -942,34 +1036,82 @@ def main() -> int:
     res3_k = solve_equilibrium(sor_cfg(True), dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     launches_sor = {name: cb.CALLS[name] for name in KERNELS}
+    launches3 = dict(cb.LAUNCHES)
     res3_p = solve_equilibrium(sor_cfg(False), dtype=torch.float32, device=dev)
+    with staged_sor():
+        res3_s = solve_equilibrium(sor_cfg(True), dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     dev3 = span_rel(res3_k.psi, res3_p.psi)
     print(f"anderson 129^2 solve ({SOR_SWEEPS} inner SOR sweeps, omega {SOR_OMEGA}): kernels "
           f"converged {res3_k.converged} in {res3_k.iterations}, plain converged "
           f"{res3_p.converged} in {res3_p.iterations}, psi span-rel {dev3:.3e} "
           f"(limit {SLICE_TOL:.0e}); wrapper calls {launches_sor}, __global__ launches "
-          f"{dict(cb.LAUNCHES)}")
+          f"{launches3}; through the staged sor_sweeps {res3_s.iterations} iterations, psi "
+          f"equal {torch.equal(res3_s.psi, res3_k.psi)}")
     if not (res3_k.converged and res3_p.converged):
         raise AssertionError("an anderson 129^2 solve did not converge")
     if abs(res3_k.iterations - res3_p.iterations) > 1:
         raise AssertionError("anderson 129^2 iteration counts differ by more than 1")
     if not dev3 <= SLICE_TOL or not bool(torch.isfinite(res3_k.psi).all()):
         raise AssertionError("the anderson 129^2 kernel solve deviates from the plain solve")
+    if res3_s.iterations != res3_k.iterations or not torch.equal(res3_s.psi, res3_k.psi):
+        raise AssertionError("the anderson 129^2 solve differs through the staged sor_sweeps")
     expected3 = {name: 0 for name in KERNELS}
     expected3.update(sor_sweeps=res3_k.iterations, fused_topology_source=res3_k.iterations)
     if launches_sor != expected3:
         raise AssertionError(f"wrapper calls {launches_sor} != expected {expected3}")
-    if cb.LAUNCHES["scpn_rb_half_sweep"] != 2 * SOR_SWEEPS * res3_k.iterations:
-        raise AssertionError(f"anderson solve made {dict(cb.LAUNCHES)}")
+    if launches3 != {"scpn_sor_band": res3_k.iterations, "scpn_fused_source": res3_k.iterations}:
+        raise AssertionError(f"anderson solve made {launches3}: not one launch a sor_sweeps call")
+    phase_done("anderson 129^2 slice")
+
+    # ── 7. this slice: the rectangular 257 x 129 solve on the card ──
+    cfg4_k, cfg4_p = rect_config(use_pallas=True), rect_config(use_pallas=False)
+    cb.reset_launch_counts()
+    res4_k = solve_equilibrium(cfg4_k, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    launches_rect = {name: cb.CALLS[name] for name in KERNELS}
+    launches4 = dict(cb.LAUNCHES)
+    res4_p = solve_equilibrium(cfg4_p, dtype=torch.float32, device=dev)
+    cb.reset_launch_counts()
+    with staged_sor():
+        res4_s = solve_equilibrium(cfg4_k, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    staged4 = dict(cb.LAUNCHES)
+    dev4 = span_rel(res4_k.psi, res4_p.psi)
+    it4 = res4_k.iterations
+    print(f"rectangular {cfg4_k.grid_resolution[1]}x{cfg4_k.grid_resolution[0]} solve: kernels "
+          f"converged {res4_k.converged} in {it4}, plain f32 converged {res4_p.converged} in "
+          f"{res4_p.iterations}, psi span-rel {dev4:.3e} (limit {SLICE_TOL:.0e}); wrapper calls "
+          f"{launches_rect}, __global__ launches {launches4}; through the staged sor_sweeps "
+          f"{res4_s.iterations} iterations, psi equal {torch.equal(res4_s.psi, res4_k.psi)}, "
+          f"launches {staged4}")
+    if tuple(res4_k.psi.shape) != (257, 129) or not bool(torch.isfinite(res4_k.psi).all()):
+        raise AssertionError("the rectangular solve's psi is not a finite 257x129 field")
+    if not (res4_k.converged and res4_p.converged):
+        raise AssertionError("a rectangular solve did not converge")
+    if abs(it4 - res4_p.iterations) > 1:
+        raise AssertionError("rectangular iteration counts differ by more than 1")
+    if not dev4 <= SLICE_TOL:
+        raise AssertionError("the rectangular kernel solve deviates from the plain solve")
+    # One V-cycle an iteration: levels 257x129, 129x65, 65x33, 33x17, 17x9 at
+    # one pre- and one post-smoothing call each, and the 9x5 coarsest solve.
+    expected4 = {name: 0 for name in KERNELS}
+    expected4.update(sor_sweeps=11 * it4, fused_topology_source=it4)
+    if launches_rect != expected4:
+        raise AssertionError(f"wrapper calls {launches_rect} != expected {expected4}")
+    if launches4 != {"scpn_sor_band": 11 * it4, "scpn_fused_source": it4}:
+        raise AssertionError(f"the rectangular solve made {launches4}: not one launch a "
+                             "sor_sweeps call")
+    if res4_s.iterations != it4 or not torch.equal(res4_s.psi, res4_k.psi):
+        raise AssertionError("the rectangular solve differs through the staged sor_sweeps")
     # every kernel's launches over the path that runs it
-    launches["sor_sweeps"] = launches_sor["sor_sweeps"]
+    launches["sor_sweeps"] = launches_rect["sor_sweeps"]
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")
-    phase_done("anderson 129^2 slice")
+    phase_done("rectangular slice")
 
-    # ── 7. times (CUDA events, one warm-up, median of 5) and bounds ──
+    # ── 8. times (CUDA events, one warm-up, median of 5) and bounds ──
     kernels = []
     for name in KERNELS:
         fk, fp, shape, work = timing[name]
@@ -1046,11 +1188,22 @@ def main() -> int:
     mix_n, mix_e = cuda_ms_pair(mixed_run, under(first_design_tiled_legs, mixed_run))
     print(f"time mixed FMG 129->...->2049: kernels {mix_n:.3f} ms, with the first design of the "
           f"tiled legs {mix_e:.3f} ms (in turns, median of 5) [{card}]")
-    sor_k = cuda_ms(lambda: solve_equilibrium(sor_cfg(True), dtype=torch.float32, device=dev))
+    def sor_run():
+        solve_equilibrium(sor_cfg(True), dtype=torch.float32, device=dev)
+
+    def rect_run():
+        solve_equilibrium(cfg4_k, dtype=torch.float32, device=dev)
+
+    sor_k, sor_s = cuda_ms_pair(sor_run, under(staged_sor, sor_run))
     sor_p = cuda_ms(lambda: solve_equilibrium(sor_cfg(False), dtype=torch.float32, device=dev),
                     reps=2)
-    print(f"time anderson 129^2 solve: kernels {sor_k:.3f} ms, plain {sor_p:.3f} ms "
-          f"(median of 2) [{card}]")
+    print(f"time anderson 129^2 solve: kernels {sor_k:.3f} ms, with the staged sor_sweeps "
+          f"{sor_s:.3f} ms (in turns, median of 5), plain {sor_p:.3f} ms (median of 2) [{card}]")
+    rect_k, rect_s = cuda_ms_pair(rect_run, under(staged_sor, rect_run))
+    rect_p = cuda_ms(lambda: solve_equilibrium(cfg4_p, dtype=torch.float32, device=dev), reps=2)
+    print(f"time rectangular 257x129 solve: kernels {rect_k:.3f} ms, with the staged sor_sweeps "
+          f"{rect_s:.3f} ms (in turns, median of 5), plain {rect_p:.3f} ms (median of 2) "
+          f"[{card}]")
     phase_done("times")
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
 

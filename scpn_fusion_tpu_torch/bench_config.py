@@ -1,4 +1,5 @@
-"""The bench configuration: the 6-coil ITER-like machine of ``bench.py``.
+"""The bench configurations: the 6-coil ITER-like machine of ``bench.py``
+and the DIII-D-like machine on a rectangular grid.
 
 ``ITER_LIKE`` is the normalised machine (R in (2, 10) m, Z in (-4, 4) m,
 Ip 15, mu0 = 1) in the JSON-shaped layout that ``config_from_dict`` reads,
@@ -9,6 +10,20 @@ multigrid-Picard, depth 4, relaxation 1.0, (1,2) smoothing.  With
 ``validation/run_resolution_scaling.py:97-111, 208``: the same machine and
 solver, converged on the f64 GS residual as well (the 2049^2 mixed-precision
 solve).
+
+``DIII_D_LIKE`` is ``validation/configs/diiid_config.json`` (R in (0.9, 2.6)
+m, Z in (-1.5, 1.5) m, five coils of 58 turns, Ip 1.2, L-mode) normalised as
+``ITER_LIKE`` is (mu0 = 1: with the physical mu0 the flux spans ~1e-4, and an
+absolute 1e-4 update tolerance is met by the first iteration).  Its update
+tolerance is 2e-3: psi spans ~70 here, so the bench's 1e-4 is 1.4e-6 of the
+span, where float32 rounding decides at which iteration the mean update
+crosses it (the kernels and the plain float32 ops then differ by two
+iterations); the mean update falls tenfold an iteration, and 2e-3 lies a
+factor 2 or more from every iteration's in float32 and float64 alike.
+:func:`rect_config` puts it on the tall grid (NR, NZ) = (129, 257), whose
+spacing is nearly isotropic (1.7 m / 128, 3 m / 256), with ``BENCH_SOLVER``:
+a grid that is not a square 2^k+1, so every level of its V-cycle smooths
+through ``sor_sweeps``.
 """
 
 from __future__ import annotations
@@ -43,3 +58,29 @@ def bench_config(n: int = 513, *, use_pallas: bool = True,
     ``gs_residual_threshold`` > 0 adds the GS-residual convergence gate."""
     return config_from_dict(config_dict(n, **BENCH_SOLVER, use_pallas=use_pallas,
                                         gs_residual_threshold=gs_residual_threshold))
+
+
+DIII_D_LIKE: dict[str, Any] = {
+    "reactor_name": "DIII-D-like-normalised",
+    "dimensions": {"R_min": 0.9, "R_max": 2.6, "Z_min": -1.5, "Z_max": 1.5},
+    "coils": [{"name": name, "r": r, "z": z, "current": i, "turns": 58} for name, r, z, i in (
+        ("F1A", 1.0, 1.3, -0.2), ("F2A", 2.2, 1.2, 0.6), ("F3", 2.9, 0.0, 0.9),
+        ("F2B", 2.2, -1.2, 0.6), ("F1B", 1.0, -1.3, -0.2))],
+    "physics": {"plasma_current_target": 1.2, "vacuum_permeability": 1.0,
+                "profiles": {"mode": "l-mode"}},
+    "solver": {"max_iterations": 600, "convergence_threshold": 2e-3},
+}
+RECT_GRID = (129, 257)   # (NR, NZ): psi is 257 x 129
+
+
+def rect_config_dict(grid: tuple[int, int] = RECT_GRID, **solver: Any) -> dict[str, Any]:
+    """``DIII_D_LIKE`` on an (NR, NZ) ``grid`` with ``BENCH_SOLVER``, with
+    ``solver`` fields set."""
+    return {**DIII_D_LIKE, "grid_resolution": list(grid),
+            "solver": {**DIII_D_LIKE["solver"], **BENCH_SOLVER, **solver}}
+
+
+def rect_config(grid: tuple[int, int] = RECT_GRID, *, use_pallas: bool = True) -> ReactorConfig:
+    """The DIII-D-like machine on the rectangular ``grid`` (NR, NZ) with the
+    bench solver; ``use_pallas`` selects the hand-written kernels."""
+    return config_from_dict(rect_config_dict(grid, use_pallas=use_pallas))

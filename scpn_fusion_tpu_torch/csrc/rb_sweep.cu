@@ -1,9 +1,14 @@
-// Red-black SOR sweeps of the toroidal GS* stencil.
+// Red-black SOR sweeps of the toroidal GS* stencil, one launch a half-sweep:
+// the staged route.
 //
-// Replaces: scpn_fusion_tpu/ops/pallas_stencil.py:_sor_kernel (entry
-// sor_sweeps_pallas), and the smoothing stages inside
-// scpn_fusion_tpu/ops/pallas_mg.py:_fused_vcycle_kernel, _fine_pre_kernel and
-// _fine_post_kernel.
+// Replaced by sor_band.cu (one launch a call) as the port of
+// scpn_fusion_tpu/ops/pallas_stencil.py:_sor_kernel (entry sor_sweeps_pallas);
+// kept as the reference the one-launch kernels must equal bit for bit (the
+// smoothing stages of the staged legs and V-cycle, ops/cuda_mg.py), and as
+// route D of ops/cuda_stencil.sor_sweeps: the levels that no one-launch plan
+// takes, 2 * n launches, the first of them (rb_half_sweep_into_kernel)
+// reading psi and writing every point of the output, so that no copy comes
+// first.
 //
 // What bounds it on an H100: a half-sweep reads psi (5 points, mostly from
 // L1/L2), src and the R row and writes psi once per updated point, about
@@ -36,6 +41,26 @@ __global__ void rb_half_sweep_kernel(float* psi, const float* __restrict__ src,
   scpn::stencil_ew(r, r_stride, j, inv_dr2, dr, a_e, a_w);
   const int idx = i * nr + j;
   psi[idx] = scpn::rb_update(psi, src, idx, nr, a_e, a_w, a_ns, inv_ac, omega);
+}
+
+// The first half-sweep of route D: out = psi with the points of `parity`
+// updated (psi is not written).
+__global__ void rb_half_sweep_into_kernel(const float* __restrict__ psi, float* __restrict__ out,
+                                          const float* __restrict__ src,
+                                          const float* __restrict__ r, int r_stride, int nz,
+                                          int nr, float inv_dr2, float dr, float a_ns,
+                                          float inv_ac, float omega, int parity) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= nz || j >= nr) return;
+  const int idx = i * nr + j;
+  if (i < 1 || i > nz - 2 || j < 1 || j > nr - 2 || ((i + j) & 1) != parity) {
+    out[idx] = psi[idx];
+    return;
+  }
+  float a_e, a_w;
+  scpn::stencil_ew(r, r_stride, j, inv_dr2, dr, a_e, a_w);
+  out[idx] = scpn::rb_update(psi, src, idx, nr, a_e, a_w, a_ns, inv_ac, omega);
 }
 
 __global__ void rb_sweeps_smem_kernel(float* psi, const float* __restrict__ src,
@@ -81,6 +106,18 @@ extern "C" int scpn_rb_half_sweep(void* psi, const void* src, const void* r, int
   rb_half_sweep_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(psi), static_cast<const float*>(src), static_cast<const float*>(r),
       r_stride, nz, nr, inv_dr2, dr, a_ns, inv_ac, omega, parity);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int scpn_rb_half_sweep_into(const void* psi, void* out, const void* src,
+                                       const void* r, int r_stride, int nz, int nr,
+                                       float inv_dr2, float dr, float a_ns, float inv_ac,
+                                       float omega, int parity, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((nr + block.x - 1) / block.x, (nz + block.y - 1) / block.y);
+  rb_half_sweep_into_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(psi), static_cast<float*>(out), static_cast<const float*>(src),
+      static_cast<const float*>(r), r_stride, nz, nr, inv_dr2, dr, a_ns, inv_ac, omega, parity);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,23 +1,25 @@
 // One V-cycle leg of a fine level in one launch: every stage of the leg in
-// shared memory and registers, one CTA an output tile.  The code of the two
-// leg kernels, shared by the sources that instantiate it for their levels:
-// tiled_legs.cu (1025^2 .. 4097^2, grids of many waves) and fine_legs.cu (up
-// to 513^2, a grid that fills the card about once).  Before including this
-// header a source defines
+// shared memory and registers, one CTA an output tile.  The code of the leg
+// kernels, shared by the sources that instantiate it for their levels:
+// tiled_legs.cu (1025^2 .. 4097^2, grids of many waves), fine_legs.cu (up to
+// 513^2, a grid that fills the card about once) and sor_band.cu (red-black
+// sweeps alone, on any level).  Before including this header a source defines
 //
-//   SCPN_PRE_KERNEL, SCPN_POST_KERNEL   the names of its two __global__ kernels
+//   SCPN_PRE_KERNEL, SCPN_POST_KERNEL   the names of its two leg kernels, or
+//   SCPN_SWEEP_KERNEL                   the name of its sweeps-only kernel
 //   SCPN_LEG_VARIANTS(RUN, ...)         its instantiations: a switch over
 //       `variant` whose cases return RUN<L, P, MAXT, MINB>(__VA_ARGS__): band
 //       length, slab pitch, most threads a CTA, CTAs an SM the registers allow
 //
-// and gets entry_pre / entry_post / entry_ctas_per_sm to forward its C
-// entries to.  The launch plan (tile, halo, bands, variant, threads, shared
-// memory) is made in Python, where the CPU tests reach it.
+// and gets entry_pre / entry_post (or entry_sweep) and entry_ctas_per_sm to
+// forward its C entries to.  The launch plan (tile, halo, bands, variant,
+// threads, shared memory) is made in Python, where the CPU tests reach it.
 //
 // The down leg is `pre` red-black SOR sweeps, the defect s - L[psi] and its
 // 9-point full weighting (compact, zero ring); the up leg the bilinear
 // prolongation of the compact coarse error, the correction on the interior
-// and `post` sweeps.
+// and `post` sweeps; the sweeps-only kernel the up leg without the
+// prolongation.
 //
 // * Tiles.  One CTA per TH x TW output tile, tile origin k * TH (even).  The
 //   last tile of each direction also takes the grid's last row or column
@@ -61,6 +63,11 @@
 //   the up leg H >= 2 * post.  Parity and the interior mask come from GLOBAL
 //   indices; Dirichlet rows and columns are never updated; points outside
 //   the grid load as zero and are never read by an update that counts.
+// * One tile for the whole level.  A tile that covers the level (one CTA)
+//   needs no halo for its sweeps: every region above is clipped to the
+//   level's interior, so every half-sweep updates the whole interior and the
+//   CTA may run any number of sweeps, __syncthreads() apart.  Its halo is 2,
+//   so that the slab holds the level's last row and column.
 // * The defect once a point.  Each thread turns its registers into defects,
 //   written over the source in shared memory (zero off the interior); the
 //   full weighting of a coarse point then reads nine words, not seventy.
@@ -210,6 +217,27 @@ __device__ __forceinline__ void half_sweep(const LegArgs& a, const Column& c, fl
   }
 }
 
+// The first stage of the down leg and of the sweeps-only kernel: the
+// thread's bands of psi and src into shared memory, the column's
+// coefficients, and psi back into its registers with the skew.
+template <int L, int P>
+__device__ __forceinline__ void load_slab(const LegArgs& a, const Tile& t, Column& c,
+                                          const float* __restrict__ psi,
+                                          const float* __restrict__ src,
+                                          const float* __restrict__ r, float* p, float* s,
+                                          float (&q)[L]) {
+  {
+    float v[L];
+    load_band<L>(a, t, c, psi, q);
+    load_band<L>(a, t, c, src, v);
+    set_coefficients(a, c, r);
+    store_band<L, P>(c, p, q);
+    store_band<L, P>(c, s, v);
+  }
+  __syncthreads();
+  fill_registers<L, P>(c, p, q);
+}
+
 // n_sweeps red-black sweeps, each half-sweep over the core grown by what the
 // half-sweeps after it (and `extra` more rings) still need.
 template <int L, int P>
@@ -245,6 +273,7 @@ __device__ __forceinline__ void store_core(const LegArgs& a, const Tile& t, cons
   }
 }
 
+#ifdef SCPN_PRE_KERNEL
 template <int L, int P, int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB) SCPN_PRE_KERNEL(
     const LegArgs a, const float* __restrict__ psi, const float* __restrict__ src,
@@ -256,16 +285,7 @@ __global__ void __launch_bounds__(MAXT, MINB) SCPN_PRE_KERNEL(
   float* s = p + field_rows<L>(a) * P;
   Column c = make_column<L, P>(a, t);
   float q[L];
-  {
-    float v[L];
-    load_band<L>(a, t, c, psi, q);
-    load_band<L>(a, t, c, src, v);
-    set_coefficients(a, c, r);
-    store_band<L, P>(c, p, q);
-    store_band<L, P>(c, s, v);
-  }
-  __syncthreads();
-  fill_registers<L, P>(c, p, q);
+  load_slab<L, P>(a, t, c, psi, src, r, p, s, q);
   if (a.stages < 2) return;
 
   sweep_columns<L, P>(a, t, c, p, s, q, 2);
@@ -368,6 +388,29 @@ __global__ void __launch_bounds__(MAXT, MINB) SCPN_POST_KERNEL(
   if (a.stages < 3) return;
   store_core<P>(a, t, p, out);
 }
+#endif  // SCPN_PRE_KERNEL
+
+#ifdef SCPN_SWEEP_KERNEL
+// n_sweeps red-black sweeps of psi into out: load, sweep, store the core.
+template <int L, int P, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) SCPN_SWEEP_KERNEL(
+    const LegArgs a, const float* __restrict__ psi, const float* __restrict__ src,
+    const float* __restrict__ r, float* __restrict__ out) {
+  extern __shared__ float sm[];
+  if (a.stages < 1) return;
+  const Tile t = make_tile(a);
+  float* p = sm + P;
+  float* s = p + field_rows<L>(a) * P;
+  Column c = make_column<L, P>(a, t);
+  float q[L];
+  load_slab<L, P>(a, t, c, psi, src, r, p, s, q);
+  if (a.stages < 2) return;
+
+  sweep_columns<L, P>(a, t, c, p, s, q, 0);
+  if (a.stages < 3) return;
+  store_core<P>(a, t, p, out);
+}
+#endif  // SCPN_SWEEP_KERNEL
 
 // Opt in to more than 48 KB of dynamic shared memory once per kernel and size.
 template <typename Kernel>
@@ -392,9 +435,11 @@ bool plan_ok(const Launch& l, int seg_len, int pitch, int max_threads, bool up) 
   const LegArgs& a = l.a;
   const int sh = a.th + 2 * a.halo, sw = a.tw + 2 * a.halo;
   const size_t words = 2 * static_cast<size_t>(a.n_seg * seg_len + 3) * pitch;
+  const bool whole = a.th >= a.nz - 1 && a.tw >= a.nr - 1;   // one tile: any sweeps
   return a.nz >= 3 && a.nr >= 3 && a.th >= 2 && a.tw >= 2 && !(a.th & 1) && !(a.tw & 1) &&
-         !(a.halo & 1) && a.n_sweeps >= 0 && a.halo >= 2 * a.n_sweeps + (up ? 0 : 2) &&
-         a.halo >= 2 && sw <= pitch && a.n_seg * seg_len >= sh - 1 &&
+         !(a.halo & 1) && a.n_sweeps >= 0 &&
+         (whole || a.halo >= 2 * a.n_sweeps + (up ? 0 : 2)) && a.halo >= 2 && sw <= pitch &&
+         a.n_seg * seg_len >= sh - 1 &&
          l.threads >= a.n_seg * sw && l.threads <= max_threads && l.threads % 32 == 0 &&
          l.smem >= words * sizeof(float);
 }
@@ -412,6 +457,7 @@ int run(const Launch& l, Kernel kernel, size_t& allowed, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifdef SCPN_PRE_KERNEL
 template <int L, int P, int MAXT, int MINB>
 int run_pre(const Launch& l, const float* psi, const float* src, const float* r, float* psi_out,
             float* d_c) {
@@ -437,6 +483,21 @@ int dispatch_post(int variant, const Launch& l, const float* psi_s, const float*
                   const float* e, const float* r, float* out) {
   SCPN_LEG_VARIANTS(run_post, l, psi_s, src, e, r, out)
 }
+#endif  // SCPN_PRE_KERNEL
+
+#ifdef SCPN_SWEEP_KERNEL
+template <int L, int P, int MAXT, int MINB>
+int run_sweep(const Launch& l, const float* psi, const float* src, const float* r, float* out) {
+  static size_t allowed = 48 * 1024;
+  if (!plan_ok(l, L, P, MAXT, true)) return static_cast<int>(cudaErrorInvalidValue);
+  return run(l, SCPN_SWEEP_KERNEL<L, P, MAXT, MINB>, allowed, psi, src, r, out);
+}
+
+int dispatch_sweep(int variant, const Launch& l, const float* psi, const float* src,
+                   const float* r, float* out) {
+  SCPN_LEG_VARIANTS(run_sweep, l, psi, src, r, out)
+}
+#endif  // SCPN_SWEEP_KERNEL
 
 // `plan` points at eleven ints: nz, nr, tile rows, tile columns, halo, sweeps,
 // bands, variant, threads, shared-memory bytes, stages (the launch plan of
@@ -454,9 +515,10 @@ Launch make_launch(const int* plan, int r_stride, float inv_dr2, float dr, float
 }
 
 // What a source's C entries forward to: one launch of the down leg, of the up
-// leg, and (leg 0 down, 1 up) the CTAs of the plan's kernel that one SM holds
-// at once, written to *ctas_per_sm.  Each returns the CUDA error (a refused
-// plan: invalid value).
+// leg or of the sweeps-only kernel, and (leg 0 down, 1 up, 2 sweeps) the CTAs
+// of the plan's kernel that one SM holds at once, written to *ctas_per_sm.
+// Each returns the CUDA error (a refused plan: invalid value).
+#ifdef SCPN_PRE_KERNEL
 int entry_pre(const void* psi, const void* src, const void* r, int r_stride, const void* plan,
               float inv_dr2, float dr, float a_ns, float a_c, float inv_ac, float omega,
               void* psi_out, void* d_c, void* stream) {
@@ -477,12 +539,33 @@ int entry_post(const void* psi_s, const void* src, const void* e, const void* r,
                        static_cast<const float*>(r), static_cast<float*>(out));
 }
 
+#endif  // SCPN_PRE_KERNEL
+
+#ifdef SCPN_SWEEP_KERNEL
+int entry_sweep(const void* psi, const void* src, const void* r, int r_stride, const void* plan,
+                float inv_dr2, float dr, float a_ns, float inv_ac, float omega, void* out,
+                void* stream) {
+  const int* pl = static_cast<const int*>(plan);
+  const Launch l = make_launch(pl, r_stride, inv_dr2, dr, a_ns, 0.0f, inv_ac, omega, stream, nullptr);
+  return dispatch_sweep(pl[7], l, static_cast<const float*>(psi), static_cast<const float*>(src),
+                        static_cast<const float*>(r), static_cast<float*>(out));
+}
+#endif  // SCPN_SWEEP_KERNEL
+
 int entry_ctas_per_sm(int leg, const void* plan, int* ctas_per_sm) {
   const int* pl = static_cast<const int*>(plan);
   const Launch l =
       make_launch(pl, 1, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, nullptr, ctas_per_sm);
-  return leg == 0 ? dispatch_pre(pl[7], l, nullptr, nullptr, nullptr, nullptr, nullptr)
-                  : dispatch_post(pl[7], l, nullptr, nullptr, nullptr, nullptr, nullptr);
+  switch (leg) {
+#ifdef SCPN_PRE_KERNEL
+    case 0: return dispatch_pre(pl[7], l, nullptr, nullptr, nullptr, nullptr, nullptr);
+    case 1: return dispatch_post(pl[7], l, nullptr, nullptr, nullptr, nullptr, nullptr);
+#endif
+#ifdef SCPN_SWEEP_KERNEL
+    case 2: return dispatch_sweep(pl[7], l, nullptr, nullptr, nullptr, nullptr);
+#endif
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

@@ -18,7 +18,10 @@ single solve does not need it.
 The hand-written CUDA kernels run iff ``cfg.solver.use_pallas`` is set, the
 solve is on a CUDA device and the dtype is float32 -- the JAX rule with
 "tpu" replaced by "cuda".  f64 on CUDA runs the plain ops, as f64 does in
-JAX.
+JAX.  The JAX solver also stops its ``sor`` / ``anderson`` kernel and its
+fused source at 12 MB of fields (VMEM); the port has no such gate: the
+``sor_sweeps`` routes (``ops/cuda_stencil.sor_sweeps``) and the source
+kernel (``ops/cuda_source.fused_topology_source``) take every f32 size.
 """
 
 from __future__ import annotations
@@ -170,7 +173,8 @@ def solve_fixed_boundary_impl(
         elif solver_method in ("multigrid", "anderson_mg"):
             out = _vcycle_impl(psi_in, source, r_1d, d_r, d_z, 1.0, mg_pre_smooth,
                                mg_post_smooth, mg_min_grid, 50, use_pallas)
-        elif use_pallas:  # "sor" | "anderson"
+        elif use_pallas:  # "sor" | "anderson": one launch for up to 4 sweeps at any size
+            # and for more up to ~129^2; 2 n staged launches beyond (cuda_stencil.sor_sweeps)
             from scpn_fusion_tpu_torch.ops.cuda_stencil import sor_sweeps
             out = sor_sweeps(psi_in, source, r_1d, d_r, d_z, omega, inner_sweeps)
         else:

@@ -40,7 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "scpn_rb_half_sweep": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P],
+    "scpn_rb_half_sweep_into": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P],
     "scpn_rb_sweeps_smem": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P],
+    "scpn_sor_band": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P, _P],
     "scpn_defect_restrict": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "scpn_prolong_correct": [_P, _P, _I, _I, _I, _I, _P, _P],
     "scpn_fused_source": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
@@ -141,7 +143,7 @@ def library() -> ctypes.CDLL:
         lib.scpn_source_blocks.restype = ctypes.c_int
         lib.scpn_source_resident_blocks.argtypes = []
         lib.scpn_source_resident_blocks.restype = ctypes.c_int
-        for name in ("scpn_tiled_ctas_per_sm", "scpn_fine_ctas_per_sm"):
+        for name in ("scpn_tiled_ctas_per_sm", "scpn_fine_ctas_per_sm", "scpn_sor_ctas_per_sm"):
             getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             getattr(lib, name).restype = ctypes.c_int
         lib.scpn_fused_vcycle_clusters.argtypes = [ctypes.c_void_p]

@@ -263,7 +263,7 @@ def vcycle_plan_struct(n: int, min_grid: int, d_r: float, d_z: float, omega: flo
 # ``csrc/fine_legs.cu`` instantiates the band kernels of
 # ``csrc/tiled_band.cuh`` for levels that fill the card about once.
 
-SM_COUNT = 132              # streaming multiprocessors of an H100
+SM_COUNT = leg_plan.SM_COUNT
 # The kernels' instantiations, in the order of csrc/fine_legs.cu: (rows of a
 # thread's band, pitch of a slab row in shared memory, most threads a block,
 # blocks an SM the registers allow).  Of those that hold a slab in the same
@@ -272,7 +272,7 @@ SM_COUNT = 132              # streaming multiprocessors of an H100
 FINE_VARIANTS = ((4, 80, 512, 1), (8, 80, 512, 1), (8, 176, 1024, 1))
 # Tiles (rows, columns), largest first: a level takes the first that gives
 # every SM a block, or else the smallest.
-FINE_TILES = ((32, 64), (16, 64), (16, 32))
+FINE_TILES = leg_plan.SMALL_LEVEL_TILES
 
 
 @functools.lru_cache(maxsize=256)
@@ -286,21 +286,8 @@ def fine_launch_plan(leg: str, nz: int, nr: int, sweeps: int,
     every SM, the smallest where none has; ``tile`` and ``seg_len`` override
     the choice (measurements).  Raises ``ValueError`` for a shape or a
     smoothing count no kernel variant serves."""
-    if tile is not None:
-        return leg_plan.plan_launch(leg, nz, nr, sweeps, tile[0], tile[1], FINE_VARIANTS,
-                                    seg_len)
-    plan, refusal = None, None
-    for rows, cols in FINE_TILES:
-        try:
-            plan = leg_plan.plan_launch(leg, nz, nr, sweeps, rows, cols, FINE_VARIANTS, seg_len)
-        except ValueError as exc:
-            refusal = exc
-            continue
-        if plan.grid[0] * plan.grid[1] >= SM_COUNT:
-            break
-    if plan is None:
-        raise refusal
-    return plan
+    return leg_plan.plan_on_tiles(leg, nz, nr, sweeps, FINE_TILES if tile is None else (tile,),
+                                  FINE_VARIANTS, seg_len)
 
 
 @functools.lru_cache(maxsize=256)

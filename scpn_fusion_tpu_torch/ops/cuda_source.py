@@ -15,6 +15,16 @@ nine profile and current parameters for the kernel before the Picard loop,
 and the kernel's scratch is one workspace cached per device and size, so a
 call allocates only its output.  The workspace is shared by every call on
 the device: calls must be ordered on one stream, as a solve's are.
+
+Sizes: the port runs the kernel at every float32 size, where the JAX solver
+takes its fused source only while psi, mask and source fit 12 MB of VMEM
+(513^2) and XLA ops above.  Nothing on the card needs that gate: the kernel
+streams the grid from device memory with a cooperative grid of at most
+``cb.source_blocks`` blocks (264), which the device holds at once at every
+size, and its reductions are exact (max, first arg-min) or a fixed-order
+block sum.  ``chip_smoke.py`` holds it against the plain version at 513^2,
+1025^2, 2049^2, 4097^2 and on the rectangular 257 x 129 grid.  A launch
+that fails raises; nothing falls back to the plain version on a CUDA tensor.
 """
 
 from __future__ import annotations

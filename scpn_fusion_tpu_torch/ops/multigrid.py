@@ -21,7 +21,9 @@ Pallas ones (``use_pallas`` means "use the hand-written kernels"):
   tiled one-launch kernels ``ops/cuda_mg_tiled.tiled_presmooth_restrict`` /
   ``tiled_prolong_smooth`` (the same band code on 64 x 64 tiles);
 * any other level runs the plain ops here, with its smoothing through
-  ``ops/cuda_stencil.sor_sweeps``, as the JAX module runs XLA ops there.
+  ``ops/cuda_stencil.sor_sweeps``, as the JAX module runs XLA ops there with
+  its Pallas smoother.  A rectangular grid (the DIII-D-like 257 x 129 of
+  ``bench_config.rect_config``) takes this route on every level.
 """
 
 from __future__ import annotations
@@ -68,7 +70,17 @@ def prolongate_bilinear(coarse: torch.Tensor, nz_f: int, nr_f: int) -> torch.Ten
 def smooth(psi: torch.Tensor, source: torch.Tensor, r_1d: torch.Tensor, d_r: float,
            d_z: float, omega: float, n_sweeps: int, use_pallas: bool = False) -> torch.Tensor:
     """Red-black SOR smoother: ``n_sweeps`` full sweeps (the SOR kernel's
-    wrapper with ``use_pallas``, the clipped plain sweep otherwise)."""
+    wrapper with ``use_pallas``, the clipped plain sweep otherwise).
+
+    With ``use_pallas`` on a CUDA float32 level every call is one launch of
+    ``csrc/sor_band.cu`` for the (1,2) and (3,3) smoothing of any level
+    (tiles, route B) and for the 50 sweeps of a coarsest level (one CTA,
+    route A), and ``2 * n_sweeps`` staged launches only for more than 4
+    sweeps on a level too large for one CTA, such as 257^2 (route D;
+    ``ops/leg_plan.sor_launch_plan``).  The JAX module smooths with its kernel only while
+    three fields fit 12 MB of VMEM; no route here needs such a gate, so every
+    level takes the kernel.
+    """
     if use_pallas:
         from scpn_fusion_tpu_torch.ops.cuda_stencil import sor_sweeps
         return sor_sweeps(psi, source, r_1d, d_r, d_z, omega, n_sweeps)

@@ -79,7 +79,7 @@ def test_clip_applies_to_plain_ops_only():
 
 
 @pytest.mark.parametrize("n_sweeps", [1, 7])
-@pytest.mark.parametrize("shape", [(33, 33), (65, 48)])
+@pytest.mark.parametrize("shape", [(33, 33), (65, 48), (65, 33)])
 def test_sor_kernel_plain_matches_pallas(shape, n_sweeps):
     """sor_sweeps on a CPU tensor (its plain version) ==
     sor_sweeps_pallas(interpret=True), rtol=atol=2e-6, ring bit-identical."""

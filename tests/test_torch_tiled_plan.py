@@ -163,7 +163,7 @@ def _tiled_by_slabs(plan, psi, src, r, d_r, d_z, omega, e_c=None):
             p = _slab_sweeps(plan, z, c, p, s, a_e, a_w, d_r, d_z, omega)
             out[z[0]:z[1], c[0]:c[1]] = p[z[0] - row0:z[1] - row0, c[0] - col0:c[1] - col0]
             owned[z[0]:z[1], c[0]:c[1]] += 1
-            if plan.leg == "up":
+            if plan.leg != "down":
                 continue
             # defect on the slab (zero off the global interior), full weighting
             # at the coarse points of the core

@@ -18,8 +18,8 @@ to warm up and once under ``torch.profiler``, and prints:
 With ``--kernels`` it profiles, instead of a solve, single calls of the
 one-launch kernels and of their predecessors (the fused V-cycle at 257^2 and
 129^2, the fused source at 513^2 and 1025^2, the tiled legs at 2049^2 (3,3)
-and 1025^2 (1,2), the fine legs at 513^2 (1,2) and (3,3)) and one
-``sor_sweeps`` call at 129^2 with 50 sweeps, and
+and 1025^2 (1,2), the fine legs at 513^2 (1,2) and (3,3), ``sor_sweeps`` at
+129^2 with 50 sweeps), and
 prints for each the device launches a call and the device time a call, summed
 over every device kernel the call ran (mean of 5 profiled calls after a
 warm-up).
@@ -40,8 +40,23 @@ of the staged route (three and five launches at (1,2)) and of the tiled legs
 at the same shape, profiled in turns.  ``--tiles 32x64,16x32`` and ``--bands
 4,8`` add other tile shapes and band lengths of the fine kernels to the turns.
 
+With ``--sor`` it takes ``sor_sweeps`` alone, at the shapes and counts
+its paths give it and at each route's limits: the route the plan picks, the
+launch plan and its occupancy, whether each route's result equals the staged
+route's bit for bit, and the device time and launches of one call on every
+route that takes the shape (A: one CTA holds the level; B: tiles; D: the
+staged half-sweeps without the copy) and on the staged route, profiled in
+turns (median of 7), with routes A and B also cut short after each stage
+(launch alone, up to the load, up to the sweeps).
+
+With ``--rect`` it profiles, instead of the FMG cascade, the rectangular
+solve of the DIII-D-like machine on the 257 x 129 grid
+(``bench_config.rect_config``), where every level of the V-cycle smooths
+through ``sor_sweeps``: wall time, device-kernel time, idle share and
+launches of one solve.
+
 Run from the repository root on a machine with a CUDA device:
-``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine]``.
+``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect]``.
 Exits non-zero without one.
 """
 
@@ -256,10 +271,93 @@ def profile_fine_legs(card: str, tiles: list[tuple[int, int]], bands: list[int])
                   f"(median of {turns} in turns; min {min(ts):.3f}, max {max(ts):.3f}) [{card}]")
 
 
+# (nz, nr, sweeps) of the --sor profile: the anderson path (129^2, 50), the
+# rectangular V-cycle's levels at (1,2) and its 9 x 5 coarsest solve, the
+# default sor method's one sweep, a ragged level, and 257^2 / 513^2, where
+# no one-launch route takes 50 sweeps
+SOR_CASES = ((129, 129, 50), (129, 129, 1), (129, 129, 2), (257, 129, 1), (257, 129, 2),
+             (129, 65, 1), (129, 65, 2), (65, 33, 2), (17, 9, 2), (9, 5, 50), (5, 5, 50),
+             (65, 65, 50), (300, 700, 2), (513, 513, 1), (513, 513, 3), (513, 513, 4),
+             (257, 257, 50), (513, 513, 50))
+
+
+def profile_sor(card: str) -> None:
+    """Route, plan, occupancy, identity with the staged route and device
+    time in turns of ``sor_sweeps`` on every route that takes a shape."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_stencil, leg_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261016)
+
+    def rand(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    cb.library()
+    for line in cb.BUILD_LOG.get("sor_band.cu", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas sor_band.cu: {line.strip()}")
+    turns = 7
+    for nz, nr, sweeps in SOR_CASES:
+        g = Grid.from_bounds(nr, nz, 0.9, 2.6, -1.5, 1.5, dtype=torch.float32, device=dev)
+        args = (rand(nz, nr), rand(nz, nr), g.R, g.dR, g.dZ, 1.9 if sweeps == 50 else 1.0,
+                sweeps)
+        cb.reset_launch_counts()
+        ref = cuda_stencil._sor_sweeps_staged(*args)
+        staged_launches = cb.kernel_launches()
+        calls = {"staged": lambda a=args: cuda_stencil._sor_sweeps_staged(*a)}
+        chosen = leg_plan.sor_launch_plan(nz, nr, sweeps).route
+        tag = f"{nz}x{nr} n={sweeps}"
+        print(f"{tag}: the plan takes route {chosen}; staged route {staged_launches} launches")
+        for route in leg_plan.ROUTES:
+            try:
+                plan = leg_plan.sor_launch_plan(nz, nr, sweeps, route)
+            except ValueError as exc:
+                print(f"{tag} route {route}: not taken ({exc})")
+                continue
+            if plan.launch is None:
+                call = lambda a=args: cuda_stencil._sweeps_route_d(*a)   # noqa: E731
+            else:
+                ints = plan.launch.as_ints()
+                call = lambda ints=ints, a=args: leg_plan.launch_sweeps(   # noqa: E731
+                    "scpn_sor_band", ints, *a[:-1])
+            cb.reset_launch_counts()
+            same = torch.equal(call(), ref)
+            launches = cb.kernel_launches()
+            label = f"route {route}" + (" (the plan's choice)" if route == chosen else "")
+            calls[label] = call
+            detail = f"{launches} launches a call"
+            if plan.launch is not None:
+                lp = plan.launch
+                occ = leg_plan.launch_occupancy("scpn_sor_ctas_per_sm", lp)
+                detail += (f", tile {lp.tile_rows}x{lp.tile_cols}, halo {lp.halo}, bands "
+                           f"{lp.n_seg} x {lp.seg_len} rows (variant {lp.variant}), "
+                           f"{lp.threads} threads, {lp.smem_bytes} B shared; "
+                           f"{occ['ctas_per_sm']} CTAs an SM, grid {occ['grid']} = "
+                           f"{occ['waves']:.2f} waves")
+                if route == chosen:
+                    for stages, name in enumerate(("launch alone", "up to the load",
+                                                   "up to the sweeps")):
+                        part = dataclasses.replace(lp, stages=stages).as_ints()
+                        calls[f"route {route}, {name}"] = (
+                            lambda part=part, a=args: leg_plan.launch_sweeps(
+                                "scpn_sor_band", part, *a[:-1]))
+            print(f"{tag} {label}: {detail}; equal to the staged route {same}")
+        for label, ts in device_us_in_turns(calls, turns).items():
+            print(f"{tag} {label}: device {statistics.median(ts):.3f} us a call (median of "
+                  f"{turns} in turns; min {min(ts):.3f}, max {max(ts):.3f}) [{card}]")
+
+
 def profile_kernel_calls(card: str) -> None:
     """Device launches and device time of one call of each one-launch kernel
     and of its predecessor (new and earlier one after the other, case by
-    case), and of one ``sor_sweeps`` call."""
+    case)."""
     import numpy as np
     import torch
     from scpn_fusion_tpu_torch.core.grid import Grid
@@ -324,8 +422,10 @@ def profile_kernel_calls(card: str) -> None:
                           lambda fn=fn_up, a=up, k=post: fn(*a, post_smooth=k)))
     g = Grid.from_bounds(129, 129, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
     sor_args = (rand(129, 129), rand(129, 129), g.R, g.dR, g.dZ, 1.9, 50)
-    cases.append(("sor_sweeps 129^2 n=50 omega=1.9",
-                  lambda a=sor_args: cuda_stencil.sor_sweeps(*a)))
+    for label, fn in (("one launch", cuda_stencil.sor_sweeps),
+                      ("staged", cuda_stencil._sor_sweeps_staged)):
+        cases.append((f"sor_sweeps 129^2 n=50 omega=1.9 {label}",
+                      lambda fn=fn, a=sor_args: fn(*a)))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for label, call in cases:
@@ -358,6 +458,11 @@ def main() -> int:
     group.add_argument("--fine", action="store_true",
                        help="plan, occupancy, identity and device time in turns of the "
                             "one-launch fine legs, the staged route and the tiled legs at 513^2")
+    group.add_argument("--sor", action="store_true",
+                       help="route, plan, occupancy, identity and device time in turns of "
+                            "sor_sweeps on every route and the staged route")
+    group.add_argument("--rect", action="store_true",
+                       help="profile the rectangular 257 x 129 DIII-D-like solve")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -384,13 +489,25 @@ def main() -> int:
     if opts.fine:
         profile_fine_legs(card, tiles, [int(v) for v in opts.bands.split(",") if v])
         return 0
-    from scpn_fusion_tpu_torch.bench_config import bench_config
-    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium_fmg
+    if opts.sor:
+        profile_sor(card)
+        return 0
+    from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
+    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
+        solve_equilibrium, solve_equilibrium_fmg,
+    )
     from scpn_fusion_tpu_torch.models.equilibrium.mixed_precision import (
         solve_equilibrium_mixed_fmg,
     )
 
-    if mixed:
+    if opts.rect:
+        cfg = rect_config()
+
+        def solve():
+            res = solve_equilibrium(cfg, dtype=torch.float32, device="cuda")
+            return res, [{"shape": tuple(res.psi.shape), "iterations": res.iterations,
+                          "converged": res.converged}]
+    elif mixed:
         cfg = bench_config(2049, use_pallas=True, gs_residual_threshold=3e-5)
 
         def solve():
@@ -435,8 +552,9 @@ def main() -> int:
                   f"{len(ts):5d}  {kernel_name(name)}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / ("torch_mixed_trace.json" if mixed
-                                        else "torch_fmg_trace.json")))
+    trace = ("torch_rect_trace.json" if opts.rect else "torch_mixed_trace.json" if mixed
+             else "torch_fmg_trace.json")
+    prof.export_chrome_trace(str(out / trace))
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
     return 0
 
