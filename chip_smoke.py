@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's four paths through the hand-written CUDA kernels and
-checks them:
+Drives the port's paths through the hand-written CUDA kernels and checks
+them:
 
 * the converged 129^2 -> 257^2 -> 513^2 FMG Anderson-multigrid Picard solve
   of the fixed-boundary Grad-Shafranov equilibrium for the 6-coil ITER-like
@@ -17,7 +17,18 @@ checks them:
   (``bench_config.rect_config``), not a square 2^k+1, so every level of its
   V-cycle (257 x 129 down to 17 x 9 at (1,2) smoothing, 50 sweeps at 9 x 5)
   smooths through ``sor_sweeps`` and every iteration runs the source kernel
-  on the 257 x 129 grid: kernels 1 and 2.
+  on the 257 x 129 grid: kernels 1 and 2;
+* the free-boundary forward of the ITER-like machine
+  (``bench_config.free_boundary_config``; coil flux on the ring <-> inner
+  Picard solve): (a) 257^2 and (b) 129^2 in float32, kernels 2 and 3 once
+  each an inner Picard iteration; (c) 129^2 in float64 plain against the
+  mixed solve, whose float32 V-cycles take kernel 3; (d) 129^2 float32 with
+  the coil currents re-fitted to isoflux points every outer iteration and
+  the plasma's wall flux in the ring;
+* (e) the G-EQDSK reconstruction of the public SPARC L-mode equilibrium in
+  ``fuzz/seeds/geqdsk`` on its 129 x 129 grid: kernel 3 once an iteration;
+* (f) the Newton-Krylov solve at 129^2 in float64 (plain ops only) against
+  the Picard float64 solve.
 
 Phases:
 
@@ -53,7 +64,18 @@ Phases:
 7. runs the rectangular 257 x 129 solve with the kernels (counters likewise:
    11 ``sor_sweeps`` calls a V-cycle, one launch each) against the same solve
    with plain ops and through the staged ``sor_sweeps`` (bit-identical);
-8. times each kernel beside its plain version at a shape its path gives it
+8. runs the free-boundary paths (a)-(d) with the kernels (counters reset
+   just before each and read just after: kernels 2 and 3 the same number of
+   calls, one launch a call; the mixed solve kernel 3 alone) against plain
+   float32 (a, b, d: converged, outer counts within one, psi within 1e-3
+   span-relative; d: currents finite and within their limits, the isoflux
+   miss no worse than the initial currents') or plain float64 (c: the same
+   outer count, psi within 1e-5);
+9. runs (e) with the kernels against plain float32 (converged, iterations
+   within one, psi within 1e-3, one kernel-3 launch an iteration) and (f)
+   (converged in at most 8 iterations, psi within 1e-3 of Picard, no
+   kernel);
+10. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
    their predecessors, and as 50 calls back to back; ``sor_sweeps`` at each
@@ -61,13 +83,18 @@ Phases:
    predecessors and with plain ops (CUDA
    events, one warm-up, median of 5; 2 for the plain 2049^2 cascade), and
    computes each kernel's bound (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, whichever is larger, at the timed shape).
+   67 TFLOP/s, whichever is larger, at the timed shape); and times paths
+   (a), (b), (c), (e) with kernels and with plain ops in turns, (d) with
+   kernels, and (f) in turns with the Picard float64 solve (CUDA events, one
+   warm-up, median of 5), (c) beside the original reference's 13.0 ms.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
-``launches`` counted over the 2049^2 mixed cascade (the path that runs six
-of the seven; ``sor_sweeps`` over the rectangular solve).
+``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
+that runs six of the seven), over the rectangular solve for ``sor_sweeps``
+and over the 257^2 free-boundary forward for kernels 2 and 3, and
+``launches_by_path`` holding each kernel's wrapper calls on every path.
 """
 
 from __future__ import annotations
@@ -90,6 +117,9 @@ SPAN_TOL = 1e-5      # kernel vs plain version, span-relative, float32
 SLICE_TOL = 1e-3     # kernel cascade vs plain cascades, span-relative
 GS_TOL = 3e-5        # f64 GS-residual gate of the 2049^2 mixed solve
 SOR_SWEEPS, SOR_OMEGA = 50, 1.9   # the ``anderson`` path's inner SOR sweeps
+MIXED_FB_TOL = 1e-5  # mixed vs plain f64 free boundary (run_free_boundary_forward.py:208)
+NEWTON_MAX_ITERS = 8  # Newton's iterations at 129^2 (tests/test_newton.py's bar)
+REFERENCE_FB_FP64_MS = 13.0  # the original reference's warm 129^2 FP64 forward on an H100
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # (rows, columns, pre, posts) at which the fine legs are checked: the cascades'
@@ -268,16 +298,25 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from scpn_fusion_tpu_torch.bench_config import (
-        BENCH_SOLVER, bench_config, config_dict, rect_config,
+        BENCH_SOLVER, FREE_BOUNDARY_MU0_GREEN, bench_config, config_dict, free_boundary_config,
+        rect_config,
     )
     from scpn_fusion_tpu_torch.core.config import config_from_dict
     from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.io.geqdsk import read_geqdsk
+    from scpn_fusion_tpu_torch.models.equilibrium.eqdsk_solve import (
+        _eqdsk_problem, _solve_eqdsk_impl, solve_from_geqdsk,
+    )
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
         solve_equilibrium, solve_equilibrium_fmg,
+    )
+    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import (
+        coilset_from_config, interp_psi_at_points, mutual_inductance_matrix, solve_free_boundary,
     )
     from scpn_fusion_tpu_torch.models.equilibrium.mixed_precision import (
         solve_equilibrium_mixed_fmg,
     )
+    from scpn_fusion_tpu_torch.models.equilibrium.newton import solve_equilibrium_newton
     from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
     from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_mg_tiled, cuda_source, cuda_stencil, leg_plan
@@ -444,14 +483,16 @@ def main() -> int:
             raise AssertionError(f"sor_sweeps took a {bad[0]}x{bad[1]} level")
 
     # fused topology + source: 513^2 in L and H mode, 1025^2 (the cascade's
-    # own 1025^2 level runs the kernel) in L mode; against the plain version
-    # and, bit for bit, against the three-launch entry
+    # own 1025^2 level runs the kernel), 257^2 and 129^2 (the free-boundary
+    # paths' grids) in L mode; against the plain version and, bit for bit,
+    # against the three-launch entry
     vals = 0.3 + rng.random(8)
     p_c = ProfileCoeffs(*torch.tensor(vals[:4], dtype=torch.float32, device=dev).unbind())
     ff_c = ProfileCoeffs(*torch.tensor(vals[4:], dtype=torch.float32, device=dev).unbind())
     i_t = torch.full((), 15.0, dtype=torch.float32, device=dev)
     packed = cuda_source.pack_source_params(p_c, ff_c, i_t)
     source_shapes = ((513, 513, "513^2", (False, True)), (1025, 1025, "1025^2", (False,)),
+                     (257, 257, "257^2", (False,)), (129, 129, "129^2", (False,)),
                      *((nz, nr, tag, (False,)) for nz, nr, tag in SOURCE_SHAPES))
     for nz, nr, tag, modes in source_shapes:
         if nz == nr:
@@ -1104,12 +1145,194 @@ def main() -> int:
                              "sor_sweeps call")
     if res4_s.iterations != it4 or not torch.equal(res4_s.psi, res4_k.psi):
         raise AssertionError("the rectangular solve differs through the staged sor_sweeps")
-    # every kernel's launches over the path that runs it
+    phase_done("rectangular slice")
+
+    # ── 8. this slice: the free-boundary forward, the G-EQDSK reconstruction
+    # and the Newton-Krylov solve on the card ──
+    f32, f64 = torch.float32, torch.float64
+
+    def counted(run):
+        """``run()`` between a reset and a read of the counters: (result,
+        wrapper calls by kernel, __global__ launches by C entry)."""
+        cb.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {name: cb.CALLS[name] for name in KERNELS}, dict(cb.LAUNCHES)
+
+    def fb_solve(n, use_pallas, dtype=f32, coils=None, **kw):
+        return solve_free_boundary(free_boundary_config(n, use_pallas=use_pallas), coils,
+                                   mu0_green=FREE_BOUNDARY_MU0_GREEN, dtype=dtype, device=dev,
+                                   **kw)
+
+    def fb_line(res):
+        return (f"converged {res.converged} in {res.outer_iterations} outer iterations (last "
+                f"inner solve {res.equilibrium.iterations}), final max |dpsi| "
+                f"{float(res.final_diff)!r}")
+
+    def source_and_vcycle(tag, calls, launched):
+        """Kernels 2 and 3 once each an inner Picard iteration, one launch a
+        call, and no other kernel."""
+        n_src = calls["fused_topology_source"]
+        require(n_src == calls["fused_coarse_vcycle"] > 0,
+                f"{tag}: source and V-cycle calls {calls}, not equal and > 0")
+        require(all(v == 0 for k, v in calls.items()
+                    if k not in ("fused_topology_source", "fused_coarse_vcycle")),
+                f"{tag}: other kernels called: {calls}")
+        require(launched == {"scpn_fused_source": n_src, "scpn_fused_vcycle": n_src},
+                f"{tag}: launches {launched}, not one a call")
+
+    by_path = {"fmg_513": launches_513, "mixed_2049": dict(launches),
+               "anderson_129": launches_sor, "rect_257x129": launches_rect}
+    fb_runs = {}    # tag -> (kernel solve, plain solve) for the times
+
+    # (a) and (b): the validation's warm forward lanes, 257^2 and 129^2 in
+    # float32, kernels against plain float32
+    for tag, n, kw in (("fb_257", 257, dict(max_outer_iter=40, tol=3e-4)),
+                       ("fb_129", 129, dict(max_outer_iter=16, tol=2.5e-4))):
+        res_k, calls, launched = counted(lambda n=n, kw=kw: fb_solve(n, True, **kw))
+        res_p = fb_solve(n, False, **kw)
+        torch.cuda.synchronize()
+        dev_fb = span_rel(res_k.psi, res_p.psi)
+        print(f"free boundary {n}^2 f32 (max_outer {kw['max_outer_iter']}, tol {kw['tol']}): "
+              f"kernels {fb_line(res_k)}; plain f32 {fb_line(res_p)}; psi span-rel {dev_fb:.3e} "
+              f"(limit {SLICE_TOL:.0e}); wrapper calls {calls}, __global__ launches {launched}")
+        require(tuple(res_k.psi.shape) == (n, n) and bool(torch.isfinite(res_k.psi).all()),
+                f"free boundary {n}^2: psi is not a finite {n}x{n} field")
+        require(res_k.converged and res_p.converged, f"a free-boundary {n}^2 solve did not "
+                                                     "converge")
+        require(abs(res_k.outer_iterations - res_p.outer_iterations) <= 1,
+                f"free boundary {n}^2: outer iteration counts differ by more than 1")
+        require(dev_fb <= SLICE_TOL, f"free boundary {n}^2: kernels deviate from plain f32")
+        source_and_vcycle(f"free boundary {n}^2", calls, launched)
+        by_path[tag] = calls
+        fb_runs[tag] = (lambda n=n, kw=kw: fb_solve(n, True, **kw),
+                        lambda n=n, kw=kw: fb_solve(n, False, **kw))
+
+    # (c): 129^2 float64, the plain f64 solve against the mixed solve (f64
+    # outer loop and source, f32 V-cycles through the kernel, n_refine 2)
+    kw64 = dict(max_outer_iter=16, tol=1e-4, anderson_gram_f32=True)
+    res_64 = fb_solve(129, False, f64, **kw64)
+    res_mx, calls_mx, launched_mx = counted(
+        lambda: fb_solve(129, True, f64, mixed_n_refine=2, **kw64))
+    dev_mx = span_rel(res_mx.psi, res_64.psi)
+    print(f"free boundary 129^2 f64: plain {fb_line(res_64)}; mixed with kernels "
+          f"{fb_line(res_mx)}; psi span-rel {dev_mx:.3e} (limit {MIXED_FB_TOL:.0e}); wrapper "
+          f"calls {calls_mx}, __global__ launches {launched_mx}")
+    require(res_64.converged and res_mx.converged, "a free-boundary 129^2 f64 solve did not "
+                                                   "converge")
+    require(res_mx.outer_iterations == res_64.outer_iterations,
+            "free boundary 129^2: mixed and plain f64 outer counts differ")
+    require(res_mx.psi.dtype == f64 and dev_mx <= MIXED_FB_TOL,
+            "free boundary 129^2: the mixed solve deviates from plain f64")
+    n_vc = calls_mx["fused_coarse_vcycle"]
+    require(n_vc > 0 and n_vc % 2 == 0 and calls_mx["fused_topology_source"] == 0
+            and sum(calls_mx.values()) == n_vc and launched_mx == {"scpn_fused_vcycle": n_vc},
+            f"free boundary 129^2 mixed: calls {calls_mx}, launches {launched_mx}; expected "
+            "V-cycles only (two an inner iteration), one launch each, and no source kernel")
+    by_path["fb_mixed_129"] = calls_mx
+    fb_runs["fb_mixed_129"] = (lambda: fb_solve(129, True, f64, mixed_n_refine=2, **kw64),
+                               lambda: fb_solve(129, False, f64, **kw64))
+
+    # (d): 129^2 float32, coil currents re-fitted to 16 isoflux points within
+    # limits of 8 every outer iteration, the plasma's wall flux in the ring
+    fb_cfg = free_boundary_config(129)
+    theta = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    iso_pts = torch.tensor(np.stack([6.0 + 2.0 * np.cos(theta), 2.4 * np.sin(theta)], 1),
+                           dtype=f32, device=dev)
+    coils0 = coilset_from_config(fb_cfg, f32, dev)._replace(
+        target_flux_points=iso_pts, current_limits=torch.full((6,), 8.0, device=dev))
+    kw_d = dict(max_outer_iter=16, tol=2.5e-4, optimize_shape=True, use_wall_response=True,
+                coils=coils0)
+    res_dk, calls_d, launched_d = counted(lambda: fb_solve(129, True, **kw_d))
+    res_dp = fb_solve(129, False, **kw_d)
+    torch.cuda.synchronize()
+    m_iso = mutual_inductance_matrix(coils0.r, coils0.z, coils0.turns, iso_pts,
+                                     FREE_BOUNDARY_MU0_GREEN)
+    grid129 = Grid.from_config(fb_cfg, dtype=f32, device=dev)
+    samples = interp_psi_at_points(res_dk.psi, grid129, iso_pts)
+    target = samples.mean()
+    rmse_new = float(((m_iso.T @ res_dk.coil_currents - target) ** 2).mean().sqrt())
+    rmse_old = float(((m_iso.T @ coils0.currents - target) ** 2).mean().sqrt())
+    dev_d = span_rel(res_dk.psi, res_dp.psi)
+    print(f"free boundary 129^2 f32, optimize_shape + use_wall_response: kernels "
+          f"{fb_line(res_dk)}, currents {res_dk.coil_currents.tolist()}; plain f32 "
+          f"{fb_line(res_dp)}; psi span-rel {dev_d:.3e} (limit {SLICE_TOL:.0e}); isoflux RMSE "
+          f"{rmse_new!r} with the fitted currents, {rmse_old!r} with the initial ones; wrapper "
+          f"calls {calls_d}, __global__ launches {launched_d}")
+    cur = res_dk.coil_currents
+    require(bool(torch.isfinite(cur).all()) and bool((cur.abs() <= 8.0).all()),
+            "optimize_shape: currents not finite or outside their limits")
+    require(rmse_new <= rmse_old, "optimize_shape: the fitted currents miss the isoflux target "
+                                  "by more than the initial currents")
+    require(dev_d <= SLICE_TOL and bool(torch.isfinite(res_dk.psi).all()),
+            "optimize_shape + wall: kernels deviate from plain f32")
+    source_and_vcycle("free boundary 129^2 optimize_shape + wall", calls_d, launched_d)
+    by_path["fb_shape_wall_129"] = calls_d
+    shape_run = lambda: fb_solve(129, True, **kw_d)   # noqa: E731
+    phase_done("free-boundary slice")
+
+    # (e): the SPARC L-mode g-file on its 129 x 129 grid, float32, kernels
+    # against plain float32
+    eq_sparc = read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk" / "sparc_lmode_hv.geqdsk")
+    res_ek, calls_e, launched_e = counted(
+        lambda: solve_from_geqdsk(eq_sparc, dtype=f32, device=dev))
+    sparc_problem = _eqdsk_problem(eq_sparc, 0.1, None, f32, dev)
+
+    def sparc_plain():
+        """The entry point's solve (its defaults) with the kernels off."""
+        return _solve_eqdsk_impl(*sparc_problem, max_iter=300, n_inner_cycles=1,
+                                 use_pallas=False)
+
+    res_ep = sparc_plain()
+    torch.cuda.synchronize()
+    dev_e = span_rel(res_ek.psi, res_ep.psi)
+    print(f"SPARC g-file {eq_sparc.nh}x{eq_sparc.nw} f32: kernels converged {res_ek.converged} in "
+          f"{res_ek.iterations}, span_rel_rmse vs the file {float(res_ek.span_rel_rmse)!r} "
+          f"(core {float(res_ek.span_rel_rmse_core)!r}); plain f32 converged {res_ep.converged} in "
+          f"{res_ep.iterations}, span_rel_rmse {float(res_ep.span_rel_rmse)!r} (core "
+          f"{float(res_ep.span_rel_rmse_core)!r}); psi span-rel {dev_e:.3e} (limit "
+          f"{SLICE_TOL:.0e}); wrapper calls {calls_e}, __global__ launches {launched_e}")
+    require(res_ek.converged and res_ep.converged, "a SPARC reconstruction did not converge")
+    require(abs(res_ek.iterations - res_ep.iterations) <= 1,
+            "SPARC reconstruction: iteration counts differ by more than 1")
+    require(dev_e <= SLICE_TOL and bool(torch.isfinite(res_ek.psi).all()),
+            "SPARC reconstruction: kernels deviate from plain f32")
+    require(calls_e["fused_coarse_vcycle"] == res_ek.iterations
+            and sum(calls_e.values()) == res_ek.iterations
+            and launched_e == {"scpn_fused_vcycle": res_ek.iterations},
+            f"SPARC reconstruction: calls {calls_e}, launches {launched_e}; expected one fused "
+            "V-cycle launch an iteration and nothing else")
+    by_path["eqdsk_sparc"] = calls_e
+    eq_runs = (lambda: solve_from_geqdsk(eq_sparc, dtype=f32, device=dev),
+               sparc_plain)
+
+    # (f): Newton-Krylov at 129^2 in float64 on the card (plain ops) against
+    # the port's Picard float64 solve of the same machine
+    nk_cfg = free_boundary_config(129, use_pallas=False)
+    res_nk, calls_nk, _ = counted(lambda: solve_equilibrium_newton(nk_cfg, dtype=f64, device=dev))
+    res_pic = solve_equilibrium(nk_cfg, dtype=f64, device=dev)
+    torch.cuda.synchronize()
+    dev_nk = span_rel(res_nk.psi, res_pic.psi)
+    hist = res_nk.residual_history[:res_nk.iterations].tolist()
+    print(f"Newton-Krylov 129^2 f64: converged {res_nk.converged} in {res_nk.iterations} "
+          f"(limit {NEWTON_MAX_ITERS}), residual history {hist}; Picard f64 converged "
+          f"{res_pic.converged} in {res_pic.iterations}; psi span-rel {dev_nk:.3e} (limit "
+          f"{SLICE_TOL:.0e}); kernel calls {sum(calls_nk.values())}")
+    require(res_nk.converged and res_nk.iterations <= NEWTON_MAX_ITERS,
+            f"Newton did not converge in {NEWTON_MAX_ITERS} iterations")
+    require(res_pic.converged and dev_nk <= SLICE_TOL,
+            "Newton deviates from the Picard f64 fixed point")
+    require(sum(calls_nk.values()) == 0, "Newton launched a kernel: it runs plain ops")
+    phase_done("G-EQDSK and Newton slice")
+
+    # every kernel's launches over the path that runs it: kernels 2 and 3
+    # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
+    launches["fused_topology_source"] = by_path["fb_257"]["fused_topology_source"]
+    launches["fused_coarse_vcycle"] = by_path["fb_257"]["fused_coarse_vcycle"]
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")
-    phase_done("rectangular slice")
 
     # ── 8. times (CUDA events, one warm-up, median of 5) and bounds ──
     kernels = []
@@ -1144,6 +1367,7 @@ def main() -> int:
                "library_ms": None}
         if earlier_ms is not None:
             row["earlier_ms"] = earlier_ms
+        row["launches_by_path"] = {path: calls[name] for path, calls in by_path.items()}
         kernels.append(row)
     for label, fn_new, fn_earlier, work in turn_times:
         bound_ms, bound_by = bound(work)
@@ -1204,6 +1428,27 @@ def main() -> int:
     print(f"time rectangular 257x129 solve: kernels {rect_k:.3f} ms, with the staged sor_sweeps "
           f"{rect_s:.3f} ms (in turns, median of 5), plain {rect_p:.3f} ms (median of 2) "
           f"[{card}]")
+    for tag, label in (("fb_257", "free boundary 257^2 f32"), ("fb_129", "free boundary 129^2 f32"),
+                       ("fb_mixed_129", "free boundary 129^2 f64")):
+        fn_k, fn_p = fb_runs[tag]
+        t_k, t_p = cuda_ms_pair(fn_k, fn_p)
+        if tag == "fb_mixed_129":
+            print(f"time {label}: mixed with kernels {t_k:.3f} ms, plain f64 {t_p:.3f} ms (in "
+                  f"turns, median of 5); yardstick: the original reference's warm 129^2 FP64 "
+                  f"free-boundary forward on an H100, {REFERENCE_FB_FP64_MS} ms (BASELINE.md:13) "
+                  f"[{card}]")
+        else:
+            print(f"time {label}: kernels {t_k:.3f} ms, plain {t_p:.3f} ms (in turns, median of "
+                  f"5) [{card}]")
+    print(f"time free boundary 129^2 f32 optimize_shape + wall: kernels "
+          f"{cuda_ms(shape_run):.3f} ms (median of 5) [{card}]")
+    t_k, t_p = cuda_ms_pair(*eq_runs)
+    print(f"time SPARC g-file 129x129 f32 reconstruction: kernels {t_k:.3f} ms, plain "
+          f"{t_p:.3f} ms (in turns, median of 5) [{card}]")
+    t_n, t_pic = cuda_ms_pair(lambda: solve_equilibrium_newton(nk_cfg, dtype=f64, device=dev),
+                              lambda: solve_equilibrium(nk_cfg, dtype=f64, device=dev))
+    print(f"time Newton-Krylov 129^2 f64 (plain ops): {t_n:.3f} ms, the Picard f64 solve "
+          f"{t_pic:.3f} ms (in turns, median of 5) [{card}]")
     phase_done("times")
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
 

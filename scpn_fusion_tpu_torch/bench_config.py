@@ -1,5 +1,6 @@
-"""The bench configurations: the 6-coil ITER-like machine of ``bench.py``
-and the DIII-D-like machine on a rectangular grid.
+"""The bench configurations: the 6-coil ITER-like machine of ``bench.py``,
+the same machine under the free-boundary forward's solver, and the
+DIII-D-like machine on a rectangular grid.
 
 ``ITER_LIKE`` is the normalised machine (R in (2, 10) m, Z in (-4, 4) m,
 Ip 15, mu0 = 1) in the JSON-shaped layout that ``config_from_dict`` reads,
@@ -10,6 +11,10 @@ multigrid-Picard, depth 4, relaxation 1.0, (1,2) smoothing.  With
 ``validation/run_resolution_scaling.py:97-111, 208``: the same machine and
 solver, converged on the f64 GS residual as well (the 2049^2 mixed-precision
 solve).
+
+``FREE_BOUNDARY_SOLVER`` is the solver of the free-boundary forward
+(``validation/run_free_boundary_forward.py:61-88``), which
+:func:`free_boundary_config` puts on the ITER-like machine.
 
 ``DIII_D_LIKE`` is ``validation/configs/diiid_config.json`` (R in (0.9, 2.6)
 m, Z in (-1.5, 1.5) m, five coils of 58 turns, Ip 1.2, L-mode) normalised as
@@ -58,6 +63,29 @@ def bench_config(n: int = 513, *, use_pallas: bool = True,
     ``gs_residual_threshold`` > 0 adds the GS-residual convergence gate."""
     return config_from_dict(config_dict(n, **BENCH_SOLVER, use_pallas=use_pallas,
                                         gs_residual_threshold=gs_residual_threshold))
+
+
+FREE_BOUNDARY_SOLVER: dict[str, Any] = {
+    "max_iterations": 400, "convergence_threshold": 1e-4, "relaxation_factor": 1.0,
+    "solver_method": "anderson_mg", "anderson_depth": 4}
+FREE_BOUNDARY_MU0_GREEN = 1.0   # the coils' Green's functions in the machine's normalised units
+
+
+def free_boundary_config(n: int = 129, *, use_pallas: bool = True) -> ReactorConfig:
+    """The ITER-like machine at ``n`` x ``n`` with the free-boundary
+    forward's solver (inner Picard: ``anderson_mg``, depth 4, relaxation 1.0,
+    update tolerance 1e-4, at most 400 iterations), to be solved with
+    ``solve_free_boundary(..., mu0_green=FREE_BOUNDARY_MU0_GREEN)``.
+
+    The outer controls are arguments of ``solve_free_boundary``, as the
+    validation sets them: at 129^2 ``max_outer_iter=16`` with ``tol=2.5e-4``
+    in float32 (the float32 fixed point is a limit cycle of ~25 ulps of
+    psi_axis, ~1e-4, which 1e-4 would sit on) and ``tol=1e-4`` in float64
+    with ``anderson_gram_f32=True``; at 257^2 ``max_outer_iter=40`` with
+    ``tol=3e-4``.  ``use_pallas`` selects the hand-written kernels (on a
+    CUDA device in float32, or inside the float32 V-cycle of the mixed
+    solve)."""
+    return config_from_dict(config_dict(n, **FREE_BOUNDARY_SOLVER, use_pallas=use_pallas))
 
 
 DIII_D_LIKE: dict[str, Any] = {

@@ -22,7 +22,9 @@ from scpn_fusion_tpu_torch.core.config import (
     ReactorConfig,
     SolverParams,
 )
+from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import CoilSet
 from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
+from scpn_fusion_tpu_torch.models.equilibrium.shape_control import ShapeTargets
 
 
 def tensor(x, *, dtype: torch.dtype, device: torch.device | str) -> torch.Tensor:
@@ -55,3 +57,23 @@ def profile_coeffs(fields, *, dtype: torch.dtype, device: torch.device | str) ->
 def coil_arrays(r, z, i_eff, *, dtype: torch.dtype, device: torch.device | str):
     """The JAX ``coil_arrays_from_config`` triple as tensors."""
     return tuple(tensor(a, dtype=dtype, device=device) for a in (r, z, i_eff))
+
+
+def _arrays(fields: Mapping[str, Any], *, dtype: torch.dtype, device: torch.device | str,
+            keep: tuple[str, ...] = ()) -> dict[str, Any]:
+    return {k: v if v is None or k in keep else tensor(v, dtype=dtype, device=device)
+            for k, v in fields.items()}
+
+
+def coilset(fields: Mapping[str, Any], *, dtype: torch.dtype,
+            device: torch.device | str) -> CoilSet:
+    """A ``CoilSet`` from the JAX ``CoilSet``'s fields (``coils._asdict()``,
+    arrays as anything ``np.asarray`` takes; None stays None)."""
+    return CoilSet(**_arrays(fields, dtype=dtype, device=device))
+
+
+def shape_targets(fields: Mapping[str, Any], *, dtype: torch.dtype,
+                  device: torch.device | str) -> ShapeTargets:
+    """``ShapeTargets`` from the JAX ``ShapeTargets``' fields
+    (``targets._asdict()``); the family weights stay Python floats."""
+    return ShapeTargets(**_arrays(fields, dtype=dtype, device=device, keep=("weights",)))

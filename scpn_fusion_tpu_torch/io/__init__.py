@@ -1,0 +1,6 @@
+"""File formats (counterparts of ``scpn_fusion_tpu/io``).  Framework-neutral
+modules are carried over, not imported: ``geqdsk`` is a copy of
+``scpn_fusion_tpu/io/geqdsk.py`` in which only ``geqdsk_from_solution``
+differs (it reads the port's tensors)."""
+
+from scpn_fusion_tpu_torch.io.geqdsk import GEqdsk, read_geqdsk, write_geqdsk  # noqa: F401

@@ -11,7 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scpn_fusion_tpu_torch.bench_config import BENCH_SOLVER, config_dict  # noqa: F401
+from scpn_fusion_tpu_torch.bench_config import (  # noqa: F401
+    BENCH_SOLVER,
+    FREE_BOUNDARY_SOLVER,
+    config_dict,
+)
 
 torch.set_num_threads(1)
 
@@ -21,6 +25,22 @@ def iter_like_cfg(n: int, **solver):
     (``scpn_fusion_tpu_torch.bench_config.ITER_LIKE``) at n x n."""
     from scpn_fusion_tpu.core.config import config_from_dict
     return config_from_dict(config_dict(n, **solver))
+
+
+def free_boundary_cfgs(n: int, **solver):
+    """(JAX config, port config) of the free-boundary forward's machine and
+    solver (``bench_config.free_boundary_config``) at n x n."""
+    import dataclasses
+
+    from scpn_fusion_tpu_torch import interop
+    ref_cfg = iter_like_cfg(n, **{**FREE_BOUNDARY_SOLVER, **solver})
+    return ref_cfg, interop.config_from_asdict(dataclasses.asdict(ref_cfg))
+
+
+def rel(ours, ref) -> float:
+    """max |ours - ref| over max |ref|."""
+    a, b = as_np(ours), as_np(ref)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
 def rng(seed: int) -> np.random.Generator:

@@ -55,8 +55,20 @@ solve of the DIII-D-like machine on the 257 x 129 grid
 through ``sor_sweeps``: wall time, device-kernel time, idle share and
 launches of one solve.
 
+With ``--free-boundary`` it profiles the free-boundary forward of the
+ITER-like machine (``bench_config.free_boundary_config``) one solve at a
+time: 257^2 and 129^2 in float32 with the kernels, 129^2 in float64 mixed
+(float32 V-cycles through the kernel), and 129^2 float32 with the coil
+currents re-fitted every outer iteration and the plasma's wall flux in the
+ring; then one call of that coil fit alone (31 power iterations and 300
+FISTA steps of tiny ops), whose device launches an outer iteration are the
+fit's share of the last solve's launches.  With ``--eqdsk`` it profiles the
+G-EQDSK reconstruction of the SPARC L-mode file in ``fuzz/seeds/geqdsk``.
+Each prints what the solves above print.
+
 Run from the repository root on a machine with a CUDA device:
-``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect]``.
+``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
+| --free-boundary | --eqdsk]``.
 Exits non-zero without one.
 """
 
@@ -78,8 +90,11 @@ PORT_PREFIX = "(anonymous namespace)::"   # the port's kernels live in anonymous
 
 
 def is_port_kernel(name: str) -> bool:
-    """The port's kernels, templates among them ("void (anonymous namespace)::...")."""
-    return name.removeprefix("void ").startswith(PORT_PREFIX)
+    """The port's kernels, templates among them ("void (anonymous namespace)::..."),
+    not PyTorch's own kernels of an anonymous namespace (``torch.arange``'s
+    ``elementwise_kernel_with_index``)."""
+    return (name.removeprefix("void ").startswith(PORT_PREFIX)
+            and "elementwise_kernel" not in name)
 
 
 def kernel_name(name: str) -> str:
@@ -444,6 +459,142 @@ def profile_kernel_calls(card: str) -> None:
               f"{host_us:.1f} us a call to enqueue (profiler on) [{card}]; kernels {names}")
 
 
+def profile_solve(card: str, label: str, solve, trace: str | None) -> dict:
+    """``solve()`` once to warm up and once under ``torch.profiler``: prints
+    the wall time, device-kernel time, idle share, device launches, the
+    largest kernels by device time and the spread of the port's kernels;
+    writes the chrome trace to ``chiprun_out/<trace>``.  ``solve`` returns
+    what to print about the solve.  Returns the numbers it printed."""
+    import torch
+    solve()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        info = solve()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    events = device_events(prof)
+    dev_us = sum(e.device_time for e in events)
+    port_us = sum(e.device_time for e in events if is_port_kernel(e.name))
+    f64_us = sum(e.device_time for e in events if "double" in e.name)
+    port_launches = sum(is_port_kernel(e.name) for e in events)
+    print(f"{label}: {info}")
+    print(f"{label}: wall {wall_ms:.3f} ms, device kernels {dev_us / 1e3:.3f} ms, idle share "
+          f"{1.0 - dev_us / 1e3 / wall_ms:.3f}, device launches {len(events)} ({port_launches} "
+          f"of the port's kernels) [{card}]")
+    print(f"{label}: device ms in the port's kernels {port_us / 1e3:.3f}, in float64 PyTorch ops "
+          f"{f64_us / 1e3:.3f}")
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.device_time)
+    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    for name, ts in rows[:20]:
+        print(f"  {sum(ts) / 1e3:9.3f} ms  {len(ts):6d}x  {name[:90]}")
+    print("the port's kernels per launch (us): min / median / max, launches within 5% of max")
+    for name, ts in rows:
+        if is_port_kernel(name):
+            ts = sorted(ts)
+            near_max = sum(t >= 0.95 * ts[-1] for t in ts)
+            print(f"  {ts[0]:8.3f} / {ts[len(ts) // 2]:8.3f} / {ts[-1]:8.3f}  {near_max:5d} of "
+                  f"{len(ts):5d}  {kernel_name(name)}")
+    if trace is not None:
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(out / trace))
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+    return {"wall_ms": wall_ms, "device_ms": dev_us / 1e3, "launches": len(events)}
+
+
+def profile_free_boundary(card: str) -> None:
+    """The free-boundary forward of ``bench_config.free_boundary_config``:
+    257^2 and 129^2 in float32 with the kernels, 129^2 in float64 mixed with
+    the kernels, and 129^2 float32 with ``optimize_shape`` and
+    ``use_wall_response``, each profiled as one solve; for the last, also one
+    call of the coil fit (``ops/lstsq.tikhonov_coil_lstsq``: 31 power
+    iterations and 300 FISTA steps) at its shape, whose device launches
+    times the outer iterations are the fit's share of the solve's launches."""
+    import numpy as np
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import FREE_BOUNDARY_MU0_GREEN, free_boundary_config
+    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import (
+        coilset_from_config, mutual_inductance_matrix, solve_free_boundary,
+    )
+    from scpn_fusion_tpu_torch.ops.lstsq import tikhonov_coil_lstsq
+
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+
+    def fb(n, dtype, **kw):
+        def solve():
+            res = solve_free_boundary(free_boundary_config(n), mu0_green=FREE_BOUNDARY_MU0_GREEN,
+                                      dtype=dtype, device=dev, **kw)
+            return {"outer_iterations": res.outer_iterations, "converged": res.converged,
+                    "last_inner_iterations": res.equilibrium.iterations}
+        return solve
+
+    profile_solve(card, "free boundary 257^2 f32", fb(257, f32, max_outer_iter=40, tol=3e-4),
+                  "torch_fb257_trace.json")
+    profile_solve(card, "free boundary 129^2 f32", fb(129, f32, max_outer_iter=16, tol=2.5e-4),
+                  "torch_fb129_trace.json")
+    profile_solve(card, "free boundary 129^2 f64 mixed",
+                  fb(129, f64, max_outer_iter=16, tol=1e-4, anderson_gram_f32=True,
+                     mixed_n_refine=2), None)
+    cfg = free_boundary_config(129)
+    theta = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    pts = torch.tensor(np.stack([6.0 + 2.0 * np.cos(theta), 2.4 * np.sin(theta)], 1),
+                       dtype=f32, device=dev)
+    coils = coilset_from_config(cfg, f32, dev)._replace(
+        target_flux_points=pts, current_limits=torch.full((6,), 8.0, device=dev))
+    shape = profile_solve(card, "free boundary 129^2 f32 optimize_shape + wall",
+                          fb(129, f32, coils=coils, max_outer_iter=16, tol=2.5e-4,
+                             optimize_shape=True, use_wall_response=True), None)
+    m_t = mutual_inductance_matrix(coils.r, coils.z, coils.turns, pts,
+                                   FREE_BOUNDARY_MU0_GREEN).T.contiguous()
+    target = torch.full((16,), 0.5, dtype=f32, device=dev)
+    lim = coils.current_limits
+
+    def fit():
+        tikhonov_coil_lstsq(m_t, target, 1e-4, -lim, lim)
+
+    fit()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CALLS_PROFILED):
+            fit()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / CALLS_PROFILED
+    events = device_events(prof)
+    per_call = len(events) / CALLS_PROFILED
+    print(f"coil fit (tikhonov_coil_lstsq, 16 points x 6 coils, 31 power iterations + 300 FISTA "
+          f"steps): {per_call:g} device launches a call, device "
+          f"{sum(e.device_time for e in events) / CALLS_PROFILED / 1e3:.3f} ms a call, wall "
+          f"{host_ms:.3f} ms a call (profiler on) [{card}]")
+    print(f"coil fit's share of the optimize_shape + wall solve: {per_call:g} launches an outer "
+          f"iteration against {shape['launches']} device launches in the whole solve")
+
+
+def profile_eqdsk(card: str) -> None:
+    """The G-EQDSK reconstruction of the SPARC L-mode file in
+    ``fuzz/seeds/geqdsk`` on its 129 x 129 grid, float32 with the kernels
+    (one fused V-cycle an iteration), profiled as one solve."""
+    import torch
+    from scpn_fusion_tpu_torch.io.geqdsk import read_geqdsk
+    from scpn_fusion_tpu_torch.models.equilibrium.eqdsk_solve import solve_from_geqdsk
+
+    eq = read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk" / "sparc_lmode_hv.geqdsk")
+
+    def solve():
+        res = solve_from_geqdsk(eq, dtype=torch.float32, device="cuda")
+        return {"iterations": res.iterations, "converged": res.converged,
+                "span_rel_rmse": float(res.span_rel_rmse)}
+
+    profile_solve(card, "SPARC g-file 129x129 f32", solve, "torch_eqdsk_trace.json")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = parser.add_mutually_exclusive_group()
@@ -463,6 +614,11 @@ def main() -> int:
                             "sor_sweeps on every route and the staged route")
     group.add_argument("--rect", action="store_true",
                        help="profile the rectangular 257 x 129 DIII-D-like solve")
+    group.add_argument("--free-boundary", action="store_true",
+                       help="profile the free-boundary forward (257^2, 129^2 f32 and mixed, "
+                            "129^2 with optimize_shape and the wall response) and the coil fit")
+    group.add_argument("--eqdsk", action="store_true",
+                       help="profile the G-EQDSK reconstruction of the SPARC file")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -492,6 +648,12 @@ def main() -> int:
     if opts.sor:
         profile_sor(card)
         return 0
+    if opts.free_boundary:
+        profile_free_boundary(card)
+        return 0
+    if opts.eqdsk:
+        profile_eqdsk(card)
+        return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
         solve_equilibrium, solve_equilibrium_fmg,
@@ -505,57 +667,23 @@ def main() -> int:
 
         def solve():
             res = solve_equilibrium(cfg, dtype=torch.float32, device="cuda")
-            return res, [{"shape": tuple(res.psi.shape), "iterations": res.iterations,
-                          "converged": res.converged}]
+            return [{"shape": tuple(res.psi.shape), "iterations": res.iterations,
+                     "converged": res.converged}]
     elif mixed:
         cfg = bench_config(2049, use_pallas=True, gs_residual_threshold=3e-5)
 
         def solve():
-            return solve_equilibrium_mixed_fmg(cfg, min_coarse=129, device="cuda")
+            return solve_equilibrium_mixed_fmg(cfg, min_coarse=129, device="cuda")[1]
     else:
         cfg = bench_config(513, use_pallas=True)
 
         def solve():
             return solve_equilibrium_fmg(cfg, min_coarse=129, dtype=torch.float32,
-                                         device="cuda")
+                                         device="cuda")[1]
 
-    solve()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        _, info = solve()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    events = device_events(prof)
-    dev_us = sum(e.device_time for e in events)
-    print(f"levels {info}")
-    print(f"wall {wall_ms:.3f} ms, device kernels {dev_us / 1e3:.3f} ms, "
-          f"idle share {1.0 - dev_us / 1e3 / wall_ms:.3f}, device launches {len(events)}")
-    port_us = sum(e.device_time for e in events if is_port_kernel(e.name))
-    f64_us = sum(e.device_time for e in events if "double" in e.name)
-    print(f"device ms in the port's kernels {port_us / 1e3:.3f}, "
-          f"in float64 PyTorch ops {f64_us / 1e3:.3f}")
-    by_name: dict[str, list[float]] = {}
-    for e in events:
-        by_name.setdefault(e.name, []).append(e.device_time)
-    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
-    for name, ts in rows[:20]:
-        print(f"  {sum(ts) / 1e3:9.3f} ms  {len(ts):6d}x  {name[:90]}")
-    print("the port's kernels per launch (us): min / median / max, launches within 5% of max")
-    for name, ts in rows:
-        if is_port_kernel(name):
-            ts = sorted(ts)
-            near_max = sum(t >= 0.95 * ts[-1] for t in ts)
-            print(f"  {ts[0]:8.3f} / {ts[len(ts) // 2]:8.3f} / {ts[-1]:8.3f}  {near_max:5d} of "
-                  f"{len(ts):5d}  {kernel_name(name)}")
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     trace = ("torch_rect_trace.json" if opts.rect else "torch_mixed_trace.json" if mixed
              else "torch_fmg_trace.json")
-    prof.export_chrome_trace(str(out / trace))
-    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+    profile_solve(card, "solve", solve, trace)
     return 0
 
 
