@@ -28,7 +28,25 @@ them:
 * (e) the G-EQDSK reconstruction of the public SPARC L-mode equilibrium in
   ``fuzz/seeds/geqdsk`` on its 129 x 129 grid: kernel 3 once an iteration;
 * (f) the Newton-Krylov solve at 129^2 in float64 (plain ops only) against
-  the Picard float64 solve.
+  the Picard float64 solve;
+* (g) the adjoint lane of ``validation/run_adjoint_fd.py`` at 65^2 in
+  float64: the IFT coil gradient (``fixed_point_ift``, 300 forward steps and
+  300 adjoint iterations of one plain V-cycle a step) of ``mean(psi^2)``,
+  checked against central differences on the card (gate 3.244e-6), and
+  lane 2, one normalised descent step of the axis-flux tracking loss;
+* (h) the real-shot reconstruction of the same SPARC file in float64
+  (``reconstruction.reconstruct``, subcell 4, Anderson(8), as
+  ``validation/run_real_shot_accuracy.py:94-97``) against the same call on
+  the CPU, and ``refit_profiles`` with its defaults;
+* (i) the small lanes once each in float64 against the same call on the
+  CPU: ``refine_x_point`` on the 513^2 FMG result, ``analyze_rigid_body``
+  and ``stability_landscape`` in the coil field of the 129^2 free-boundary
+  result, ``solve_force_balance`` and its Newton variant, a field-line trace
+  with ``safety_factor_from_trace``, ``solve_vmec_lite`` and
+  ``solve_force_balance_3d``.
+
+Paths (g)-(i) run plain PyTorch ops, as the JAX package runs them without
+its Pallas kernels; the script checks that no kernel launched on them.
 
 Phases:
 
@@ -75,7 +93,16 @@ Phases:
    within one, psi within 1e-3, one kernel-3 launch an iteration) and (f)
    (converged in at most 8 iterations, psi within 1e-3 of Picard, no
    kernel);
-10. times each kernel beside its plain version at a shape its path gives it
+10. runs (g), then (h) and (i), then (g)'s 12 finite-difference solves
+   (counters likewise: no kernel; each path's wall time between CUDA
+   events): (g) the gradient within 3.244e-6 of FD and lane 2's loss lower;
+   (h) converged, iterations within one of the CPU run, psi and NRMSE within
+   1e-9 of it (the reference's NRMSE < 0.05 is printed: it is a gate of its
+   own five SPARC EFIT files, and this file does not meet it in the JAX
+   package either), the refit's NRMSE finite and no worse than the
+   unfitted one; (i) each lane converged (or within its bar) and within
+   1e-9 relative of the CPU run;
+11. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
    their predecessors, and as 50 calls back to back; ``sor_sweeps`` at each
@@ -94,13 +121,15 @@ the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
 that runs six of the seven), over the rectangular solve for ``sor_sweeps``
 and over the 257^2 free-boundary forward for kernels 2 and 3, and
-``launches_by_path`` holding each kernel's wrapper calls on every path.
+``launches_by_path`` holding each kernel's wrapper calls on every path
+(zero on (g)-(i)).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import re
 import statistics
@@ -285,6 +314,341 @@ def bound(work: tuple[float, float]) -> tuple[float, str]:
     nbytes, flops = work
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ── the eighth slice: the differentiable equilibrium, the real-shot reconstruction
+# and the rest of models/equilibrium/ (plain PyTorch ops on the card, as the
+# JAX package runs these paths without its kernels) ──
+
+ADJ_COIL_R = (3.5, 8.0, 10.8, 8.0, 3.5, 10.8)    # validation/run_adjoint_fd.py:48-62
+ADJ_COIL_Z = (4.8, 4.8, 0.0, -4.8, -4.8, 2.5)
+ADJ_CURRENTS = (-1.0, 4.0, 6.0, 4.0, -1.0, 3.0)
+ADJ_P_COEFFS = (1.0, 0.4, 0.08, 0.02)
+ADJ_STEPS = 300          # n_fwd = n_bwd
+ADJ_TOL = 3.244e-6       # run_adjoint_fd.py:28, the reference's own gate
+NRMSE_GATE = 0.05        # run_real_shot_accuracy.py:57 (the reference's SPARC EFIT files)
+LANE_TOL = 1e-9          # each lane on the card against the same call on the CPU
+
+
+def events_ms(run):
+    """(result, wall ms) of one call of ``run`` between two CUDA events."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_rel(a, b) -> float:
+    """max |a - b| over max |b| of two tensors (or tuples of them), on the CPU."""
+    import torch
+    if isinstance(b, (tuple, list)):
+        return max(max_rel(x, y) for x, y in zip(a, b))
+    a, b = a.detach().cpu().to(torch.complex128 if b.is_complex() else torch.float64), \
+        b.detach().cpu().to(torch.complex128 if b.is_complex() else torch.float64)
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale > 0 else float((a - b).abs().max())
+
+
+def adjoint_lane(dev, card: str, counted, by_path: dict) -> tuple:
+    """(g) the 65^2 float64 adjoint lane: the IFT coil gradient of
+    ``mean(psi^2) * 1e12`` and lane 2 (one normalised descent step of the
+    axis-flux tracking loss lowers it).  Returns what the FD check, which
+    runs last, needs: the currents, a batched loss, the gradient and the
+    loss at the currents."""
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium import differentiable as dm
+
+    f64 = torch.float64
+    grid = Grid.from_bounds(65, 65, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=dev)
+    model = dm.build_predictive_model(grid, ADJ_COIL_R, ADJ_COIL_Z, relax=0.5, use_vcycle=True)
+    c0 = torch.tensor(ADJ_CURRENTS, dtype=f64, device=dev)
+    theta0 = dm.PredictiveTheta(c0, torch.tensor(ADJ_P_COEFFS, dtype=f64, device=dev),
+                                torch.tensor(15.0, dtype=f64, device=dev))
+
+    def solve(c):
+        return dm.solve_predictive_diff(model, theta0._replace(coil_currents=c),
+                                        n_fwd=ADJ_STEPS, n_bwd=ADJ_STEPS)
+
+    def gradients():
+        """One forward solve, two IFT backward passes: the energy gradient
+        and lane 2's tracking-loss gradient (target: axis flux x 1.02)."""
+        c = c0.clone().requires_grad_(True)
+        psi = solve(c)
+        (g_energy,) = torch.autograd.grad((psi * psi).mean() * 1e12, c, retain_graph=True)
+        axis = dm.soft_axis_flux(psi)
+        target = axis.detach() * 1.02
+        loss0 = (axis - target) ** 2
+        (g_track,) = torch.autograd.grad(loss0, c)
+        return psi.detach(), g_energy, target, loss0.detach(), g_track
+
+    (grads, ms_grad), calls, launched = counted(lambda: events_ms(gradients))
+    psi, g_adj, target, loss0, g_track = grads
+    require(tuple(psi.shape) == (65, 65) and bool(torch.isfinite(psi).all())
+            and bool(torch.isfinite(g_adj).all()) and bool(g_adj.abs().max() > 0),
+            "adjoint lane: psi or the IFT gradient is not finite and nonzero")
+    c1 = c0 - 0.05 * g_track / torch.clamp(torch.linalg.vector_norm(g_track), min=1e-30)
+    with torch.no_grad():
+        loss1, ms_fwd = events_ms(lambda: (dm.soft_axis_flux(solve(c1)) - target) ** 2)
+    print(f"(g) adjoint lane 65^2 f64 ({ADJ_STEPS} forward steps, {ADJ_STEPS} adjoint "
+          f"iterations, one plain V-cycle a step): IFT gradient of mean(psi^2)*1e12 "
+          f"{g_adj.tolist()}; wall {ms_grad:.3f} ms for the forward solve and both backward "
+          f"passes, {ms_fwd:.3f} ms a forward solve (CUDA events); lane 2 tracking loss "
+          f"{float(loss0)!r} -> {float(loss1)!r} after one normalised step; port-kernel calls "
+          f"{sum(calls.values())}, __global__ launches {sum(launched.values())} [{card}]")
+    require(float(loss1) < float(loss0), "adjoint lane 2: the descent step did not lower the "
+                                         "tracking loss")
+    require(sum(calls.values()) == 0, "adjoint lane: a kernel ran on a plain-ops path")
+    by_path["adjoint_65"] = calls
+
+    step = functools.partial(dm._predictive_step, model)
+
+    def energies(cs):
+        """mean(psi^2) * 1e12 for a batch of current vectors: the forward of
+        ``solve_predictive_diff`` (vacuum start, ADJ_STEPS Picard steps),
+        ``torch.func.vmap``ped over the batch."""
+        def one(c):
+            th = theta0._replace(coil_currents=c)
+            out = dm.vacuum_psi_from_table(model.coil_table, c)
+            for _ in range(ADJ_STEPS):
+                out = step(th, out)
+            return (out * out).mean() * 1e12
+        with torch.no_grad():
+            return torch.func.vmap(one)(cs)
+
+    return c0, energies, g_adj, float((psi * psi).mean() * 1e12)
+
+
+def fd_check(c0, energies, g_adj, energy0: float, card: str) -> None:
+    """(g), last: the IFT gradient against central differences on the card,
+    step 3e-4 max(|I|, 1) a coil (run_adjoint_fd.py:73-84); the 12 perturbed
+    forward solves run as one vmapped batch, itself held to the gradient
+    run's own forward at the unperturbed currents."""
+    import torch
+    n = c0.shape[0]
+    h = torch.tensor([3e-4 * max(abs(float(v)), 1.0) for v in c0], dtype=c0.dtype,
+                     device=c0.device)
+    shifts = torch.diag(h)
+    batch = torch.cat([c0 + shifts, c0 - shifts, c0[None]])
+    e, ms = events_ms(lambda: energies(batch))
+    g_fd = ((e[:n] - e[n:2 * n]) / (2.0 * h)).cpu()
+    dev_e0 = abs(float(e[-1]) - energy0) / abs(energy0)
+    dev_rel = float(((g_adj.cpu() - g_fd).abs() / g_fd.abs().max()).max())
+    print(f"(g) FD check: central differences {g_fd.tolist()}; max relative component "
+          f"deviation of the IFT gradient {dev_rel:.3e} (limit {ADJ_TOL:.3e}); {2 * n} "
+          f"perturbed forward solves and the unperturbed one as one vmapped batch in "
+          f"{ms:.3f} ms (CUDA events), its unperturbed energy {dev_e0:.3e} from the gradient "
+          f"run's [{card}]")
+    require(dev_e0 <= LANE_TOL, "FD check: the batched forward is not the solve's forward")
+    require(dev_rel <= ADJ_TOL, "adjoint lane: the IFT gradient deviates from central FD")
+
+
+def recon_lane(dev, card: str, counted, by_path: dict) -> None:
+    """(h) the real-shot reconstruction of the SPARC L-mode file in
+    ``fuzz/seeds/geqdsk``, float64, the validation's settings
+    (run_real_shot_accuracy.py:94-97), against the same call on the CPU;
+    then ``refit_profiles`` with its defaults, also against the CPU."""
+    import torch
+    from scpn_fusion_tpu_torch.io.geqdsk import read_geqdsk
+    from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
+
+    case = rc.prepare_case(read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk"
+                                       / "sparc_lmode_hv.geqdsk"))
+    kw = dict(subcell=4, anderson_m=8, max_iter=200)
+    (out, ms), calls, _ = counted(lambda: events_ms(lambda: rc.reconstruct(case, device=dev,
+                                                                            **kw)))
+    out_cpu = rc.reconstruct(case, device="cpu", **kw)
+    span = float(case.psi.max() - case.psi.min())
+    dev_psi = float(np.max(np.abs(out["psi_fit"] - out_cpu["psi_fit"]))) / span
+    print(f"(h) SPARC g-file 129x129 f64 reconstruction (subcell 4, Anderson(8)): "
+          f"{out['iterations']} iterations (CPU {out_cpu['iterations']}), final step "
+          f"{out['final_step']!r}, NRMSE {out['nrmse_range']!r} (CPU {out_cpu['nrmse_range']!r}; "
+          f"the reference's gate < {NRMSE_GATE}: {out['nrmse_range'] < NRMSE_GATE}, a gate of its "
+          f"five SPARC EFIT files, which this file's profiles do not reproduce (source best-fit "
+          f"scale {case.source_best_fit_scale:.4f}, {case.source_convention})), deep RMS "
+          f"{out['deep_rms_rel_span']!r}; psi vs CPU span-rel {dev_psi:.3e}; wall {ms:.3f} ms "
+          f"(CUDA events); port-kernel calls {sum(calls.values())} [{card}]")
+    require(np.isfinite(out["psi_fit"]).all() and out["psi_fit"].shape == case.psi.shape,
+            "SPARC reconstruction: psi is not a finite 129x129 field")
+    require(out["final_step"] < 1e-9 * case.span and out["iterations"] < kw["max_iter"],
+            "SPARC reconstruction did not converge")
+    require(abs(out["iterations"] - out_cpu["iterations"]) <= 1,
+            "SPARC reconstruction: iteration count differs from the CPU run by more than 1")
+    require(abs(out["nrmse_range"] - out_cpu["nrmse_range"]) <= LANE_TOL * out_cpu["nrmse_range"]
+            and dev_psi <= LANE_TOL, "SPARC reconstruction: the card deviates from the CPU run")
+    require(sum(calls.values()) == 0, "SPARC reconstruction: a kernel ran on a plain-ops path")
+    by_path["recon_sparc"] = calls
+    (fit, ms_fit), calls_fit, _ = counted(lambda: events_ms(lambda: rc.refit_profiles(
+        case, device=dev)))
+    fit_cpu = rc.refit_profiles(case, device="cpu")
+    dev_fit = max(float(np.max(np.abs(fit["psi_fit"] - fit_cpu["psi_fit"]))) / span,
+                  float(np.max(np.abs(fit["theta"] - fit_cpu["theta"])
+                               / np.max(np.abs(fit_cpu["theta"])))),
+                  abs(fit["nrmse_range"] - fit_cpu["nrmse_range"]) / fit_cpu["nrmse_range"])
+    print(f"(h) refit_profiles (defaults: n_outer 30, 30 V-cycles, the 8 basis responses in one "
+          f"vmapped solve): {fit['outer_iterations']} outer iterations (CPU "
+          f"{fit_cpu['outer_iterations']}), final shift {fit['final_shift']!r}, fitted NRMSE "
+          f"{fit['nrmse_range']!r} against the unfitted {out['nrmse_range']!r}, deep RMS "
+          f"{fit['deep_rms_rel_span']!r}; psi, theta and NRMSE vs CPU max relative "
+          f"{dev_fit:.3e}; wall {ms_fit:.3f} ms (CUDA events) [{card}]")
+    require(np.isfinite(fit["nrmse_range"]) and fit["nrmse_range"] <= out["nrmse_range"],
+            "refit_profiles: the fitted NRMSE is not finite or worse than the unfitted one")
+    require(fit["outer_iterations"] == fit_cpu["outer_iterations"] and dev_fit <= LANE_TOL,
+            "refit_profiles: the card deviates from the CPU run")
+    require(sum(calls_fit.values()) == 0, "refit_profiles: a kernel ran on a plain-ops path")
+
+
+def small_lanes(dev, card: str, counted, by_path: dict, fmg_result, fmg_cfg, fb_result,
+                fb_cfg, mu0_green: float) -> None:
+    """(i) each small lane once on the card in float64, against the same call
+    on the CPU (within 1e-9 relative), each gated on its own convergence."""
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium import (
+        amr, fieldline, force_balance, force_balance_3d, rigid_body_stability as rb, vmec_lite,
+    )
+    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import CoilSet
+    from scpn_fusion_tpu_torch.models.equilibrium.topology import find_magnetic_axis
+    from scpn_fusion_tpu_torch.models.equilibrium.vacuum import vacuum_psi
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    lanes: list[tuple[str, object, object]] = []   # (name, card result, CPU result)
+    lane_calls = {name: 0 for name in KERNELS}
+
+    def both(name, run):
+        """``run(device)`` on the card (timed, counted) and on the CPU."""
+        (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
+        require(sum(calls.values()) == 0, f"{name}: a kernel ran on a plain-ops path")
+        for k, v in calls.items():
+            lane_calls[k] += v
+        lanes.append((name, out, run(cpu)))
+        return out, ms
+
+    # AMR patch around the X-point of the 513^2 FMG result (f64 copy)
+    g513 = Grid.from_config(fmg_cfg, dtype=f64, device=cpu)
+    mu0 = float(fmg_cfg.physics.vacuum_permeability)
+    psi513 = fmg_result.psi.detach().to(f64)
+    src513 = -mu0 * g513.RR.to(dev) * fmg_result.j_phi.detach().to(f64)
+
+    def patch(d):
+        return amr.refine_x_point(psi513.to(d), src513.to(d), g513.R.to(d), g513.Z.to(d))
+
+    res_amr, ms = both("refine_x_point", patch)
+    print(f"(i) refine_x_point on the 513^2 FMG result: X-point ({float(res_amr.x_point_r)!r}, "
+          f"{float(res_amr.x_point_z)!r}), |grad psi| {float(res_amr.grad_psi_at_x)!r} on a "
+          f"{res_amr.psi_fine.shape[0]}^2 patch; {ms:.3f} ms [{card}]")
+    require(bool(torch.isfinite(res_amr.psi_fine).all()) and float(res_amr.r_fine[0])
+            <= float(res_amr.x_point_r) <= float(res_amr.r_fine[-1]),
+            "refine_x_point: the patch is not finite or the X-point left it")
+
+    # rigid-body stability in the vacuum field of the 129^2 free-boundary
+    # result's coils, at its magnetic axis
+    g129 = Grid.from_config(fb_cfg, dtype=f64, device=cpu)
+    coils = [torch.tensor([getattr(c, k) for c in fb_cfg.coils], dtype=f64)
+             for k in ("r", "z", "turns")]
+    i_eff = fb_result.coil_currents.detach().cpu().to(f64) * coils[2]
+    iz, ir, _ = find_magnetic_axis(fb_result.psi.detach().cpu())
+    r_ax, z_ax = float(g129.R[ir]), float(g129.Z[iz])
+    ip_ma = float(fb_cfg.physics.plasma_current_target)
+
+    def rigid(d):
+        g = Grid.from_config(fb_cfg, dtype=f64, device=d)
+        pv = vacuum_psi(g, coils[0].to(d), coils[1].to(d), i_eff.to(d), mu0_green)
+        rep = rb.analyze_rigid_body(pv, g, r_target=r_ax, z_target=z_ax, ip_ma=ip_ma)
+        land = rb.stability_landscape(pv, g, r_points=torch.linspace(r_ax - 1, r_ax + 1, 9,
+                                                                      dtype=f64),
+                                      z_points=torch.linspace(z_ax - 1, z_ax + 1, 7, dtype=f64),
+                                      ip_ma=ip_ma)
+        return (*rep.forces, rep.stiffness_n_m, rep.eigenvalues, *land)
+
+    out_rb, ms = both("analyze_rigid_body + stability_landscape", rigid)
+    print(f"(i) rigid body at the 129^2 free-boundary axis ({r_ax!r}, {z_ax!r}): F_R "
+          f"{float(out_rb[0])!r} N, F_Z {float(out_rb[1])!r} N, decay index "
+          f"{float(out_rb[5])!r}, K {out_rb[6].tolist()}, eigenvalues {out_rb[7].tolist()}; "
+          f"landscape {tuple(out_rb[8].shape)}; {ms:.3f} ms [{card}]")
+    require(all(bool(torch.isfinite(t).all()) for t in out_rb),
+            "rigid body: forces, stiffness or landscape not finite")
+
+    # radial force balance of the free-boundary coil set, closed form and Newton
+    def balance(d):
+        cs = CoilSet(r=coils[0].to(d), z=coils[1].to(d), turns=coils[2].to(d),
+                     currents=(i_eff * 1e6).to(d))
+        sol = force_balance.solve_force_balance(cs, r_target=r_ax, ip_a=ip_ma * 1e6,
+                                                control_indices=(2, 5))
+        bump = torch.zeros(6, dtype=f64, device=d)
+        bump[2] = bump[5] = 1.0
+
+        def force(delta):
+            return force_balance.radial_force(cs._replace(currents=cs.currents + bump * delta),
+                                              r_ax, ip_ma * 1e6, 2.0)
+        x, f, ok = force_balance.solve_force_balance_newton(
+            force, torch.tensor(0.0, dtype=f64, device=d))
+        return sol.currents, sol.delta_i, sol.initial_force_n, sol.converged, x, ok
+
+    out_fb, ms = both("solve_force_balance(_newton)", balance)
+    print(f"(i) force balance at R {r_ax!r}: closed-form dI {float(out_fb[1])!r} (initial "
+          f"force {float(out_fb[2])!r} N, converged {bool(out_fb[3])}); Newton dI "
+          f"{float(out_fb[4])!r} (converged {bool(out_fb[5])}); {ms:.3f} ms [{card}]")
+    require(bool(out_fb[3]) and bool(out_fb[5]), "force balance did not converge")
+
+    # field lines through the 129^2 free-boundary psi
+    psi_fb = fb_result.psi.detach().cpu().to(f64)
+    fmodel = fieldline.FieldModel(r_1d=tuple(g129.R.tolist()), z_1d=tuple(g129.Z.tolist()),
+                                  psi=tuple(psi_fb.reshape(-1).tolist()), f_tor=6.2 * 5.3,
+                                  axis_r=r_ax, axis_z=z_ax)
+    seeds = [r_ax - 0.1, r_ax - 0.2, r_ax - 0.3]     # inside this machine's small plasma
+
+    def trace(d):
+        tr = fieldline.trace_field_lines(fmodel, seeds, [z_ax] * 3, n_turns=10,
+                                         steps_per_turn=64, device=d)
+        return tr.r, tr.z, fieldline.safety_factor_from_trace(tr, r_ax, z_ax, 64)
+
+    out_tr, ms = both("trace_field_lines + safety_factor_from_trace", trace)
+    print(f"(i) field lines: 3 lines x 10 turns x 64 RK4 steps, q {out_tr[2].tolist()}; "
+          f"{ms:.3f} ms [{card}]")
+    require(bool(torch.isfinite(out_tr[2]).all()) and bool((out_tr[2].abs() > 0).all())
+            and float(out_tr[0].min()) >= fb_cfg.dimensions.R_min
+            and float(out_tr[0].max()) <= fb_cfg.dimensions.R_max,
+            "field lines: q is not finite or a line left the grid")
+
+    # VMEC-lite on tests/test_vmec_lite.py's shaped boundary
+    def vmec(d):
+        basis = vmec_lite.SpectralBasis(m_pol=3, n_tor=2, n_fp=1)
+        r_b, z_b = vmec_lite.tokamak_boundary(6.2, 2.0, 1.7, 0.33, basis, device=d)
+        s = torch.linspace(0.0, 1.0, 21, dtype=f64, device=d)
+        res = vmec_lite.solve_vmec_lite(basis, r_b, z_b, 1e5 * (1 - s ** 2), 0.9 - 0.5 * s ** 2,
+                                        max_iter=3000, tol=1e-3)
+        return res.r_mn, res.z_mn, res.b_mn, res.converged, torch.tensor(res.iterations)
+
+    out_vm, ms = both("solve_vmec_lite", vmec)
+    print(f"(i) VMEC-lite: converged {bool(out_vm[3])} in {int(out_vm[4])} iterations; "
+          f"{ms:.3f} ms [{card}]")
+    require(bool(out_vm[3]), "VMEC-lite did not converge")
+
+    # the reduced 3D force balance (tests/test_equilibrium_3d.py's shaped geometry)
+    def fb3d(d):
+        geom = force_balance_3d.Geometry3D(r_axis=6.2, a_minor=2.0, kappa=1.6,
+                                           triangularity=0.3)
+        res = force_balance_3d.solve_force_balance_3d(
+            geom, force_balance_3d.ForceBalanceConfig(max_iterations=20),
+            torch.zeros((geom.n_modes, 4), dtype=f64, device=d))
+        return res.amplitudes, res.residual, res.initial_residual, torch.tensor(res.iterations)
+
+    out_3d, ms = both("solve_force_balance_3d", fb3d)
+    reduction = float(out_3d[2]) / float(out_3d[1])
+    print(f"(i) 3D force balance: residual {float(out_3d[2])!r} -> {float(out_3d[1])!r} "
+          f"({reduction:.3f}x) in {int(out_3d[3])} iterations; {ms:.3f} ms [{card}]")
+    require(reduction >= 3.5, "3D force balance: residual fell less than 3.5x in 20 iterations "
+                              "(tests/test_equilibrium_3d.py's bar)")
+
+    for name, on_card, on_cpu in lanes:
+        dev_l = max_rel(on_card, on_cpu)
+        print(f"(i) {name}: card vs CPU max relative deviation {dev_l:.3e} (limit {LANE_TOL:.0e})")
+        require(dev_l <= LANE_TOL, f"{name}: the card deviates from the CPU run")
+    by_path["small_lanes"] = lane_calls
 
 
 def main() -> int:
@@ -863,6 +1227,7 @@ def main() -> int:
     cb.reset_launch_counts()
     res_k, info_k = solve_equilibrium_fmg(cfg_k, dtype=torch.float32, **fmg)
     torch.cuda.synchronize()
+    fmg_513 = res_k      # its X-point is refined in path (i)
     launches_513 = {name: cb.CALLS[name] for name in KERNELS}
     print(f"FMG with kernels: levels {info_k}")
     print(f"wrapper calls in the 513^2 FMG run: {launches_513}; __global__ launches "
@@ -1184,6 +1549,7 @@ def main() -> int:
     by_path = {"fmg_513": launches_513, "mixed_2049": dict(launches),
                "anderson_129": launches_sor, "rect_257x129": launches_rect}
     fb_runs = {}    # tag -> (kernel solve, plain solve) for the times
+    fb_results = {}   # tag -> the kernel solve's result
 
     # (a) and (b): the validation's warm forward lanes, 257^2 and 129^2 in
     # float32, kernels against plain float32
@@ -1205,6 +1571,7 @@ def main() -> int:
         require(dev_fb <= SLICE_TOL, f"free boundary {n}^2: kernels deviate from plain f32")
         source_and_vcycle(f"free boundary {n}^2", calls, launched)
         by_path[tag] = calls
+        fb_results[tag] = res_k
         fb_runs[tag] = (lambda n=n, kw=kw: fb_solve(n, True, **kw),
                         lambda n=n, kw=kw: fb_solve(n, False, **kw))
 
@@ -1324,6 +1691,19 @@ def main() -> int:
             "Newton deviates from the Picard f64 fixed point")
     require(sum(calls_nk.values()) == 0, "Newton launched a kernel: it runs plain ops")
     phase_done("G-EQDSK and Newton slice")
+
+    # ── the eighth slice: (g) the adjoint lane, (h) the real-shot reconstruction and
+    # its profile refit, (i) the small lanes, each on plain ops; (g)'s FD
+    # check last ──
+    adjoint = adjoint_lane(dev, card, counted, by_path)
+    phase_done("adjoint lane")
+    recon_lane(dev, card, counted, by_path)
+    phase_done("real-shot reconstruction")
+    small_lanes(dev, card, counted, by_path, fmg_513, cfg_k, fb_results["fb_129"],
+                free_boundary_config(129), FREE_BOUNDARY_MU0_GREEN)
+    phase_done("small lanes")
+    fd_check(*adjoint, card)
+    phase_done("FD check")
 
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward

@@ -53,6 +53,12 @@ def linspace_like_jax(start: float, stop: float, num: int, dtype: torch.dtype) -
     return np.asarray(out + [dt(stop)], dt)
 
 
+def linspace(start: float, stop: float, num: int, dtype: torch.dtype,
+             device: torch.device | str) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num, dtype=dtype)`` on ``device``."""
+    return torch.from_numpy(linspace_like_jax(start, stop, num, dtype).copy()).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """Uniform rectangular (R, Z) mesh on one device in one dtype.
@@ -84,13 +90,11 @@ class Grid:
 
     @property
     def R(self) -> torch.Tensor:
-        return torch.from_numpy(
-            linspace_like_jax(self.R_min, self.R_max, self.NR, self.dtype).copy()).to(self.device)
+        return linspace(self.R_min, self.R_max, self.NR, self.dtype, self.device)
 
     @property
     def Z(self) -> torch.Tensor:
-        return torch.from_numpy(
-            linspace_like_jax(self.Z_min, self.Z_max, self.NZ, self.dtype).copy()).to(self.device)
+        return linspace(self.Z_min, self.Z_max, self.NZ, self.dtype, self.device)
 
     @property
     def RR(self) -> torch.Tensor:

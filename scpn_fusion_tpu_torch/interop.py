@@ -9,6 +9,7 @@ two packages can compute on the same inputs.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -22,9 +23,22 @@ from scpn_fusion_tpu_torch.core.config import (
     ReactorConfig,
     SolverParams,
 )
+from scpn_fusion_tpu_torch.core.grid import Grid
+from scpn_fusion_tpu_torch.models.equilibrium.differentiable import (
+    PredictiveModel,
+    PredictiveTheta,
+)
+from scpn_fusion_tpu_torch.models.equilibrium.fieldline import FieldModel
+from scpn_fusion_tpu_torch.models.equilibrium.force_balance_3d import (
+    ForceBalanceConfig,
+    Geometry3D,
+)
 from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import CoilSet
 from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
+from scpn_fusion_tpu_torch.models.equilibrium.reconstruction import ReconCase
 from scpn_fusion_tpu_torch.models.equilibrium.shape_control import ShapeTargets
+from scpn_fusion_tpu_torch.models.equilibrium.solovev import SolovevParams
+from scpn_fusion_tpu_torch.models.equilibrium.vmec_lite import SpectralBasis
 
 
 def tensor(x, *, dtype: torch.dtype, device: torch.device | str) -> torch.Tensor:
@@ -77,3 +91,60 @@ def shape_targets(fields: Mapping[str, Any], *, dtype: torch.dtype,
     """``ShapeTargets`` from the JAX ``ShapeTargets``' fields
     (``targets._asdict()``); the family weights stay Python floats."""
     return ShapeTargets(**_arrays(fields, dtype=dtype, device=device, keep=("weights",)))
+
+
+def grid(fields: Mapping[str, Any], *, dtype: torch.dtype, device: torch.device | str) -> Grid:
+    """A ``Grid`` from the JAX ``Grid``'s fields (``dataclasses.asdict``;
+    its numpy dtype is replaced by ``dtype``)."""
+    keys = ("NR", "NZ", "R_min", "R_max", "Z_min", "Z_max")
+    return Grid(**{k: fields[k] for k in keys}, dtype=dtype, device=torch.device(device))
+
+
+def predictive_theta(fields: Mapping[str, Any], *, dtype: torch.dtype,
+                     device: torch.device | str) -> PredictiveTheta:
+    """``PredictiveTheta`` from the JAX ``PredictiveTheta``'s fields
+    (``theta._asdict()``)."""
+    return PredictiveTheta(**_arrays(fields, dtype=dtype, device=device))
+
+
+def predictive_model(fields: Mapping[str, Any], *, dtype: torch.dtype,
+                     device: torch.device | str) -> PredictiveModel:
+    """``PredictiveModel`` from the JAX ``PredictiveModel``'s fields
+    (``model._asdict()`` with ``grid`` as ``dataclasses.asdict(model.grid)``);
+    the coil table is carried over, not rebuilt."""
+    return PredictiveModel(
+        grid=grid(fields["grid"], dtype=dtype, device=device),
+        coil_table=tensor(fields["coil_table"], dtype=dtype, device=device),
+        relax=float(fields["relax"]), sweeps_per_iter=int(fields["sweeps_per_iter"]),
+        use_vcycle=bool(fields["use_vcycle"]))
+
+
+def _same_fields(cls, fields: Mapping[str, Any]):
+    """A frozen dataclass of the port from the JAX twin's
+    ``dataclasses.asdict`` (identical field names, plain values)."""
+    return cls(**{f.name: fields[f.name] for f in dataclasses.fields(cls)})
+
+
+def recon_case(fields: Mapping[str, Any]) -> ReconCase:
+    """``ReconCase`` (host numpy) from ``dataclasses.asdict`` of the JAX one."""
+    return _same_fields(ReconCase, fields)
+
+
+def spectral_basis(fields: Mapping[str, Any]) -> SpectralBasis:
+    return _same_fields(SpectralBasis, fields)
+
+
+def geometry_3d(fields: Mapping[str, Any]) -> Geometry3D:
+    return _same_fields(Geometry3D, fields)
+
+
+def force_balance_config(fields: Mapping[str, Any]) -> ForceBalanceConfig:
+    return _same_fields(ForceBalanceConfig, fields)
+
+
+def field_model(fields: Mapping[str, Any]) -> FieldModel:
+    return _same_fields(FieldModel, fields)
+
+
+def solovev_params(fields: Mapping[str, Any]) -> SolovevParams:
+    return _same_fields(SolovevParams, fields)

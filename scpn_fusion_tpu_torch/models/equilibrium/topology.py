@@ -7,7 +7,9 @@ tensor on the field's device, so every device rounds the quotient the same
 way (PyTorch's CUDA division by a Python scalar multiplies by its
 reciprocal instead).  |grad psi| is ``sqrt(a*a + b*b)``, not ``hypot``, and
 argmax/argmin take the first row-major extremum, as in the JAX package.
-The soft (differentiable) variants are not ported yet.
+The soft variants (softmax-weighted axis and X-point fluxes) are smooth in
+psi, so autograd differentiates them; their |grad psi| is ``jnp.hypot``'s
+formula, whose gradient stays finite where both components vanish.
 """
 
 from __future__ import annotations
@@ -78,6 +80,39 @@ def analyze_topology(psi: torch.Tensor, zz: torch.Tensor, d_r: float, d_z: float
     x_iz, x_ir, psi_b = find_x_point(psi, zz, d_r, d_z, z_min)
     psi_b = torch.where((psi_axis - psi_b).abs() < 0.1, psi_axis * 0.1, psi_b)
     return Topology(psi_axis, psi_b, axis_iz, axis_ir, x_iz, x_ir)
+
+
+def hypot(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """``jnp.hypot``: ``max * sqrt(1 + (min/max)^2)``, zero where both legs
+    are zero (with a zero gradient there, where ``torch.hypot``'s is NaN)."""
+    x1, x2 = x1.abs(), x2.abs()
+    big, small = torch.maximum(x1, x2), torch.minimum(x1, x2)
+    zero = big == 0
+    safe = torch.where(zero, torch.ones_like(big), big)
+    out = torch.where(zero, big, big * torch.sqrt(1 + torch.square(small / safe)))
+    return torch.where(torch.isposinf(x1) | torch.isposinf(x2),
+                       torch.full_like(out, float("inf")), out)
+
+
+def soft_axis_flux(psi: torch.Tensor, temperature: float = 50.0) -> torch.Tensor:
+    """Differentiable O-point flux: the softmax-weighted mean of psi."""
+    w = torch.exp(temperature * (psi - psi.max()) / (psi.max() - psi.min() + 1e-30))
+    w = w / w.sum()
+    return (w * psi).sum()
+
+
+def soft_x_point_flux(psi: torch.Tensor, zz: torch.Tensor, d_r: float, d_z: float,
+                      z_min: float, temperature: float = 50.0) -> torch.Tensor:
+    """Differentiable X-point flux: psi weighted by a softmin of |grad psi|
+    over the divertor region ``ZZ < Z_min/2``."""
+    b_mag = hypot(gradient(psi, d_r, 1), gradient(psi, d_z, 0))
+    mask = zz < (z_min * 0.5)
+    scale = torch.where(mask, b_mag, torch.zeros_like(b_mag)).max() + 1e-30
+    logits = torch.where(mask, -temperature * b_mag / scale,
+                         torch.full_like(b_mag, float("-inf")))
+    w = torch.exp(logits - logits.max())
+    w = w / w.sum()
+    return (w * psi).sum()
 
 
 def compute_b_field(psi: torch.Tensor, rr: torch.Tensor, d_r: float, d_z: float):

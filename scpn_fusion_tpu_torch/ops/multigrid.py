@@ -54,16 +54,18 @@ def restrict_full_weight(fine: torch.Tensor) -> torch.Tensor:
 
 
 def prolongate_bilinear(coarse: torch.Tensor, nz_f: int, nr_f: int) -> torch.Tensor:
-    """Bilinear prolongation (coarse -> fine) for 2^k+1-compatible grids."""
+    """Bilinear prolongation (coarse -> fine) for 2^k+1-compatible grids, out
+    of place (stack and reshape, as the JAX module), so that ``torch.func``
+    transforms take it."""
     c = coarse
     c_r = F.pad(c[:, 1:], (0, 1))
     c_d = F.pad(c[1:, :], (0, 0, 0, 1))
     c_dr = F.pad(c[1:, 1:], (0, 1, 0, 1))
-    fine = torch.empty((2 * c.shape[0], 2 * c.shape[1]), dtype=c.dtype, device=c.device)
-    fine[0::2, 0::2] = c
-    fine[0::2, 1::2] = 0.5 * (c + c_r)
-    fine[1::2, 0::2] = 0.5 * (c + c_d)
-    fine[1::2, 1::2] = 0.25 * (c + c_r + c_d + c_dr)
+    nz_c, nr_c = c.shape
+    # interleave the four phase planes: (nz_c, 2, nr_c, 2) -> (2 nz_c, 2 nr_c)
+    row0 = torch.stack([c, 0.5 * (c + c_r)], dim=-1)
+    row1 = torch.stack([0.5 * (c + c_d), 0.25 * (c + c_r + c_d + c_dr)], dim=-1)
+    fine = torch.stack([row0, row1], dim=1).reshape(2 * nz_c, 2 * nr_c)
     return fine[:nz_f, :nr_f]
 
 

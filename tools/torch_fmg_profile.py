@@ -64,11 +64,16 @@ ring; then one call of that coil fit alone (31 power iterations and 300
 FISTA steps of tiny ops), whose device launches an outer iteration are the
 fit's share of the last solve's launches.  With ``--eqdsk`` it profiles the
 G-EQDSK reconstruction of the SPARC L-mode file in ``fuzz/seeds/geqdsk``.
-Each prints what the solves above print.
+With ``--adjoint`` it profiles one Picard step and one adjoint iteration of
+the 65^2 float64 adjoint lane (``validation/run_adjoint_fd.py``'s model) and
+times its IFT gradient at 300 + 300 iterations and one forward solve; with
+``--recon`` it profiles the float64 real-shot reconstruction of the same
+SPARC file (``reconstruction.reconstruct``, subcell 4) and times its profile
+refit.  Each prints what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
-| --free-boundary | --eqdsk]``.
+| --free-boundary | --eqdsk | --adjoint | --recon]``.
 Exits non-zero without one.
 """
 
@@ -595,6 +600,93 @@ def profile_eqdsk(card: str) -> None:
     profile_solve(card, "SPARC g-file 129x129 f32", solve, "torch_eqdsk_trace.json")
 
 
+def cuda_events_ms(fn) -> float:
+    """Wall time of one call of ``fn`` between two CUDA events (host time
+    included); no warm-up (plain ops compile nothing, and the caller has
+    run the same ops already)."""
+    import torch
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def profile_adjoint(card: str) -> None:
+    """The adjoint lane (``validation/run_adjoint_fd.py``'s 65^2 float64
+    predictive model: six coils, relax 0.5, one plain V-cycle a Picard
+    step).  Profiles one Picard step (forward) and one adjoint iteration
+    (one call of the reused ``torch.func.vjp``), each as a solve; times with
+    CUDA events the IFT gradient of ``mean(psi^2) * 1e12`` at n_fwd = n_bwd
+    = 300 and one forward solve of the FD check."""
+    from functools import partial
+
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium import differentiable as dm
+
+    f64, dev = torch.float64, torch.device("cuda")
+    grid = Grid.from_bounds(65, 65, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=dev)
+    model = dm.build_predictive_model(grid, [3.5, 8.0, 10.8, 8.0, 3.5, 10.8],
+                                      [4.8, 4.8, 0.0, -4.8, -4.8, 2.5], relax=0.5,
+                                      use_vcycle=True)
+    theta = dm.PredictiveTheta(torch.tensor([-1.0, 4.0, 6.0, 4.0, -1.0, 3.0], dtype=f64, device=dev),
+                               torch.tensor([1.0, 0.4, 0.08, 0.02], dtype=f64, device=dev),
+                               torch.tensor(15.0, dtype=f64, device=dev))
+    step = partial(dm._predictive_step, model)
+    psi = dm.solve_predictive_diff(model, theta, n_fwd=300)
+    profile_solve(card, "adjoint lane 65^2 f64, one Picard step",
+                  lambda: {"shape": tuple(step(theta, psi).shape)}, None)
+    _, vjp_fn = torch.func.vjp(lambda p, *lv: step(dm.PredictiveTheta(*lv), p), psi, *theta)
+    profile_solve(card, "adjoint lane 65^2 f64, one adjoint iteration",
+                  lambda: {"outputs": len(vjp_fn(psi))}, None)
+
+    def gradient():
+        c = theta.coil_currents.clone().requires_grad_(True)
+        out = dm.solve_predictive_diff(model, theta._replace(coil_currents=c), n_fwd=300,
+                                       n_bwd=300)
+        torch.autograd.grad((out * out).mean() * 1e12, c)
+
+    def forward():
+        with torch.no_grad():
+            dm.solve_predictive_diff(model, theta, n_fwd=300)
+
+    print(f"adjoint lane 65^2 f64: IFT gradient (300 forward steps, 300 adjoint iterations) "
+          f"{cuda_events_ms(gradient):.3f} ms; one forward solve (300 steps) "
+          f"{cuda_events_ms(forward):.3f} ms (CUDA events, one call each) [{card}]")
+
+
+def profile_recon(card: str) -> None:
+    """The real-shot reconstruction of the SPARC L-mode file in
+    ``fuzz/seeds/geqdsk`` (``reconstruction.prepare_case`` then
+    ``reconstruct(subcell=4, anderson_m=8, max_iter=200)``, float64),
+    profiled as one solve; ``refit_profiles`` with its defaults timed with
+    CUDA events (its whole run is too many launches to profile)."""
+    import torch
+    from scpn_fusion_tpu_torch.io.geqdsk import read_geqdsk
+    from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
+
+    case = rc.prepare_case(read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk"
+                                       / "sparc_lmode_hv.geqdsk"))
+
+    def solve():
+        out = rc.reconstruct(case, subcell=4, anderson_m=8, max_iter=200, device="cuda")
+        return {"iterations": out["iterations"], "nrmse_range": out["nrmse_range"]}
+
+    profile_solve(card, "SPARC g-file 129x129 f64 reconstruction", solve, None)
+    refit = {}
+
+    def fit():
+        refit.update(rc.refit_profiles(case, device="cuda"))
+
+    ms = cuda_events_ms(fit)
+    print(f"SPARC refit_profiles (defaults: 8 basis responses in one vmapped solve, 30 V-cycles each, "
+          f"n_outer 30): {ms:.3f} ms, {refit['outer_iterations']} outer iterations, fitted "
+          f"nrmse {refit['nrmse_range']!r} (CUDA events, one call) [{card}]")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = parser.add_mutually_exclusive_group()
@@ -619,6 +711,12 @@ def main() -> int:
                             "129^2 with optimize_shape and the wall response) and the coil fit")
     group.add_argument("--eqdsk", action="store_true",
                        help="profile the G-EQDSK reconstruction of the SPARC file")
+    group.add_argument("--adjoint", action="store_true",
+                       help="profile a Picard step and an adjoint iteration of the 65^2 f64 "
+                            "adjoint lane; time its IFT gradient and a forward solve")
+    group.add_argument("--recon", action="store_true",
+                       help="profile the SPARC f64 real-shot reconstruction; time its "
+                            "profile refit")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -653,6 +751,12 @@ def main() -> int:
         return 0
     if opts.eqdsk:
         profile_eqdsk(card)
+        return 0
+    if opts.adjoint:
+        profile_adjoint(card)
+        return 0
+    if opts.recon:
+        profile_recon(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
