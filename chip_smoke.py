@@ -43,10 +43,24 @@ them:
   and ``stability_landscape`` in the coil field of the 129^2 free-boundary
   result, ``solve_force_balance`` and its Newton variant, a field-line trace
   with ``safety_factor_from_trace``, ``solve_vmec_lite`` and
-  ``solve_force_balance_3d``.
+  ``solve_force_balance_3d``;
+* (j) the GS <-> transport coupling ``run_self_consistent`` on the bench
+  machine at 257^2 in float32 (``bench_config.COUPLED``: the default
+  transport, 30 MW, dt 0.02 s, 10 steps an outer iteration): kernels 2 and 3
+  on its GS solves and the Thomas kernel (``csrc/tridiag.cu``) on every
+  Crank-Nicolson solve;
+* (k) the TORAX-parity coarse tier (``bench_config.TORAX_COARSE``): 400
+  transport steps of 0.5 s at 50 MW in float64, the Thomas kernel alone;
+* (l) the small transport lanes once each in float64 against the same call
+  on the CPU: adaptive stepping with the committed neural surrogate,
+  current diffusion, the impurity ladder, rotation and the L-H transition,
+  the reduced closure, the Aurora-parity step, the 0D burn point and the
+  blanket.
 
 Paths (g)-(i) run plain PyTorch ops, as the JAX package runs them without
-its Pallas kernels; the script checks that no kernel launched on them.
+its Pallas kernels; the script checks that no kernel launched on them.  On
+(l) only the Thomas kernel may launch, and it must on every lane that solves
+a tridiagonal system.
 
 Phases:
 
@@ -102,7 +116,21 @@ Phases:
    package either), the refit's NRMSE finite and no worse than the
    unfitted one; (i) each lane converged (or within its bar) and within
    1e-9 relative of the CPU run;
-11. times each kernel beside its plain version at a shape its path gives it
+11. holds the Thomas kernel against its plain row loop on the card at every
+   (systems, length) of the transport paths in float32 and float64, with
+   systems that trip each guard (zero pivots, an inf, a NaN): bit for bit,
+   one launch a call, and a CUDA input that requires a gradient raises;
+   runs (j) with the kernels against the same call on plain ops (GS kernels
+   off and the plain Thomas loop: the same outer count, psi within 1e-5
+   span-relative, the transport state bit for bit, J_phi within 1e-4 in
+   the relative L2 norm and 2e-3 of its span at every pixel;
+   kernels 2 and 3 once each an inner Picard iteration, one launch a call),
+   (k) against the plain Thomas loop on the card (bit for bit over the
+   whole run) and the CPU (within 1e-9, the same Picard count at every
+   step), printing the tier's final and peak core Ti and its limit-cycle
+   flag, and (l) against the CPU (within 1e-9; the adaptive lane with the
+   float32 neural surrogate within 1e-5);
+12. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
    their predecessors, and as 50 calls back to back; ``sor_sweeps`` at each
@@ -113,16 +141,20 @@ Phases:
    67 TFLOP/s, whichever is larger, at the timed shape); and times paths
    (a), (b), (c), (e) with kernels and with plain ops in turns, (d) with
    kernels, and (f) in turns with the Picard float64 solve (CUDA events, one
-   warm-up, median of 5), (c) beside the original reference's 13.0 ms.
+   warm-up, median of 5), (c) beside the original reference's 13.0 ms; the
+   Thomas kernel at (1, 50) float64 also beside ``torch.linalg.solve`` of the
+   dense system, its bound with float64 operations over 34 TFLOP/s, and at
+   the other transport shapes beside its plain loop.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
-that runs six of the seven), over the rectangular solve for ``sor_sweeps``
-and over the 257^2 free-boundary forward for kernels 2 and 3, and
-``launches_by_path`` holding each kernel's wrapper calls on every path
-(zero on (g)-(i)).
+that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
+over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
+the Thomas kernel, and ``launches_by_path`` holding each kernel's wrapper
+calls on every path (zero on (g)-(i)); the Thomas kernel's ``library_ms`` is
+``torch.linalg.solve`` of the same system as a dense matrix.
 """
 
 from __future__ import annotations
@@ -172,7 +204,7 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
                 (129, 3, (0, 3), 24), (513, 1, (2,), None))
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
-           "tiled_prolong_smooth")
+           "tiled_prolong_smooth", "thomas_solve_batched")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -182,6 +214,8 @@ SOURCES = {
     "tiled_presmooth_restrict": ("csrc/tiled_legs.cu",
                                  "scpn_fusion_tpu/ops/pallas_mg_tiled.py:97"),
     "tiled_prolong_smooth": ("csrc/tiled_legs.cu", "scpn_fusion_tpu/ops/pallas_mg_tiled.py:123"),
+    # no Pallas kernel: the JAX solver is two lax.scan passes in one program
+    "thomas_solve_batched": ("csrc/tridiag.cu", "scpn_fusion_tpu/ops/tridiag.py:28"),
 }
 
 
@@ -310,9 +344,10 @@ def vcycle_stages(n: int, pre: int, post: int, min_grid: int, coarse_sweeps: int
     return upper * (2 * pre + 2 * post + 2) + 2 * coarse_sweeps
 
 
-def bound(work: tuple[float, float]) -> tuple[float, str]:
-    nbytes, flops = work
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+def bound(work: tuple) -> tuple[float, str]:
+    """(bytes, flops) at float32's peak, or (bytes, flops, peak flop/s)."""
+    nbytes, flops, rate = (*work, F32_FLOP_PER_S)[:3]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -328,6 +363,10 @@ ADJ_STEPS = 300          # n_fwd = n_bwd
 ADJ_TOL = 3.244e-6       # run_adjoint_fd.py:28, the reference's own gate
 NRMSE_GATE = 0.05        # run_real_shot_accuracy.py:57 (the reference's SPARC EFIT files)
 LANE_TOL = 1e-9          # each lane on the card against the same call on the CPU
+# (l)'s surrogate lane: its float32 MLP sums in another order on each device;
+# the limit the CPU tests hold the port's surrogate run to against JAX's
+SURROGATE_TOL = 1e-5
+J_POINT_TOL = 2e-3       # (j)'s J_phi at each pixel, over its span (coupled_lane)
 
 
 def events_ms(run):
@@ -649,6 +688,366 @@ def small_lanes(dev, card: str, counted, by_path: dict, fmg_result, fmg_cfg, fb_
         print(f"(i) {name}: card vs CPU max relative deviation {dev_l:.3e} (limit {LANE_TOL:.0e})")
         require(dev_l <= LANE_TOL, f"{name}: the card deviates from the CPU run")
     by_path["small_lanes"] = lane_calls
+
+
+# ── the ninth slice: 1.5D transport and the GS <-> transport coupling ──
+
+# (systems, length) of the Thomas solves on the transport paths: a thermal
+# channel or a current-diffusion / rotation step (1, 50), the three species
+# (3, 50), the impurity charge states in radius (11, 50) and the impurity
+# ladder in charge at each radius (50, 11), the blanket (1, 100)
+THOMAS_SHAPES = ((1, 50), (3, 50), (11, 50), (50, 11), (1, 100))
+F64_FLOP_PER_S = 34e12      # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
+
+
+def thomas_systems(rng, n_sys: int, n: int, dtype, dev, guards: bool = False):
+    """Seeded (a, b, c, d) of ``n_sys`` systems of length ``n``; with
+    ``guards`` the first four systems trip the solver's guards: a zero first
+    pivot, a zero second pivot, an inf in d, a NaN in a."""
+    import torch
+    a, c = rng.standard_normal((n_sys, n - 1)), rng.standard_normal((n_sys, n - 1))
+    b, d = rng.standard_normal((n_sys, n)) + 4.0, rng.standard_normal((n_sys, n))
+    if guards:
+        b[0, 0] = 0.0
+        c[1, 0] = 0.0
+        b[1, 1] = 0.0
+        d[2, n // 2] = np.inf
+        a[3, n // 3] = np.nan
+    return [torch.tensor(x, dtype=dtype, device=dev) for x in (a, b, c, d)]
+
+
+def thomas_work(n_sys: int, n: int, itemsize: int) -> tuple[float, float]:
+    """a, b, c, d in and x out; per row 2 products, 2 differences, 2
+    divisions forward and a product and a difference back."""
+    return float(itemsize * n_sys * (2 * (n - 1) + 3 * n)), 8.0 * n_sys * (n - 1)
+
+
+def thomas_checks(dev, rng, results: dict, timing: dict, library: dict,
+                  extra_times: list) -> None:
+    """The Thomas kernel against its plain version on the card at every
+    (systems, length) of the transport paths, in float32 and float64, the
+    guard cases included: bit for bit, one ``__global__`` launch a call; a
+    CUDA input that requires a gradient raises."""
+    import torch
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_tridiag, tridiag
+
+    results.setdefault("thomas_solve_batched", {"max_abs_err": 0.0})
+    for dtype in (torch.float32, torch.float64):
+        for n_sys, n in THOMAS_SHAPES + ((4, 50), (4, 11)):
+            guards = n_sys == 4
+            sys_ = thomas_systems(rng, n_sys, n, dtype, dev, guards)
+            before = cb.kernel_launches()
+            x_k = cuda_tridiag.thomas_solve_batched(*sys_)
+            launched = cb.kernel_launches() - before
+            x_p = tridiag.thomas_solve_batched_plain(*sys_)
+            torch.cuda.synchronize()
+            err = float((x_k - x_p).abs().max())
+            label = f"({n_sys}, {n}) {str(dtype)[6:]}{' with the guard cases' if guards else ''}"
+            print(f"check thomas_solve_batched {label}: equal to plain {torch.equal(x_k, x_p)}, "
+                  f"max abs err {err!r}, finite {bool(torch.isfinite(x_k).all())}, __global__ "
+                  f"launches {launched}")
+            require(torch.equal(x_k, x_p), f"thomas_solve_batched {label}: not equal to plain")
+            require(bool(torch.isfinite(x_k).all()), f"thomas_solve_batched {label}: not finite")
+            require(launched == 1, f"thomas_solve_batched {label}: {launched} launches, not 1")
+            results["thomas_solve_batched"]["max_abs_err"] = max(
+                results["thomas_solve_batched"]["max_abs_err"], err)
+    sys_ = thomas_systems(rng, 1, 50, torch.float64, dev)
+    sys_[1].requires_grad_(True)
+    try:
+        cuda_tridiag.thomas_solve_batched(*sys_)
+    except RuntimeError as exc:
+        print(f"check thomas_solve_batched with a gradient: raises ({exc})")
+    else:
+        raise AssertionError("thomas_solve_batched took an input that requires a gradient")
+    # timed at the thermal channels' (1, 50) float64 of the TORAX tier; the
+    # library time is torch.linalg.solve of the same system as a dense matrix
+    a, b, c, d = thomas_systems(rng, 1, 50, torch.float64, dev)
+    dense = torch.diag_embed(b) + torch.diag_embed(a, -1) + torch.diag_embed(c, 1)
+    timing["thomas_solve_batched"] = (
+        lambda: cuda_tridiag.thomas_solve_batched(a, b, c, d),
+        lambda: tridiag.thomas_solve_batched_plain(a, b, c, d), "(1, 50) f64",
+        (*thomas_work(1, 50, 8), F64_FLOP_PER_S))
+    library["thomas_solve_batched"] = lambda: torch.linalg.solve(dense, d[..., None])
+    for n_sys, n in THOMAS_SHAPES[1:]:
+        sys_ = thomas_systems(rng, n_sys, n, torch.float64, dev)
+        extra_times.append((
+            f"thomas_solve_batched ({n_sys}, {n}) f64",
+            ("kernel", lambda s=sys_: cuda_tridiag.thomas_solve_batched(*s)),
+            ("plain", lambda s=sys_: tridiag.thomas_solve_batched_plain(*s)),
+            (*thomas_work(n_sys, n, 8), F64_FLOP_PER_S)))
+
+
+@contextlib.contextmanager
+def plain_thomas():
+    """Run the transport's Thomas solves on the card through the plain row
+    loop (``ops/tridiag.py`` looks the CUDA wrapper up in its module)."""
+    from scpn_fusion_tpu_torch.ops import cuda_tridiag, tridiag
+    saved = cuda_tridiag.thomas_solve_batched
+    cuda_tridiag.thomas_solve_batched = tridiag.thomas_solve_batched_plain
+    try:
+        yield
+    finally:
+        cuda_tridiag.thomas_solve_batched = saved
+
+
+def state_equal(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def coupled_lane(dev, card: str, counted, by_path: dict) -> dict:
+    """(j) ``run_self_consistent`` on the bench machine at 257^2 in float32
+    with the kernels (``bench_config.COUPLED``), against the same call with
+    plain ops (GS kernels off, the plain Thomas loop): the same outer count,
+    psi within 1e-5 span-relative, the transport state bit for bit, J_phi
+    within 1e-4 in the relative L2 norm and within 2e-3 of its span at every
+    pixel (where psi_norm is ~1e-5, rho = sqrt(psi_norm) multiplies psi's
+    float32 rounding by ~1/(2 rho) ~ 140, so a few pixels near the axis
+    exceed 1e-4 of the span while psi itself stays within 1e-5; the sound
+    reading was 5.3e-4 on 15 pixels, and a fault of the axis search moves
+    J_phi near the axis by far more).  Kernels 2 and 3 once each an
+    inner Picard iteration of the GS solves, the Thomas kernel on every CN
+    solve, one launch a call."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import COUPLED, bench_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.vacuum import vacuum_psi_from_config
+    from scpn_fusion_tpu_torch.models.transport.coupling import run_self_consistent
+    from scpn_fusion_tpu_torch.models.transport.solver import TransportParams, initial_state
+
+    f32 = torch.float32
+    kw = {k: v for k, v in COUPLED.items() if k != "n"}
+    tp = TransportParams()
+
+    def run(use_pallas):
+        cfg = bench_config(COUPLED["n"], use_pallas=use_pallas)
+        grid = Grid.from_config(cfg, dtype=f32, device=dev)
+        bc = vacuum_psi_from_config(grid, cfg).to(f32)
+        return run_self_consistent(cfg, grid, tp, initial_state(tp, f32, dev), bc, bc, **kw)
+
+    (res_k, ms_k), calls, launched = counted(lambda: events_ms(lambda: run(True)))
+    with plain_thomas():
+        res_p, ms_p = events_ms(lambda: run(False))
+    dev_psi = span_rel(res_k.psi, res_p.psi)
+    dev_j = float(torch.linalg.vector_norm(res_k.j_phi - res_p.j_phi)
+                  / torch.linalg.vector_norm(res_p.j_phi))
+    j_diff = (res_k.j_phi - res_p.j_phi).abs()
+    j_span = float(res_p.j_phi.max() - res_p.j_phi.min())
+    dev_j_point = float(j_diff.max()) / j_span
+    same_state = state_equal(res_k.transport, res_p.transport)
+    print(f"(j) coupled GS <-> transport {COUPLED['n']}^2 f32 ({kw}): kernels {res_k.outer_iterations} "
+          f"outer iterations, converged {res_k.converged}, psi residual "
+          f"{float(res_k.psi_residual)!r}, core Ti {float(res_k.t_core)!r} keV, tau_E "
+          f"{float(res_k.tau_e)!r} s, {ms_k:.3f} ms; plain {res_p.outer_iterations} outer, "
+          f"{ms_p:.3f} ms; psi span-rel {dev_psi:.3e} (limit {SPAN_TOL:.0e}), J_phi relative L2 "
+          f"{dev_j:.3e} (limit 1e-4), pointwise span-rel {dev_j_point:.3e} (limit {J_POINT_TOL:.0e}; "
+          f"{int((j_diff > 1e-4 * j_span).sum())} of {j_diff.numel()} pixels above 1e-4 of the "
+          f"span), transport state equal {same_state}; wrapper calls {calls}, "
+          f"__global__ launches {launched} [{card}]")
+    require(res_k.outer_iterations == res_p.outer_iterations,
+            "(j): outer iteration counts differ between kernels and plain ops")
+    require(bool(torch.isfinite(res_k.psi).all()) and dev_psi <= SPAN_TOL,
+            "(j): psi deviates from plain ops")
+    require(same_state, "(j): the transport state is not bit-identical to plain ops")
+    require(dev_j <= 1e-4 and dev_j_point <= J_POINT_TOL, "(j): J_phi deviates from plain ops")
+    n_src, n_thomas = calls["fused_topology_source"], calls["thomas_solve_batched"]
+    require(n_src == calls["fused_coarse_vcycle"] > 0 and n_thomas > 0,
+            f"(j): calls {calls}: kernels 2 and 3 not equal and > 0, or no Thomas kernel")
+    require(all(v == 0 for k, v in calls.items() if k not in (
+        "fused_topology_source", "fused_coarse_vcycle", "thomas_solve_batched")),
+        f"(j): other kernels called: {calls}")
+    require(launched == {"scpn_fused_source": n_src, "scpn_fused_vcycle": n_src,
+                         "scpn_thomas_f32": n_thomas},
+            f"(j): launches {launched}, not one a call")
+    by_path["coupled_257"] = calls
+    return calls
+
+
+def torax_lane(dev, card: str, counted, by_path: dict) -> None:
+    """(k) the TORAX-parity coarse tier (``bench_config.TORAX_COARSE``):
+    ``run_transport`` of ``TransportParams()`` in float64 for 400 steps of
+    0.5 s at 50 MW, against the same run through the plain Thomas loop on
+    the card (bit for bit over the whole run) and on the CPU (within 1e-9
+    span-relative, the same Picard count at every step)."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import TORAX_COARSE, limit_cycle
+    from scpn_fusion_tpu_torch.models.transport.solver import (
+        TransportParams, initial_state, run_transport,
+    )
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    tp = TransportParams()
+    kw = dict(TORAX_COARSE)
+    n_steps = kw.pop("n_steps")
+
+    def run(d):
+        return run_transport(initial_state(tp, f64, d), kw["dt"], kw["p_aux_mw"], tp, n_steps)
+
+    ((fin_k, tr_k), ms_k), calls, launched = counted(lambda: events_ms(lambda: run(dev)))
+    with plain_thomas():
+        (fin_p, tr_p), ms_p = events_ms(lambda: run(dev))
+    t0 = time.perf_counter()
+    fin_c, tr_c = run(cpu)
+    ms_c = (time.perf_counter() - t0) * 1e3
+    ti = tr_k["ti0"].cpu().numpy()
+    picard = tr_k["picard"]
+    same = state_equal(fin_k, fin_p) and all(torch.equal(tr_k[k], tr_p[k]) for k in tr_k)
+    dev_cpu = max(max(span_rel(getattr(fin_k, k).cpu(), getattr(fin_c, k)) for k in
+                      ("ti", "te", "ne", "n_d", "n_t", "n_he", "chi_i", "chi_e", "d_n")),
+                  max(span_rel(tr_k[k].cpu(), tr_c[k]) for k in ("ti0", "te0", "ne0", "n_he0")))
+    same_picard = torch.equal(picard, tr_c["picard"])
+    print(f"(k) TORAX coarse tier (TransportParams() f64, dt {kw['dt']} s, {kw['p_aux_mw']} MW, "
+          f"{n_steps} steps): final core Ti {float(ti[-1])!r} keV, peak {float(ti.max())!r} keV, "
+          f"limit cycle {limit_cycle(ti)}; Picard iterations {int(picard.sum())} "
+          f"({int((picard == 1).sum())} steps at 1, {int((picard == tp.picard_max_iter).sum())} "
+          f"at the cap of {tp.picard_max_iter}); card {ms_k:.3f} ms with the kernel, {ms_p:.3f} ms "
+          f"through the plain Thomas loop, bit-identical over the whole run {same}; CPU "
+          f"{ms_c:.1f} ms, span-rel {dev_cpu:.3e} (limit {LANE_TOL:.0e}), same Picard count at "
+          f"every step {same_picard}; wrapper calls {calls}, __global__ launches {launched} "
+          f"[{card}]")
+    require(bool(np.isfinite(ti).all()) and bool(torch.isfinite(fin_k.te).all()),
+            "(k): the run is not finite")
+    require(same, "(k): the kernel run is not bit-identical to the plain Thomas loop")
+    require(dev_cpu <= LANE_TOL and same_picard, "(k): the card deviates from the CPU run")
+    n_thomas = calls["thomas_solve_batched"]
+    require(n_thomas > 0 and sum(calls.values()) == n_thomas
+            and launched == {"scpn_thomas_f64": n_thomas},
+            f"(k): calls {calls}, launches {launched}: expected the Thomas kernel alone")
+    by_path["torax_coarse"] = calls
+
+
+def transport_lanes(dev, card: str, counted, by_path: dict) -> None:
+    """(l) the small transport lanes once each in float64 against the same
+    call on the CPU (within 1e-9 relative): adaptive stepping with the
+    analytic closure, current diffusion, the impurity ladder, rotation and
+    the L-H transition, the reduced closure, the Aurora-parity step, the 0D
+    burn point and the blanket.  Adaptive stepping with the neural surrogate
+    is held within ``SURROGATE_TOL``: its float32 MLP sums in cuBLAS's order
+    on the card and in another on the CPU.  The Thomas kernel launches on
+    every lane that solves a tridiagonal system, and no other kernel does."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import aurora_case_arrays, lane_profiles
+    from scpn_fusion_tpu_torch.models.physics import scaling_burn as sb
+    from scpn_fusion_tpu_torch.models.surrogates.pretrained import load_transport_surrogate_pytree
+    from scpn_fusion_tpu_torch.models.transport import (
+        adaptive, aurora_parity as au, current_diffusion as cd, impurity as im,
+        momentum_lh as ml, reduced_closure as rc, solver,
+    )
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    prof = lane_profiles(50)
+    arrays = aurora_case_arrays()
+    case = au.AuroraParityCase(**arrays["fields"])
+    lanes: list[tuple[str, object, object, float]] = []
+    lane_calls = {name: 0 for name in KERNELS}
+
+    def t(name, d):
+        return torch.tensor(prof[name], dtype=f64, device=d)
+
+    def both(name, run, solves: bool, tol: float = LANE_TOL):
+        (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
+        n_thomas = calls["thomas_solve_batched"]
+        require(sum(calls.values()) == n_thomas and (n_thomas > 0) == solves,
+                f"{name}: wrapper calls {calls}")
+        for k, v in calls.items():
+            lane_calls[k] += v
+        lanes.append((name, out, run(cpu), tol))
+        print(f"(l) {name}: {ms:.3f} ms, Thomas kernel calls {n_thomas} [{card}]")
+        return out
+
+    tp = solver.TransportParams()
+
+    def adaptive_run(d, with_surrogate):
+        sur = load_transport_surrogate_pytree(device=d)[0] if with_surrogate else None
+        fin, tr = adaptive.run_transport_adaptive(solver.initial_state(tp, f64, d), 50.0, tp,
+                                                  n_steps=50, surrogate=sur)
+        return fin.ti, fin.te, fin.chi_i, tr.dt, tr.error, tr.ti0
+
+    for with_surrogate in (False, True):
+        out = both(f"run_transport_adaptive with the "
+                   f"{'neural surrogate' if with_surrogate else 'analytic closure'} (50 steps)",
+                   lambda d: adaptive_run(d, with_surrogate), True,
+                   SURROGATE_TOL if with_surrogate else LANE_TOL)
+        print(f"(l)   dt from {float(out[3][0])!r} to {float(out[3][-1])!r} s, core Ti "
+              f"{float(out[5][-1])!r} keV")
+    s0 = solver.initial_state(tp, f64, cpu)
+    x = solver._local_surrogate_inputs(tp, s0, tp.rho(f64, cpu))
+    y_card, y_cpu = (load_transport_surrogate_pytree(device=d)[0].fluxes_gb(x.to(d))
+                     for d in (dev, cpu))
+    print(f"(l)   surrogate fluxes on the initial state's {x.shape[0]} points, card vs CPU: max "
+          f"relative deviation {max_rel(y_card, y_cpu):.3e}")
+
+    def current(d):
+        p = cd.CurrentDiffusionParams(nr=50, r0=6.2, a=2.0, b0=5.3)
+        psi, tr = cd.run_current_diffusion(p, cd.initial_psi(p, device=d), 0.01, t("te_kev", d),
+                                           t("ne_19", d), 1.7, t("j_source", d), n_steps=100)
+        return psi, tr["q0"], tr["q_edge"]
+
+    both("run_current_diffusion (nr 50, 100 steps)", current, True)
+
+    def impurity(d):
+        n0 = torch.zeros((11, 50), dtype=f64, device=d)
+        n0[0] = 0.1
+        st, tr = im.run_impurity(im.ImpuritySpecies(z_max=10), im.ImpurityState(n0),
+                                 t("te_kev", d) * 300.0 + 5.0, t("ne_19", d), t("d_imp", d),
+                                 t("rho", d), 1e-4, n_steps=50, edge_source_1e19=0.05)
+        return st.n_z, tr["p_rad_total"], tr["n_total"]
+
+    both("run_impurity (z_max 10, nr 50, 50 steps)", impurity, True)
+
+    def rotation(d):
+        par = ml.MomentumParams(*(torch.tensor(v, dtype=f64, device=d) for v in (6.2, 2.0, 0.7, 0.0)))
+        rho = t("rho", d)
+        tq = ml.nbi_torque_density(rho, 33.0, 5.3, 6.2)
+        tr = ml.evolve_rotation(torch.zeros(50, dtype=f64, device=d), t("chi_i", d), tq,
+                                10.0 * (1.0 - 0.8 * rho**2), rho, 1e-3, 200, par)
+        mode, rows = torch.tensor(False, device=d), []
+        for p_net in (10.0, 120.0, 90.0, 60.0):
+            st = ml.lh_transition_step(p_net, 1.0, 5.3, 6.2, 2.0, 1.7, mode)
+            mode = st.h_mode
+            rows.append(torch.stack([st.h_mode.to(f64), st.p_threshold_mw, st.margin]))
+        return tr.omega, tr.v_tor_core_m_s, torch.stack(rows)
+
+    both("evolve_rotation (200 steps) + lh_transition_step", rotation, True)
+
+    def closure(d):
+        out = rc.evaluate_closure_profile(t("rho", d), t("te_kev", d), t("ti_kev", d),
+                                          t("ne_19", d), t("q", d), t("s_hat", d))
+        return out.chi_i, out.chi_e, out.d_e, out.channel.to(f64)
+
+    both("evaluate_closure_profile (nr 50)", closure, False)
+
+    def aurora(d):
+        dens = torch.tensor(arrays["density"], dtype=f64, device=d)
+        step = au.advance_transport_and_cr(case, dens, 2, 1e-4)
+        clo = au.derive_effective_source_closure(case, arrays["reference"], device=d)
+        audit = au.radial_transport_budget_diagnostic(case, arrays["density"], 1e-4, device=d)
+        require(audit["passed"], "(l) Aurora: the inventory audit failed")
+        return step, clo
+
+    both("Aurora-parity step, closure and audit (neon, nr 24)", aurora, False)
+
+    def burn(d):
+        pt = sb.burn_equilibrium_0d(ne19=10.0, p_aux_mw=50.0, ip_ma=15.0, bt_t=5.3, r_m=6.2,
+                                    a_m=2.0, kappa=1.7, device=d)
+        return tuple(x.to(f64) for x in pt)
+
+    out = both("burn_equilibrium_0d (200 iterations)", burn, False)
+    print(f"(l)   Q {float(out[0])!r}, P_fus {float(out[1])!r} MW, converged {bool(out[5])}")
+
+    def blanket(d):
+        res = sb.blanket_tbr(thickness_cm=80.0, li6_enrichment=0.9, device=d)
+        return res.flux, res.tbr
+
+    out = both("blanket_tbr (80 cm, 90% Li-6)", blanket, True)
+    print(f"(l)   TBR {float(out[1])!r}")
+
+    for name, on_card, on_cpu, tol in lanes:
+        dev_l = max_rel(on_card, on_cpu)
+        print(f"(l) {name}: card vs CPU max relative deviation {dev_l:.3e} (limit {tol:.0e})")
+        require(dev_l <= tol, f"{name}: the card deviates from the CPU run")
+    by_path["transport_lanes"] = lane_calls
 
 
 def main() -> int:
@@ -1245,7 +1644,7 @@ def main() -> int:
     expected = {"sor_sweeps": 0, "fused_topology_source": picard,
                 "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
-                "tiled_prolong_smooth": 0}
+                "tiled_prolong_smooth": 0, "thomas_solve_batched": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -1354,7 +1753,7 @@ def main() -> int:
                  "fine_prolong_smooth": it[513] + it[1025] + 2 * it[2049],
                  "fused_coarse_vcycle": vcycles,
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
-                 "tiled_prolong_smooth": it[1025] + 4 * it[2049]}
+                 "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -1705,11 +2104,25 @@ def main() -> int:
     fd_check(*adjoint, card)
     phase_done("FD check")
 
+    # ── the ninth slice: the Thomas kernel against its plain version, then
+    # (j) the coupled GS <-> transport solve, (k) the TORAX coarse tier and
+    # (l) the small transport lanes ──
+    library = {}    # name -> one PyTorch call of the same function, timed beside the kernel
+    thomas_checks(dev, rng, results, timing, library, extra_times)
+    phase_done("Thomas kernel checks")
+    coupled_calls = coupled_lane(dev, card, counted, by_path)
+    phase_done("coupled GS <-> transport")
+    torax_lane(dev, card, counted, by_path)
+    phase_done("TORAX coarse tier")
+    transport_lanes(dev, card, counted, by_path)
+    phase_done("transport lanes")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
     launches["fused_topology_source"] = by_path["fb_257"]["fused_topology_source"]
     launches["fused_coarse_vcycle"] = by_path["fb_257"]["fused_coarse_vcycle"]
+    launches["thomas_solve_batched"] = coupled_calls["thomas_solve_batched"]
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")
@@ -1724,7 +2137,7 @@ def main() -> int:
             ms_k, earlier_ms = cuda_ms_pair(fk, staged[name])
             ms_p = cuda_ms(fp)
         else:
-            ms_k, ms_p = cuda_ms(fk), cuda_ms(fp)
+            ms_k, ms_p = cuda_ms_pair(fk, fp)
         bound_ms, bound_by = bound(work)
         extra = ""
         if name in versus_fine:
@@ -1736,6 +2149,9 @@ def main() -> int:
         if name == "fused_coarse_vcycle":
             extra += (f"; {vcycle_stages(257, 1, 2, 5, 50)} dependent stages bound it, "
                       "not the bytes")
+        library_ms = cuda_ms(library[name]) if name in library else None
+        if library_ms is not None:
+            extra += f", library (torch.linalg.solve, dense) {library_ms:.4f} ms"
         print(f"time {name} {shape}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms{extra}, "
               f"bound {bound_ms:.4g} ms ({bound_by}: {work[0] / 1e6:.4g} MB, "
               f"{work[1] / 1e6:.4g} Mflop) [{card}]")
@@ -1744,7 +2160,7 @@ def main() -> int:
                "source": f"scpn_fusion_tpu_torch/{src_path}", "replaces": replaces,
                "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
                "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None}
+               "library_ms": library_ms}
         if earlier_ms is not None:
             row["earlier_ms"] = earlier_ms
         row["launches_by_path"] = {path: calls[name] for path, calls in by_path.items()}

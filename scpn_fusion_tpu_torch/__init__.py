@@ -6,10 +6,11 @@ It imports ``torch`` and numpy and never ``jax`` or the JAX package, so it
 runs on a GPU host that has no jax installed.
 
 Plain tensor code is PyTorch.  The Pallas TPU kernels on the fixed-boundary
-equilibrium path are hand-written CUDA C++ kernels for Hopper (``csrc/``),
-built with ``nvcc`` at first use and bound with ``ctypes``
-(``ops/_cuda_build.py``).  Every kernel wrapper keeps a plain PyTorch version
-beside it; a wrapper runs that version only for a tensor on the CPU.
+equilibrium path, and the transport's Thomas solve (a ``lax.scan`` program in
+JAX), are hand-written CUDA C++ kernels for Hopper (``csrc/``), built with
+``nvcc`` at first use and bound with ``ctypes`` (``ops/_cuda_build.py``).
+Every kernel wrapper keeps a plain PyTorch version beside it; a wrapper runs
+that version only for a tensor on the CPU.
 """
 
 __version__ = "0.1.0"

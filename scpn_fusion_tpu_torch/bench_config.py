@@ -35,6 +35,8 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
+
 from scpn_fusion_tpu_torch.core.config import ReactorConfig, config_from_dict
 
 ITER_LIKE: dict[str, Any] = {
@@ -112,3 +114,67 @@ def rect_config(grid: tuple[int, int] = RECT_GRID, *, use_pallas: bool = True) -
     """The DIII-D-like machine on the rectangular ``grid`` (NR, NZ) with the
     bench solver; ``use_pallas`` selects the hand-written kernels."""
     return config_from_dict(rect_config_dict(grid, use_pallas=use_pallas))
+
+
+# ── transport (1.5D stepper, the GS <-> transport coupling, the small lanes) ──
+#
+# TORAX_COARSE is the coarse tier of ``validation/run_torax_parity.py:37-39,
+# 76-81``: the default ``TransportParams()`` (nr 50, multi-ion) in float64,
+# dt 0.5 s, 50 MW, 400 steps (t = 200 s); ``limit_cycle`` is that script's
+# period-2 test of the core Ti trace.  COUPLED is
+# ``examples/10_integrated_scenario.py:70-78`` at full width: the bench machine
+# at 257^2 (``bench_config(257)``) with the default transport (nr 50), 30 MW,
+# dt 0.02 s, 10 transport steps an outer iteration, at most 6 outer
+# iterations, psi tolerance 1e-3.
+TORAX_COARSE: dict[str, Any] = {"dt": 0.5, "p_aux_mw": 50.0, "n_steps": 400}
+COUPLED: dict[str, Any] = {"n": 257, "p_aux_mw": 30.0, "dt": 0.02, "n_inner": 10,
+                           "n_outer": 6, "psi_tol": 1e-3}
+
+
+def limit_cycle(ti_core) -> bool:
+    """``run_torax_parity.py:82-95``: the last 8 core Ti values swing by more
+    than 2 keV while every other one repeats within 0.5 keV."""
+    tail = np.asarray(ti_core, np.float64)[-8:]
+    swings = np.abs(np.diff(tail))
+    period2 = np.abs(tail[2:] - tail[:-2])
+    return bool(np.max(swings) > 2.0 and np.median(period2) < 0.5)
+
+
+def lane_profiles(nr: int = 50, seed: int = 9) -> dict[str, Any]:
+    """Seeded ITER-like radial profiles (numpy, float64) for the small
+    transport lanes: rho, Te / Ti [keV], ne [1e19 m^-3], q, s_hat, a chi_i
+    [m^2/s], an impurity diffusivity and a current-drive source."""
+    g = np.random.default_rng(seed)
+    rho = np.linspace(0.0, 1.0, nr)
+    shape = 1.0 - rho**2
+    te = 0.1 + 12.0 * shape**1.5 * (1.0 + 0.02 * g.random(nr))
+    return {
+        "rho": rho, "te_kev": te, "ti_kev": 0.9 * te + 0.05,
+        "ne_19": 1.0 + 9.0 * np.sqrt(shape) * (1.0 + 0.02 * g.random(nr)),
+        "q": 1.0 + 2.5 * rho**2, "s_hat": 5.0 * rho**2 / (1.0 + 2.5 * rho**2),
+        "chi_i": 0.5 + 1.5 * rho**2 + 0.1 * g.random(nr),
+        "d_imp": 0.3 + 0.7 * rho**2,
+        "j_source": 1e5 * np.exp(-((rho - 0.4) / 0.15) ** 2),
+    }
+
+
+def aurora_case_arrays(nr: int = 24, nz: int = 5, nt: int = 6, seed: int = 10) -> dict[str, Any]:
+    """Fields of an ``AuroraParityCase`` (neon, 0.05-0.6 m, 50 ms) with
+    seeded diffusion, pinch and rate tables, and a seeded reference
+    trajectory (nt, nr, Z+1) for the effective-source closure."""
+    g = np.random.default_rng(seed)
+    radius = np.linspace(0.05, 0.6, nr)
+    prof = np.exp(-((radius - 0.3) / 0.08) ** 2)
+    start = np.tile(prof[:, None], (1, nz)) * (1.0 + np.arange(nz)) * 1e16
+    ref = start[None] * (1.0 + 0.05 * g.random((nt, nr, nz)))
+    return {
+        "fields": dict(
+            element="Ne", charge_states=np.arange(nz, dtype=float), radius_m=radius,
+            time_s=np.linspace(0.0, 0.05, nt), major_radius_m=1.65,
+            ne_t_r=3e19 * (1.0 + 0.1 * g.random((nt, nr))),
+            diffusion_m2_s_r_z=0.5 + g.random((nr, nz)),
+            convection_m_s_r_z=-2.0 * g.random((nr, nz)) * radius[:, None] / 0.6,
+            ionisation_m3_s_t_r_z=1e-15 * (0.5 + g.random((nt, nr, nz))),
+            recombination_m3_s_t_r_z=5e-16 * (0.5 + g.random((nt, nr, nz)))),
+        "density": start, "reference": ref,
+    }

@@ -39,6 +39,9 @@ from scpn_fusion_tpu_torch.models.equilibrium.reconstruction import ReconCase
 from scpn_fusion_tpu_torch.models.equilibrium.shape_control import ShapeTargets
 from scpn_fusion_tpu_torch.models.equilibrium.solovev import SolovevParams
 from scpn_fusion_tpu_torch.models.equilibrium.vmec_lite import SpectralBasis
+from scpn_fusion_tpu_torch.models.surrogates.mlp import MLPParams
+from scpn_fusion_tpu_torch.models.surrogates.pretrained import TransportSurrogate
+from scpn_fusion_tpu_torch.models.transport.solver import TransportParams, TransportState
 
 
 def tensor(x, *, dtype: torch.dtype, device: torch.device | str) -> torch.Tensor:
@@ -148,3 +151,29 @@ def field_model(fields: Mapping[str, Any]) -> FieldModel:
 
 def solovev_params(fields: Mapping[str, Any]) -> SolovevParams:
     return _same_fields(SolovevParams, fields)
+
+
+def transport_params(fields: Mapping[str, Any]) -> TransportParams:
+    """``TransportParams`` from ``dataclasses.asdict`` of the JAX one."""
+    return _same_fields(TransportParams, fields)
+
+
+def transport_state(fields: Mapping[str, Any], *, dtype: torch.dtype,
+                    device: torch.device | str) -> TransportState:
+    """``TransportState`` from the JAX ``TransportState``'s fields
+    (``state._asdict()``)."""
+    return TransportState(**_arrays(fields, dtype=dtype, device=device))
+
+
+def transport_surrogate(fields: Mapping[str, Any], *,
+                        device: torch.device | str) -> TransportSurrogate:
+    """``TransportSurrogate`` from the JAX one's fields (``sur._asdict()``,
+    ``params`` with ``weights`` and ``biases``); every array keeps its dtype."""
+    def t(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+    params = fields["params"]
+    return TransportSurrogate(
+        params=MLPParams(weights=tuple(t(w) for w in params.weights),
+                         biases=tuple(t(b) for b in params.biases)),
+        **{k: t(fields[k]) for k in ("x_mean", "x_std", "y_mean", "y_std")})

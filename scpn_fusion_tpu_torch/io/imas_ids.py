@@ -241,9 +241,10 @@ def transport_state_to_core_profiles(state, params, *,
 
 
 def core_profiles_to_transport_state(ids: Mapping[str, Any], params,
-                                     state_cls=None):
+                                     state_cls=None, *, device="cuda"):
     """``core_profiles`` IDS -> TransportState (inverse map, validated)."""
-    import numpy as jnp  # the state holds numpy arrays where JAX holds jax arrays
+    from scpn_fusion_tpu_torch.io import torch_arrays
+    jnp = torch_arrays.on(device)
 
     from scpn_fusion_tpu_torch.models.transport.solver import TransportState
 

@@ -26,14 +26,30 @@ ROOT = Path(__file__).resolve().parent.parent
 SEEDS = sorted((ROOT / "fuzz" / "seeds" / "geqdsk").glob("*.geqdsk"))
 
 
-def _code_lines(path: Path) -> list[str]:
-    return [line for line in path.read_text().splitlines()
-            if not line.lstrip().startswith(("import ", "from "))]
+# The port's lines that differ from the source outside the imports, each with
+# the source line it stands for (None: the port adds it).  The IDS reader
+# takes the device its tensors land on (the card by default, as JAX puts its
+# arrays on its default device), and binds ``jnp`` to torch's array
+# functions on that device.
+PORT_ONLY = {
+    '                                     state_cls=None, *, device="cuda"):':
+        "                                     state_cls=None):",
+    "    jnp = torch_arrays.on(device)": None,
+}
+
+
+def _code_lines(path: Path, port_only: dict | None = None) -> list[str]:
+    lines = [line for line in path.read_text().splitlines()
+             if not line.lstrip().startswith(("import ", "from "))]
+    if port_only is None:
+        return lines
+    assert all(lines.count(line) == 1 for line in port_only)
+    return [port_only.get(line, line) for line in lines if port_only.get(line, line) is not None]
 
 
 def test_copy_equals_source_outside_imports():
-    assert _code_lines(ROOT / "scpn_fusion_tpu_torch" / "io" / "imas_ids.py") == _code_lines(
-        ROOT / "scpn_fusion_tpu" / "io" / "imas_ids.py")
+    assert _code_lines(ROOT / "scpn_fusion_tpu_torch" / "io" / "imas_ids.py",
+                       PORT_ONLY) == _code_lines(ROOT / "scpn_fusion_tpu" / "io" / "imas_ids.py")
     text = (ROOT / "scpn_fusion_tpu_torch" / "io" / "imas_ids.py").read_text()
     assert "jax" not in text.replace("jax arrays", "").replace("jnp", "")
 
@@ -102,3 +118,41 @@ def test_validation_rejects_like_jax():
             mod.validate_equilibrium_ids(ids)
         with pytest.raises(mod.ImasIdsError, match="missing keys"):
             mod.validate_equilibrium_ids({"time": [0.0]})
+
+
+def test_core_profiles_reader_returns_the_ports_state():
+    """``core_profiles`` IDS -> the port's ``TransportState`` of tensors on the
+    device asked for, equal to JAX's state read from the same IDS (float32,
+    as JAX's); with no ``device`` the state lands on the card, and without a
+    card the reader raises instead of falling back to the CPU."""
+    import jax.numpy as jnp
+    import torch
+
+    from scpn_fusion_tpu.models.transport import solver as js
+    from scpn_fusion_tpu_torch.models.transport import solver as ts
+
+    ref_p = js.TransportParams(nr=11)
+    p = ts.TransportParams(nr=11)
+    state = js.run_transport(js.initial_state(ref_p, jnp.float64), jnp.asarray(0.05),
+                             jnp.asarray(20.0), ref_p, 2)[0]
+    ids = jids.transport_state_to_core_profiles(state, ref_p, time_s=1.0)
+    ref = jids.core_profiles_to_transport_state(ids, ref_p)
+    ours = tids.core_profiles_to_transport_state(ids, p, device="cpu")
+    assert isinstance(ours, ts.TransportState)
+    for name in ref._fields:
+        got = getattr(ours, name)
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.float32, name
+        assert np.array_equal(got.numpy(), np.asarray(getattr(ref, name))), name
+    del ids["profiles_1d"][0]["q"]          # q falls back to 1 + 2 rho^2, He to zero
+    ids["profiles_1d"][0]["ion"] = ids["profiles_1d"][0]["ion"][:2]
+    ref, ours = jids.core_profiles_to_transport_state(ids, ref_p), \
+        tids.core_profiles_to_transport_state(ids, p, device="cpu")
+    for name in ("q", "n_he"):
+        assert np.array_equal(getattr(ours, name).numpy(), np.asarray(getattr(ref, name)))
+    with pytest.raises(tids.ImasIdsError, match="params.nr"):
+        tids.core_profiles_to_transport_state(ids, ts.TransportParams(nr=12), device="cpu")
+    if torch.cuda.is_available():
+        assert tids.core_profiles_to_transport_state(ids, p).ti.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tids.core_profiles_to_transport_state(ids, p)

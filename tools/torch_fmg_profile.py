@@ -69,11 +69,16 @@ the 65^2 float64 adjoint lane (``validation/run_adjoint_fd.py``'s model) and
 times its IFT gradient at 300 + 300 iterations and one forward solve; with
 ``--recon`` it profiles the float64 real-shot reconstruction of the same
 SPARC file (``reconstruction.reconstruct``, subcell 4) and times its profile
-refit.  Each prints what the solves above print.
+refit.  With ``--transport`` it profiles the transport paths: ten steps of
+the TORAX-parity coarse tier (``bench_config.TORAX_COARSE``, float64) from
+its step 40 and the whole coupled GS <-> transport solve at 257^2 in
+float32 (``bench_config.COUPLED``), each as one solve, with the launches a
+transport step, and times the tier's 400 steps with CUDA events.  Each
+prints what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
-| --free-boundary | --eqdsk | --adjoint | --recon]``.
+| --free-boundary | --eqdsk | --adjoint | --recon | --transport]``.
 Exits non-zero without one.
 """
 
@@ -687,6 +692,51 @@ def profile_recon(card: str) -> None:
           f"nrmse {refit['nrmse_range']!r} (CUDA events, one call) [{card}]")
 
 
+def profile_transport(card: str) -> None:
+    """(k) ten steps of the TORAX coarse tier from its step 40, profiled as
+    one solve (launches and device time a step, idle share), and its 400
+    steps timed with CUDA events; (j) the coupled solve at 257^2 f32
+    profiled as one solve."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import COUPLED, TORAX_COARSE, bench_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.vacuum import vacuum_psi_from_config
+    from scpn_fusion_tpu_torch.models.transport.coupling import run_self_consistent
+    from scpn_fusion_tpu_torch.models.transport.solver import (
+        TransportParams, initial_state, run_transport,
+    )
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    tp = TransportParams()
+    dt, p_aux, n_steps = TORAX_COARSE["dt"], TORAX_COARSE["p_aux_mw"], TORAX_COARSE["n_steps"]
+    s40 = run_transport(initial_state(tp, f64, dev), dt, p_aux, tp, 40)[0]
+
+    def ten_steps():
+        tr = run_transport(s40, dt, p_aux, tp, 10)[1]
+        return {"picard": tr["picard"].tolist()}
+
+    out = profile_solve(card, "TORAX coarse tier f64, steps 41-50", ten_steps,
+                        "torch_transport_trace.json")
+    print(f"TORAX coarse tier: {out['launches'] / 10:.1f} device launches, "
+          f"{out['device_ms'] / 10:.4f} ms of device time and {out['wall_ms'] / 10:.3f} ms of "
+          f"wall time a step (profiled) [{card}]")
+    ms = cuda_events_ms(lambda: run_transport(initial_state(tp, f64, dev), dt, p_aux, tp,
+                                              n_steps))
+    print(f"TORAX coarse tier, {n_steps} steps: {ms:.3f} ms ({ms / n_steps:.3f} ms a step; CUDA "
+          f"events, one call) [{card}]")
+
+    cfg = bench_config(COUPLED["n"])
+    grid = Grid.from_config(cfg, dtype=f32, device=dev)
+    bc = vacuum_psi_from_config(grid, cfg).to(f32)
+    kw = {k: v for k, v in COUPLED.items() if k != "n"}
+
+    def coupled():
+        res = run_self_consistent(cfg, grid, tp, initial_state(tp, f32, dev), bc, bc, **kw)
+        return {"outer_iterations": res.outer_iterations, "converged": res.converged}
+
+    profile_solve(card, f"coupled GS <-> transport {COUPLED['n']}^2 f32", coupled, None)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = parser.add_mutually_exclusive_group()
@@ -717,6 +767,9 @@ def main() -> int:
     group.add_argument("--recon", action="store_true",
                        help="profile the SPARC f64 real-shot reconstruction; time its "
                             "profile refit")
+    group.add_argument("--transport", action="store_true",
+                       help="profile ten steps of the TORAX coarse tier and the coupled "
+                            "GS <-> transport solve at 257^2; time the tier's 400 steps")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -757,6 +810,9 @@ def main() -> int:
         return 0
     if opts.recon:
         profile_recon(card)
+        return 0
+    if opts.transport:
+        profile_transport(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
