@@ -55,9 +55,23 @@ them:
   on the CPU: adaptive stepping with the committed neural surrogate,
   current diffusion, the impurity ladder, rotation and the L-H transition,
   the reduced closure, the Aurora-parity step, the 0D burn point and the
-  blanket.
+  blanket;
+* (m) the flight simulator's physics-in-the-loop lane ``run_shot_full`` on
+  the bench machine at 513^2 in float32 (``bench_config.FLIGHT_FULL``: 30
+  control ticks, a full GS solve a tick): kernels 2-5 on every Picard
+  iteration of its 31 solves, against the same shot on plain float32 ops,
+  and the same lane at 65^2 in float64 against the CPU;
+* (n) the SCPN neuro-symbolic closed loop (``bench_config.CLOSED_LOOP``: the
+  R/Z controller of ``validation/run_control_latency.py`` against the
+  reduced plant, 10,000 ticks) as ONE launch of the port's kernel
+  ``csrc/closed_loop.cu``, against its plain per-tick loop, in binary mode,
+  in float64 against the CPU, and the sampled-firing configuration, which
+  runs the per-tick loop;
+* (o) the plain-op control lanes in float64 against the CPU: the reduced
+  flight-sim shot, MPC planning and its receding-horizon loop, the
+  integrated shot, ``optimize_shot`` and the free-boundary tracking shot.
 
-Paths (g)-(i) run plain PyTorch ops, as the JAX package runs them without
+Paths (g)-(i) and (o) run plain PyTorch ops, as the JAX package runs them without
 its Pallas kernels; the script checks that no kernel launched on them.  On
 (l) only the Thomas kernel may launch, and it must on every lane that solves
 a tridiagonal system.
@@ -130,7 +144,17 @@ Phases:
    step), printing the tier's final and peak core Ti and its limit-cycle
    flag, and (l) against the CPU (within 1e-9; the adaptive lane with the
    float32 neural surrogate within 1e-5);
-12. times each kernel beside its plain version at a shape its path gives it
+12. runs (m): every solve converged, Picard counts equal or within one tick
+   by tick, psi within 1e-3 span-relative and the axis traces within 1e-3 m
+   of plain float32, kernels 2-5 each called once a Picard iteration over
+   the 31 solves (one launch a call); the 65^2 float64 lane within 1e-9 of
+   the CPU with equal counts and no kernel; (n): one launch for the shot,
+   traces within 1e-5 span-relative of the plain loop, binary firing equal
+   on every tick, float64 within 1e-9 of the CPU, the sampled configuration
+   on the per-tick loop (no launch, two runs equal, mean firing at a fixed
+   state within 3 sigma of p_fire); (o): each lane within 1e-9 of the CPU,
+   no kernel.
+13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
    their predecessors, and as 50 calls back to back; ``sor_sweeps`` at each
@@ -144,7 +168,9 @@ Phases:
    warm-up, median of 5), (c) beside the original reference's 13.0 ms; the
    Thomas kernel at (1, 50) float64 also beside ``torch.linalg.solve`` of the
    dense system, its bound with float64 operations over 34 TFLOP/s, and at
-   the other transport shapes beside its plain loop.
+   the other transport shapes beside its plain loop; (m)'s shot (kernels,
+   plain, kernels again) and (n)'s kernel (median of 5) beside its plain
+   loop (once);
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  The last line is the JSON result; the line before it is
@@ -152,8 +178,9 @@ the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
 that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
-the Thomas kernel, and ``launches_by_path`` holding each kernel's wrapper
-calls on every path (zero on (g)-(i)); the Thomas kernel's ``library_ms`` is
+the Thomas kernel and over (n) for the closed-loop kernel, and
+``launches_by_path`` holding each kernel's wrapper calls on every path (zero
+on (g)-(i) and (o)); the Thomas kernel's ``library_ms`` is
 ``torch.linalg.solve`` of the same system as a dense matrix.
 """
 
@@ -204,7 +231,7 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
                 (129, 3, (0, 3), 24), (513, 1, (2,), None))
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
-           "tiled_prolong_smooth", "thomas_solve_batched")
+           "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -216,6 +243,8 @@ SOURCES = {
     "tiled_prolong_smooth": ("csrc/tiled_legs.cu", "scpn_fusion_tpu/ops/pallas_mg_tiled.py:123"),
     # no Pallas kernel: the JAX solver is two lax.scan passes in one program
     "thomas_solve_batched": ("csrc/tridiag.cu", "scpn_fusion_tpu/ops/tridiag.py:28"),
+    # no Pallas kernel: the JAX closed loop is one lax.scan of controller and plant
+    "closed_loop": ("csrc/closed_loop.cu", "scpn_fusion_tpu/control/neuro_closed_loop.py:52"),
 }
 
 
@@ -391,6 +420,41 @@ def max_rel(a, b) -> float:
     return float((a - b).abs().max()) / scale if scale > 0 else float((a - b).abs().max())
 
 
+@contextlib.contextmanager
+def cpu_twin(target, *args):
+    """Run ``target(conn, *args)``, a module-level function that computes a
+    lane's CPU twin and sends its results through ``conn``, in a spawned
+    process while the body drives the card; yields a function that waits
+    for those results.  The process is joined, or ended, on the way out."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=target, args=(send, *args))
+    proc.start()
+    send.close()
+
+    def result():
+        out = recv.recv()
+        proc.join(timeout=600)
+        require(proc.exitcode == 0, f"a CPU twin's process ended with {proc.exitcode}")
+        return out
+
+    try:
+        yield result
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+
+
+def on_cpu(threads: int = 4):
+    """In a twin's process: the repository on the path, ``threads`` CPU threads."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(threads)
+    return torch.device("cpu")
+
+
 def adjoint_lane(dev, card: str, counted, by_path: dict) -> tuple:
     """(g) the 65^2 float64 adjoint lane: the IFT coil gradient of
     ``mean(psi^2) * 1e12`` and lane 2 (one normalised descent step of the
@@ -485,21 +549,41 @@ def fd_check(c0, energies, g_adj, energy0: float, card: str) -> None:
     require(dev_rel <= ADJ_TOL, "adjoint lane: the IFT gradient deviates from central FD")
 
 
+RECON_KW = dict(subcell=4, anderson_m=8, max_iter=200)   # run_real_shot_accuracy.py:94-97
+
+
+def recon_case():
+    from scpn_fusion_tpu_torch.io.geqdsk import read_geqdsk
+    from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
+    return rc.prepare_case(read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk"
+                                       / "sparc_lmode_hv.geqdsk"))
+
+
+def recon_on_cpu(conn) -> None:
+    """(h)'s CPU twin: the reconstruction and the refit on the CPU."""
+    cpu = on_cpu()
+    from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
+    case = recon_case()
+    conn.send((rc.reconstruct(case, device=cpu, **RECON_KW), rc.refit_profiles(case, device=cpu)))
+    conn.close()
+
+
 def recon_lane(dev, card: str, counted, by_path: dict) -> None:
     """(h) the real-shot reconstruction of the SPARC L-mode file in
     ``fuzz/seeds/geqdsk``, float64, the validation's settings
     (run_real_shot_accuracy.py:94-97), against the same call on the CPU;
-    then ``refit_profiles`` with its defaults, also against the CPU."""
-    import torch
-    from scpn_fusion_tpu_torch.io.geqdsk import read_geqdsk
+    then ``refit_profiles`` with its defaults, also against the CPU (the CPU
+    twins in a process of their own while the card runs)."""
     from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
 
-    case = rc.prepare_case(read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk"
-                                       / "sparc_lmode_hv.geqdsk"))
-    kw = dict(subcell=4, anderson_m=8, max_iter=200)
-    (out, ms), calls, _ = counted(lambda: events_ms(lambda: rc.reconstruct(case, device=dev,
-                                                                            **kw)))
-    out_cpu = rc.reconstruct(case, device="cpu", **kw)
+    case = recon_case()
+    kw = RECON_KW
+    with cpu_twin(recon_on_cpu) as twin:
+        (out, ms), calls, _ = counted(lambda: events_ms(lambda: rc.reconstruct(
+            case, device=dev, **kw)))
+        (fit, ms_fit), calls_fit, _ = counted(lambda: events_ms(lambda: rc.refit_profiles(
+            case, device=dev)))
+        out_cpu, fit_cpu = twin()
     span = float(case.psi.max() - case.psi.min())
     dev_psi = float(np.max(np.abs(out["psi_fit"] - out_cpu["psi_fit"]))) / span
     print(f"(h) SPARC g-file 129x129 f64 reconstruction (subcell 4, Anderson(8)): "
@@ -520,9 +604,6 @@ def recon_lane(dev, card: str, counted, by_path: dict) -> None:
             and dev_psi <= LANE_TOL, "SPARC reconstruction: the card deviates from the CPU run")
     require(sum(calls.values()) == 0, "SPARC reconstruction: a kernel ran on a plain-ops path")
     by_path["recon_sparc"] = calls
-    (fit, ms_fit), calls_fit, _ = counted(lambda: events_ms(lambda: rc.refit_profiles(
-        case, device=dev)))
-    fit_cpu = rc.refit_profiles(case, device="cpu")
     dev_fit = max(float(np.max(np.abs(fit["psi_fit"] - fit_cpu["psi_fit"]))) / span,
                   float(np.max(np.abs(fit["theta"] - fit_cpu["theta"])
                                / np.max(np.abs(fit_cpu["theta"])))),
@@ -864,32 +945,51 @@ def coupled_lane(dev, card: str, counted, by_path: dict) -> dict:
     return calls
 
 
+def torax_run(d):
+    """(k)'s run: ``TransportParams()`` in float64 through ``TORAX_COARSE``."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import TORAX_COARSE
+    from scpn_fusion_tpu_torch.models.transport.solver import (
+        TransportParams, initial_state, run_transport,
+    )
+    kw = TORAX_COARSE
+    tp = TransportParams()
+    return run_transport(initial_state(tp, torch.float64, d), kw["dt"], kw["p_aux_mw"], tp,
+                         kw["n_steps"])
+
+
+def torax_on_cpu(conn) -> None:
+    """(k)'s CPU twin: the final state and the trace as numpy, and the wall ms."""
+    cpu = on_cpu()
+    t0 = time.perf_counter()
+    fin, tr = torax_run(cpu)
+    ms = (time.perf_counter() - t0) * 1e3
+    conn.send(({k: v.numpy() for k, v in fin._asdict().items()},
+               {k: v.numpy() for k, v in tr.items()}, ms))
+    conn.close()
+
+
 def torax_lane(dev, card: str, counted, by_path: dict) -> None:
     """(k) the TORAX-parity coarse tier (``bench_config.TORAX_COARSE``):
     ``run_transport`` of ``TransportParams()`` in float64 for 400 steps of
     0.5 s at 50 MW, against the same run through the plain Thomas loop on
     the card (bit for bit over the whole run) and on the CPU (within 1e-9
-    span-relative, the same Picard count at every step)."""
+    span-relative, the same Picard count at every step; the CPU twin in a
+    process of its own while the card runs)."""
     import torch
     from scpn_fusion_tpu_torch.bench_config import TORAX_COARSE, limit_cycle
-    from scpn_fusion_tpu_torch.models.transport.solver import (
-        TransportParams, initial_state, run_transport,
-    )
+    from scpn_fusion_tpu_torch.models.transport.solver import TransportParams
 
-    f64, cpu = torch.float64, torch.device("cpu")
     tp = TransportParams()
     kw = dict(TORAX_COARSE)
     n_steps = kw.pop("n_steps")
-
-    def run(d):
-        return run_transport(initial_state(tp, f64, d), kw["dt"], kw["p_aux_mw"], tp, n_steps)
-
-    ((fin_k, tr_k), ms_k), calls, launched = counted(lambda: events_ms(lambda: run(dev)))
-    with plain_thomas():
-        (fin_p, tr_p), ms_p = events_ms(lambda: run(dev))
-    t0 = time.perf_counter()
-    fin_c, tr_c = run(cpu)
-    ms_c = (time.perf_counter() - t0) * 1e3
+    with cpu_twin(torax_on_cpu) as twin:
+        ((fin_k, tr_k), ms_k), calls, launched = counted(lambda: events_ms(lambda: torax_run(dev)))
+        with plain_thomas():
+            (fin_p, tr_p), ms_p = events_ms(lambda: torax_run(dev))
+        fin_np, tr_np, ms_c = twin()
+    fin_c = type(fin_k)(**{k: torch.from_numpy(v) for k, v in fin_np.items()})
+    tr_c = {k: torch.from_numpy(v) for k, v in tr_np.items()}
     ti = tr_k["ti0"].cpu().numpy()
     picard = tr_k["picard"]
     same = state_equal(fin_k, fin_p) and all(torch.equal(tr_k[k], tr_p[k]) for k in tr_k)
@@ -1050,6 +1150,380 @@ def transport_lanes(dev, card: str, counted, by_path: dict) -> None:
     by_path["transport_lanes"] = lane_calls
 
 
+# ── the tenth slice: the control layer (the flight simulator's full lane, the
+# SCPN closed loop as one kernel launch, the plain-op control lanes) ──
+
+AXIS_TOL_M = 1e-3        # (m) r_axis / z_axis traces, kernels vs plain float32 [m]
+REFERENCE_CLOSED_LOOP_MS = (0.012, 0.047)   # BASELINE.md:45: PID, surrogate / full plant, P95
+
+
+@contextlib.contextmanager
+def recorded_solves(log: list):
+    """Append (Picard iterations, converged, update-norm history) of every
+    GS solve the flight simulator makes to ``log`` (it looks its solver up
+    in its own module)."""
+    from scpn_fusion_tpu_torch.control import flight_sim
+    solve = flight_sim.solve_fixed_boundary_impl
+
+    def recorded(*args, **kw):
+        eq = solve(*args, **kw)
+        log.append((eq.iterations, eq.converged,
+                    eq.residual_history[:eq.iterations].tolist()))
+        return eq
+
+    flight_sim.solve_fixed_boundary_impl = recorded
+    try:
+        yield log
+    finally:
+        flight_sim.solve_fixed_boundary_impl = solve
+
+
+def flight_full_lane(dev, card: str, counted, by_path: dict) -> None:
+    """(m) ``run_shot_full`` on the bench machine at 513^2 in float32
+    (``bench_config.FLIGHT_FULL``: 30 ticks, 31 GS solves) with kernels 2-5,
+    against the same shot on plain float32 ops: every solve converged, the
+    Picard counts of the 30 tick solves equal or within one (float32 sum
+    order), the initial cold-start solve's within two (its update histories
+    are printed: Anderson mixing carries the float32 rounding differences of
+    the first iterations to a few percent of the update, and the update
+    crosses the 1e-4 tolerance within ten percent of it, 1.08e-4 with the
+    kernels against 0.92e-4 plain at the tenth iteration; plain float32 and
+    float64 differ by one there on the CPU), psi within 1e-3 of its span,
+    the axis traces within 1e-3 m, and each of kernels 2-5 called once a
+    Picard iteration over the 31 solves, one launch a call.  Then the same
+    lane at 65^2 for 5 ticks in float64, on the card (plain ops) against
+    the CPU within 1e-9."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import FLIGHT_FULL, bench_config
+    from scpn_fusion_tpu_torch.control.flight_sim import run_shot_full
+
+    f32, f64 = torch.float32, torch.float64
+    kw = {k: v for k, v in FLIGHT_FULL.items() if k != "n"}
+
+    def shot(use_pallas, log, n=FLIGHT_FULL["n"], dtype=f32, device=dev, **extra):
+        with recorded_solves(log):
+            return run_shot_full(bench_config(n, use_pallas=use_pallas), dtype=dtype,
+                                 device=device, **kw, **extra)
+
+    log_k, log_p, log_k2 = [], [], []
+    ((psi_k, _, tr_k), ms_k), calls, launched = counted(
+        lambda: events_ms(lambda: shot(True, log_k)))
+    (psi_p, _, tr_p), ms_p = events_ms(lambda: shot(False, log_p))
+    _, ms_k2 = events_ms(lambda: shot(True, log_k2))
+    it_k, it_p = [i for i, *_ in log_k], [i for i, *_ in log_p]
+    n_ticks = tr_k.t_s.shape[0]
+    differ = [(k, a, b) for k, (a, b) in enumerate(zip(it_k, it_p)) if a != b]
+    dev_psi = span_rel(psi_k, psi_p)
+    dev_r = float((tr_k.r_axis - tr_p.r_axis).abs().max())
+    dev_z = float((tr_k.z_axis - tr_p.z_axis).abs().max())
+    picard = sum(it_k)
+    print(f"(m) flight simulator full lane {FLIGHT_FULL['n']}^2 f32 ({n_ticks} ticks, "
+          f"{len(log_k)} solves, {kw}): Picard iterations with kernels {it_k} (sum {picard}), "
+          f"plain {it_p} (sum {sum(it_p)}); solves that differ (solve, kernels, plain) {differ}; "
+          f"psi span-rel {dev_psi:.3e} (limit {SLICE_TOL:.0e}), r_axis {dev_r:.3e} m, z_axis "
+          f"{dev_z:.3e} m (limit {AXIS_TOL_M:.0e}); final r_axis {float(tr_k.r_axis[-1])!r} m; "
+          f"wrapper calls {calls}, __global__ launches {launched} [{card}]")
+    print(f"time (m) flight simulator full lane {FLIGHT_FULL['n']}^2 f32: kernels {ms_k:.3f} ms "
+          f"a shot ({1e3 * ms_k / n_ticks:.1f} us a tick), plain {ms_p:.3f} ms "
+          f"({1e3 * ms_p / n_ticks:.1f} us a tick), kernels again {ms_k2:.3f} ms (in turns: "
+          f"kernels, plain, kernels; CUDA events) [{card}]")
+    print(f"(m) the initial solve's update histories: kernels "
+          f"{['%.4g' % v for v in log_k[0][2]]}, plain {['%.4g' % v for v in log_p[0][2]]}")
+    require(len(log_k) == len(log_p) == n_ticks + 1, "(m): not one solve a tick and one before")
+    require(all(c for _, c, _ in log_k + log_p), "(m): a solve did not converge")
+    require(abs(it_k[0] - it_p[0]) <= 2 and all(abs(a - b) <= 1 for a, b in zip(it_k[1:], it_p[1:])),
+            "(m): Picard counts differ by more than one on a tick (two on the initial solve)")
+    require(bool(torch.isfinite(psi_k).all()) and dev_psi <= SLICE_TOL,
+            "(m): psi deviates from plain float32")
+    require(dev_r <= AXIS_TOL_M and dev_z <= AXIS_TOL_M, "(m): the axis traces deviate")
+    expected = {name: 0 for name in KERNELS}
+    expected.update(fused_topology_source=picard, fused_coarse_vcycle=picard,
+                    fine_presmooth_restrict=picard, fine_prolong_smooth=picard)
+    require(calls == expected, f"(m): wrapper calls {calls} != {expected}")
+    require(launched == {"scpn_fused_source": picard, "scpn_fused_vcycle": picard,
+                         "scpn_fine_pre": picard, "scpn_fine_post": picard},
+            f"(m): launches {launched}, not one a call")
+    by_path["flight_full_513"] = calls
+
+    log_d, log_c = [], []
+    ((psi_d, cur_d, tr_d), ms_d), calls_d, _ = counted(
+        lambda: events_ms(lambda: shot(True, log_d, n=65, dtype=f64, shot_steps=5)))
+    t0 = time.perf_counter()
+    psi_c, cur_c, tr_c = shot(True, log_c, n=65, dtype=f64, device="cpu", shot_steps=5)
+    ms_c = (time.perf_counter() - t0) * 1e3
+    dev_64 = max(span_rel(psi_d.cpu(), psi_c), max_rel(cur_d, cur_c),
+                 max_rel(tuple(tr_d), tuple(tr_c)))
+    print(f"(m) flight simulator full lane 65^2 f64 (5 ticks): card {ms_d:.3f} ms, CPU "
+          f"{ms_c:.1f} ms, deviation {dev_64:.3e} (limit {LANE_TOL:.0e}), Picard iterations "
+          f"card {[i for i, *_ in log_d]}, CPU {[i for i, *_ in log_c]}; wrapper calls "
+          f"{sum(calls_d.values())} [{card}]")
+    require(dev_64 <= LANE_TOL and [x[:2] for x in log_d] == [x[:2] for x in log_c],
+            "(m): the f64 lane deviates from the CPU")
+    require(sum(calls_d.values()) == 0, "(m): a kernel ran on the float64 lane")
+
+
+def closed_loop_work(ctrl, n_ticks: int) -> tuple[float, float]:
+    """Bytes: the net, the specs and the start state in once, the traces and
+    the final state out once; operations a tick: the two products with the
+    input matrix and the one with the output matrix, and a few for each
+    injection, firing, place and action."""
+    n_t, n_p = ctrl.w_in.shape
+    n_i, n_act = ctrl.inj_place_ids.shape[0], ctrl.act_gain.shape[0]
+    item = ctrl.w_in.element_size()
+    n_in = 2 * n_t * n_p + 3 * n_t + n_p + 4 + 5 * n_i + 5 * n_act + 2
+    n_out = n_ticks * (2 + n_act + n_t) + 2 * n_p + n_t + n_act + 3
+    flops = n_ticks * (6 * n_t * n_p + 8 * n_i + 6 * n_t + 3 * n_p + 8 * n_act + 8)
+    return float(item * (n_in + n_out)), float(flops)
+
+
+def closed_loop_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                       measured_plain: dict) -> dict:
+    """(n) the R/Z controller of ``validation/run_control_latency.py:23-42``
+    against the reduced plant (``bench_config.CLOSED_LOOP``: fractional,
+    margin 0.5, dt 1e-3, from (6.5, 0.3) m, 10,000 ticks, float32):
+    ``run_neuro_closed_loop`` in ONE launch of ``csrc/closed_loop.cu``,
+    against its plain version (the per-tick loop) on the card within 1e-5 of
+    each trace's span; the same controller in binary mode with equal firing
+    vectors on every tick; float64 on the card against the port's CPU run
+    within 1e-9; a configuration that samples its firing (8 antithetic
+    passes) on the per-tick loop, no kernel, deterministic by tick, its mean
+    firing at a fixed state within 3 sigma of the float path's."""
+    import math
+
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import CLOSED_LOOP, RZ_SPECS, rz_net
+    from scpn_fusion_tpu_torch.control.neuro_closed_loop import (
+        ReducedPlantState, run_neuro_closed_loop,
+    )
+    from scpn_fusion_tpu_torch.ops.cuda_closed_loop import closed_loop, closed_loop_plain
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+    from scpn_fusion_tpu_torch.scpn.structure import StochasticPetriNet
+
+    f32, f64 = torch.float32, torch.float64
+    n_ticks, dt = CLOSED_LOOP["n_ticks"], CLOSED_LOOP["dt"]
+    frac = dict(firing_mode="fractional", firing_margin=CLOSED_LOOP["firing_margin"])
+
+    def setup(dtype, device, **cfg_kw):
+        ctrl = sc.build_controller(rz_net(StochasticPetriNet), dtype=dtype, device=device,
+                                   **RZ_SPECS)
+        plant0 = ReducedPlantState(*(torch.tensor(v, dtype=dtype, device=device)
+                                     for v in CLOSED_LOOP["plant0"]))
+        return ctrl, sc.ControllerConfig(dt=dt, **cfg_kw), plant0
+
+    ctrl, cfg, plant0 = setup(f32, dev, **frac)
+    ((cs_k, ps_k, tr_k), ms_k), calls, launched = counted(lambda: events_ms(
+        lambda: run_neuro_closed_loop(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt)))
+    (cs_p, ps_p, tr_p), ms_p = events_ms(
+        lambda: closed_loop_plain(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt))
+    dev_tr = max(span_rel(tr_k[k], tr_p[k]) for k in tr_k)
+    err = max(float((tr_k[k] - tr_p[k]).abs().max()) for k in tr_k)
+    print(f"(n) SCPN closed loop, R/Z controller f32 ({n_ticks} ticks, {cfg}): kernel vs plain "
+          f"loop traces span-rel {dev_tr:.3e} (limit {SPAN_TOL:.0e}), max abs {err!r}; final "
+          f"r {float(ps_k.r)!r} m (plain {float(ps_p.r)!r}), z {float(ps_k.z)!r} m; wrapper "
+          f"calls {calls}, __global__ launches {launched} [{card}]")
+    require(all(bool(torch.isfinite(v).all()) for v in tr_k.values()), "(n): traces not finite")
+    require(dev_tr <= SPAN_TOL, "(n): the kernel deviates from its plain loop")
+    expected = {name: 0 for name in KERNELS}
+    expected["closed_loop"] = 1
+    require(calls == expected and launched == {"scpn_closed_loop_f32": 1},
+            f"(n): calls {calls}, launches {launched}: not one launch for the shot")
+    results["closed_loop"] = {"max_abs_err": err}
+    by_path["closed_loop_rz"] = calls
+
+    ctrl_b, cfg_b, _ = setup(f32, dev, firing_mode="binary")
+    _, _, trb_k = closed_loop(ctrl_b, cfg_b, plant0, n_ticks=n_ticks, dt=dt)
+    _, _, trb_p = closed_loop_plain(ctrl_b, cfg_b, plant0, n_ticks=n_ticks, dt=dt)
+    differ = int((trb_k["firing"] != trb_p["firing"]).any(dim=1).sum())
+    dev_b = max(span_rel(trb_k[k], trb_p[k]) for k in trb_k)
+    print(f"(n) binary mode: ticks whose firing vectors differ from the plain loop {differ} of "
+          f"{n_ticks}; traces span-rel {dev_b:.3e}; {int(trb_k['firing'].sum())} firings")
+    require(differ == 0 and dev_b <= SPAN_TOL, "(n): binary firing differs from the plain loop")
+
+    ctrl_d, cfg_d, p_d = setup(f64, dev, **frac)
+    ctrl_c, _, p_c = setup(f64, "cpu", **frac)
+    (_, ps_d, tr_d), calls_d, _ = counted(
+        lambda: run_neuro_closed_loop(ctrl_d, cfg_d, p_d, n_ticks=n_ticks, dt=dt))
+    t0 = time.perf_counter()
+    _, ps_c, tr_c = run_neuro_closed_loop(ctrl_c, cfg_d, p_c, n_ticks=n_ticks, dt=dt)
+    ms_c = (time.perf_counter() - t0) * 1e3
+    dev_64 = max(max_rel(tr_d[k], tr_c[k]) for k in tr_c)
+    print(f"(n) f64: the kernel ({calls_d['closed_loop']} call) vs the port's CPU run "
+          f"({ms_c:.1f} ms) max relative deviation {dev_64:.3e} (limit {LANE_TOL:.0e})")
+    require(calls_d["closed_loop"] == 1 and dev_64 <= LANE_TOL,
+            "(n): the f64 kernel deviates from the CPU run")
+
+    sampled = dict(frac, sc_n_passes=8)
+    ctrl_s, cfg_s, p_s = setup(f32, dev, **sampled)
+    n_s = 2000
+    run_s, calls_s, _ = counted(
+        lambda: run_neuro_closed_loop(ctrl_s, cfg_s, p_s, n_ticks=n_s, dt=dt))
+    run_s2 = run_neuro_closed_loop(ctrl_s, cfg_s, p_s, n_ticks=n_s, dt=dt)
+    same = (state_equal(run_s[0], run_s2[0])
+            and all(torch.equal(run_s[2][k], run_s2[2][k]) for k in run_s[2]))
+    obs = torch.tensor([6.4, 0.1], dtype=f32, device=dev)
+    s0 = sc.initial_controller_state(ctrl_s, cfg_s)
+    f_mean = torch.stack([sc.controller_step(ctrl_s, cfg_s, s0, obs, k)[2]["firing"]
+                          for k in range(n_s)]).double().mean(0).cpu()
+    p_ref = sc._controller_step(ctrl_s, sc.ControllerConfig(dt=dt, **frac), s0, obs,
+                                sc.StepDraws())[2]["firing"].double().cpu()
+    sigma = torch.sqrt(p_ref * (1.0 - p_ref) / (cfg_s.sc_n_passes * n_s))
+    z = ((f_mean - p_ref).abs() / torch.clamp(sigma, min=1e-300)).tolist()
+    print(f"(n) sampled firing ({cfg_s.sc_n_passes} antithetic passes, {n_s} ticks): wrapper "
+          f"calls {sum(calls_s.values())}, two runs equal {same}; at obs (6.4, 0.1) the mean "
+          f"firing over {n_s} ticks {f_mean.tolist()} against the float path's {p_ref.tolist()} "
+          f"({[round(v, 3) if math.isfinite(v) else v for v in z]} sigma)")
+    require(sum(calls_s.values()) == 0, "(n): a kernel ran on the sampled configuration")
+    require(same, "(n): the sampled loop is not deterministic by tick")
+    require(bool(((f_mean - p_ref).abs() <= 3.0 * sigma + 1e-12).all()),
+            "(n): the mean sampled firing is more than 3 sigma from p_fire")
+
+    ms_kernel = cuda_ms(lambda: closed_loop(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt))
+    print(f"time (n) SCPN closed loop f32: kernel {ms_kernel:.4f} ms a shot "
+          f"({1e3 * ms_kernel / n_ticks:.3f} us a tick; median of 5), plain loop {ms_p:.3f} ms "
+          f"({1e3 * ms_p / n_ticks:.3f} us a tick; once), first kernel call {ms_k:.4f} ms; "
+          f"yardstick, not a target: the original reference's closed-loop step on a local CPU, "
+          f"{REFERENCE_CLOSED_LOOP_MS[0]} / {REFERENCE_CLOSED_LOOP_MS[1]} ms P95 (PID with a "
+          f"surrogate / full-physics plant; BASELINE.md:45); dependent stages "
+          f"{4 * n_ticks} (4 barrier-separated stages a tick) [{card}]")
+    timing["closed_loop"] = (
+        lambda: closed_loop(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt),
+        lambda: closed_loop_plain(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt),
+        f"R/Z net, {n_ticks} ticks f32", closed_loop_work(ctrl, n_ticks))
+    measured_plain["closed_loop"] = ms_p
+    return calls
+
+
+# (o)'s lanes, by label
+REDUCED_LANE = "run_shot_reduced (10000 ticks at 10000 Hz)"
+MPC_LANE = "mpc.plan (horizon 12, 12 iterations) + mpc_closed_loop (20 steps)"
+SHOT_LANE = "integrated_scenario.run_shot (standard schedule, 840 ticks)"
+OPTIMIZE_LANE = "optimize_shot (25 iterations, lr 0.6)"
+TRACKING_LANE = "run_tracking_shot (33^2, 2 ticks)"
+
+
+def control_lane_runs() -> list:
+    """(label, run(device) -> tuple of tensors) of (o)'s lanes, float64: the
+    reduced flight-sim shot (10,000 ticks), ``mpc.plan`` and
+    ``mpc_closed_loop`` on the MPC lane's plant of
+    ``validation/run_controller_comparison.py:77-86, 165-183``, the
+    integrated shot on ``standard_shot_schedule()``, ``optimize_shot`` with
+    the settings of ``tests/test_optimal_scenario.py`` (25 iterations, lr
+    0.6) and two ticks of ``run_tracking_shot`` on the 33^2 machine of
+    ``validation/run_tracking_acceptance.py:44-70`` (nine free-boundary
+    solves: the initial one, six for the response, one a tick)."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import TRACKING_MACHINE, TRACKING_STEP
+    from scpn_fusion_tpu_torch.control import free_boundary_tracking as fbt
+    from scpn_fusion_tpu_torch.control import mpc
+    from scpn_fusion_tpu_torch.control.flight_sim import FlightSimParams, run_shot_reduced
+    from scpn_fusion_tpu_torch.control.optimal_scenario import (
+        OptimizerConfig, ShotKnobs, optimize_shot,
+    )
+    from scpn_fusion_tpu_torch.control.scenario import FluxBudget, standard_shot_schedule
+    from scpn_fusion_tpu_torch.core.config import config_from_dict
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import coilset_from_config
+    from scpn_fusion_tpu_torch.models.physics.integrated_scenario import run_shot
+
+    f64 = torch.float64
+
+    def reduced(d):
+        trace, metrics = run_shot_reduced(FlightSimParams(), dtype=f64, device=d)
+        return (*trace, *metrics.values())
+
+    # validation/run_controller_comparison.py's plant and MPC lane
+    drift_r, gamma_z, u_max, dt = 0.03, 5.0, 2.0, 1e-3
+    mcfg = mpc.MPCConfig(horizon=12, dt=dt, iterations=12, learning_rate=0.3, l2_reg=1e-3,
+                         u_min=-u_max, u_max=u_max)
+
+    def nominal(x, u):
+        return torch.stack([drift_r + u[0], gamma_z * x[1] + u[1]])
+
+    def plant(x, u):
+        u = torch.clamp(u, -u_max, u_max)
+        return torch.stack([drift_r + u[0], gamma_z * x[1] + u[1]])
+
+    def mpc_lane(d):
+        x0 = torch.tensor([6.5, 0.1], dtype=f64, device=d)
+        target = torch.tensor([6.2, 0.0], dtype=f64, device=d)
+        p = mpc.plan(nominal, mcfg, x0, target, torch.zeros((12, 2), dtype=f64, device=d))
+        return (*p, *mpc.mpc_closed_loop(nominal, plant, mcfg, x0, target, 20))
+
+    budget = FluxBudget(phi_cs_vs=280.0, l_plasma_uh=7.0, r0_m=6.2)
+
+    def shot(d):
+        trace, report = run_shot(standard_shot_schedule(), budget, device=d)
+        return (*trace, *report)
+
+    def optimize(d):
+        k0 = ShotKnobs(*(torch.tensor(v, dtype=f64, device=d) for v in (20.0, 6.0, 10.0)))
+        res = optimize_shot(k0, budget, cfg=OptimizerConfig(n_iters=25, learning_rate=0.6))
+        return (*res.knobs, res.q_flattop, res.loss_history, res.feasible)
+
+    cfg_t = config_from_dict(TRACKING_MACHINE)
+
+    def tracking(d):
+        grid = Grid.from_config(cfg_t, dtype=f64, device=d)
+        coils = coilset_from_config(cfg_t, f64, d)
+        obj0 = fbt.soft_objectives(fbt._plant_solve(coils, cfg_t, grid, False), grid)
+        targets = obj0 + torch.tensor(TRACKING_STEP, dtype=f64, device=d)
+        return tuple(fbt.run_tracking_shot(cfg_t, coils, targets, grid=grid, dtype=f64, n_steps=2,
+                                           fallback_currents=coils.currents))
+
+    return [(REDUCED_LANE, reduced), (MPC_LANE, mpc_lane), (SHOT_LANE, shot),
+            (OPTIMIZE_LANE, optimize), (TRACKING_LANE, tracking)]
+
+
+def control_lanes_on_cpu(conn) -> None:
+    """(o)'s CPU twins: sends {label: (outputs as numpy arrays, wall ms)}."""
+    cpu = on_cpu(2)
+    out = {}
+    for label, run in control_lane_runs():
+        t0 = time.perf_counter()
+        res = run(cpu)
+        out[label] = ([t.detach().numpy() for t in res], (time.perf_counter() - t0) * 1e3)
+    conn.send(out)
+    conn.close()
+
+
+def control_lanes(dev, card: str, counted, by_path: dict) -> None:
+    """(o) the plain-op control lanes (``control_lane_runs``) in float64,
+    each on the card against the same call on the CPU within 1e-9 relative,
+    with no kernel.  The CPU twins run in a process of their own while the
+    card runs (the lanes are host-bound loops of small ops on either device)."""
+    import torch
+
+    with cpu_twin(control_lanes_on_cpu) as twin:
+        on_card = {}
+        for label, run in control_lane_runs():
+            (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
+            on_card[label] = (out, ms, calls)
+        cpu_runs = twin()
+    lane_calls = {name: 0 for name in KERNELS}
+    for label, (out, ms, calls) in on_card.items():
+        cpu_out, ms_c = cpu_runs[label]
+        for k, v in calls.items():
+            lane_calls[k] += v
+        dev_l = max_rel(out, tuple(torch.from_numpy(a) for a in cpu_out))
+        print(f"(o) {label}: card {ms:.3f} ms, CPU {ms_c:.1f} ms (in its own process), max "
+              f"relative deviation {dev_l:.3e} (limit {LANE_TOL:.0e}), wrapper calls "
+              f"{sum(calls.values())} [{card}]")
+        require(sum(calls.values()) == 0, f"(o) {label}: a kernel ran on a plain-ops lane")
+        require(dev_l <= LANE_TOL, f"(o) {label}: the card deviates from the CPU run")
+    out, ms, _ = on_card[REDUCED_LANE]
+    print(f"time (o) run_shot_reduced f64: {ms / 10.0:.2f} us a tick (CUDA events over the "
+          f"10,000-tick shot); disruption fraction {float(out[-5])!r}, final |r err| "
+          f"{float(out[-4])!r} m [{card}]")
+    out = on_card[SHOT_LANE][0]
+    print(f"(o)   Q flattop {float(out[12])!r}, flux exhausted {bool(out[15])}")
+    out = on_card[OPTIMIZE_LANE][0]
+    print(f"(o)   knobs {[float(v) for v in out[:3]]}, Q flattop {float(out[3])!r}, feasible "
+          f"{bool(out[5])}")
+    out = on_card[TRACKING_LANE][0]
+    print(f"(o)   axis error by tick {out[5].tolist()}, alert levels {out[4].tolist()}")
+    by_path["control_lanes"] = lane_calls
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1112,7 +1586,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t_phase:.2f} s (one nvcc per source, "
           f"{' '.join(cb.NVCC_FLAGS)})")
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
-                   "vcycle_fused.cu", "source.cu"):
+                   "vcycle_fused.cu", "source.cu", "closed_loop.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -1644,7 +2118,7 @@ def main() -> int:
     expected = {"sor_sweeps": 0, "fused_topology_source": picard,
                 "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
-                "tiled_prolong_smooth": 0, "thomas_solve_batched": 0}
+                "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -1753,7 +2227,8 @@ def main() -> int:
                  "fine_prolong_smooth": it[513] + it[1025] + 2 * it[2049],
                  "fused_coarse_vcycle": vcycles,
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
-                 "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0}
+                 "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
+                 "closed_loop": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -2117,12 +2592,25 @@ def main() -> int:
     transport_lanes(dev, card, counted, by_path)
     phase_done("transport lanes")
 
+    # ── the tenth slice: (m) the flight simulator's full lane (kernels 2-5 on
+    # every tick), (n) the SCPN closed loop (one launch of csrc/closed_loop.cu
+    # a shot) and (o) the plain-op control lanes ──
+    flight_full_lane(dev, card, counted, by_path)
+    phase_done("flight simulator full lane")
+    measured_plain = {}     # name -> the plain version's ms, measured once on its path
+    closed_calls = closed_loop_checks(dev, card, counted, by_path, results, timing,
+                                      measured_plain)
+    phase_done("SCPN closed loop")
+    control_lanes(dev, card, counted, by_path)
+    phase_done("control lanes")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
     launches["fused_topology_source"] = by_path["fb_257"]["fused_topology_source"]
     launches["fused_coarse_vcycle"] = by_path["fb_257"]["fused_coarse_vcycle"]
     launches["thomas_solve_batched"] = coupled_calls["thomas_solve_batched"]
+    launches["closed_loop"] = closed_calls["closed_loop"]
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")
@@ -2136,6 +2624,9 @@ def main() -> int:
             # the kernel and its predecessor in turns
             ms_k, earlier_ms = cuda_ms_pair(fk, staged[name])
             ms_p = cuda_ms(fp)
+        elif name in measured_plain:
+            # a plain version of seconds: timed once, on its path
+            ms_k, ms_p = cuda_ms(fk), measured_plain[name]
         else:
             ms_k, ms_p = cuda_ms_pair(fk, fp)
         bound_ms, bound_by = bound(work)

@@ -178,3 +178,54 @@ def aurora_case_arrays(nr: int = 24, nz: int = 5, nt: int = 6, seed: int = 10) -
             recombination_m3_s_t_r_z=5e-16 * (0.5 + g.random((nt, nr, nz)))),
         "density": start, "reference": ref,
     }
+
+
+# ── control (the flight simulator's full lane, the SCPN closed loop, the
+# tracking shot) ──
+#
+# FLIGHT_FULL is the full-physics lane of ``run_shot_full`` on the bench
+# machine (``bench_config(513)``) in the normalised units of
+# ``tests/test_control.py:126-133``: the default 30 ticks of 0.05 s, a coil
+# delta limit of 0.2 and target axis (6.0, 0.0) m.  The R/Z controller is
+# ``validation/run_control_latency.py:23-42``: eight places, four transitions
+# (threshold 0.02), targets (6.2, 0) m, scales 0.5, two actions (gain 0.5,
+# limit 5, slew 1e4 /s); CLOSED_LOOP is that script's fused lane (fractional
+# firing, margin 0.5, dt 1e-3 s, plant from (6.5, 0.3) m, 10,000 ticks).
+# TRACKING_MACHINE is ``validation/run_tracking_acceptance.py:44-70`` (33^2,
+# six coils, Ip 150, mu0 = 1, multigrid inner solves) and TRACKING_STEP the
+# target step of its lanes.
+FLIGHT_FULL: dict[str, Any] = {"n": 513, "actuator_delta_limit": 0.2, "target_r": 6.0,
+                               "target_z": 0.0}
+RZ_PLACES = ("eR+", "eR-", "eZ+", "eZ-", "cR+", "cR-", "cZ+", "cZ-")
+RZ_TRANSITIONS = (("tR+", "eR+", "cR+"), ("tR-", "eR-", "cR-"),
+                  ("tZ+", "eZ+", "cZ+"), ("tZ-", "eZ-", "cZ-"))
+RZ_SPECS: dict[str, Any] = dict(
+    axis_targets=[6.2, 0.0], axis_scales=[0.5, 0.5],
+    injections=[("eR+", 0, True, 1.0, 0.0), ("eR-", 0, False, 1.0, 0.0),
+                ("eZ+", 1, True, 1.0, 0.0), ("eZ-", 1, False, 1.0, 0.0)],
+    actions=[("cR+", "cR-", 0.5, 5.0, 1e4), ("cZ+", "cZ-", 0.5, 5.0, 1e4)])
+CLOSED_LOOP: dict[str, Any] = {"firing_margin": 0.5, "dt": 1e-3, "plant0": (6.5, 0.3),
+                               "n_ticks": 10_000}
+TRACKING_MACHINE: dict[str, Any] = {
+    "reactor_name": "tracking-acceptance", "grid_resolution": [33, 33],
+    "dimensions": ITER_LIKE["dimensions"],
+    "coils": [{"r": r, "z": z, "current": i} for r, z, i in (
+        (3.5, 4.8, -1.0), (8.0, 4.8, 4.0), (10.8, 0.0, 6.0),
+        (8.0, -4.8, 4.0), (3.5, -4.8, -1.0), (10.8, 2.5, 3.0))],
+    "physics": {"plasma_current_target": 150.0, "vacuum_permeability": 1.0},
+    "solver": {"max_iterations": 80, "convergence_threshold": 1e-4, "relaxation_factor": 0.1,
+               "solver_method": "multigrid"}}
+TRACKING_STEP = (-0.05, 0.04, 0.0, 0.0)
+
+
+def rz_net(net_cls, delays: tuple[int, ...] = (0, 0, 0, 0)):
+    """The compiled R/Z net, built with ``net_cls`` (a ``StochasticPetriNet``
+    of either package); ``delays`` are the four transitions' tick delays."""
+    net = net_cls()
+    for p in RZ_PLACES:
+        net.add_place(p)
+    for (t, src, dst), delay in zip(RZ_TRANSITIONS, delays):
+        net.add_transition(t, threshold=0.02, delay_ticks=delay)
+        net.add_arc(src, t)
+        net.add_arc(t, dst)
+    return net.compile()

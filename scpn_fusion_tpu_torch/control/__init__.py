@@ -1,0 +1,33 @@
+"""Control layer (port of ``scpn_fusion_tpu/control/``): the exports of the
+JAX package's ``control/__init__.py`` whose modules are ported, under the
+same names.  Ported: ``pid``, ``actuator``, ``flight_sim``,
+``neuro_closed_loop``, ``mpc``, ``scenario``, ``optimal_scenario`` and
+``free_boundary_tracking``; the other modules of the JAX package's
+``control/`` come with later slices.
+"""
+
+from scpn_fusion_tpu_torch.control.actuator import (  # noqa: F401
+    ActuatorParams,
+    ActuatorState,
+    actuator_init,
+    actuator_step,
+)
+from scpn_fusion_tpu_torch.control.pid import PIDGains, PIDState, pid_init, pid_step  # noqa: F401
+from scpn_fusion_tpu_torch.control.flight_sim import (  # noqa: F401
+    FlightSimParams,
+    run_shot_reduced,
+    run_shot_reduced_gains,
+)
+from scpn_fusion_tpu_torch.control.scenario import (  # noqa: F401
+    FluxBudget,
+    ScenarioSchedule,
+    Waveform,
+    run_startup_sequence,
+    standard_shot_schedule,
+)
+from scpn_fusion_tpu_torch.control.optimal_scenario import (  # noqa: F401
+    OptimizerConfig,
+    ShotKnobs,
+    optimize_shot,
+    shot_objective,
+)

@@ -1,6 +1,7 @@
 """Physics lanes (port of ``scpn_fusion_tpu/models/physics/``).
 
-Only ``scaling_burn`` is ported so far (the transport stepper's He pump
-takes its IPB98(y,2) scaling).  The JAX package's exports of this package
+Ported so far: ``scaling_burn`` (the transport stepper's He pump takes its
+IPB98(y,2) scaling) and ``integrated_scenario`` (the whole-shot scenario of
+``control/optimal_scenario.py``).  The JAX package's exports of this package
 come with the modules that define them.
 """

@@ -8,9 +8,8 @@ no Pallas kernel here: its ``thomas_solve`` is two ``lax.scan`` passes inside
 one compiled program, and this launch takes that program's place.
 
 Nothing falls back: a failed build or launch raises, and so does an input
-that requires a gradient (no path of the port differentiates through the
-solve yet; its backward is owed to the model-predictive controller, which
-takes ``jax.grad`` through a transport rollout in the JAX package).
+that requires a gradient (the kernel has no backward, and needs none: no
+path of the JAX package takes ``jax.grad`` through its Thomas solve).
 """
 
 from __future__ import annotations
