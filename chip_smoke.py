@@ -67,14 +67,28 @@ them:
   ``csrc/closed_loop.cu``, against its plain per-tick loop, in binary mode,
   in float64 against the CPU, and the sampled-firing configuration, which
   runs the per-tick loop;
-* (o) the plain-op control lanes in float64 against the CPU: the reduced
-  flight-sim shot, MPC planning and its receding-horizon loop, the
-  integrated shot, ``optimize_shot`` and the free-boundary tracking shot.
+* (o) the control lanes in float64 against the CPU: the reduced flight-sim
+  shot (one launch of the reduced-shot kernel, ``csrc/reduced_shot.cu``),
+  MPC planning and its receding-horizon loop, the integrated shot,
+  ``optimize_shot`` and the free-boundary tracking shot;
+* (p) the reduced-shot kernel (row R: every tick of a population of reduced
+  flight-sim shots in ONE launch) against its batched plain loop, then the
+  1000-shot x 10,000-tick stress campaign of
+  ``validation/run_stress_campaign.py`` (one launch) and ``tune_pid`` at its
+  defaults (128 candidates x 15 generations: one launch a generation);
+* (q) the classical and robust controllers in float64 against the CPU, at
+  the plants and sizes of the JAX tests: H-inf synthesis with a closed-loop
+  rollout, mu-synthesis and its structured D-K iteration, the RWM feedback
+  design, the sliding-mode shot, the gain scheduler over the ITER-like
+  waveforms, the EKF, the fault-tolerant shot and ``tune_hinf``; and the
+  vertical-stability chain on the 513^2 FMG psi (n-index at the magnetic
+  axis, the RZIP state space of ``bench_config.RZIP_VESSEL``, its growth
+  rate, the LQR gain and the closed-loop eigenvalues).
 
-Paths (g)-(i) and (o) run plain PyTorch ops, as the JAX package runs them without
-its Pallas kernels; the script checks that no kernel launched on them.  On
-(l) only the Thomas kernel may launch, and it must on every lane that solves
-a tridiagonal system.
+Paths (g)-(i), (o) other than its reduced shot, and (q) run plain PyTorch
+ops, as the JAX package runs them without its Pallas kernels; the script
+checks that no kernel launched on them.  On (l) only the Thomas kernel may
+launch, and it must on every lane that solves a tridiagonal system.
 
 Phases:
 
@@ -153,7 +167,18 @@ Phases:
    on every tick, float64 within 1e-9 of the CPU, the sampled configuration
    on the per-tick loop (no launch, two runs equal, mean firing at a fixed
    state within 3 sigma of p_fire); (o): each lane within 1e-9 of the CPU,
-   no kernel.
+   the reduced shot in one launch of row R, the others with no kernel;
+   (p): row R ``torch.equal`` to its batched plain loop on the card (stress
+   variant 1000 x 10,000 float32 on the campaign's draws, reduced variant
+   128 x 10,000 float32 on the CEM's first generation of gains, both at 64
+   shots in float64) and the float64 runs within 1e-9 of the plain loop on
+   the CPU; the campaign in one launch with disruption rate 0 (its p50 /
+   p95 / p99, CUDA events median of 5, us a shot-tick); ``tune_pid`` at its
+   defaults in 15 launches with a cost no worse than the default gains' (x
+   1.0001, ``tests/test_tuning.py:50``); ``tune_pid`` 128 x 2 on the JAX
+   test's 1 kHz lane equal with the kernel and with the plain loop; (q):
+   each controller lane within 1e-9 of the CPU, no kernel, the n-index, the
+   growth rate and the closed-loop max Re(lambda) printed;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -169,8 +194,9 @@ Phases:
    Thomas kernel at (1, 50) float64 also beside ``torch.linalg.solve`` of the
    dense system, its bound with float64 operations over 34 TFLOP/s, and at
    the other transport shapes beside its plain loop; (m)'s shot (kernels,
-   plain, kernels again) and (n)'s kernel (median of 5) beside its plain
-   loop (once);
+   plain, kernels again), (n)'s kernel (median of 5) beside its plain
+   loop (once), and row R's stress launch (median of 5) beside its plain
+   loop (once, on (p)'s check);
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  The last line is the JSON result; the line before it is
@@ -178,9 +204,10 @@ the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
 that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
-the Thomas kernel and over (n) for the closed-loop kernel, and
-``launches_by_path`` holding each kernel's wrapper calls on every path (zero
-on (g)-(i) and (o)); the Thomas kernel's ``library_ms`` is
+the Thomas kernel, over (n) for the closed-loop kernel and over (p)'s
+campaign and tuner for row R, and ``launches_by_path`` holding each kernel's
+wrapper calls on every path (zero on (g)-(i) and (q), row R's one on (o));
+the Thomas kernel's ``library_ms`` is
 ``torch.linalg.solve`` of the same system as a dense matrix.
 """
 
@@ -231,7 +258,7 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
                 (129, 3, (0, 3), 24), (513, 1, (2,), None))
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
-           "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop")
+           "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -245,6 +272,8 @@ SOURCES = {
     "thomas_solve_batched": ("csrc/tridiag.cu", "scpn_fusion_tpu/ops/tridiag.py:28"),
     # no Pallas kernel: the JAX closed loop is one lax.scan of controller and plant
     "closed_loop": ("csrc/closed_loop.cu", "scpn_fusion_tpu/control/neuro_closed_loop.py:52"),
+    # no Pallas kernel: the JAX shot is one lax.scan, vmapped over a population or a campaign
+    "reduced_shot": ("csrc/reduced_shot.cu", "scpn_fusion_tpu/control/flight_sim.py:114"),
 }
 
 
@@ -1487,9 +1516,10 @@ def control_lanes_on_cpu(conn) -> None:
 
 
 def control_lanes(dev, card: str, counted, by_path: dict) -> None:
-    """(o) the plain-op control lanes (``control_lane_runs``) in float64,
-    each on the card against the same call on the CPU within 1e-9 relative,
-    with no kernel.  The CPU twins run in a process of their own while the
+    """(o) the control lanes (``control_lane_runs``) in float64, each on the
+    card against the same call on the CPU within 1e-9 relative: the reduced
+    shot in one launch of ``csrc/reduced_shot.cu`` (its plain loop on the
+    CPU), the other lanes with no kernel.  The CPU twins run in a process of their own while the
     card runs (the lanes are host-bound loops of small ops on either device)."""
     import torch
 
@@ -1508,11 +1538,13 @@ def control_lanes(dev, card: str, counted, by_path: dict) -> None:
         print(f"(o) {label}: card {ms:.3f} ms, CPU {ms_c:.1f} ms (in its own process), max "
               f"relative deviation {dev_l:.3e} (limit {LANE_TOL:.0e}), wrapper calls "
               f"{sum(calls.values())} [{card}]")
-        require(sum(calls.values()) == 0, f"(o) {label}: a kernel ran on a plain-ops lane")
+        want = {name: int(label == REDUCED_LANE and name == "reduced_shot") for name in KERNELS}
+        require(calls == want, f"(o) {label}: wrapper calls {calls} != {want}")
         require(dev_l <= LANE_TOL, f"(o) {label}: the card deviates from the CPU run")
     out, ms, _ = on_card[REDUCED_LANE]
     print(f"time (o) run_shot_reduced f64: {ms / 10.0:.2f} us a tick (CUDA events over the "
-          f"10,000-tick shot); disruption fraction {float(out[-5])!r}, final |r err| "
+          f"10,000-tick shot, one launch of csrc/reduced_shot.cu); disruption fraction "
+          f"{float(out[-5])!r}, final |r err| "
           f"{float(out[-4])!r} m [{card}]")
     out = on_card[SHOT_LANE][0]
     print(f"(o)   Q flattop {float(out[12])!r}, flux exhausted {bool(out[15])}")
@@ -1522,6 +1554,384 @@ def control_lanes(dev, card: str, counted, by_path: dict) -> None:
     out = on_card[TRACKING_LANE][0]
     print(f"(o)   axis error by tick {out[5].tolist()}, alert levels {out[4].tolist()}")
     by_path["control_lanes"] = lane_calls
+
+
+# ── the eleventh slice: (p) row R, the batched reduced shot (csrc/reduced_shot.cu),
+# with the stress campaign and the PID tuner through it; (q) the classical and
+# robust controllers and the vertical-stability chain on the 513^2 FMG psi ──
+
+CAMPAIGN_SHOTS = 1000         # validation/run_stress_campaign.py: 1000 shots, FlightSimParams()
+TUNE_SMALL = dict(control_hz=1000.0, shot_duration_s=0.25)    # tests/test_tuning.py's lane
+LANE64_SHOTS = 64             # (p)'s float64 runs, kernel against the CPU
+COST_SLACK = 1.0001           # tests/test_tuning.py:50: tuned cost <= default cost * 1.0001
+
+
+def reduced_shot_work(n: int, p: int, itemsize: int, stress: bool) -> tuple[float, float]:
+    """Bytes: the schedule (one or two values a tick), the gains and the
+    draws (stress: four a shot-tick) in once, the traces (stress: r, z;
+    reduced: r, z, beta, heating) out once.  Operations a shot-tick, rounded
+    products, sums and differences: heating 2, beta 6, the two PIDs 16, the
+    two envelopes 4, the two applied commands 4; the reduced variant's drift
+    of r and z 3, the stress variant's ELM kick, drift and noise 14."""
+    items = (n * (2 if stress else 1) + 6 * (1 if stress else p)
+             + n * p * (4 + 2 if stress else 4))
+    return float(itemsize * items), float(n * p * (32 + (14 if stress else 3)))
+
+
+def lane64_inputs(device):
+    """(p)'s float64 inputs, the same in every process: 64 gain sets (the
+    reduced variant) and 64 shots' draws (the stress variant), drawn on the
+    CPU from a seeded generator, then moved to ``device``."""
+    import torch
+    from scpn_fusion_tpu_torch.control.flight_sim import FlightSimParams, reduced_inputs
+    from scpn_fusion_tpu_torch.control.stress import StressConfig, stress_draws, stress_inputs
+
+    f64, params, cfg = torch.float64, FlightSimParams(), StressConfig()
+    g = torch.Generator().manual_seed(SEED)
+    gains = torch.exp(torch.randn((LANE64_SHOTS, 6), generator=g, dtype=f64))
+    draws = stress_draws(params.n_steps, LANE64_SHOTS, generator=g, dtype=f64).to(device)
+    scaled, heat, _ = reduced_inputs(params, gains.to(device), f64)
+    return params, cfg, (scaled, heat), (*stress_inputs(params, cfg, f64, device), draws)
+
+
+def reduced_lanes_on_cpu(conn) -> None:
+    """(p)'s CPU twins: the plain loop on ``lane64_inputs`` in both variants;
+    sends [(reduced traces), (stress traces)] as numpy arrays."""
+    cpu = on_cpu(2)
+    from scpn_fusion_tpu_torch.ops.cuda_reduced_shot import reduced_shot_plain
+
+    params, cfg, (scaled, heat), (gains, heat_s, drift, draws) = lane64_inputs(cpu)
+    red = reduced_shot_plain(params, scaled, heat)
+    st = reduced_shot_plain(params, gains, heat_s, drift=drift, draws=draws, stress=cfg)
+    conn.send([[t.numpy() for t in red], [st.r.numpy(), st.z.numpy()]])
+    conn.close()
+
+
+@contextlib.contextmanager
+def plain_reduced_shot():
+    """The flight simulator's and the campaign's tick loop on its plain
+    version (the name each module looks up), so a public entry point runs
+    plain ops on the card."""
+    from scpn_fusion_tpu_torch.control import flight_sim, stress
+    from scpn_fusion_tpu_torch.ops.cuda_reduced_shot import reduced_shot, reduced_shot_plain
+
+    flight_sim.reduced_shot = stress.reduced_shot = reduced_shot_plain
+    try:
+        yield
+    finally:
+        flight_sim.reduced_shot = stress.reduced_shot = reduced_shot
+
+
+def reduced_shot_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                        measured_plain: dict) -> int:
+    """(p) row R against its batched plain loop on the card, ``torch.equal``
+    field for field: the stress variant at 1000 shots x 10,000 ticks in
+    float32 on the campaign's draws (seed 1), the reduced variant at 128 x
+    10,000 in float32 on the CEM's first generation of gains, and both at 64
+    shots in float64, which must also lie within 1e-9 of the plain loop on
+    the CPU (a spawned process, the same inputs).  Then the campaign
+    ``run_stress_campaign(n_shots=1000)`` in float32 as
+    ``validation/run_stress_campaign.py`` runs it (one launch; gate:
+    disruption rate 0; CUDA events, median of 5), ``tune_pid`` at its
+    defaults (128 x 15: 15 launches; the tuned cost no worse than the default
+    gains', ``tests/test_tuning.py:50``) and ``tune_pid`` at 128 x 2 on the
+    JAX test's 1 kHz lane with the kernel and with the plain loop on one
+    generator (``best_params`` equal).  Returns the launches of the
+    campaign and the tuner."""
+    import torch
+    from scpn_fusion_tpu_torch.control.flight_sim import FlightSimParams, reduced_inputs
+    from scpn_fusion_tpu_torch.control.stress import (
+        StressConfig, run_stress_campaign, stress_draws, stress_inputs,
+    )
+    from scpn_fusion_tpu_torch.control.tuning import (
+        PID_BOUNDS_HI, PID_BOUNDS_LO, _cem_minimize, pid_shot_cost, tune_pid,
+    )
+    from scpn_fusion_tpu_torch.ops.cuda_reduced_shot import reduced_shot, reduced_shot_plain
+
+    f32, f64 = torch.float32, torch.float64
+    params, cfg = FlightSimParams(), StressConfig()
+    n = params.n_steps
+    errs = []
+
+    def equal(a, b) -> bool:
+        pairs = [(x, y) for x, y in zip(a, b) if x is not None]
+        errs.extend(float((x - y).abs().max()) for x, y in pairs)
+        return all(torch.equal(x, y) for x, y in pairs)
+
+    with cpu_twin(reduced_lanes_on_cpu) as twin:
+        draws = stress_draws(n, CAMPAIGN_SHOTS, dtype=f32,
+                             generator=torch.Generator(device=dev).manual_seed(1))
+        s_in = stress_inputs(params, cfg, f32, dev)
+        kw_s = dict(drift=s_in[2], draws=draws, stress=cfg)
+        out_k = reduced_shot(params, s_in[0], s_in[1], **kw_s)
+        out_p, ms_plain = events_ms(lambda: reduced_shot_plain(params, s_in[0], s_in[1], **kw_s))
+        eq_s = equal(out_k, out_p)
+        # the CEM's first generation of tune_pid's candidates: the gains its objective sees
+        first = []
+        _cem_minimize(lambda g: first.append(g) or torch.zeros(g.shape[0], device=dev),
+                      PID_BOUNDS_LO, PID_BOUNDS_HI,
+                      torch.randn((1, 128, 6), generator=torch.Generator(device=dev).manual_seed(
+                          SEED), device=dev))
+        scaled, heat, _ = reduced_inputs(params, first[0], f32)
+        eq_r = equal(reduced_shot(params, scaled, heat), reduced_shot_plain(params, scaled, heat))
+        _, _, (scaled64, heat64), (g64, heat_s64, drift64, draws64) = lane64_inputs(dev)
+        red_k = reduced_shot(params, scaled64, heat64)
+        st_k = reduced_shot(params, g64, heat_s64, drift=drift64, draws=draws64, stress=cfg)
+        eq_64 = (equal(red_k, reduced_shot_plain(params, scaled64, heat64))
+                 and equal(st_k, reduced_shot_plain(params, g64, heat_s64, drift=drift64,
+                                                    draws=draws64, stress=cfg)))
+        cpu_red, cpu_st = twin()
+    dev_cpu = max(max(span_rel(a.cpu(), torch.from_numpy(b)) for a, b in zip(red_k, cpu_red)),
+                  max(span_rel(a.cpu(), torch.from_numpy(b)) for a, b in zip(st_k[:2], cpu_st)))
+    print(f"(p) row R against its batched plain loop on the card, torch.equal: stress variant "
+          f"{CAMPAIGN_SHOTS} x {n} f32 {eq_s}, reduced variant 128 x {n} f32 (the CEM's first "
+          f"generation) {eq_r}, both at {LANE64_SHOTS} shots f64 {eq_64}; f64 against the plain "
+          f"loop on the CPU span-rel {dev_cpu:.3e} (limit {LANE_TOL:.0e}); max abs difference "
+          f"{max(errs)!r} [{card}]")
+    require(eq_s and eq_r and eq_64, "(p): row R differs from its plain loop on the card")
+    require(dev_cpu <= LANE_TOL, "(p): the f64 kernel deviates from the plain loop on the CPU")
+    results["reduced_shot"] = {"max_abs_err": max(errs)}
+
+    (res, ms_c1), calls_c, launched_c = counted(lambda: events_ms(lambda: run_stress_campaign(
+        params, cfg, n_shots=CAMPAIGN_SHOTS, seed=1, device=dev)))
+    ms_campaign = cuda_ms(lambda: run_stress_campaign(params, cfg, n_shots=CAMPAIGN_SHOTS, seed=2,
+                                                      device=dev))
+    want = {name: int(name == "reduced_shot") for name in KERNELS}
+    print(f"(p) stress campaign {CAMPAIGN_SHOTS} shots x {n} ticks f32 ({cfg}): disruption rate "
+          f"{float(res.disruption_rate)!r} (gate 0, BASELINE.md:49), |r err| p50 "
+          f"{float(res.r_err_p50)!r} m, p95 {float(res.r_err_p95)!r} m, p99 "
+          f"{float(res.r_err_p99)!r} m, |z err| p95 {float(res.z_err_p95)!r} m, mean final "
+          f"error {float(res.mean_final_err)!r} m; wrapper calls {calls_c}, launches "
+          f"{launched_c} [{card}]")
+    print(f"time (p) stress campaign: {ms_campaign:.4f} ms (median of 5, CUDA events; first call "
+          f"{ms_c1:.4f} ms), {1e3 * ms_campaign / (CAMPAIGN_SHOTS * n):.6f} us a shot-tick; its "
+          f"tick loop on the batched plain loop {ms_plain:.1f} ms (once), "
+          f"{1e3 * ms_plain / (CAMPAIGN_SHOTS * n):.6f} us a shot-tick [{card}]")
+    require(calls_c == want and launched_c == {"scpn_reduced_shot_f32": 1},
+            f"(p): the campaign made {calls_c} / {launched_c}, not one launch")
+    require(float(res.disruption_rate) == 0.0, "(p): the campaign disrupted a shot")
+    by_path["stress_campaign"] = calls_c
+
+    default = torch.tensor([params.pid_r_kp, params.pid_r_ki, params.pid_r_kd, params.pid_z_kp,
+                            params.pid_z_ki, params.pid_z_kd], dtype=f32, device=dev)
+    base = float(pid_shot_cost(params, default))
+    (tuned, ms_t), calls_t, launched_t = counted(lambda: events_ms(lambda: tune_pid(
+        params, torch.Generator(device=dev).manual_seed(SEED))))
+    n_gen = int(tuned.cost_history.shape[0])
+    print(f"(p) tune_pid 128 x {n_gen} on FlightSimParams() f32: best cost "
+          f"{float(tuned.best_cost)!r} against the default gains' {base!r} (limit x{COST_SLACK}), "
+          f"best gains {tuned.best_params.tolist()}, best cost by generation "
+          f"{tuned.cost_history.tolist()}; wrapper calls {calls_t}, launches {launched_t}; "
+          f"{ms_t:.3f} ms ({ms_t / n_gen:.3f} ms a generation, CUDA events) [{card}]")
+    require(calls_t == {name: n_gen * v for name, v in want.items()} and n_gen == 15
+            and launched_t == {"scpn_reduced_shot_f32": 15},
+            f"(p): tune_pid made {calls_t} / {launched_t}, not one launch a generation")
+    require(float(tuned.best_cost) <= base * COST_SLACK, "(p): tune_pid did not beat the defaults")
+    by_path["tune_pid"] = calls_t
+
+    small = FlightSimParams(**TUNE_SMALL)
+    res_k = tune_pid(small, torch.Generator(device=dev).manual_seed(SEED), n_generations=2)
+    with plain_reduced_shot():
+        (res_p, ms_tp), calls_p, _ = counted(lambda: events_ms(lambda: tune_pid(
+            small, torch.Generator(device=dev).manual_seed(SEED), n_generations=2)))
+    same = all(torch.equal(a, b) for a, b in zip(res_k, res_p))
+    print(f"(p) tune_pid 128 x 2 on the 1 kHz lane of tests/test_tuning.py: kernel and plain "
+          f"loop equal in every field {same} (best gains {res_k.best_params.tolist()}, cost "
+          f"{float(res_k.best_cost)!r}); plain {ms_tp:.1f} ms, wrapper calls "
+          f"{sum(calls_p.values())}")
+    require(same and sum(calls_p.values()) == 0, "(p): tune_pid differs on the plain loop")
+
+    def kernel_run():
+        return reduced_shot(params, s_in[0], s_in[1], **kw_s)
+
+    timing["reduced_shot"] = (
+        kernel_run, lambda: reduced_shot_plain(params, s_in[0], s_in[1], **kw_s),
+        f"stress variant {CAMPAIGN_SHOTS} x {n} f32", reduced_shot_work(n, CAMPAIGN_SHOTS, 4, True))
+    measured_plain["reduced_shot"] = ms_plain
+    return calls_c["reduced_shot"] + calls_t["reduced_shot"]
+
+
+# (q): the plants and sizes of the JAX tests
+HINF_PLANT = ([[0.0, 1.0], [4.0, 0.0]], [[0.1], [0.0]], [[0.0], [1.0]],
+              [[1.0, 0.0], [0.0, 0.1]], [[1.0, 0.0]])         # tests/test_estimator_hinf.py
+MU_PLANT = ([[0.5, 1.0], [0.0, -2.0]], [[0.0], [1.0]], [[1.0, 0.0], [0.0, 1.0]])  # test_robust
+TUNE_HINF_PLANT = ([[0.0, 1.0], [-4.0, -0.2]], [[0.0], [1.0]], [[0.0], [1.0]], [[1.0, 0.0]],
+                   [[1.0, 0.0]])                              # tests/test_tuning.py
+RZIP_LQR = dict(kp=100.0, kd=100.0, dt=2e-5, n_steps=20_000)  # tests/test_vessel_rzip.py's Q, dt
+CONTROLLER_LANES = ("synthesize_hinf + hinf_step (4000 steps)", "mu_synthesis (3 D-K iterations)",
+                    "dk_iteration_structured", "rwm_feedback_design", "run_smc_vertical (8000)",
+                    "schedule_step over iter_baseline_waveforms (300 steps)", "EKF (200 ticks)",
+                    "run_fault_tolerant_shot", "tune_hinf (16 x 3)",
+                    "vertical stability on the 513^2 FMG psi")
+
+
+def controller_lane_runs(psi, r, z, r_axis: float, ip_ma: float) -> list:
+    """(label, run(device) -> tuple of tensors) of (q)'s lanes in float64, at
+    the plants and sizes of the JAX tests, and the vertical-stability chain
+    (``VerticalStabilityAnalysis.compute_n_index`` on ``psi`` at ``r_axis``,
+    the RZIP state space of ``bench_config.RZIP_VESSEL`` at ``ip_ma``, its
+    growth rate, the LQR gain, the closed-loop eigenvalues)."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import rzip_vessel_arrays
+    from scpn_fusion_tpu_torch.control import estimator as ekf
+    from scpn_fusion_tpu_torch.control import fault_tolerant as ft
+    from scpn_fusion_tpu_torch.control import gain_schedule as gs
+    from scpn_fusion_tpu_torch.control import hinf, robust, sliding_mode, tuning
+    from scpn_fusion_tpu_torch.control import vessel_rzip as vr
+
+    f64 = torch.float64
+
+    def mats(d, ms):
+        return [torch.tensor(m, dtype=f64, device=d) for m in ms]
+
+    def hinf_lane(d):
+        a, b1, b2, c1, c2 = mats(d, HINF_PLANT)
+        g = hinf.synthesize_hinf(a, b1, b2, c1, c2, 20.0)
+        x, s = torch.tensor([0.3, 0.0], dtype=f64, device=d), hinf.HInfState(
+            torch.zeros(2, dtype=f64, device=d))
+        for _ in range(4000):
+            s, u = hinf.hinf_step(g, a, b2, c2, s, c2 @ x, 1e-3)
+            x = x + 1e-3 * (a @ x + b2 @ u)
+        return (*g, x, s.x_hat)
+
+    def mu_lane(d):
+        return tuple(robust.mu_synthesis(*mats(d, MU_PLANT), n_dk_iters=3))
+
+    def dk_lane(d):
+        struct = robust.StructuredUncertainty((robust.UncertaintyBlock("mode", 1, 0.2),
+                                               robust.UncertaintyBlock("wall", 1, 0.2)))
+        return tuple(robust.dk_iteration_structured(*mats(d, MU_PLANT), struct))
+
+    def rwm_lane(d):
+        return tuple(robust.rwm_feedback_design(robust.build_rwm_plant(device=d)))
+
+    def smc_lane(d):
+        p = sliding_mode.SMCParams(alpha=50.0, beta=30.0, c=0.05, u_max=200.0)
+        return tuple(sliding_mode.run_smc_vertical(p, z0=0.02, dz0=0.0, gamma=20.0,
+                                                   control_gain=500.0, dt=1e-4, n_steps=8000,
+                                                   dtype=f64, device=d))
+
+    def schedule_lane(d):
+        kp = torch.ones((gs.N_REGIMES, 2), dtype=f64, device=d)
+        kp[gs.H_MODE_FLAT] = 3.0
+        x_ref = torch.zeros_like(kp)
+        x_ref[gs.H_MODE_FLAT] = 2.0
+        bank = gs.GainBank(kp, torch.full_like(kp, 0.1), torch.full_like(kp, 0.01), x_ref)
+        wf = gs.iter_baseline_waveforms(f64, d)
+        st, dt, us = gs.init_schedule_state(2, 5, f64, d), 2.0, []
+        for k in range(300):
+            t = dt * k
+            x = torch.stack([wf["ip_ma"](t) * 0.98, wf["n_e_19"](t)]) / 10.0
+            u, st = gs.schedule_step(
+                gs.DetectorThresholds(), bank, st, x, t, dt,
+                dip_dt=(wf["ip_ma"](t + dt) - wf["ip_ma"](t)) / dt,
+                tau_e=0.5 + wf["p_aux_mw"](t) / 25.0, p_disrupt=0.9 if 560 <= t < 580 else 0.0)
+            us.append(u)
+        return (torch.stack(us), *st)
+
+    def ekf_lane(d):
+        state = ekf.ekf_init(torch.tensor([6.0, 0.1, 0.0, 0.0, 15.0, 10.0], dtype=f64, device=d),
+                             torch.eye(6, dtype=f64, device=d) * 0.1)
+        q = torch.eye(6, dtype=f64, device=d) * 1e-4
+        r_cov = torch.eye(4, dtype=f64, device=d) * 1e-3
+        noise, true_r = np.random.default_rng(0).standard_normal(200), 6.0
+        for k in range(200):
+            true_r += 0.2 * 0.01
+            z_meas = torch.tensor([true_r + 0.01 * noise[k], 0.1, 15.0, 10.0], dtype=f64, device=d)
+            state = ekf.ekf_step(state, z_meas, q, r_cov, 0.01)
+        return tuple(state)
+
+    def fault_lane(d):
+        jac = torch.tensor(np.random.default_rng(0).standard_normal((4, 6)), dtype=f64, device=d)
+        return tuple(ft.run_fault_tolerant_shot(
+            jac, torch.tensor([1.0, -0.5, 0.3, 0.8], dtype=f64, device=d),
+            fault_times=torch.tensor([50, 80, -1], device=d),
+            fault_kinds=torch.tensor([ft.ACTUATOR_LOSS, ft.ACTUATOR_LOSS, 0], device=d),
+            fault_indices=torch.tensor([0, 3, -1], device=d)))
+
+    def tune_hinf_lane(d):
+        normals = torch.randn((3, 16, 2), generator=torch.Generator().manual_seed(SEED))
+        return tuple(tuning._tune_hinf(*mats(d, TUNE_HINF_PLANT), normals.to(d)))
+
+    def vertical_lane(d):
+        arr = rzip_vessel_arrays()
+        vessel = vr.Vessel(*(torch.tensor(arr[k], device=d) for k in
+                             ("r", "z", "resistance", "inductance")))
+        n_index = vr.compute_n_index(torch.from_numpy(psi).to(d), torch.from_numpy(r).to(d),
+                                     torch.from_numpy(z).to(d), r_axis)
+        ss = vr.build_rzip_state_space(vessel, n_wall=8, r0=r_axis, ip_ma=ip_ma,
+                                       n_index=n_index)
+        k = vr.rzip_lqr_gain(ss, **RZIP_LQR)
+        eig = np.sort_complex(vr.closed_loop_eigenvalues(ss, k))
+        return (n_index, torch.tensor(vr.vertical_growth_rate(ss), dtype=f64), ss.a, ss.b, k,
+                torch.from_numpy(eig))
+
+    return list(zip(CONTROLLER_LANES, (hinf_lane, mu_lane, dk_lane, rwm_lane, smc_lane,
+                                       schedule_lane, ekf_lane, fault_lane, tune_hinf_lane,
+                                       vertical_lane)))
+
+
+def controller_lanes_on_cpu(conn, *chain) -> None:
+    """(q)'s CPU twins: sends {label: (outputs as numpy arrays, wall ms)}."""
+    cpu = on_cpu(2)
+    out = {}
+    for label, run in controller_lane_runs(*chain):
+        t0 = time.perf_counter()
+        res = run(cpu)
+        out[label] = ([t.detach().numpy() for t in res], (time.perf_counter() - t0) * 1e3)
+    conn.send(out)
+    conn.close()
+
+
+def controller_lanes(dev, card: str, counted, by_path: dict, fmg_result, fmg_cfg) -> None:
+    """(q) the controllers of ``controller_lane_runs`` in float64, each on
+    the card (plain ops, no kernel) against the same call in a spawned CPU
+    process within 1e-9 relative; the vertical-stability chain reads the
+    513^2 FMG psi that the smoke solved through kernels 2-5 (a float64 copy,
+    the same in both processes) at its magnetic axis, and adds no solve."""
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.topology import find_magnetic_axis
+
+    f64 = torch.float64
+    g = Grid.from_config(fmg_cfg, dtype=f64, device="cpu")
+    psi = fmg_result.psi.detach().to(f64).cpu()
+    iz, ir, _ = find_magnetic_axis(psi)
+    chain = (psi.numpy(), g.R.numpy(), g.Z.numpy(), float(g.R[ir]),
+             float(fmg_cfg.physics.plasma_current_target))
+    with cpu_twin(controller_lanes_on_cpu, *chain) as twin:
+        on_card = {}
+        for label, run in controller_lane_runs(*chain):
+            (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
+            on_card[label] = (out, ms, calls)
+        cpu_runs = twin()
+    lane_calls = {name: 0 for name in KERNELS}
+    for label, (out, ms, calls) in on_card.items():
+        cpu_out, ms_c = cpu_runs[label]
+        for k, v in calls.items():
+            lane_calls[k] += v
+        dev_l = max_rel(out, tuple(torch.from_numpy(a) for a in cpu_out))
+        print(f"(q) {label}: card {ms:.1f} ms, CPU {ms_c:.1f} ms (in its own process), max "
+              f"relative deviation {dev_l:.3e} (limit {LANE_TOL:.0e}), wrapper calls "
+              f"{sum(calls.values())} [{card}]")
+        require(sum(calls.values()) == 0, f"(q) {label}: a kernel ran on a plain-ops lane")
+        require(dev_l <= LANE_TOL, f"(q) {label}: the card deviates from the CPU run")
+    out = on_card[CONTROLLER_LANES[0]][0]
+    print(f"(q)   H-inf at gamma 20: rho(XY) {float(out[5])!r}, feasible {bool(out[6])}, state "
+          f"after 4 s {out[7].tolist()}")
+    out = on_card[CONTROLLER_LANES[1]][0]
+    print(f"(q)   mu-synthesis: mu upper bound {float(out[2])!r}, gamma {float(out[3])!r}")
+    out = on_card[CONTROLLER_LANES[3]][0]
+    print(f"(q)   RWM: closed-loop rate {float(out[1])!r} /s, stabilised {bool(out[2])}")
+    out = on_card[CONTROLLER_LANES[-2]][0]
+    print(f"(q)   tune_hinf: best [gamma, w] {out[0].tolist()}, cost {float(out[1])!r}")
+    n_index, growth, *_, eig = on_card[CONTROLLER_LANES[-1]][0]
+    print(f"(q) vertical stability on the 513^2 FMG psi at the axis R = {chain[3]!r} m, Ip "
+          f"{chain[4]} MA: n-index {float(n_index)!r}, open-loop growth rate {float(growth)!r} "
+          f"/s, closed-loop max Re(lambda) {float(eig.real.max())!r} /s (LQR {RZIP_LQR}) "
+          f"[{card}]")
+    require(bool(torch.isfinite(eig).all()), "(q): the vertical-stability chain is not finite")
+    by_path["controllers"] = lane_calls
 
 
 def main() -> int:
@@ -1586,7 +1996,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t_phase:.2f} s (one nvcc per source, "
           f"{' '.join(cb.NVCC_FLAGS)})")
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
-                   "vcycle_fused.cu", "source.cu", "closed_loop.cu"):
+                   "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -2118,7 +2528,8 @@ def main() -> int:
     expected = {"sor_sweeps": 0, "fused_topology_source": picard,
                 "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
-                "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0}
+                "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
+                "reduced_shot": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -2228,7 +2639,7 @@ def main() -> int:
                  "fused_coarse_vcycle": vcycles,
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
-                 "closed_loop": 0}
+                 "closed_loop": 0, "reduced_shot": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -2604,6 +3015,14 @@ def main() -> int:
     control_lanes(dev, card, counted, by_path)
     phase_done("control lanes")
 
+    # ── the eleventh slice: (p) row R with the stress campaign and the PID
+    # tuner through it, (q) the classical and robust controllers ──
+    reduced_calls = reduced_shot_checks(dev, card, counted, by_path, results, timing,
+                                        measured_plain)
+    phase_done("reduced-shot kernel and campaigns (p)")
+    controller_lanes(dev, card, counted, by_path, fmg_513, cfg_k)
+    phase_done("controllers (q)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -2611,6 +3030,7 @@ def main() -> int:
     launches["fused_coarse_vcycle"] = by_path["fb_257"]["fused_coarse_vcycle"]
     launches["thomas_solve_batched"] = coupled_calls["thomas_solve_batched"]
     launches["closed_loop"] = closed_calls["closed_loop"]
+    launches["reduced_shot"] = reduced_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

@@ -229,3 +229,35 @@ def rz_net(net_cls, delays: tuple[int, ...] = (0, 0, 0, 0)):
         net.add_arc(src, t)
         net.add_arc(t, dst)
     return net.compile()
+
+
+# ── vertical stability (control/vessel_rzip.py) ──
+#
+# RZIP_VESSEL is the vessel of ``tests/test_vessel_rzip.py:_make_vessel``
+# with its coils: eight wall filaments evenly spaced on an ellipse about
+# R = 7.5 m (half-axes 2.8 m in R, 3.2 m in Z), 5e-4 Ohm each and the loop
+# self-inductance mu0 R (ln(8R/a) - 2) of a 5 cm conductor, then two active
+# coils at (9.5, +-2.0) m, 1e-3 Ohm, 20 times that inductance.
+RZIP_VESSEL: dict[str, Any] = {"n_wall": 8, "r0": 7.5, "half_r": 2.8, "half_z": 3.2,
+                               "wall_ohm": 5e-4, "conductor_m": 0.05,
+                               "coils": ((9.5, 2.0), (9.5, -2.0)), "coil_ohm": 1e-3,
+                               "coil_l_factor": 20.0}
+
+
+def rzip_vessel_arrays() -> dict[str, np.ndarray]:
+    """``RZIP_VESSEL`` as float64 arrays r, z, resistance, inductance (wall
+    filaments first), computed as the test's fixture computes them."""
+    v = RZIP_VESSEL
+    n = v["n_wall"]
+    theta = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    r = v["r0"] + v["half_r"] * np.cos(theta)
+    z = v["half_z"] * np.sin(theta)
+    resistance = np.full(n, v["wall_ohm"])
+    inductance = 4e-7 * np.pi * r * (np.log(8.0 * r / v["conductor_m"]) - 2.0)
+    coil_r = [c[0] for c in v["coils"]]
+    l_coil = [4e-7 * np.pi * rc * (np.log(8.0 * rc / v["conductor_m"]) - 2.0)
+              * v["coil_l_factor"] for rc in coil_r]
+    return {"r": np.concatenate([r, coil_r]),
+            "z": np.concatenate([z, [c[1] for c in v["coils"]]]),
+            "resistance": np.concatenate([resistance, [v["coil_ohm"]] * len(coil_r)]),
+            "inductance": np.concatenate([inductance, l_coil])}

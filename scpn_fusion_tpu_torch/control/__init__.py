@@ -1,8 +1,10 @@
 """Control layer (port of ``scpn_fusion_tpu/control/``): the exports of the
 JAX package's ``control/__init__.py`` whose modules are ported, under the
 same names.  Ported: ``pid``, ``actuator``, ``flight_sim``,
-``neuro_closed_loop``, ``mpc``, ``scenario``, ``optimal_scenario`` and
-``free_boundary_tracking``; the other modules of the JAX package's
+``neuro_closed_loop``, ``mpc``, ``scenario``, ``optimal_scenario``,
+``free_boundary_tracking``, ``hinf``, ``robust``, ``vessel_rzip``,
+``gain_schedule``, ``sliding_mode``, ``estimator``, ``fault_tolerant``,
+``tuning`` and ``stress``; the other modules of the JAX package's
 ``control/`` come with later slices.
 """
 
@@ -30,4 +32,25 @@ from scpn_fusion_tpu_torch.control.optimal_scenario import (  # noqa: F401
     ShotKnobs,
     optimize_shot,
     shot_objective,
+)
+from scpn_fusion_tpu_torch.control.tuning import (  # noqa: F401
+    CEMResult,
+    cem_minimize,
+    tune_hinf,
+    tune_pid,
+)
+from scpn_fusion_tpu_torch.control.robust import (  # noqa: F401
+    MuSynthesisResult,
+    RWMFeedbackResult,
+    build_rwm_plant,
+    mu_synthesis,
+    rwm_feedback_design,
+)
+from scpn_fusion_tpu_torch.control.fault_tolerant import (  # noqa: F401
+    FaultState,
+    controllability_ok,
+    ft_step,
+    init_fault_state,
+    reconfig_gain,
+    run_fault_tolerant_shot,
 )

@@ -5,11 +5,17 @@ Two lanes, as in the JAX package:
 
 * ``run_shot_reduced`` -- the >10 kHz lane: reduced-order R/Z/Ip/beta plant
   with PID control, safety-envelope slew enforcement, actuator delay line
-  and disruption metrics.  JAX's ``lax.scan`` over ticks is a Python loop
-  over ticks of 0-d tensor ops; the tick-only quantities (phase, Ip ramp,
-  heating request) are computed for all ticks at once, with the same
-  operations in the same order.  Its percentiles are ``torch.quantile`` with
-  linear interpolation, as ``jnp.percentile``'s default.
+  and disruption metrics.  ``run_shot_reduced_gains`` takes gains of shape
+  ``(..., 6)``: a leading batch of gain sets is a population of shots
+  (JAX's ``jax.vmap`` of the shot, ``control/tuning.py:61``), and the traces
+  and metrics come out ``(..., n)`` and ``(...)``.  The tick-only quantities
+  (phase, Ip ramp, heating request) are computed for all ticks at once, with
+  the same operations in the same order; the tick loop itself is
+  ``ops/cuda_reduced_shot.reduced_shot``: on the card ONE launch of
+  ``csrc/reduced_shot.cu`` for the whole population, on the CPU its plain
+  version, a Python loop over ticks of ops over the population.  Its
+  percentiles are :func:`core.stats.percentile`, ``jnp.percentile``'s linear
+  interpolation without ``torch.quantile``'s size limit.
 * ``run_shot_full`` -- physics-in-the-loop lane: the Grad-Shafranov solve is
   the plant.  Each control tick: Ip ramp, sub-grid parabolic magnetic-axis
   estimate, R/Z PID, coil-current deltas through first-order actuators,
@@ -36,6 +42,7 @@ from scpn_fusion_tpu_torch.control.actuator import ActuatorParams, actuator_init
 from scpn_fusion_tpu_torch.control.pid import PIDGains, pid_init, pid_step
 from scpn_fusion_tpu_torch.core.config import ReactorConfig
 from scpn_fusion_tpu_torch.core.grid import Grid
+from scpn_fusion_tpu_torch.core.stats import percentile
 from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
     _as_dtype,
     solve_fixed_boundary_impl,
@@ -45,16 +52,10 @@ from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import (
     external_flux_table,
 )
 from scpn_fusion_tpu_torch.models.equilibrium.profiles import profile_coeffs_from_physics
+from scpn_fusion_tpu_torch.ops.cuda_reduced_shot import reduced_shot
 
 DEFAULT_TARGET_R = 6.2
 DEFAULT_TARGET_Z = 0.0
-
-
-def _envelope(requested, prev, rate_limit, abs_max, dt):
-    """Safety-envelope enforcement: slew then absolute clamp
-    (reference ``SafetyEnvelope::enforce``)."""
-    out = torch.clamp(requested, prev - rate_limit * dt, prev + rate_limit * dt)
-    return torch.clamp(out, -abs_max, abs_max)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,75 +110,45 @@ def run_shot_reduced(params: FlightSimParams, *, dtype: torch.dtype = torch.floa
     return run_shot_reduced_gains(params, gains, dtype=dtype)
 
 
-def run_shot_reduced_gains(params: FlightSimParams, gains: torch.Tensor, *,
-                           dtype: torch.dtype = torch.float32):
-    """Reduced-lane shot with the six PID gains as a ``(6,)`` tensor
-    ``[r_kp, r_ki, r_kd, z_kp, z_ki, z_kd]`` (100 Hz-baseline values, scaled
-    by dt internally); the shot runs on the gains' device."""
+def reduced_inputs(params: FlightSimParams, gains: torch.Tensor, dtype: torch.dtype):
+    """What the tick loop takes for gain sets ``gains`` (P, 6): the dt-scaled
+    gains (P, 6) and the heating request of every tick (n,), with the Ip
+    ramp (n,) beside them, all on the gains' device."""
     dt = params.control_dt
-    n = params.n_steps
-    dev = gains.device
-    gains = gains.to(dtype)
+    g = gains.to(dtype)
     # Gain scaling from the 100 Hz baseline (flight_sim.rs:199-206).
     dt_ref = 0.01
-    g_r = PIDGains(gains[0], gains[1] * dt / dt_ref, gains[2] * dt_ref / dt)
-    g_z = PIDGains(gains[3], gains[4] * dt / dt_ref, gains[5] * dt_ref / dt)
+    scaled = torch.stack([g[:, 0], g[:, 1] * dt / dt_ref, g[:, 2] * dt_ref / dt,
+                          g[:, 3], g[:, 4] * dt / dt_ref, g[:, 5] * dt_ref / dt], dim=-1)
+    # the plant's schedule, every tick at once (reference step_once :305-330)
+    phase = torch.clamp(torch.arange(params.n_steps, device=gains.device).to(dtype) * dt
+                        / params.shot_duration_s, 0.0, 1.0)
+    return scaled, 20.0 + 60.0 * phase, 5.0 + 10.0 * phase
 
-    def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
 
-    # 1. the plant's schedule, every tick at once (reference step_once :305-330)
-    phase = torch.clamp(torch.arange(n, device=dev).to(dtype) * dt / params.shot_duration_s,
-                        0.0, 1.0)
-    ip_all = 5.0 + 10.0 * phase
-    heating_req_all = 20.0 + 60.0 * phase
-
-    r, z = scalar(params.target_r + 0.1), scalar(params.target_z + 0.05)
-    beta, heating = scalar(0.6), scalar(20.0)
-    pid_r, pid_z = pid_init(dtype, dev), pid_init(dtype, dev)
-    pf_r, pf_z = scalar(0.0), scalar(0.0)
-    delay_buf = torch.zeros((params.delay_steps + 1, 2), dtype=dtype, device=dev)
-    nbuf, cursor = delay_buf.shape[0], 0
-    rows = []
-    for k in range(n):
-        heating = _envelope(heating_req_all[k], heating, params.heating_rate_limit,
-                            params.heating_abs_max, dt)
-        heating = torch.clamp(heating, 0.0, params.heating_abs_max)
-        beta_target = 0.6 + 0.03 * heating
-        beta = torch.clamp(beta + 0.5 * (beta_target - beta) * dt, 0.2, 10.0)
-
-        r = torch.clamp(r + 0.01 * beta * dt, 2.0, 10.0)
-        z = torch.clamp(z + 0.02 * dt, -6.0, 6.0)
-
-        # 2. Control
-        pid_r, cmd_r = pid_step(g_r, pid_r, params.target_r - r)
-        pid_z, cmd_z = pid_step(g_z, pid_z, params.target_z - z)
-
-        # 2b. Safety enforcement
-        pf_r = _envelope(cmd_r, pf_r, params.pf_rate_limit, params.pf_abs_max, dt)
-        pf_z = _envelope(cmd_z, pf_z, params.pf_rate_limit, params.pf_abs_max, dt)
-
-        # 3. Actuator delay line
-        delay_buf[cursor] = torch.stack([pf_r, pf_z])
-        cursor = (cursor + 1) % nbuf
-        applied = delay_buf[cursor].clone()
-
-        # 4. Apply control
-        r = torch.clamp(r + applied[0] * dt, 2.0, 10.0)
-        z = torch.clamp(z + applied[1] * dt, -6.0, 6.0)
-        rows.append((r, z, beta, heating))
-
-    r_tr, z_tr, beta_tr, heat_tr = (torch.stack(col) for col in zip(*rows))
+def run_shot_reduced_gains(params: FlightSimParams, gains: torch.Tensor, *,
+                           dtype: torch.dtype = torch.float32):
+    """Reduced-lane shots with the six PID gains as a ``(..., 6)`` tensor
+    ``[r_kp, r_ki, r_kd, z_kp, z_ki, z_kd]`` (100 Hz-baseline values, scaled
+    by dt internally): one shot for each gain set, all in one call.  The
+    trace fields are ``(..., n)`` and the metrics ``(...)``; the shots run on
+    the gains' device (on the card: one launch of ``csrc/reduced_shot.cu``)."""
+    n = params.n_steps
+    batch = gains.shape[:-1]
+    scaled, heating_req_all, ip_all = reduced_inputs(params, gains.reshape(-1, 6), dtype)
+    traces = reduced_shot(params, scaled, heating_req_all)
+    r_tr, z_tr, beta_tr, heat_tr = (t.reshape(*batch, n) for t in traces)
     r_err = (r_tr - params.target_r).abs()
     z_err = (z_tr - params.target_z).abs()
     disrupted = (r_err > params.disruption_limit_m) | (z_err > params.disruption_limit_m)
-    trace = ReducedShotTrace(r_tr, z_tr, ip_all, beta_tr, heat_tr, r_err, z_err, disrupted)
+    trace = ReducedShotTrace(r_tr, z_tr, ip_all.expand(*batch, n), beta_tr, heat_tr, r_err,
+                             z_err, disrupted)
     metrics = {
-        "disruption_fraction": disrupted.to(dtype).mean(),
-        "r_err_final": r_err[-1],
-        "z_err_final": z_err[-1],
-        "r_err_p95": torch.quantile(r_err, 0.95),
-        "z_err_p95": torch.quantile(z_err, 0.95),
+        "disruption_fraction": disrupted.to(dtype).mean(-1),
+        "r_err_final": r_err[..., -1],
+        "z_err_final": z_err[..., -1],
+        "r_err_p95": percentile(r_err, 95.0, dim=-1),
+        "z_err_p95": percentile(z_err, 95.0, dim=-1),
     }
     return trace, metrics
 

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "scpn_thomas_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "scpn_closed_loop_f32": [_P, _I, _P],
     "scpn_closed_loop_f64": [_P, _I, _P],
+    "scpn_reduced_shot_f32": [_P, _P],
+    "scpn_reduced_shot_f64": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()
