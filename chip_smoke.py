@@ -83,11 +83,29 @@ them:
   waveforms, the EKF, the fault-tolerant shot and ``tune_hinf``; and the
   vertical-stability chain on the 513^2 FMG psi (n-index at the magnetic
   axis, the RZIP state space of ``bench_config.RZIP_VESSEL``, its growth
-  rate, the LQR gain and the closed-loop eigenvalues).
+  rate, the LQR gain and the closed-loop eigenvalues);
+* (r) the disturbance-rejection ladder of ``validation/run_control_ladder.py``
+  (PID, H-inf, MPC and SNN on the linearised vertical plant, VDE / density
+  ramp / ELM pacing at dt 1e-4: 360,000 ticks): the PID, H-inf and MPC lanes
+  of every scenario in ONE launch of row L (``csrc/ladder.cu``,
+  ``ops/cuda_ladder.ladder``: one thread a lane), the SNN lane one launch a
+  scenario of row N's linear-plant variant (``closed_loop_linear``); rows L
+  and N ``torch.equal`` to their plain loops on VDE at full length in f32,
+  the validation's gates in f32, the whole ladder in f64 against the CPU;
+* (s) the disruption predictors trained on the card at the validations'
+  sizes in f32 (the windowed MLP of ``run_control_ladder.py`` and of
+  ``run_disruption_roc.py`` with its 33-threshold sweep; the causal
+  transformer d32/h4/ff64/L2 on the 256-shot training family, 600 AdamW
+  steps, scored on the 64-shot held-out cohort) with the validations' gates,
+  and 100 + 20 training steps in f64 against the CPU;
+* (t) the learned controllers in f64 against the CPU at the JAX tests'
+  sizes: the surrogate MPC, the shot replay, federated training, safe RL,
+  the SOC learner, the spiking push-pull shot, the NEF channel and the
+  neural shape loop on the committed equilibrium surrogate.
 
-Paths (g)-(i), (o) other than its reduced shot, and (q) run plain PyTorch
-ops, as the JAX package runs them without its Pallas kernels; the script
-checks that no kernel launched on them.  On (l) only the Thomas kernel may
+Paths (g)-(i), (o) other than its reduced shot, (q), (s) and (t) run plain
+PyTorch ops, as the JAX package runs them without its Pallas kernels; the
+script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
 
 Phases:
@@ -178,7 +196,18 @@ Phases:
    1.0001, ``tests/test_tuning.py:50``); ``tune_pid`` 128 x 2 on the JAX
    test's 1 kHz lane equal with the kernel and with the plain loop; (q):
    each controller lane within 1e-9 of the CPU, no kernel, the n-index, the
-   growth rate and the closed-loop max Re(lambda) printed;
+   growth rate and the closed-loop max Re(lambda) printed; (r): rows L and N
+   ``torch.equal`` to their plain loops (L's three VDE lanes in one launch,
+   N's SNN lane in one), the f32 ladder in one L and three N launches with
+   every lane stable and VDE ISE MPC < PID < H-inf, SNN > MPC, the f64
+   ladder within 1e-9 of the plain loops on the CPU (two spawned processes),
+   L's and N's times (median of 5) beside their bounds; (s): each
+   validation gate (recall 1.0 / FPR 0.0; AUC >= 0.95 dominating chance;
+   zero-FP recall >= 0.9; hard AUC in [0.72, 0.98]; FPR <= 0.13 with recall
+   >= 0.45), no kernel, the f64 training within 1e-9 of the CPU, ms a
+   training step; (t): each lane within 1e-9 of the CPU (the shape loop,
+   whose f32 surrogate sums its MLP in cuBLAS's order, within 1e-5), no
+   kernel;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -204,9 +233,10 @@ the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
 that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
-the Thomas kernel, over (n) for the closed-loop kernel and over (p)'s
-campaign and tuner for row R, and ``launches_by_path`` holding each kernel's
-wrapper calls on every path (zero on (g)-(i) and (q), row R's one on (o));
+the Thomas kernel, over (n) for the closed-loop kernel, over (p)'s
+campaign and tuner for row R and over (r)'s f32 ladder for row L, and
+``launches_by_path`` holding each kernel's wrapper calls on every path (zero
+on (g)-(i), (q), (s) and (t), row R's one on (o), row N's three on (r));
 the Thomas kernel's ``library_ms`` is
 ``torch.linalg.solve`` of the same system as a dense matrix.
 """
@@ -258,7 +288,8 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
                 (129, 3, (0, 3), 24), (513, 1, (2,), None))
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
-           "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot")
+           "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
+           "ladder")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -274,6 +305,8 @@ SOURCES = {
     "closed_loop": ("csrc/closed_loop.cu", "scpn_fusion_tpu/control/neuro_closed_loop.py:52"),
     # no Pallas kernel: the JAX shot is one lax.scan, vmapped over a population or a campaign
     "reduced_shot": ("csrc/reduced_shot.cu", "scpn_fusion_tpu/control/flight_sim.py:114"),
+    # no Pallas kernel: each JAX closed loop of the ladder is one lax.scan
+    "ladder": ("csrc/ladder.cu", "scpn_fusion_tpu/control/disturbance_ladder.py:92"),
 }
 
 
@@ -1934,6 +1967,534 @@ def controller_lanes(dev, card: str, counted, by_path: dict, fmg_result, fmg_cfg
     by_path["controllers"] = lane_calls
 
 
+
+# ── the twelfth slice: (r) the disturbance-rejection ladder through row L
+# (csrc/ladder.cu) and row N's linear-plant variant, (s) the disruption
+# predictors' training at the validations' sizes, (t) the learned controllers
+# against the CPU ──
+
+LADDER_LINEAR = ("PID", "H-infinity", "MPC")
+# operations a lane-tick of row L, rounded products, sums, quotients and
+# clamps: the plant's step 20; the PID 13, the H-inf observer 28, the MPC law 6
+LADDER_OPS = {"plant": 20, "PID": 13, "H-infinity": 28, "MPC": 6}
+SM_CLOCK_HZ = 1.98e9         # H100 SXM boost clock, for the dependent-chain estimate
+ROC_THRESHOLDS = 33          # validation/run_disruption_roc.py: np.linspace(0.02, 0.98, 33)
+SEQ_STEPS, MLP_STEPS = 600, 2500   # run_disruption_roc.py:161-176, run_control_ladder.py:87-92
+AGREE_MLP_STEPS, AGREE_SEQ_STEPS = 100, 20   # (s)'s float64 training agreement
+# validation gates that the port's own draws miss on the CPU already (none)
+GATES_MISSED_ON_CPU: frozenset = frozenset()
+
+
+def ladder_work(lanes, n_ticks, itemsize: int) -> tuple[float, float]:
+    """Row L at ``lanes`` ((controller, scenario) pairs): bytes of the
+    packed disturbance traces, the gains and the initial states in once and
+    z and u of every tick out once; operations per :data:`LADDER_OPS`."""
+    scen = {s: n for (_, s), n in zip(lanes, n_ticks)}
+    items = sum(scen.values()) + 18 * len(lanes) + 8 + 2 * sum(n_ticks)
+    ops = sum(n * (LADDER_OPS["plant"] + LADDER_OPS[c]) for (c, _), n in zip(lanes, n_ticks))
+    return float(itemsize * items), float(ops)
+
+
+def ladder_chain_ms(n_ticks: int, depth: int, cycles: int = 4) -> float:
+    """The dependent chain of a lane: ``depth`` dependent operations a tick
+    of ``cycles`` cycles each, over ``n_ticks`` ticks at the boost clock."""
+    return 1e3 * n_ticks * depth * cycles / SM_CLOCK_HZ
+
+
+def ladder_lanes_f64(device, part: str = "all"):
+    """(r)'s float64 run: every linear lane's (z, u) through
+    ``cuda_ladder.ladder`` (the plain loop on the CPU) and every scenario's
+    SNN (z, u) through ``closed_loop_linear``, as a flat list; ``part``
+    "linear" or "snn" takes one of the two."""
+    import torch
+    from scpn_fusion_tpu_torch.control import disturbance_ladder as dl
+    from scpn_fusion_tpu_torch.ops import cuda_closed_loop as ccl
+    from scpn_fusion_tpu_torch.ops import cuda_ladder as cl
+
+    f64 = torch.float64
+    out = []
+    if part != "snn":
+        spec = dl.linear_lanes([(c, s) for s in dl.SCENARIOS for c in LADDER_LINEAR], f64,
+                               device)
+        out += list(cl.ladder(spec, dt=dl.DT, u_max=dl.U_MAX))
+    if part != "linear":
+        for s in dl.SCENARIOS:
+            _, _, tr = ccl.closed_loop_linear(dl._build_z_net(2e3, f64, device), dl.snn_config(),
+                                              dl.initial_state(s, f64, device),
+                                              dl.snn_plant(s, f64, device))
+            out += [tr["z"], tr["u"]]
+    return out
+
+
+def ladder_on_cpu(conn, part: str) -> None:
+    """(r)'s CPU twin of one part ("linear" or "snn") of ``ladder_lanes_f64``
+    on the plain loops; sends the traces as numpy arrays."""
+    cpu = on_cpu(1)
+    conn.send([t.numpy() for t in ladder_lanes_f64(cpu, part)])
+    conn.close()
+
+
+def ladder_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                  measured_plain: dict) -> int:
+    """(r) the disturbance-rejection ladder of ``validation/run_control_ladder.py:59-83``:
+    rows L and N ``torch.equal`` to their plain loops on the card in float32
+    on the VDE scenario at full length (20,000 ticks; the three linear lanes
+    in one launch of row L, the SNN lane in one launch of row N); the whole
+    ladder (4 controllers x 3 scenarios, 360,000 ticks) through the kernels
+    in float32 in one launch of L and three of N, with the validation's gates
+    (every lane stable; VDE ISE MPC < PID < H-inf, SNN > MPC); the whole ladder in
+    float64 within 1e-9 of the plain loops on the CPU (two spawned
+    processes); L's and N's times.  Returns row L's launches on the float32
+    ladder."""
+    import torch
+    from scpn_fusion_tpu_torch.control import disturbance_ladder as dl
+    from scpn_fusion_tpu_torch.ops import cuda_closed_loop as ccl
+    from scpn_fusion_tpu_torch.ops import cuda_ladder as cl
+
+    f32 = torch.float32
+    with cpu_twin(ladder_on_cpu, "linear") as linear_cpu, cpu_twin(ladder_on_cpu, "snn") as snn_cpu:
+        vde = [(c, "VDE") for c in LADDER_LINEAR]
+        spec = dl.linear_lanes(vde, f32, dev)
+        ((zk, uk), ms_k1), calls, launched = counted(
+            lambda: events_ms(lambda: cl.ladder(spec, dt=dl.DT, u_max=dl.U_MAX)))
+        (zp, up), ms_p = events_ms(lambda: cl.ladder_plain(spec, dt=dl.DT, u_max=dl.U_MAX))
+        equal_l = torch.equal(zk, zp) and torch.equal(uk, up)
+        err_l = max(float((zk - zp).abs().max()), float((uk - up).abs().max()))
+        print(f"(r) row L, {', '.join(LADDER_LINEAR)} on VDE f32 (3 lanes x 20,000 ticks): kernel "
+              f"torch.equal to the plain loop {equal_l} (max abs {err_l!r}); wrapper calls "
+              f"{calls['ladder']}, launches {launched}; plain loop {ms_p:.1f} ms [{card}]")
+        require(equal_l, "(r): row L differs from its plain loop")
+        require(calls["ladder"] == 1 and launched == {"scpn_ladder_f32": 1},
+                f"(r): row L made {calls} / {launched}, not one launch")
+
+        ctrl, cfg = dl._build_z_net(2e3, f32, dev), dl.snn_config()
+        plant, x0 = dl.snn_plant("VDE", f32, dev), dl.initial_state("VDE", f32, dev)
+        (cs_k, xk, trk), calls_n, launched_n = counted(
+            lambda: ccl.closed_loop_linear(ctrl, cfg, x0, plant))
+        (cs_p, xp, trp), ms_pn = events_ms(lambda: ccl.closed_loop_linear_plain(ctrl, cfg, x0,
+                                                                                 plant))
+        equal_n = (all(torch.equal(trk[k], trp[k]) for k in trp) and torch.equal(xk, xp)
+                   and all(torch.equal(a, b) for a, b in zip(cs_k, cs_p)))
+        err_n = max(float((trk[k] - trp[k]).abs().max()) for k in trp)
+        print(f"(r) row N linear plant, SNN on VDE f32 (20,000 ticks): kernel torch.equal to the "
+              f"per-tick loop {equal_n} (traces, final plant and controller state; max abs "
+              f"{err_n!r}); wrapper calls {calls_n['closed_loop']}, launches {launched_n}; plain "
+              f"loop {ms_pn:.1f} ms [{card}]")
+        require(equal_n, "(r): row N's linear variant differs from its plain loop")
+        require(calls_n["closed_loop"] == 1 and launched_n == {"scpn_closed_loop_f32": 1},
+                f"(r): row N made {calls_n} / {launched_n}, not one launch")
+        results["ladder"] = {"max_abs_err": err_l}
+
+        (table, ms_w), calls_w, launched_w = counted(
+            lambda: events_ms(lambda: dl.run_ladder(dtype=f32, device=dev)))
+        want = {name: 0 for name in KERNELS}
+        want.update(ladder=1, closed_loop=3)
+        print(f"(r) the ladder, 4 controllers x 3 scenarios f32 (360,000 ticks), through the "
+              f"kernels: {ms_w:.1f} ms (controller designs included); wrapper calls "
+              f"{ {k: v for k, v in calls_w.items() if v} }, launches {launched_w} [{card}]")
+        for (name, scen), m in table.items():
+            print(f"(r)   {name:10s} {scen:12s} ISE {m['ise']:.6e}  settle "
+                  f"{m['settling_time_s']:.4f} s  overshoot {m['overshoot']:.6e}  effort "
+                  f"{m['control_effort']:.6e}  stable {m['stable']}")
+        require(calls_w == want, f"(r): the ladder made {calls_w}, not one L and three N launches")
+        all_stable = all(m["stable"] for m in table.values())
+        ise = {c: table[(c, "VDE")]["ise"] for c in (*LADDER_LINEAR, "SNN")}
+        ordering = ise["MPC"] < ise["PID"] < ise["H-infinity"] and ise["SNN"] > ise["MPC"]
+        print(f"(r) validation gates (run_control_ladder.py:72-73): every lane stable "
+              f"{all_stable}; VDE ISE MPC < PID < H-inf and SNN > MPC {ordering}")
+        require(all_stable and ordering, "(r): the ladder misses the validation's gates")
+        by_path["ladder_f32"] = calls_w
+
+        card64, calls_64, _ = counted(lambda: ladder_lanes_f64(dev))
+        cpu64 = linear_cpu() + snn_cpu()
+        dev64 = max(max_rel(a, torch.from_numpy(b)) for a, b in zip(card64, cpu64))
+        print(f"(r) the ladder f64 through the kernels (wrapper calls "
+              f"{ {k: v for k, v in calls_64.items() if v} }) against the plain loops on the "
+              f"CPU: max relative deviation over every z and u trace {dev64:.3e} (limit "
+              f"{LANE_TOL:.0e}) [{card}]")
+        require(dev64 <= LANE_TOL, "(r): the f64 ladder deviates from the CPU's plain loops")
+
+    full = dl.linear_lanes([(c, s) for s in dl.SCENARIOS for c in LADDER_LINEAR], f32, dev)
+    ms_l = cuda_ms(lambda: cl.ladder(spec, dt=dl.DT, u_max=dl.U_MAX))
+    ms_full = cuda_ms(lambda: cl.ladder(full, dt=dl.DT, u_max=dl.U_MAX))
+    ms_n = cuda_ms(lambda: ccl.closed_loop_linear(ctrl, cfg, x0, plant))
+    work_l = ladder_work(vde, [20_000] * 3, 4)
+    work_full = ladder_work([(c, s) for s in dl.SCENARIOS for c in LADDER_LINEAR],
+                            full.n_ticks.tolist(), 4)
+    b_l, by_l = bound(work_l)
+    b_full, by_full = bound(work_full)
+    chain = ladder_chain_ms(40_000, 12 + 20)     # PID: ~12 dependent ops + a quotient (~20)
+    print(f"time (r) row L: VDE 3 lanes {ms_l:.4f} ms ({1e3 * ms_l / 20_000:.4f} us a tick), the "
+          f"whole ladder's 9 lanes {ms_full:.4f} ms ({1e3 * ms_full / 40_000:.4f} us a tick of "
+          f"its longest lane; median of 5); bound {b_l:.4g} / {b_full:.4g} ms ({by_l} / "
+          f"{by_full}); the dependent chain of the longest lane ~{chain:.3f} ms (40,000 ticks x "
+          f"~32 dependent operations x 4 cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz); plain loop "
+          f"{ms_p:.1f} ms once [{card}]")
+    n_bytes, n_flops = closed_loop_work(ctrl, 20_000)
+    b_n, by_n = bound((n_bytes + 4 * 20_000, n_flops + 20.0 * 20_000))
+    print(f"time (r) row N linear plant: SNN on VDE {ms_n:.4f} ms ({1e3 * ms_n / 20_000:.4f} us "
+          f"a tick; median of 5), bound {b_n:.4g} ms ({by_n}), 4 barrier-separated stages a "
+          f"tick; per-tick loop {ms_pn:.1f} ms once [{card}]")
+    timing["ladder"] = (lambda: cl.ladder(spec, dt=dl.DT, u_max=dl.U_MAX),
+                        lambda: cl.ladder_plain(spec, dt=dl.DT, u_max=dl.U_MAX),
+                        "PID, H-inf, MPC on VDE, 3 lanes x 20,000 ticks f32", work_l)
+    measured_plain["ladder"] = ms_p
+    return calls_w["ladder"]
+
+
+def to_device(a, device, dtype=None):
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t.to(dtype) if dtype is not None else t
+
+
+def roc_metrics(fired, first, pos, t_len: int, window: int, thresholds) -> dict:
+    """validation/run_disruption_roc.py's lanes 1-2 on a threshold sweep:
+    the trapezoid AUC anchored at (0,0) and (1,1), dominance of chance, and
+    the loosest zero-false-positive operating point with its median warning."""
+    tprs = [float(np.sum(f & pos) / max(np.sum(pos), 1)) for f in fired]
+    fprs = [float(np.sum(f & ~pos) / max(np.sum(~pos), 1)) for f in fired]
+    f = np.array([0.0] + fprs[::-1] + [1.0])
+    t = np.array([0.0] + tprs[::-1] + [1.0])
+    order = np.argsort(f, kind="stable")
+    auc = float(np.trapezoid(t[order], f[order]))
+    dominates = bool(np.all(np.array(tprs) >= np.array(fprs) - 1e-12))
+    op = None
+    for k in range(len(thresholds)):
+        if fprs[k] == 0.0 and tprs[k] > 0.0:
+            lead = [int(t_len - (first[k][i] + window - 1)) for i in range(len(pos))
+                    if pos[i] and fired[k][i]]
+            op = (float(thresholds[k]), tprs[k], float(np.median(lead)) if lead else 0.0)
+            break
+    return {"auc": auc, "dominates": dominates, "zero_fp": op}
+
+
+def hard_operating_point(fired, first, pos, t_len: int, thresholds):
+    """run_disruption_roc.py's lane 4: the loosest threshold at FPR <= 0.13,
+    (threshold, fpr, recall, median warning ticks) or None."""
+    for k in range(len(thresholds)):
+        fpr = float(np.sum(fired[k] & ~pos) / max(np.sum(~pos), 1))
+        rec = float(np.sum(fired[k] & pos) / max(np.sum(pos), 1))
+        if fpr <= 0.13:
+            leads = [int(t_len - first[k][i]) for i in range(len(pos)) if pos[i] and fired[k][i]]
+            return float(thresholds[k]), fpr, rec, float(np.median(leads)) if leads else 0.0
+    return None
+
+
+def predictor_lanes_run(device, seed: int = 0) -> dict:
+    """(s)'s three validation lanes at full size in float32 on ``device``,
+    every draw from a CPU generator seeded with ``seed`` (JAX's PRNGKey(0)):
+    the windowed MLP of run_control_ladder.py:87-101 (24 x 200 training
+    shots, 2500 steps, recall / FPR on 16 held-out shots), the windowed MLP
+    of run_disruption_roc.py:74-90 (32 x 240, 2500 steps, the 33-threshold
+    sweep over 48 held-out shots) and the causal transformer of
+    run_disruption_roc.py:161-230 (256 x 240 training family, batch 16, 600
+    AdamW steps, scored and swept with 15-tick confirmation over the 64-shot
+    held-out cohort).  Returns the gates' metrics and the training times."""
+    import torch
+    from scpn_fusion_tpu_torch import bench_config as bc
+    from scpn_fusion_tpu_torch.control import disruption as dp
+    from scpn_fusion_tpu_torch.control import disruption_seq as ds
+
+    def timed(fn):
+        if device.type == "cuda":
+            return events_ms(fn)
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    tr_s, tr_l = bc.ladder_cohort(*bc.LADDER_COHORTS["train"])
+    te_s, te_l = bc.ladder_cohort(*bc.LADDER_COHORTS["test"])
+    pred, ms = timed(lambda: dp.train_disruption_predictor(
+        to_device(tr_s, device), to_device(tr_l, device), torch.Generator().manual_seed(seed),
+        n_steps=MLP_STEPS))
+    ev = dp.evaluate_predictor(pred, to_device(te_s, device), to_device(te_l, device))
+    out["ladder_mlp"] = {"recall": float(ev["recall"]), "fpr": float(ev["fpr"]),
+                         "ms_step": ms / MLP_STEPS}
+
+    tr_s, tr_l, _, _ = bc.roc_cohort(*bc.ROC_COHORTS["train"])
+    te_s, te_l, _, _ = bc.roc_cohort(*bc.ROC_COHORTS["test"])
+    pred, ms = timed(lambda: dp.train_disruption_predictor(
+        to_device(tr_s, device), to_device(tr_l, device), torch.Generator().manual_seed(seed),
+        n_steps=MLP_STEPS))
+    thresholds = np.linspace(0.02, 0.98, ROC_THRESHOLDS)
+    with torch.no_grad():
+        risks = pred.risk(to_device(te_s, device))
+    fired, first = dp.alarm_threshold_sweep(risks, to_device(thresholds, device, risks.dtype))
+    roc = roc_metrics(fired.cpu().numpy(), first.cpu().numpy(), te_l > 0.5, te_s.shape[1],
+                      pred.window, thresholds)
+    out["roc_mlp"] = {**roc, "ms_step": ms / MLP_STEPS}
+
+    fam, _, fam_noisy, fam_on = ds.generate_training_family(7)
+    h_shots, h_clean, _, _ = ds.generate_hard_cohort(ds.TEST_CONFIG, seed=991)
+    res, ms = timed(lambda: ds.train_seq_predictor(
+        to_device(fam, device), to_device(fam_noisy, device), to_device(fam_on, device),
+        torch.Generator().manual_seed(seed), n_steps=SEQ_STEPS))
+    with torch.no_grad():
+        h_risks = ds.seq_risk(res.params, to_device(h_shots, device))
+    scores = h_risks[:, 24:].amax(dim=1).cpu().numpy()
+    fired_h, first_h = dp.alarm_threshold_sweep(
+        h_risks, to_device(thresholds, device, h_risks.dtype), confirm_ticks=15)
+    out["hard_seq"] = {"auc": ds.roc_auc(scores, h_clean),
+                       "op": hard_operating_point(fired_h.cpu().numpy(), first_h.cpu().numpy(),
+                                                  h_clean > 0.5, h_shots.shape[1], thresholds),
+                       "final_loss": float(res.loss_history[-1]), "ms_step": ms / SEQ_STEPS}
+    return out
+
+
+def predictor_gates(m: dict) -> dict:
+    """Each validation gate of (s): name -> passed."""
+    zfp, op = m["roc_mlp"]["zero_fp"], m["hard_seq"]["op"]
+    return {
+        "ladder recall 1.0 / FPR 0.0": m["ladder_mlp"]["recall"] >= 1.0
+        and m["ladder_mlp"]["fpr"] <= 0.0,
+        "ROC AUC >= 0.95, dominating chance": m["roc_mlp"]["auc"] >= 0.95
+        and m["roc_mlp"]["dominates"],
+        "zero-FP recall >= 0.9, warning > 0": zfp is not None and zfp[1] >= 0.9 and zfp[2] > 0.0,
+        "hard-cohort AUC in [0.72, 0.98]": 0.72 <= m["hard_seq"]["auc"] <= 0.98,
+        "hard FPR <= 0.13 with recall >= 0.45": op is not None and op[2] >= 0.45 and op[3] > 0.0,
+    }
+
+
+def training_agreement_runs(device) -> list:
+    """(s)'s float64 training agreement at full width, the same draws on
+    every device: 100 Adam steps of ``train_mlp`` on the windows of
+    run_control_ladder.py's cohort (9 -> 64 -> 64 -> 1, batch 512) and 20
+    AdamW steps of ``train_seq_predictor`` on the 256-shot training family;
+    the loss histories and every parameter, as a flat list."""
+    import torch
+    from scpn_fusion_tpu_torch import bench_config as bc
+    from scpn_fusion_tpu_torch.control import disruption as dp
+    from scpn_fusion_tpu_torch.control import disruption_seq as ds
+    from scpn_fusion_tpu_torch.models.surrogates import mlp
+
+    f64 = torch.float64
+    tr_s, tr_l = bc.ladder_cohort(*bc.LADDER_COHORTS["train"])
+    xn, yt, _, _ = dp.window_dataset(to_device(tr_s, device, f64), to_device(tr_l, device, f64),
+                                     16, 32)
+    gen = torch.Generator().manual_seed(SEED)
+    p0 = mlp.init_mlp(gen, (9, 64, 64, 1), dtype=f64, device=device)
+    res = mlp.train_mlp(p0, xn, yt, gen, n_steps=AGREE_MLP_STEPS, batch_size=512)
+    fam, _, noisy, onsets = ds.generate_training_family(7)
+    seq = ds.train_seq_predictor(to_device(fam, device, f64), to_device(noisy, device, f64),
+                                 to_device(onsets, device), torch.Generator().manual_seed(SEED),
+                                 n_steps=AGREE_SEQ_STEPS)
+    return [res.loss_history, *mlp.leaves(res.params), seq.loss_history,
+            *ds.flatten(seq.params)[0]]
+
+
+def predictors_on_cpu(conn) -> None:
+    """(s)'s CPU twin: ``training_agreement_runs`` on the CPU, as numpy."""
+    cpu = on_cpu(4)
+    conn.send([t.detach().numpy() for t in training_agreement_runs(cpu)])
+    conn.close()
+
+
+def predictor_lanes(dev, card: str, counted, by_path: dict) -> None:
+    """(s) the disruption predictors trained on the card at the validations'
+    full sizes in float32 with the validations' gates, and the float64
+    training agreement with the CPU (a spawned process) within 1e-9; no
+    kernel may launch (the JAX package computes these outside its Pallas
+    kernels)."""
+    import torch
+
+    with cpu_twin(predictors_on_cpu) as twin:
+        m, calls, _ = counted(lambda: predictor_lanes_run(dev))
+        lm, rm, hm = m["ladder_mlp"], m["roc_mlp"], m["hard_seq"]
+        print(f"(s) windowed MLP, run_control_ladder.py lane 2 (24 x 200 shots, {MLP_STEPS} "
+              f"steps) f32: recall {lm['recall']!r}, FPR {lm['fpr']!r} on 16 held-out shots; "
+              f"{lm['ms_step']:.3f} ms a training step [{card}]")
+        print(f"(s) windowed MLP, run_disruption_roc.py lanes 1-2 (32 x 240, {MLP_STEPS} steps) "
+              f"f32: AUC {rm['auc']!r}, dominates chance {rm['dominates']}, zero-FP point "
+              f"(threshold, recall, median warning ticks) {rm['zero_fp']}; {rm['ms_step']:.3f} ms "
+              f"a training step [{card}]")
+        print(f"(s) causal transformer d32/h4/ff64/L2, run_disruption_roc.py lanes 3-4 (256 x "
+              f"240, batch 16, {SEQ_STEPS} AdamW steps) f32: hard-cohort AUC {hm['auc']!r}, "
+              f"operating point at FPR <= 0.13 (threshold, FPR, recall, median warning ticks) "
+              f"{hm['op']}, final loss {hm['final_loss']!r}; {hm['ms_step']:.3f} ms a training "
+              f"step [{card}]")
+        for gate, ok in predictor_gates(m).items():
+            if gate in GATES_MISSED_ON_CPU:
+                print(f"(s) gate {gate}: {'met' if ok else 'MISSED'} (the port's own draws miss "
+                      f"it on the CPU already; not enforced)")
+            else:
+                print(f"(s) gate {gate}: {'met' if ok else 'MISSED'}")
+                require(ok, f"(s): {gate} missed on the card")
+        require(sum(calls.values()) == 0, f"(s): a kernel launched on the predictors: {calls}")
+        by_path["predictors"] = calls
+
+        on_card, ms = events_ms(lambda: training_agreement_runs(dev))
+        cpu_out = twin()
+    dev_t = max(max_rel(a, torch.from_numpy(b)) for a, b in zip(on_card, cpu_out))
+    print(f"(s) float64 training agreement ({AGREE_MLP_STEPS} train_mlp steps, "
+          f"{AGREE_SEQ_STEPS} train_seq_predictor steps at full width, the same draws): max "
+          f"relative deviation of the loss histories and every parameter from the CPU "
+          f"{dev_t:.3e} (limit {LANE_TOL:.0e}); {ms:.1f} ms on the card [{card}]")
+    require(dev_t <= LANE_TOL, "(s): the f64 training deviates from the CPU")
+
+
+# (t)'s lanes, by label
+LEARNED_LANES = ("surrogate_mpc (learn 2000 steps, plan, 25-step loop)",
+                 "replay_shot (800-step predictor)", "train_federated (6 rounds)",
+                 "safe_rl.train (8 x 60, 15 iterations)", "run_soc_learning (300 steps)",
+                 "run_neuro_cybernetic_shot (200 ticks)", "run_channel (1000 ticks)",
+                 "run_neural_shape_loop (committed surrogate, 120 ticks)")
+SHAPE_LOOP_TOL = SURROGATE_TOL   # the float32 equilibrium surrogate's MLP sums in cuBLAS's order
+
+
+def learned_lane_runs() -> list:
+    """(label, run(device) -> tuple of tensors) of (t)'s lanes in float64
+    at the JAX tests' sizes (tests/test_surrogate_mpc.py, test_replay.py,
+    test_federated.py FAST, test_safe_rl.py's training, test_soc_learning.py,
+    test_neuro_cybernetic.py, test_nef_director.py, test_neural_kernel.py),
+    every draw from a CPU generator so that both devices see the same."""
+    import torch
+    from scpn_fusion_tpu_torch.control import disruption as dp
+    from scpn_fusion_tpu_torch.control import federated as fed
+    from scpn_fusion_tpu_torch.control import mpc
+    from scpn_fusion_tpu_torch.control import nef_snn as nef
+    from scpn_fusion_tpu_torch.control import neural_kernel as nk
+    from scpn_fusion_tpu_torch.control import neuro_cybernetic as ncy
+    from scpn_fusion_tpu_torch.control import replay as rp
+    from scpn_fusion_tpu_torch.control import safe_rl
+    from scpn_fusion_tpu_torch.control import soc_learning as soc
+    from scpn_fusion_tpu_torch.control import surrogate_mpc as smpc
+    from scpn_fusion_tpu_torch.models.surrogates.pretrained import load_equilibrium_artifact
+
+    f64 = torch.float64
+    a_np = np.asarray([[-0.5, 0.1], [0.0, 0.4]])
+    b_np = np.asarray([[1.0, 0.0], [0.0, 1.5]])
+
+    def gen(seed=0):
+        return torch.Generator().manual_seed(seed)
+
+    def surrogate(d):
+        rng = np.random.default_rng(0)
+        xs = np.empty((64, 31, 2))
+        us = rng.uniform(-1.0, 1.0, (64, 30, 2))
+        for i in range(64):
+            x = rng.uniform(-1.0, 1.0, 2)
+            xs[i, 0] = x
+            for k in range(30):
+                x = x + 0.05 * (a_np @ x + b_np @ us[i, k])
+                xs[i, k + 1] = x
+        a_t, b_t = to_device(a_np, d), to_device(b_np, d)
+
+        def plant(x, u):
+            return a_t @ x + b_t @ torch.atleast_1d(u)
+
+        model = smpc.learn_dynamics(to_device(xs, d), to_device(us, d), gen(), n_steps=2000,
+                                    dtype=f64)
+        cfg = mpc.MPCConfig(horizon=12, dt=0.05, iterations=60, learning_rate=0.1, u_min=-2.0,
+                            u_max=2.0)
+        x0 = torch.tensor([0.8, 0.6], dtype=f64, device=d)
+        p = smpc.surrogate_mpc_plan(model, cfg, x0, torch.zeros(2, dtype=f64, device=d))
+        loop = smpc.surrogate_mpc_closed_loop(model, plant, cfg, x0,
+                                              torch.zeros(2, dtype=f64, device=d), n_steps=25)
+        err = smpc.one_step_error(model, to_device(xs[:8], d), to_device(us[:8], d))
+        return (*model.mlp.weights, err, *p, *loop)
+
+    def replay(d):
+        rng = np.random.default_rng(0)
+        shots = rng.standard_normal((24, 128, 2)) * 0.1
+        labels = (np.arange(24) % 2).astype(float)
+        shots[labels > 0.5, -40:, 0] += np.linspace(0, 3.0, 40)
+        pred = dp.train_disruption_predictor(to_device(shots, d), to_device(labels, d), gen(),
+                                             window=16, n_steps=800)
+        t = torch.linspace(0.0, 0.128, 128, dtype=f64, device=d)
+        res = rp.replay_shot(pred, rp.ReplayConfig(), t, to_device(shots[1].T, d))
+        return tuple(res)
+
+    def federated(d):
+        cfg = fed.FederatedConfig(n_samples=128, local_epochs=2, n_rounds=6, batch_size=32)
+        params, trace = fed.train_federated(cfg, 0, dtype=f64, device=d)
+        return (*params.weights, *params.biases, *trace)
+
+    def rl(d):
+        cfg = safe_rl.PPOConfig(batch_episodes=8, max_episode_steps=60, policy_lr=0.02)
+        params, lambdas, hist = safe_rl.train(safe_rl.TokamakEnvParams(), cfg, n_iterations=15,
+                                              seed=0, dtype=f64, device=d)
+        returns = torch.tensor([h["mean_return"] for h in hist], dtype=f64)
+        return (*params, lambdas, returns)
+
+    def sandpile(d):
+        trace, summary, q = soc.run_soc_learning(gen(7), n_steps=300, dtype=f64, device=d)
+        return (*trace, q)
+
+    def neuro(d):
+        trace, _ = ncy.run_neuro_cybernetic_shot(gen(3), n_ticks=200, dtype=f64, device=d)
+        return tuple(trace)
+
+    def channel(d):
+        cfg = nef.NefConfig(n_neurons=120, gain=0.8, seed=5)
+        x = 0.6 * torch.sin(torch.arange(1000, dtype=f64) * 0.02).to(d)
+        return (nef.run_channel(cfg, nef.make_channel(cfg, f64, d), x),)
+
+    def shape_loop(d):
+        sur, _ = load_equilibrium_artifact(device=d)
+        n = sur.shape[0]
+        r1 = torch.linspace(2.0, 10.0, n, dtype=f64, device=d)
+        z1 = torch.linspace(-4.0, 4.0, n, dtype=f64, device=d)
+        base = torch.tensor([-1.0, 4.0, 6.0, 4.0, -1.0, 3.0], device=d)
+        steer = torch.tensor([0, 0, 1.0, 0, 1.0, 0.0], device=d)
+        ax_r, _ = nk.soft_axis_position(sur.predict(base).to(f64), r1, z1)
+        tr = nk.run_neural_shape_loop(sur, base, r1, z1, target_r=float(ax_r) + 0.15,
+                                      steer=steer / torch.linalg.norm(steer), n_ticks=120,
+                                      kp=2.0, ki=0.2)
+        # the positions in metres (axis R, axis Z, the radial error) as one
+        # trace, held to the scale of the axis radius: Z sits near 0 m and the
+        # error shrinks to ~0, so either alone would be held to its own
+        # vanishing size (the target itself moves by the surrogate's rounding)
+        return (torch.stack([tr.axis_r, tr.axis_z, tr.err_r], dim=-1), tr.currents,
+                tr.final_psi)
+
+    return list(zip(LEARNED_LANES, (surrogate, replay, federated, rl, sandpile, neuro, channel,
+                                    shape_loop)))
+
+
+def learned_lanes_on_cpu(conn) -> None:
+    """(t)'s CPU twins: sends {label: (outputs as numpy arrays, wall ms)}."""
+    cpu = on_cpu(2)
+    out = {}
+    for label, run in learned_lane_runs():
+        t0 = time.perf_counter()
+        res = run(cpu)
+        out[label] = ([t.detach().cpu().numpy() for t in res], (time.perf_counter() - t0) * 1e3)
+    conn.send(out)
+    conn.close()
+
+
+def learned_lanes(dev, card: str, counted, by_path: dict) -> None:
+    """(t) the learned controllers in float64 at the JAX tests' sizes, each
+    on the card against the same call on the CPU (a spawned process) within
+    1e-9 relative; the neural shape loop, whose float32 equilibrium
+    surrogate sums its MLP in cuBLAS's order on the card, within 1e-5.  No
+    kernel may launch."""
+    import torch
+
+    with cpu_twin(learned_lanes_on_cpu) as twin:
+        on_card = {}
+        for label, run in learned_lane_runs():
+            (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
+            on_card[label] = (out, ms, calls)
+        cpu_runs = twin()
+    lane_calls = {name: 0 for name in KERNELS}
+    for label, (out, ms, calls) in on_card.items():
+        cpu_out, ms_c = cpu_runs[label]
+        for k, v in calls.items():
+            lane_calls[k] += v
+        devs = [max_rel(a, torch.from_numpy(b)) for a, b in zip(out, cpu_out)]
+        dev_l = max(devs)
+        tol = SHAPE_LOOP_TOL if label == LEARNED_LANES[-1] else LANE_TOL
+        print(f"(t) {label}: card {ms:.1f} ms, CPU {ms_c:.1f} ms (in its own process), max "
+              f"relative deviation {dev_l:.3e} (output {devs.index(dev_l)} of {len(devs)}; "
+              f"limit {tol:.0e}), wrapper calls {sum(calls.values())} [{card}]")
+        require(sum(calls.values()) == 0, f"(t) {label}: a kernel launched ({calls})")
+        require(dev_l <= tol, f"(t) {label}: the card deviates from the CPU run")
+    by_path["learned_lanes"] = lane_calls
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1996,7 +2557,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t_phase:.2f} s (one nvcc per source, "
           f"{' '.join(cb.NVCC_FLAGS)})")
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
-                   "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu"):
+                   "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
+                   "ladder.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -2529,7 +3091,7 @@ def main() -> int:
                 "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
-                "reduced_shot": 0}
+                "reduced_shot": 0, "ladder": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -2639,7 +3201,7 @@ def main() -> int:
                  "fused_coarse_vcycle": vcycles,
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
-                 "closed_loop": 0, "reduced_shot": 0}
+                 "closed_loop": 0, "reduced_shot": 0, "ladder": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -3023,6 +3585,15 @@ def main() -> int:
     controller_lanes(dev, card, counted, by_path, fmg_513, cfg_k)
     phase_done("controllers (q)")
 
+    # ── the twelfth slice: (r) the ladder through rows L and N, (s) the
+    # disruption predictors, (t) the learned controllers ──
+    ladder_calls = ladder_checks(dev, card, counted, by_path, results, timing, measured_plain)
+    phase_done("ladder (r)")
+    predictor_lanes(dev, card, counted, by_path)
+    phase_done("predictors (s)")
+    learned_lanes(dev, card, counted, by_path)
+    phase_done("learned controllers (t)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -3031,6 +3602,7 @@ def main() -> int:
     launches["thomas_solve_batched"] = coupled_calls["thomas_solve_batched"]
     launches["closed_loop"] = closed_calls["closed_loop"]
     launches["reduced_shot"] = reduced_calls
+    launches["ladder"] = ladder_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

@@ -261,3 +261,63 @@ def rzip_vessel_arrays() -> dict[str, np.ndarray]:
             "z": np.concatenate([z, [c[1] for c in v["coils"]]]),
             "resistance": np.concatenate([resistance, [v["coil_ohm"]] * len(coil_r)]),
             "inductance": np.concatenate([inductance, l_coil])}
+
+
+# ── the learned controllers' validation cohorts ──
+#
+# ``ladder_cohort`` is ``_synthetic_cohort`` of validation/run_control_ladder.py
+# (the recall / FPR lane: 24 training shots and 16 held-out shots of 200
+# ticks) and ``roc_cohort`` is ``_cohort`` of validation/run_disruption_roc.py
+# (the separable ROC lane: 32 training shots and 48 held-out shots of 240
+# ticks), carried over as they are (numpy only).
+
+LADDER_COHORTS = {"train": (24, 200, 0), "test": (16, 200, 1234)}   # (shots, ticks, seed)
+ROC_COHORTS = {"train": (32, 240, 7), "test": (48, 240, 991)}
+ROC_MODES = ("ntm", "density_limit", "vde")
+
+
+def ladder_cohort(n_shots: int, t_len: int, seed: int):
+    """Disruptive shots carry an oscillating precursor + drift over the
+    final ~40 ticks (the synthetic-archive shape the test suite and the
+    reference's empirical campaign both use)."""
+    rng = np.random.default_rng(seed)
+    shots = rng.standard_normal((n_shots, t_len, 3)).astype(np.float32) * 0.1
+    labels = (np.arange(n_shots) % 2 == 0).astype(np.float32)
+    t = np.arange(t_len)
+    for i in range(n_shots):
+        if labels[i] > 0:
+            onset = t_len - 40
+            grow = np.maximum(0, t - onset) / 40.0
+            shots[i, :, 0] += 2.0 * grow * np.sin(0.8 * t)
+            shots[i, :, 1] += 1.5 * grow
+    return shots, labels
+
+
+def roc_cohort(n_shots: int, t_len: int, seed: int):
+    """Balanced cohort; disruptive shots get one of three precursor modes
+    with randomised onset and amplitude (reference
+    ``disruption_roc_analysis.py:generate_scenario_batch``)."""
+    MODES = ROC_MODES
+    rng = np.random.default_rng(seed)
+    shots = rng.standard_normal((n_shots, t_len, 3)).astype(np.float32) * 0.4
+    labels = (np.arange(n_shots) % 2 == 0).astype(np.float32)
+    onsets = np.full(n_shots, -1, dtype=np.int64)
+    modes = []
+    for i in range(n_shots):
+        if labels[i] < 0.5:
+            modes.append("safe")
+            continue
+        mode = MODES[int(rng.integers(len(MODES)))]
+        modes.append(mode)
+        onset = int(rng.integers(t_len // 3, 2 * t_len // 3))
+        onsets[i] = onset
+        amp = float(rng.uniform(0.8, 2.0))
+        t = np.arange(t_len - onset, dtype=np.float32)
+        grow = 1.0 - np.exp(-t / 40.0)
+        if mode == "ntm":                       # rotating island: n=1 osc
+            shots[i, onset:, 0] += amp * grow * np.sin(0.8 * t)
+        elif mode == "density_limit":           # monotone density drift
+            shots[i, onset:, 1] += amp * grow
+        else:                                   # vde: radial spread ramp
+            shots[i, onset:, 2] += amp * grow * (1.0 + 0.3 * np.sin(0.2 * t))
+    return shots, labels, onsets, modes

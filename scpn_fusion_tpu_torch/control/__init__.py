@@ -4,8 +4,11 @@ same names.  Ported: ``pid``, ``actuator``, ``flight_sim``,
 ``neuro_closed_loop``, ``mpc``, ``scenario``, ``optimal_scenario``,
 ``free_boundary_tracking``, ``hinf``, ``robust``, ``vessel_rzip``,
 ``gain_schedule``, ``sliding_mode``, ``estimator``, ``fault_tolerant``,
-``tuning`` and ``stress``; the other modules of the JAX package's
-``control/`` come with later slices.
+``tuning``, ``stress``, ``surrogate_mpc``, ``disruption``,
+``disruption_seq``, ``disruption_transfer``, ``replay``,
+``disturbance_ladder``, ``federated``, ``safe_rl``, ``soc_learning``,
+``neuro_cybernetic``, ``nef_snn`` and ``neural_kernel``; the other modules of
+the JAX package's ``control/`` come with later slices.
 """
 
 from scpn_fusion_tpu_torch.control.actuator import (  # noqa: F401
@@ -53,4 +56,37 @@ from scpn_fusion_tpu_torch.control.fault_tolerant import (  # noqa: F401
     init_fault_state,
     reconfig_gain,
     run_fault_tolerant_shot,
+)
+from scpn_fusion_tpu_torch.control.neuro_cybernetic import (  # noqa: F401
+    LIFPoolParams,
+    run_neuro_cybernetic_shot,
+)
+from scpn_fusion_tpu_torch.control.soc_learning import (  # noqa: F401
+    CoupledSandpileConfig,
+    SoftQConfig,
+    run_soc_learning,
+)
+from scpn_fusion_tpu_torch.control.federated import (  # noqa: F401
+    FederatedConfig,
+    predict_disruption_risk,
+    train_federated,
+)
+from scpn_fusion_tpu_torch.control.disruption_seq import (  # noqa: F401
+    SeqPredictorParams,
+    generate_hard_cohort,
+    init_seq_predictor,
+    seq_logits,
+    seq_risk,
+    shot_scores,
+    train_seq_predictor,
+)
+from scpn_fusion_tpu_torch.control.replay import (  # noqa: F401
+    ReplayConfig,
+    replay_shot,
+)
+from scpn_fusion_tpu_torch.control.surrogate_mpc import (  # noqa: F401
+    DynamicsSurrogate,
+    learn_dynamics,
+    surrogate_mpc_closed_loop,
+    surrogate_mpc_plan,
 )

@@ -19,10 +19,16 @@
 //      (thread j owns column j of the ring), f_timed_j;
 //   3. place p: m_p = clip(m_p - sum_j w_in[j,p] f_j + sum_j w_out[p,j] f_j);
 //   4. action i: gain (m[pos] - m[neg]), slew clamp, absolute clamp;
-// then every thread advances the plant from actions 0 and 1 itself (the
-// same arithmetic in each, so no fifth barrier) and thread 0 writes the
-// tick's r and z.  Only deterministic configurations come here: the wrapper
-// (ops/cuda_closed_loop.py) raises on one that draws random numbers.
+// then every thread advances the plant itself (the same arithmetic in each,
+// so no fifth barrier) and thread 0 writes the tick's plant trace.  Two
+// plant kinds: the reduced R/Z plant (actions 0 and 1 move r and z; the
+// trace holds r and z after the tick) and the linear vertical plant of
+// control/disturbance_ladder.py (x = [z, dz/dt], dx/dt = A x + B u + B_d d,
+// one Euler step a tick; the one action, clipped to +-u_max, is u; the
+// observed axis is z; the trace holds the z seen and the clipped u, and the
+// disturbance d is read each tick).  Only deterministic configurations come
+// here: the wrapper (ops/cuda_closed_loop.py) raises on one that draws
+// random numbers.
 //
 // Arithmetic: every product, sum and quotient is rounded on its own
 // (__fmul_rn / __fadd_rn / __fdiv_rn and the double forms), as PyTorch's
@@ -66,12 +72,16 @@ struct ClosedLoopArgs {
   void* trace_z;             // (n_ticks,)
   void* trace_actions;       // (n_ticks, nAct)
   void* trace_firing;        // (n_ticks, nT)
+  const void* lin_plant;     // linear kind: (8,) a00 a01 a10 a11 b0 b1 bd0 bd1
+  const void* lin_d;         // linear kind: (n_ticks,) the disturbance of each tick
   int n_p, n_t, n_i, n_act, n_slots, n_ticks;
   int mode;                  // 0 fractional, 1 binary with margin, 2 hard binary
+  int plant_kind;            // 0 the reduced R/Z plant, 1 the linear vertical plant
   double margin;             // the firing margin of mode 0 or 1
   double ctrl_dt;            // cfg.dt (the slew limit's period)
   double plant_dt;           // the plant's dt
   double drift_r;            // 0.01 * beta of the reduced plant
+  double u_max;              // linear kind: the command clip
 };
 
 template <typename T> struct Arith;
@@ -164,8 +174,19 @@ __global__ void closed_loop_kernel(const ClosedLoopArgs args) {
   const T plant_dt = static_cast<T>(args.plant_dt);
   const T drift_r = static_cast<T>(args.drift_r);
   const T drift_z = static_cast<T>(0.02);
+  // the plant's state: (r, z) of the reduced plant, (z, dz/dt) of the linear one
   T* plant = static_cast<T*>(args.plant);
   T r = plant[0], z = plant[1];
+  const bool linear = args.plant_kind == 1;
+  T la00 = T(0), la01 = T(0), la10 = T(0), la11 = T(0), lb0 = T(0), lb1 = T(0);
+  T lbd0 = T(0), lbd1 = T(0);
+  if (linear) {
+    const T* lp = static_cast<const T*>(args.lin_plant);
+    la00 = lp[0]; la01 = lp[1]; la10 = lp[2]; la11 = lp[3];
+    lb0 = lp[4]; lb1 = lp[5]; lbd0 = lp[6]; lbd1 = lp[7];
+  }
+  const T* lin_d = static_cast<const T*>(args.lin_d);
+  const T u_max = static_cast<T>(args.u_max);
   int cursor = args.cursor[0];
   T* tr_r = static_cast<T*>(args.trace_r);
   T* tr_z = static_cast<T*>(args.trace_z);
@@ -174,6 +195,9 @@ __global__ void closed_loop_kernel(const ClosedLoopArgs args) {
   __syncthreads();
 
   for (int tick = 0; tick < args.n_ticks; ++tick) {
+    // the linear plant's disturbance, loaded before the four stages so that
+    // its latency overlaps them
+    const T dk = linear ? lin_d[tick] : T(0);
     // 1. features and injection
     if (tid < n_i) {
       const T obs = inj_ax == 0 ? r : z;
@@ -239,12 +263,26 @@ __global__ void closed_loop_kernel(const ClosedLoopArgs args) {
     }
     __syncthreads();
 
-    // the reduced plant, in every thread
-    r = clip(A::add(r, A::mul(A::add(drift_r, s_act[0]), plant_dt)), T(2), T(10));
-    z = clip(A::add(z, A::mul(A::add(drift_z, s_act[1]), plant_dt)), T(-6), T(6));
-    if (tid == 0) {
-      tr_r[tick] = r;
-      tr_z[tick] = z;
+    // the plant, in every thread
+    if (linear) {
+      const T u = clip(s_act[0], -u_max, u_max);
+      const T dx0 = A::add(A::add(A::add(A::mul(la00, r), A::mul(la01, z)), A::mul(lb0, u)),
+                           A::mul(lbd0, dk));
+      const T dx1 = A::add(A::add(A::add(A::mul(la10, r), A::mul(la11, z)), A::mul(lb1, u)),
+                           A::mul(lbd1, dk));
+      if (tid == 0) {
+        tr_r[tick] = r;
+        tr_z[tick] = u;
+      }
+      r = A::add(r, A::mul(plant_dt, dx0));
+      z = A::add(z, A::mul(plant_dt, dx1));
+    } else {
+      r = clip(A::add(r, A::mul(A::add(drift_r, s_act[0]), plant_dt)), T(2), T(10));
+      z = clip(A::add(z, A::mul(A::add(drift_z, s_act[1]), plant_dt)), T(-6), T(6));
+      if (tid == 0) {
+        tr_r[tick] = r;
+        tr_z[tick] = z;
+      }
     }
     // stage 1 of the next tick writes only the marking, which stage 4 read
     // before the barrier above; stage 4's next writes come after three more

@@ -177,3 +177,77 @@ def transport_surrogate(fields: Mapping[str, Any], *,
         params=MLPParams(weights=tuple(t(w) for w in params.weights),
                          biases=tuple(t(b) for b in params.biases)),
         **{k: t(fields[k]) for k in ("x_mean", "x_std", "y_mean", "y_std")})
+
+
+# ── the learned controllers' parameters ──
+
+
+def _as(a, dtype: torch.dtype | None, device) -> torch.Tensor:
+    """An array as a tensor on ``device``, in ``dtype`` (None: its own)."""
+    x = torch.from_numpy(np.array(a, copy=True))
+    return x.to(device=device, dtype=dtype or x.dtype)
+
+
+def mlp_params(params, *, dtype: torch.dtype | None = None,
+               device: torch.device | str = "cuda") -> MLPParams:
+    """The JAX package's ``MLPParams`` (its arrays as numpy) as the port's;
+    ``dtype`` None keeps each array's own."""
+    def t(a):
+        return _as(a, dtype, device)
+
+    return MLPParams(tuple(t(w) for w in params.weights), tuple(t(b) for b in params.biases))
+
+
+def seq_predictor_params(params, *, dtype: torch.dtype | None = None,
+                         device: torch.device | str = "cuda"):
+    """The JAX package's ``SeqPredictorParams`` (per-layer ``LayerParams``)
+    as the port's."""
+    from scpn_fusion_tpu_torch.control.disruption_seq import LayerParams, SeqPredictorParams
+
+    def t(a):
+        return _as(a, dtype, device)
+
+    layers = tuple(LayerParams(*(t(getattr(lp, f)) for f in LayerParams._fields))
+                   for lp in params.layers)
+    return SeqPredictorParams(**{f: t(getattr(params, f)) for f in SeqPredictorParams._fields
+                                 if f != "layers"}, layers=layers)
+
+
+def policy_params(params, *, dtype: torch.dtype | None = None,
+                  device: torch.device | str = "cuda"):
+    """The JAX package's safe-RL ``PolicyParams`` as the port's."""
+    from scpn_fusion_tpu_torch.control.safe_rl import PolicyParams
+
+    return PolicyParams(*(_as(getattr(params, f), dtype, device) for f in PolicyParams._fields))
+
+
+def nef_channel(channel, *, dtype: torch.dtype | None = None,
+                device: torch.device | str = "cuda"):
+    """The JAX package's ``NefChannel`` (two ``LIFParams`` and the
+    decoders) as the port's."""
+    from scpn_fusion_tpu_torch.control.nef_snn import LIFParams, NefChannel
+
+    def t(a):
+        return _as(a, dtype, device)
+
+    def pop(p):
+        return LIFParams(*(t(getattr(p, f)) for f in LIFParams._fields))
+
+    return NefChannel(pop(channel.error_pop), pop(channel.control_pop), t(channel.d_gain),
+                      t(channel.d_id))
+
+
+def equilibrium_surrogate(sur, *, device: torch.device | str = "cuda"):
+    """The JAX package's ``EquilibriumSurrogate`` as the port's, dtypes kept."""
+    from scpn_fusion_tpu_torch.models.surrogates.equilibrium_surrogate import (
+        EquilibriumSurrogate,
+    )
+
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return EquilibriumSurrogate(
+        mlp=mlp_params(sur.mlp, device=device),
+        **{f: t(getattr(sur, f)) for f in ("components", "psi_mean", "x_mean", "x_std",
+                                           "coeff_scale")},
+        shape=tuple(sur.shape))

@@ -1,2 +1,3 @@
-"""Surrogates (port of ``scpn_fusion_tpu/models/surrogates/``): so far the
-MLP forward pass and the transport surrogate the transport stepper takes."""
+"""Surrogates (port of ``scpn_fusion_tpu/models/surrogates/``): the MLP and
+its Adam training loop, the transport surrogate the transport stepper takes
+and the equilibrium surrogate (PCA + MLP) of the neural shape loop."""

@@ -1,12 +1,15 @@
-"""The committed neural-transport surrogate (port of the transport part of
-``scpn_fusion_tpu/models/surrogates/pretrained.py``).
+"""The committed surrogates (port of the loaders of
+``scpn_fusion_tpu/models/surrogates/pretrained.py``): the neural-transport
+closure and the equilibrium surrogate.
 
 ``weights/neural_transport.npz`` (an MLP 7 -> 64 -> 64 -> 3 with its input and
 output normalisation) maps the local dimensionless inputs [R/L_Ti, R/L_Te,
 R/L_ne, q, s_hat, Te/Ti, nu_star] to [chi_i, chi_e, D_e] in gyro-Bohm units.
 Loading is fail-closed as in the JAX package: the sha256 of the NPZ must
 equal the one in ``weights/neural_transport.metrics.json``, or nothing loads.
-Training (``train_transport_surrogate``) stays with the JAX package.
+``weights/neural_equilibrium.npz`` (PCA basis + MLP: 6 coil currents -> a
+psi map) loads the same way (:func:`load_equilibrium_artifact`).  Training
+the artifacts stays with the JAX package.
 """
 
 from __future__ import annotations
@@ -47,14 +50,8 @@ class TransportSurrogate(NamedTuple):
         return torch.amax(((x - self.x_mean) / self.x_std).abs(), dim=-1)
 
 
-def load_transport_surrogate_pytree(
-    name: str = "neural_transport",
-    weights_dir: Path | None = None,
-    *,
-    device: torch.device | str = "cuda",
-) -> tuple[TransportSurrogate, dict]:
-    """Fail-closed load of the artifact as a :class:`TransportSurrogate` on
-    ``device``; returns it and the metrics."""
+def _load_artifact(name: str, weights_dir: Path | None = None) -> tuple[dict, dict]:
+    """Fail-closed NPZ + metrics load (the sha256 must match): (arrays, metrics)."""
     out = weights_dir or WEIGHTS_DIR
     npz_path = out / f"{name}.npz"
     metrics_path = out / f"{name}.metrics.json"
@@ -67,15 +64,49 @@ def load_transport_surrogate_pytree(
             f"surrogate artifact checksum mismatch for {name!r}: "
             "refusing to load (retrain with train_transport_surrogate)")
     with np.load(npz_path) as data:
-        arrays = {k: np.asarray(data[k]) for k in data.files}
+        return {k: np.asarray(data[k]) for k in data.files}, metrics
+
+
+def _mlp_from(arrays: dict, device) -> MLPParams:
     n_layers = sum(1 for k in arrays if k.startswith("w"))
 
-    def t(a, dtype=None):
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
 
-    params = MLPParams(weights=tuple(t(arrays[f"w{i}"]) for i in range(n_layers)),
-                       biases=tuple(t(arrays[f"b{i}"]) for i in range(n_layers)))
+    return MLPParams(weights=tuple(t(arrays[f"w{i}"]) for i in range(n_layers)),
+                     biases=tuple(t(arrays[f"b{i}"]) for i in range(n_layers)))
+
+
+def load_transport_surrogate_pytree(
+    name: str = "neural_transport",
+    weights_dir: Path | None = None,
+    *,
+    device: torch.device | str = "cuda",
+) -> tuple[TransportSurrogate, dict]:
+    """Fail-closed load of the artifact as a :class:`TransportSurrogate` on
+    ``device``; returns it and the metrics."""
+    arrays, metrics = _load_artifact(name, weights_dir)
     surrogate = TransportSurrogate(
-        params=params,
-        **{k: t(arrays[k], np.float32) for k in ("x_mean", "x_std", "y_mean", "y_std")})
+        params=_mlp_from(arrays, device),
+        **{k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(device)
+           for k in ("x_mean", "x_std", "y_mean", "y_std")})
     return surrogate, metrics
+
+
+def load_equilibrium_artifact(name: str = "neural_equilibrium", weights_dir: Path | None = None,
+                              *, device: torch.device | str = "cuda"):
+    """Fail-closed load of the committed equilibrium surrogate (PCA basis +
+    MLP, ``weights/neural_equilibrium.npz``) on ``device``; returns
+    (surrogate, metrics)."""
+    from scpn_fusion_tpu_torch.models.surrogates.equilibrium_surrogate import (
+        EquilibriumSurrogate,
+    )
+
+    arrays, metrics = _load_artifact(name, weights_dir)
+    n = int(metrics["grid"])
+    sur = EquilibriumSurrogate(
+        mlp=_mlp_from(arrays, device),
+        **{k: torch.from_numpy(np.array(arrays[k])).to(device)
+           for k in ("components", "psi_mean", "x_mean", "x_std", "coeff_scale")},
+        shape=(n, n))
+    return sur, metrics

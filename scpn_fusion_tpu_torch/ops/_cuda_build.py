@@ -64,6 +64,8 @@ _SIGNATURES = {
     "scpn_closed_loop_f64": [_P, _I, _P],
     "scpn_reduced_shot_f32": [_P, _P],
     "scpn_reduced_shot_f64": [_P, _P],
+    "scpn_ladder_f32": [_P, _P],
+    "scpn_ladder_f64": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

@@ -13,7 +13,8 @@ import scpn_fusion_tpu_torch.control as port
 ROOT = Path(__file__).resolve().parent.parent
 PORTED = ("pid", "actuator", "flight_sim", "scenario", "optimal_scenario", "hinf", "robust",
           "vessel_rzip", "gain_schedule", "sliding_mode", "estimator", "fault_tolerant",
-          "tuning", "stress")
+          "tuning", "stress", "neuro_cybernetic", "soc_learning", "federated", "disruption_seq",
+          "replay", "surrogate_mpc")
 
 
 def _jax_exports() -> dict[str, list[str]]:

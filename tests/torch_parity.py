@@ -38,9 +38,9 @@ def free_boundary_cfgs(n: int, **solver):
 
 
 def rel(ours, ref) -> float:
-    """max |ours - ref| over max |ref|."""
+    """max |ours - ref| over max |ref| (over 1e-300 where ``ref`` is all zero)."""
     a, b = as_np(ours), as_np(ref)
-    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
 
 
 def rng(seed: int) -> np.random.Generator:

@@ -73,12 +73,17 @@ refit.  With ``--transport`` it profiles the transport paths: ten steps of
 the TORAX-parity coarse tier (``bench_config.TORAX_COARSE``, float64) from
 its step 40 and the whole coupled GS <-> transport solve at 257^2 in
 float32 (``bench_config.COUPLED``), each as one solve, with the launches a
-transport step, and times the tier's 400 steps with CUDA events.  Each
-prints what the solves above print.
+transport step, and times the tier's 400 steps with CUDA events.  With
+``--learned`` it profiles one AdamW step of the causal-transformer
+disruption predictor at full width (d32/h4/ff64/L2, batch 16 of the
+256-shot training family, float32) and one launch of row L
+(``csrc/ladder.cu``: the whole disturbance-rejection ladder's nine linear
+lanes, float32): launches, device time and idle share of each.  Each prints
+what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
-| --free-boundary | --eqdsk | --adjoint | --recon | --transport]``.
+| --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned]``.
 Exits non-zero without one.
 """
 
@@ -737,6 +742,44 @@ def profile_transport(card: str) -> None:
     profile_solve(card, f"coupled GS <-> transport {COUPLED['n']}^2 f32", coupled, None)
 
 
+def profile_learned(card: str) -> None:
+    """One training step of the causal transformer at full width (the
+    200th of a run, so the optimiser's moments are warm) and one launch of
+    row L over the whole ladder, each profiled as one solve."""
+    import torch
+    from scpn_fusion_tpu_torch.control import disruption_seq as ds
+    from scpn_fusion_tpu_torch.control import disturbance_ladder as dl
+    from scpn_fusion_tpu_torch.ops import cuda_ladder as cl
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    fam, _, noisy, onsets = ds.generate_training_family(7)
+    shots = torch.from_numpy(fam).to(dev)
+    labels, ons = torch.from_numpy(noisy).to(dev), torch.from_numpy(onsets).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    p0 = ds.init_seq_predictor(gen, 3, shots.shape[1], dtype=f32, device=dev)
+    idx = torch.randint(0, shots.shape[0], (201, 16), generator=gen).to(dev)
+    warm = ds._train_seq_predictor(shots, labels, ons, p0, idx[:200]).params
+
+    def one_step():
+        res = ds._train_seq_predictor(shots, labels, ons, warm, idx[200:])
+        return {"loss": float(res.loss_history[-1])}
+
+    out = profile_solve(card, "causal transformer, one AdamW step (batch 16 x 240, f32)",
+                        one_step, "torch_seq_step_trace.json")
+    print(f"transformer step: {out['launches']} device launches, {out['device_ms']:.4f} ms of "
+          f"device time, {out['wall_ms']:.3f} ms of wall time (profiled) [{card}]")
+    lanes = dl.linear_lanes([(c, s) for s in dl.SCENARIOS for c in ("PID", "H-infinity", "MPC")],
+                            f32, dev)
+
+    def ladder():
+        z, _ = cl.ladder(lanes, dt=dl.DT, u_max=dl.U_MAX)
+        return {"ticks": int(z.shape[0]), "finite": bool(torch.isfinite(z).all())}
+
+    out = profile_solve(card, "row L, the ladder's 9 linear lanes (f32)", ladder, None)
+    print(f"row L launch: {out['launches']} device launches, {out['device_ms']:.4f} ms of device "
+          f"time, idle share {1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = parser.add_mutually_exclusive_group()
@@ -770,6 +813,9 @@ def main() -> int:
     group.add_argument("--transport", action="store_true",
                        help="profile ten steps of the TORAX coarse tier and the coupled "
                             "GS <-> transport solve at 257^2; time the tier's 400 steps")
+    group.add_argument("--learned", action="store_true",
+                       help="profile one AdamW step of the causal transformer at full width "
+                            "and one launch of row L over the whole ladder")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -813,6 +859,9 @@ def main() -> int:
         return 0
     if opts.transport:
         profile_transport(card)
+        return 0
+    if opts.learned:
+        profile_learned(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
