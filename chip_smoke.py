@@ -101,9 +101,23 @@ them:
 * (t) the learned controllers in f64 against the CPU at the JAX tests'
   sizes: the surrogate MPC, the shot replay, federated training, safe RL,
   the SOC learner, the spiking push-pull shot, the NEF channel and the
-  neural shape loop on the committed equilibrium surrogate.
+  neural shape loop on the committed equilibrium surrogate;
+* (u) the nonlinear 5D flux-tube gyrokinetic run (``run_nonlinear_gk``) at
+  the default ``NonlinearGKConfig()`` (2 x 16 x 16 x 32 x 16 x 8 complex64,
+  200 steps) and at the 32^3 complex128 spec of
+  ``validation/run_sharded_convergence.py:350-354`` (50 steps), each RK4
+  stage one launch of row G (``csrc/gk_rhs.cu``, ``ops/cuda_gk.gk_stage``),
+  against the same runs with the plain stage on the card; the linear ITG
+  lane of ``validation/run_gk_scenario.py:78-90`` with its gate; a
+  kinetic-electron, electromagnetic, conservative, zonal-damped Miller
+  variant in float64 against the CPU;
+* (v) the reduced GK lanes in float64 against the CPU: the linear scan
+  (the card's initial-value lane against the CPU's ``eig``), the ITG
+  spectrum and rate of ``validation/run_gk_growth_rates.py``, the native
+  TGLF profile, the QL closure, the Maxwell evolution and one hybrid
+  scheduler-corrector round.
 
-Paths (g)-(i), (o) other than its reduced shot, (q), (s) and (t) run plain
+Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t) and (v) run plain
 PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
@@ -207,7 +221,16 @@ Phases:
    >= 0.45), no kernel, the f64 training within 1e-9 of the CPU, ms a
    training step; (t): each lane within 1e-9 of the CPU (the shape loop,
    whose f32 surrogate sums its MLP in cuBLAS's order, within 1e-5), no
-   kernel;
+   kernel; (u): row G within 1e-6 (complex64) / 1e-12 (complex128) of max
+   |k| of its plain version over four chained stages at both configurations
+   in both dtypes, one launch a stage; each run's final f and traces within
+   1e-4 / 1e-10 of the plain run, 4 row-G launches a step and no other
+   kernel; the ITG lane's amplitude ratio > 1 from the validation's own
+   draw; the variant within 1e-10 of the CPU; ms a step in turns and peak
+   memory; (v): each lane within 1e-9 of the CPU, the initial-value gamma
+   within 1e-3 of the CPU's ``eig``, the growth-rate campaign's gates (lane
+   1: converged, ion direction, neighbour jumps < 0.08; lane 2: within a
+   factor 2.5 of the fixture), the Maxwell evolution accepted, no kernel;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -234,9 +257,11 @@ the card's name and power limit; the one before that lists the kernels, with
 that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
 the Thomas kernel, over (n) for the closed-loop kernel, over (p)'s
-campaign and tuner for row R and over (r)'s f32 ladder for row L, and
+campaign and tuner for row R, over (r)'s f32 ladder for row L and over
+(u)'s default run for row G, and
 ``launches_by_path`` holding each kernel's wrapper calls on every path (zero
-on (g)-(i), (q), (s) and (t), row R's one on (o), row N's three on (r));
+on (g)-(i), (q), (s), (t) and (v), row R's one on (o), row N's three on
+(r));
 the Thomas kernel's ``library_ms`` is
 ``torch.linalg.solve`` of the same system as a dense matrix.
 """
@@ -289,7 +314,7 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
-           "ladder")
+           "ladder", "gk_rhs")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -307,6 +332,8 @@ SOURCES = {
     "reduced_shot": ("csrc/reduced_shot.cu", "scpn_fusion_tpu/control/flight_sim.py:114"),
     # no Pallas kernel: each JAX closed loop of the ladder is one lax.scan
     "ladder": ("csrc/ladder.cu", "scpn_fusion_tpu/control/disturbance_ladder.py:92"),
+    # no Pallas kernel: gk_rhs and rk4_step are one jitted XLA program
+    "gk_rhs": ("csrc/gk_rhs.cu", "scpn_fusion_tpu/models/gyrokinetics/nonlinear.py:395"),
 }
 
 
@@ -2495,6 +2522,377 @@ def learned_lanes(dev, card: str, counted, by_path: dict) -> None:
     by_path["learned_lanes"] = lane_calls
 
 
+# ── the fourteenth slice: (u) the nonlinear gyrokinetic run through row G
+# (csrc/gk_rhs.cu: one RK4 stage of every species a launch), (v) the reduced
+# GK lanes on plain ops ──
+
+GK_STAGE_TOL = {"complex64": 1e-6, "complex128": 1e-12}   # row G vs plain, of max |k|
+GK_RUN_TOL = {"complex64": 1e-4, "complex128": 1e-10}     # whole runs' traces vs plain
+GK_TIMED_STEPS = 20          # steps between a pair of CUDA events, (u)'s ms a step
+GK_IV_GAMMA_TOL = 1e-3       # tests/test_gyrokinetics.py:83-92: IV gamma vs eig gamma
+GK_JUMP_MAX = 0.08           # run_gk_growth_rates.py lane 1: max neighbour jump of gamma
+GK_RATE_BAND = 2.5           # run_gk_growth_rates.py lane 2: ratio to the fixture's gamma
+
+
+def gk_cases():
+    """(label, config, seed) of (u)'s two runs: the default NonlinearGKConfig()
+    and the 32^3 complex128 spec of run_sharded_convergence.py:350-354."""
+    from scpn_fusion_tpu_torch.bench_config import GK_SPEC_32, GK_SPEC_32_SEED
+    from scpn_fusion_tpu_torch.models.gyrokinetics.nonlinear import NonlinearGKConfig
+    return (("default 2x16x16x32x16x8 c64, 200 steps", NonlinearGKConfig(), 42),
+            ("32^3 spec 2x32x32x16x16x8 c128, 50 steps", NonlinearGKConfig(**GK_SPEC_32),
+             GK_SPEC_32_SEED))
+
+
+def gk_stage_inputs(cfg, dev, seed: int):
+    """A stage's inputs at ``cfg``: (grids, spec, gram_inv, f, dt, stage terms)
+    from the seeded initial state after one step."""
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    g = nl.build_grids(cfg, device=dev)
+    spec = nl.stage_spec(cfg, g)
+    gram_inv = nl._gram_inv(cfg, g, nl._dtypes(cfg)[0])
+    f = nl._rk4_step(cfg, g, spec, nl.init_state(cfg, g, seed=seed), gram_inv).f
+    phi = nl.field_solve(cfg, g, f)
+    return g, spec, gram_inv, f, nl.cfl_dt(cfg, g, phi), nl.stage_terms(cfg, g, f, phi, gram_inv)
+
+
+def gk_stage_work(f, terms, spec, stage: int) -> tuple[float, float]:
+    """Row G's bytes and real flops (~70 a point of an active species) at RK4
+    stage ``stage``, counting what the stage needs: f0 read and next written
+    for every species; the terms read once; fin read for the active species
+    (for adiabatic electrons with zonal damping, at ky = 0 alone); the
+    accumulator of ``spec.n_acc`` species read (stages 1-3) and written
+    (stages 0-2).  Adiabatic, undamped electrons have k = 0: their next is
+    their f0, and neither their fin nor an accumulator is touched."""
+    per = f[0].numel() * f.element_size()          # one species of f
+    n_act = 2 if spec.electrons_active else 1
+    fin = n_act * per
+    if spec.n_acc > n_act:
+        ky0 = int((spec.grids.ky.abs() < 1e-10).sum())
+        fin += (spec.n_acc - n_act) * per * ky0 // f.shape[2]
+    acc = spec.n_acc * per * (int(stage > 0) + int(stage < 3))
+    terms_b = sum(t.numel() * t.element_size() for t in terms if t is not None)
+    return 2 * f.shape[0] * per + fin + acc + terms_b, 70.0 * n_act * f[0].numel()
+
+
+def gk_stage_checks(dev, card: str) -> dict:
+    """Row G against ``gk_stage_plain`` on the card, four chained stages (the
+    plain chain's inputs) at both (u) configurations in both dtypes: k (the
+    accumulator of stage 0, then its increments) within 1e-6 (complex64) /
+    1e-12 (complex128) of max |k|, the next stage's input within the same of
+    its max; one launch a stage.  Returns {label: max_abs_err of k}."""
+    import dataclasses
+
+    import torch
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_gk
+
+    errs = {}
+    for label, cfg0, seed in gk_cases():
+        for dtype in ("complex64", "complex128"):
+            cfg = dataclasses.replace(cfg0, dtype=dtype)
+            g, spec, gram_inv, f, dt, _ = gk_stage_inputs(cfg, dev, seed)
+            fin, acc, worst, worst_abs = f, None, 0.0, 0.0
+            cb.reset_launch_counts()
+            for stage in range(4):
+                terms = nl.stage_terms(cfg, g, fin, nl.field_solve(cfg, g, fin), gram_inv)
+                k = cuda_gk.stage_rhs_plain(fin, terms, spec)
+                nk, ak = cuda_gk.gk_stage(stage, f, fin, None if acc is None else acc.clone(),
+                                          terms, dt, spec)
+                np_, ap = cuda_gk.gk_stage_plain(stage, f, fin, acc, terms, dt, spec)
+                kmax = float(k.abs().max())
+                if ap is not None:
+                    e = float((ak - ap).abs().max())
+                    worst, worst_abs = max(worst, e / kmax), max(worst_abs, e)
+                worst = max(worst, float((nk - np_).abs().max()) / float(np_.abs().max()))
+                fin, acc = np_, ap
+            torch.cuda.synchronize()
+            entry = f"scpn_gk_stage_{'c64' if dtype == 'complex64' else 'c128'}"
+            print(f"(u) row G vs gk_stage_plain, {label.split(',')[0]} {dtype}, four stages: "
+                  f"max deviation {worst:.3e} of max |k| (limit {GK_STAGE_TOL[dtype]:.0e}); "
+                  f"wrapper calls {cb.CALLS['gk_rhs']}, launches {dict(cb.LAUNCHES)} [{card}]")
+            require(worst <= GK_STAGE_TOL[dtype], f"(u): row G deviates from its plain version "
+                                                 f"at {label} {dtype}")
+            require(cb.CALLS["gk_rhs"] == 4 and dict(cb.LAUNCHES) == {entry: 4},
+                    f"(u): row G made {dict(cb.CALLS)} / {dict(cb.LAUNCHES)}, not 4 launches")
+            errs[f"{label} {dtype}"] = worst_abs
+    return errs
+
+
+def gk_variant_run(device):
+    """(u)'s variant: kinetic electrons, electromagnetic, conservative
+    collisions, zonal damping, shaped Miller geometry, 8^4 x 4, 20 steps f64,
+    from the seeded initial state: (final f, *trace)."""
+    from scpn_fusion_tpu_torch.bench_config import GK_VARIANT, GK_VARIANT_MILLER
+    from scpn_fusion_tpu_torch.models.gyrokinetics import geometry, nonlinear as nl
+    cfg = nl.NonlinearGKConfig(**GK_VARIANT)
+    geo = geometry.miller_geometry(**GK_VARIANT_MILLER, device=device)
+    final, trace = nl.run_nonlinear_gk(cfg, geometry=geo, seed=9, device=device)
+    return (final.f, *trace)
+
+
+def gk_variant_on_cpu(conn) -> None:
+    """(u)'s variant on the CPU (the plain stages), as numpy."""
+    cpu = on_cpu(4)
+    conn.send([t.detach().numpy() for t in gk_variant_run(cpu)])
+    conn.close()
+
+
+def gk_nonlinear_lane(dev, card: str, counted, by_path: dict, results: dict,
+                      timing: dict) -> int:
+    """(u) ``run_nonlinear_gk`` at the default config (200 steps) and the 32^3
+    spec (50 steps) through row G, 4 launches a step, against the same runs
+    with the plain stage on the card (traces and final f within 1e-4 in
+    complex64, 1e-10 in complex128); the linear ITG lane of
+    ``validation/run_gk_scenario.py:78-90`` with its gate; the variant in
+    float64 against the CPU; ms a step with row G and plain (CUDA events
+    around 20 steps, median of 3, in turns), device launches and peak
+    memory.  Returns row G's launches on the default run."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import (
+        GK_LINEAR_ITG, GK_LINEAR_ITG_JAX_F0, GK_LINEAR_ITG_RUN,
+    )
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.ops import cuda_gk
+
+    errs = gk_stage_checks(dev, card)
+    results["gk_rhs"] = {"max_abs_err": errs[f"{gk_cases()[0][0]} complex64"]}
+    launches_default = 0
+    with cpu_twin(gk_variant_on_cpu) as variant_cpu:
+        for i, (label, cfg, seed) in enumerate(gk_cases()):
+            g = nl.build_grids(cfg, device=dev)
+            state = nl.init_state(cfg, g, seed=seed)
+            # one plain step first: cuFFT's plans of this shape, outside the timed runs
+            nl._rk4_step(cfg, g, nl.stage_spec(cfg, g), state,
+                         nl._gram_inv(cfg, g, state.f.dtype), cuda_gk.gk_stage_plain)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ((final, trace), ms_k), calls, launched = counted(
+                lambda: events_ms(lambda: nl._run(cfg, g, state)))
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            (final_p, trace_p), ms_p = events_ms(
+                lambda: nl._run(cfg, g, state, stage_fn=cuda_gk.gk_stage_plain))
+            n_steps = max(cfg.n_steps // cfg.save_interval, 1) * cfg.save_interval
+            entry = f"scpn_gk_stage_{'c64' if cfg.dtype == 'complex64' else 'c128'}"
+            want = {name: 4 * n_steps * (name == "gk_rhs") for name in KERNELS}
+            dev_f = max_rel(final.f, final_p.f)
+            dev_t = max(max_rel(a, b) for a, b in zip(trace, trace_p))
+            finite = bool(torch.isfinite(torch.view_as_real(final.f)).all())
+            print(f"(u) run_nonlinear_gk {label}: row G {ms_k:.1f} ms ({ms_k / n_steps:.4f} ms a "
+                  f"step), plain stage {ms_p:.1f} ms (once each, CUDA events); final f vs plain "
+                  f"{dev_f:.3e}, traces {dev_t:.3e} (limit {GK_RUN_TOL[cfg.dtype]:.0e}); finite "
+                  f"{finite}; q_ion[-1] {float(trace.q_ion[-1])!r}, phi_rms[-1] "
+                  f"{float(trace.phi_rms[-1])!r}, free energy[-1] "
+                  f"{float(trace.free_energy[-1])!r}, time {float(final.time)!r}; wrapper calls "
+                  f"{ {k: v for k, v in calls.items() if v} }, launches {launched}; peak memory "
+                  f"{peak:.1f} MiB [{card}]")
+            require(finite and dev_f <= GK_RUN_TOL[cfg.dtype] and dev_t <= GK_RUN_TOL[cfg.dtype],
+                    f"(u) {label}: row G's run deviates from the plain run")
+            require(calls == want and launched == {entry: 4 * n_steps},
+                    f"(u) {label}: {calls} / {launched}, not 4 row-G launches a step")
+            by_path["gk_default" if i == 0 else "gk_spec32"] = calls
+            if i == 0:
+                launches_default = calls["gk_rhs"]
+
+            def steps(stage_fn, state=final):
+                spec = nl.stage_spec(cfg, g)
+                gram_inv = nl._gram_inv(cfg, g, state.f.dtype)
+                for _ in range(GK_TIMED_STEPS):
+                    state = nl._rk4_step(cfg, g, spec, state, gram_inv, stage_fn)
+                return state
+
+            t_k, t_p = cuda_ms_pair(lambda: steps(cuda_gk.gk_stage),
+                                    lambda: steps(cuda_gk.gk_stage_plain), reps=3)
+            print(f"time (u) {label}: row G {t_k / GK_TIMED_STEPS:.4f} ms a step, plain stage "
+                  f"{t_p / GK_TIMED_STEPS:.4f} ms a step (CUDA events around {GK_TIMED_STEPS} "
+                  f"steps, median of 3, in turns) [{card}]")
+
+        # the linear ITG lane of run_gk_scenario.py:78-90 (complex64, 60 steps)
+        cfg = nl.NonlinearGKConfig(**GK_LINEAR_ITG)
+        f0 = torch.from_numpy(np.load(GK_LINEAR_ITG_JAX_F0)).to(dev)
+        st0 = nl.GKState(f0, torch.zeros((), dtype=torch.float32, device=dev))
+        (_, tr), calls, _ = counted(lambda: nl.run_nonlinear_gk(cfg, state=st0, device=dev))
+        g = nl.build_grids(cfg, device=dev)
+        _, tr_p = nl._run(cfg, g, st0, stage_fn=cuda_gk.gk_stage_plain)
+        ratio = float(tr.phi_rms[-1]) / max(float(tr.phi_rms[0]), 1e-30)
+        dev_l = max(max_rel(a, b) for a, b in zip(tr, tr_p))
+        _, tr_own = nl.run_nonlinear_gk(cfg, device=dev, **GK_LINEAR_ITG_RUN)
+        ratio_own = float(tr_own.phi_rms[-1]) / max(float(tr_own.phi_rms[0]), 1e-30)
+        print(f"(u) linear ITG lane (run_gk_scenario.py:78-90, from the validation's own draw, "
+              f"bench_config.GK_LINEAR_ITG_JAX_F0): amplitude ratio {ratio!r} (gate > 1), traces "
+              f"vs plain {dev_l:.3e}; wrapper calls {calls['gk_rhs']}; from the port's draw at "
+              f"the same seed the ratio is {ratio_own!r} (the gate depends on the draw: JAX's "
+              f"own draws miss it at seeds 4-7) [{card}]")
+        require(ratio > 1.0 and np.isfinite(ratio), "(u): the linear ITG lane did not grow")
+        require(dev_l <= GK_RUN_TOL["complex64"], "(u): the ITG lane deviates from plain")
+        require(calls["gk_rhs"] == 4 * 60, f"(u): the ITG lane made {calls}")
+
+        (card_v, ms_v), calls_v, _ = counted(lambda: events_ms(lambda: gk_variant_run(dev)))
+        cpu_v = variant_cpu()
+    dev_v = max(max_rel(a, torch.from_numpy(b)) for a, b in zip(card_v, cpu_v))
+    print(f"(u) variant (kinetic, electromagnetic, conservative, zonal 0.05, Miller kappa 1.6 "
+          f"delta 0.3; 8^4 x 4, 20 steps f64): card {ms_v:.1f} ms through row G ("
+          f"{calls_v['gk_rhs']} launches) against the plain stages on the CPU: max relative "
+          f"deviation of f and every trace field {dev_v:.3e} (limit "
+          f"{GK_RUN_TOL['complex128']:.0e}) [{card}]")
+    require(dev_v <= GK_RUN_TOL["complex128"], "(u): the variant deviates from the CPU")
+    require(calls_v["gk_rhs"] == 80, f"(u): the variant made {calls_v}")
+
+    # the timed call: stage 2 of 4 on the default run's inputs (its own stage input)
+    label, cfg, seed = gk_cases()[0]
+    g, spec, gram_inv, f, dt, terms = gk_stage_inputs(cfg, dev, seed)
+    fin, acc = cuda_gk.gk_stage_plain(0, f, f, None, terms, dt, spec)
+    terms = nl.stage_terms(cfg, g, fin, nl.field_solve(cfg, g, fin), gram_inv)
+    acc_k = acc.clone()      # the kernel adds 2k into its accumulator in place at each call
+    timing["gk_rhs"] = (lambda: cuda_gk.gk_stage(1, f, fin, acc_k, terms, dt, spec),
+                        lambda: cuda_gk.gk_stage_plain(1, f, fin, acc, terms, dt, spec),
+                        "one RK4 stage (stage 2 of 4), default 2x16x16x32x16x8 c64",
+                        gk_stage_work(f, terms, spec, 1))
+    return launches_default
+
+
+# (v)'s lanes, by label
+GK_LANES = ("solve_linear_gk (defaults: 10 k_y, 64 theta, 8 x 12 grid)",
+            "the ITG fixture's 11-k_y spectrum + its rate (run_gk_growth_rates.py)",
+            "tglf_native_fluxes_profile (3 surfaces, 12 k_y, SAT1)",
+            "QLTransportModel.evaluate_profile (12 radii, ETG)",
+            "run_local_maxwell_evolution (run_mif_frc.py lane 4: 64 steps, dt 2e-13)",
+            "hybrid round: OOD, adaptive schedule, TGLF at the spots, corrector")
+
+
+def gk_lane_runs(device):
+    """(v)'s lanes: [(label, outputs as a tuple of tensors, extras)]; f64."""
+    import json
+
+    import torch
+    from scpn_fusion_tpu_torch.models.gyrokinetics import hybrid, linear, local_dispersion
+    from scpn_fusion_tpu_torch.models.gyrokinetics import maxwell_evolution as mx
+    from scpn_fusion_tpu_torch.models.gyrokinetics import ql_closure, tglf_native
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
+
+    out = []
+    lin = linear.solve_linear_gk(device=device, method="initial_value")
+    out.append((t(lin.gamma), t(lin.omega_r)))
+    fixtures = ROOT / "validation" / "configs" / "tglf_reference"
+    itg = json.loads((fixtures / "itg_dominated.json").read_text())
+    p = itg["input_parameters"]
+    kw = dict(r_l_t=p["R_LT_i"], r_l_n=p["R_Ln_e"], tau=1.0, q=p["q"], device=device)
+    spec = local_dispersion.solve_local_kinetic_dispersion(t(np.linspace(0.15, 0.9, 11)), **kw)
+    fix = local_dispersion.solve_local_kinetic_dispersion(itg["tglf_output"]["ky_max_rho_s"],
+                                                          **kw)
+    out.append((spec.gamma, spec.omega_r, spec.converged.to(torch.float64), fix.gamma,
+                fix.omega_r, fix.converged.to(torch.float64)))
+    rho3 = np.linspace(0.3, 0.75, 3)
+    prof = dict(r_l_ti=t(9.0 - 4.0 * rho3), r_l_te=t(np.full(3, 6.9)), r_l_ne=t(2.2 + rho3),
+                q=t(1.0 + 2.5 * rho3**2), s_hat=t(0.4 + 1.2 * rho3), epsilon=t(rho3 / 2.78),
+                te_ti=1.0, nu_star=0.1, a=1.0, b0=2.0, r0=2.78, t_i_kev=8.0)
+    tg = tglf_native.tglf_native_fluxes_profile(**prof)
+    out.append((tg.chi_i, tg.chi_e, tg.d_e, tg.v_e, tg.gamma, tg.gamma_net, tg.phi_sq))
+    nr = 12
+    rho = np.linspace(0.0, 1.0, nr)
+    te = 10.0 * (1.0 - 0.9 * rho**2)
+    ne = 8.0 * (1.0 - 0.6 * rho**2)
+    dr = float(rho[1] - rho[0]) * 2.0
+    cols = [t(c) for c in (rho, te, te, ne, 1.0 + 2.5 * rho**2, np.ones(nr), np.gradient(te, dr),
+                           np.gradient(te, dr), np.gradient(ne, dr))]
+    ql = ql_closure.QLTransportModel(n_modes=16, include_etg=True).evaluate_profile(
+        *cols, 6.2, 2.0, 5.3)
+    out.append(tuple(ql))
+    mcfg = mx.MaxwellEvolutionConfig(n_steps=64, dt=2e-13)
+    ev = mx.run_local_maxwell_evolution(mcfg, device=device)
+    out.append((ev.total_field_energy_t, ev.a_parallel_energy_t, ev.b_parallel_energy_t))
+    status = mx.to_evidence(ev, mcfg)["status"]
+    # one hybrid round: OOD on the QL profile's features, an adaptive plan, the
+    # native TGLF model at the planned surfaces, the corrector against QL
+    feats = np.random.default_rng(SEED).standard_normal((400, 10)) * 0.5 + 1.0
+    ood_p = hybrid.fit_ood(t(feats))
+    x = t(feats[:nr] * 1.4)
+    flags = hybrid.ood_check(x, ood_p).is_ood
+    plan = hybrid.schedule_spot_checks(hybrid.SchedulerConfig(budget=4), 1, cols[0], ql[0],
+                                       ql[0] * 0.4, ood_mask=flags)
+    idx = plan.indices.to(torch.int64)
+    gk = tglf_native.tglf_native_fluxes_profile(
+        r_l_ti=t(np.full(4, 9.0)), r_l_te=6.9, r_l_ne=2.2, q=cols[4][idx], s_hat=0.8,
+        epsilon=torch.clamp(cols[0][idx] * 2.0 / 6.2, min=1e-3), te_ti=1.0, nu_star=0.1,
+        a=2.0, b0=5.3, r0=6.2, t_i_kev=cols[1][idx],
+        cfg=tglf_native.TGLFNativeConfig(n_ky_ion=4))
+    gk_fl = torch.stack([gk.chi_i, gk.chi_e, gk.d_e], dim=1)
+    surr = torch.stack([ql[0][idx], ql[1][idx], ql[2][idx]], dim=1)
+    corr = hybrid.corrector_update(hybrid.init_corrector(nr, device=device), cols[0],
+                                   cols[0][idx], plan.valid, gk_fl, surr)
+    out.append((plan.indices.to(torch.float64), plan.reasons.to(torch.float64),
+                plan.valid.to(torch.float64), gk_fl, *corr))
+    return [(label, o) for label, o in zip(GK_LANES, out)], {
+        "lin": lin, "spec": spec, "fix": fix, "itg": itg, "maxwell": status}
+
+
+def gk_lanes_on_cpu(conn) -> None:
+    """(v)'s CPU twin: every lane on the CPU, and the CPU's ``eig`` growth
+    rates of ``solve_linear_gk`` at its defaults, as numpy."""
+    from scpn_fusion_tpu_torch.models.gyrokinetics import linear
+    cpu = on_cpu(6)
+    t0 = time.perf_counter()
+    runs, _ = gk_lane_runs(cpu)
+    ms = (time.perf_counter() - t0) * 1e3
+    eig = linear.solve_linear_gk(device=cpu)
+    conn.send(({label: [x.detach().numpy() for x in out] for label, out in runs}, ms,
+               np.asarray(eig.gamma)))
+    conn.close()
+
+
+def gk_reduced_lanes(dev, card: str, counted, by_path: dict, twin) -> None:
+    """(v) the reduced GK lanes in float64 on plain ops, each against the
+    same call on the CPU within 1e-9 (a spawned process): the linear scan at
+    its defaults on the initial-value lane (the card's gamma within 1e-3 of
+    the CPU's ``eig``), the ITG spectrum and fixture rate with the gates of
+    ``validation/run_gk_growth_rates.py:60-100``, the native TGLF profile,
+    the QL closure's profile, the Maxwell evolution with the gate of
+    ``validation/run_mif_frc.py:179-182`` and one hybrid scheduler-corrector
+    round.  No kernel may launch.  ``twin`` waits for ``gk_lanes_on_cpu``'s
+    results (started with (u), so that it runs while the card does)."""
+    import torch
+
+    (runs, extra), calls, _ = counted(lambda: gk_lane_runs(dev))
+    _, ms = events_ms(lambda: gk_lane_runs(dev))
+    cpu_runs, ms_c, eig_gamma = twin()
+    require(sum(calls.values()) == 0, f"(v): a kernel launched on the reduced GK lanes: {calls}")
+    by_path["gk_lanes"] = calls
+    for label, out in runs:
+        dev_l = max_rel(out, tuple(torch.from_numpy(a) for a in cpu_runs[label]))
+        print(f"(v) {label}: max relative deviation from the CPU {dev_l:.3e} (limit "
+              f"{LANE_TOL:.0e}) [{card}]")
+        require(dev_l <= LANE_TOL, f"(v) {label}: the card deviates from the CPU")
+    lin = extra["lin"]
+    iv_eig = float(np.max(np.abs(lin.gamma - eig_gamma)))
+    print(f"(v) solve_linear_gk on the card (initial-value lane): gamma max {lin.gamma_max!r}, "
+          f"modes {lin.mode_type}; |gamma_IV - gamma_eig(CPU)| max {iv_eig:.3e} (limit "
+          f"{GK_IV_GAMMA_TOL:.0e}: the parity matrix is Hermitian, both are round-off)")
+    require(iv_eig < GK_IV_GAMMA_TOL, "(v): the IV lane misses the CPU's eig")
+    spec, fix, itg = extra["spec"], extra["fix"], extra["itg"]
+    gam, omr = spec.gamma.cpu().numpy(), spec.omega_r.cpu().numpy()
+    growing = gam > 1e-3
+    jump = float(np.max(np.abs(np.diff(gam))))
+    lane1 = bool(spec.converged.all()) and bool(np.all(omr[growing] < 0.0)) and jump < GK_JUMP_MAX
+    r_over_a = itg["input_parameters"]["R_major_m"] / itg["input_parameters"]["a_minor_m"]
+    ratio = float(fix.gamma) * r_over_a / itg["tglf_output"]["gamma_max_cs_a"]
+    lane2 = 1.0 / GK_RATE_BAND <= ratio <= GK_RATE_BAND and bool(fix.converged)
+    print(f"(v) run_gk_growth_rates.py lane 1: all converged {bool(spec.converged.all())}, ion "
+          f"direction where growing {bool(np.all(omr[growing] < 0.0))}, max neighbour jump "
+          f"{jump:.4f} (< {GK_JUMP_MAX}), gamma max {float(gam.max())!r} c_s/R; lane 2: gamma "
+          f"at k_y {itg['tglf_output']['ky_max_rho_s']} = {float(fix.gamma) * r_over_a!r} c_s/a "
+          f"against the fixture's {itg['tglf_output']['gamma_max_cs_a']}, ratio {ratio:.3f} "
+          f"(band {GK_RATE_BAND})")
+    require(lane1 and lane2, "(v): the growth-rate campaign's gates are missed")
+    print(f"(v) Maxwell evolution status {extra['maxwell']}")
+    require(extra["maxwell"] == "accepted_local_source_free_maxwell_evolution",
+            "(v): the Maxwell evolution's residual gate is missed")
+    print(f"time (v) the reduced GK lanes: card {ms:.1f} ms (CUDA events, second run), CPU "
+          f"{ms_c:.1f} ms (in its own process) [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2532,7 +2930,7 @@ def main() -> int:
     from scpn_fusion_tpu_torch.ops.multigrid import _vcycle_impl
 
     phases: dict[str, float] = {}
-    t_phase = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
 
     def phase_done(name: str) -> None:
         nonlocal t_phase
@@ -2558,7 +2956,7 @@ def main() -> int:
           f"{' '.join(cb.NVCC_FLAGS)})")
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
-                   "ladder.cu"):
+                   "ladder.cu", "gk_rhs.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -3091,7 +3489,7 @@ def main() -> int:
                 "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
-                "reduced_shot": 0, "ladder": 0}
+                "reduced_shot": 0, "ladder": 0, "gk_rhs": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -3201,7 +3599,7 @@ def main() -> int:
                  "fused_coarse_vcycle": vcycles,
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
-                 "closed_loop": 0, "reduced_shot": 0, "ladder": 0}
+                 "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -3594,6 +3992,14 @@ def main() -> int:
     learned_lanes(dev, card, counted, by_path)
     phase_done("learned controllers (t)")
 
+    # ── the fourteenth slice: (u) the nonlinear GK run through row G, (v) the
+    # reduced GK lanes on plain ops ──
+    with cpu_twin(gk_lanes_on_cpu) as gk_lanes_cpu:      # (v)'s CPU twin, beside (u)
+        gk_calls = gk_nonlinear_lane(dev, card, counted, by_path, results, timing)
+        phase_done("nonlinear GK (u)")
+        gk_reduced_lanes(dev, card, counted, by_path, gk_lanes_cpu)
+        phase_done("reduced GK lanes (v)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -3603,6 +4009,7 @@ def main() -> int:
     launches["closed_loop"] = closed_calls["closed_loop"]
     launches["reduced_shot"] = reduced_calls
     launches["ladder"] = ladder_calls
+    launches["gk_rhs"] = gk_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")
@@ -3730,6 +4137,7 @@ def main() -> int:
           f"{t_pic:.3f} ms (in turns, median of 5) [{card}]")
     phase_done("times")
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
+    print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (every phase, the build included)")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -33,6 +33,7 @@ through ``sor_sweeps``.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -321,3 +322,31 @@ def roc_cohort(n_shots: int, t_len: int, seed: int):
         else:                                   # vde: radial spread ramp
             shots[i, onset:, 2] += amp * grow * (1.0 + 0.3 * np.sin(0.2 * t))
     return shots, labels, onsets, modes
+
+
+# ── the nonlinear gyrokinetic run (models/gyrokinetics/nonlinear.py) ──
+# The default configuration is NonlinearGKConfig() itself (2 x 16 x 16 x 32 x
+# 16 x 8, complex64, 200 steps).  The 32^3 spec is the 32 x 32 x 16 x 16 x 8
+# complex128 run of validation/run_sharded_convergence.py:350-354 (nonlinear,
+# collisions, save interval half the steps); the linear ITG lane is
+# validation/run_gk_scenario.py:78-90 (amplitude 1e-6, seed 3, gate
+# phi_rms[-1] / phi_rms[0] > 1); the variant runs every optional term at 8^4 x 4.
+GK_SPEC_32 = dict(n_kx=32, n_ky=32, n_theta=16, n_vpar=16, n_mu=8, n_steps=50,
+                  save_interval=25, nonlinear=True, collisions=True, dtype="complex128")
+GK_SPEC_32_SEED = 5
+GK_LINEAR_ITG = dict(n_kx=8, n_ky=8, n_theta=8, n_vpar=8, n_mu=4, n_steps=60,
+                     save_interval=10, dt=0.05, dtype="complex64", nonlinear=False,
+                     collisions=False, hyper_coeff=0.0, r_l_ti=9.0, cfl_adapt=False)
+GK_LINEAR_ITG_RUN = dict(amplitude=1e-6, seed=3)
+GK_VARIANT = dict(n_kx=8, n_ky=8, n_theta=8, n_vpar=8, n_mu=4, n_steps=20, save_interval=5,
+                  dt=0.02, dtype="complex128", kinetic_electrons=True, electromagnetic=True,
+                  collision_model="conservative", zonal_damping_rate=0.05)
+# the Miller geometry of the variant: a shaped surface (kappa 1.6, delta 0.3)
+GK_VARIANT_MILLER = dict(kappa=1.6, delta=0.3, s_kappa=0.1, s_delta=0.2, n_theta=8,
+                         n_period=1)
+# The linear ITG lane's initial f as the JAX package draws it (jax.random,
+# seed 3: jnl.init_state(NonlinearGKConfig(**GK_LINEAR_ITG), grids,
+# amplitude=1e-6, seed=3).f, complex64; a test holds the file to it).  The
+# lane's gate depends on the draw -- JAX's own draws miss it at seeds 4-7 --
+# so the port's run of the validation lane starts from the validation's draw.
+GK_LINEAR_ITG_JAX_F0 = Path(__file__).resolve().parent / "data" / "gk_linear_itg_jax_f0.npy"

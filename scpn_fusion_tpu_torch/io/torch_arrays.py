@@ -1,10 +1,11 @@
-"""The array functions the carried-over ``io/imas_ids.py`` calls, in torch.
+"""The array functions the carried-over ``io/imas_ids.py`` and
+``models/gyrokinetics/tglf_benchmark.py`` call, in torch.
 
-``core_profiles_to_transport_state`` is the JAX package's text with ``jnp``
-bound to ``on(device)``: ``asarray(x, dtype)``, ``zeros_like``, ``ones_like``
+``core_profiles_to_transport_state`` and the benchmark's
+``case_to_closure_inputs`` are the JAX package's text with ``jnp`` bound to
+``on(device)``: ``asarray(x, dtype)``, ``zeros_like``, ``ones_like``
 and ``float32`` keep their meaning and make tensors on ``device``, so the
-reader returns the port's ``TransportState`` of tensors where the caller
-asked (the card by default, as JAX puts them on its default device).
+readers return tensors where the caller asked (the card by default, as JAX puts them on its default device).
 """
 
 from __future__ import annotations

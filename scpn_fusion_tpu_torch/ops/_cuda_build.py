@@ -66,6 +66,8 @@ _SIGNATURES = {
     "scpn_reduced_shot_f64": [_P, _P],
     "scpn_ladder_f32": [_P, _P],
     "scpn_ladder_f64": [_P, _P],
+    "scpn_gk_stage_c64": [_P, _P],
+    "scpn_gk_stage_c128": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

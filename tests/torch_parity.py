@@ -43,6 +43,14 @@ def rel(ours, ref) -> float:
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
 
 
+def crel(ours, ref) -> float:
+    """:func:`rel` of complex (or real) values: max |ours - ref| over
+    max |ref|, the imaginary parts included."""
+    a, b = (np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
+                       dtype=np.complex128) for x in (ours, ref))
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
 def rng(seed: int) -> np.random.Generator:
     return np.random.default_rng(seed)
 

@@ -78,12 +78,17 @@ transport step, and times the tier's 400 steps with CUDA events.  With
 disruption predictor at full width (d32/h4/ff64/L2, batch 16 of the
 256-shot training family, float32) and one launch of row L
 (``csrc/ladder.cu``: the whole disturbance-rejection ladder's nine linear
-lanes, float32): launches, device time and idle share of each.  Each prints
-what the solves above print.
+lanes, float32): launches, device time and idle share of each.  With ``--gk``
+it profiles one RK4 step of the nonlinear gyrokinetic run
+(``models/gyrokinetics/nonlinear.py``) at the default ``NonlinearGKConfig()``
+and at the 32^3 complex128 spec (``bench_config.GK_SPEC_32``), on plain ops
+and through row G (``csrc/gk_rhs.cu``, four launches a step), times ms a
+step of each in turns with CUDA events, and times the host µs of one row-G
+wrapper call and of its parts.  Each prints what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
-| --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned]``.
+| --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk]``.
 Exits non-zero without one.
 """
 
@@ -780,6 +785,117 @@ def profile_learned(card: str) -> None:
           f"time, idle share {1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
 
+GK_STEPS_TIMED = 10
+
+
+def gk_cases():
+    """(label, config, seed) of the two configurations ``--gk`` profiles: the
+    default NonlinearGKConfig() and the 32^3 complex128 spec."""
+    from scpn_fusion_tpu_torch.bench_config import GK_SPEC_32, GK_SPEC_32_SEED
+    from scpn_fusion_tpu_torch.models.gyrokinetics.nonlinear import NonlinearGKConfig
+    return (("default 2x16x16x32x16x8 c64", NonlinearGKConfig(), 42),
+            ("32^3 spec 2x32x32x16x16x8 c128", NonlinearGKConfig(**GK_SPEC_32), GK_SPEC_32_SEED))
+
+
+def profile_gk(card: str) -> None:
+    """One RK4 step of the nonlinear GK run at each configuration, profiled
+    on plain ops (``cuda_gk.gk_stage_plain``) and through row G, from the
+    state after 3 steps; then ms a step of each (CUDA events around 10 steps,
+    median of 5, in turns) and the peak device memory of a 10-step run."""
+    import statistics
+
+    import torch
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.ops import cuda_gk
+
+    for label, cfg, seed in gk_cases():
+        g = nl.build_grids(cfg, device="cuda")
+        spec = nl.stage_spec(cfg, g)
+        gram_inv = nl._gram_inv(cfg, g, nl._dtypes(cfg)[0])
+        state = nl.init_state(cfg, g, seed=seed)
+        for _ in range(3):
+            state = nl._rk4_step(cfg, g, spec, state, gram_inv)
+        print(f"{label}: f {tuple(state.f.shape)} {state.f.dtype}, "
+              f"{state.f.numel() * state.f.element_size() / 1e6:.1f} MB")
+        outs = {}
+        for name, stage_fn in (("plain ops", cuda_gk.gk_stage_plain), ("row G", cuda_gk.gk_stage)):
+            def step(stage_fn=stage_fn):
+                new = nl._rk4_step(cfg, g, spec, state, gram_inv, stage_fn)
+                return {"max |f|": float(new.f.abs().max())}
+            outs[name] = profile_solve(card, f"{label}, one RK4 step, {name}", step, None)
+        for name, out in outs.items():
+            print(f"{label}, {name}: {out['launches']} device launches a step, "
+                  f"{out['device_ms']:.4f} ms of device time, {out['wall_ms']:.3f} ms of wall "
+                  f"time (profiled), idle share {1.0 - out['device_ms'] / out['wall_ms']:.3f} "
+                  f"[{card}]")
+
+        def steps(stage_fn):
+            s = state
+            for _ in range(GK_STEPS_TIMED):
+                s = nl._rk4_step(cfg, g, spec, s, gram_inv, stage_fn)
+            return s
+
+        times = {"plain ops": [], "row G": []}
+        steps(cuda_gk.gk_stage_plain)
+        steps(cuda_gk.gk_stage)
+        for _ in range(5):
+            for name, fn in (("plain ops", cuda_gk.gk_stage_plain), ("row G", cuda_gk.gk_stage)):
+                times[name].append(cuda_events_ms(lambda fn=fn: steps(fn)) / GK_STEPS_TIMED)
+        peaks = {}
+        for name, fn in (("plain ops", cuda_gk.gk_stage_plain), ("row G", cuda_gk.gk_stage)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps(fn)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+        for name in times:
+            print(f"{label}, {name}: {statistics.median(times[name]):.4f} ms a step (CUDA "
+                  f"events around {GK_STEPS_TIMED} steps, median of 5 in turns; all "
+                  f"{[round(t, 4) for t in times[name]]}), peak memory {peaks[name]:.1f} MiB "
+                  f"[{card}]")
+        gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card)
+
+
+def gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card: str) -> None:
+    """Host µs of one row-G wrapper call at stage 2 of 4 (perf_counter around
+    200 calls, queued without a sync; median of 5), and of its parts: the
+    per-call check of the stage's tensors and the argument block from the
+    run's template, beside the whole check and the template that a run
+    makes once."""
+    import statistics
+    import time
+
+    import torch
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.ops import cuda_gk
+
+    f = state.f
+    dt = nl.cfl_dt(cfg, g, nl.field_solve(cfg, g, f))
+    terms = nl.stage_terms(cfg, g, f, nl.field_solve(cfg, g, f), gram_inv)
+    _, acc = cuda_gk.gk_stage(0, f, f, None, terms, dt, spec)
+    template = cuda_gk.args_template(spec, f.shape)
+    n = 200
+    parts = {
+        "wrapper call (gk_stage)": lambda: cuda_gk.gk_stage(1, f, f, acc, terms, dt, spec),
+        "check_inputs (per call)": lambda: cuda_gk.check_inputs(1, f, f, acc, terms, dt, spec),
+        "check_stage (whole)": lambda: cuda_gk.check_stage(1, f, f, acc, terms, dt, spec),
+        "launch_args from the run's template": lambda: cuda_gk.launch_args(
+            1, f, f, acc, terms, dt, spec, template),
+        "args_template (once a run)": lambda: cuda_gk.args_template(spec, f.shape),
+    }
+    for name, fn in parts.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        print(f"{label}, host {name}: {statistics.median(runs):.1f} µs a call (perf_counter "
+              f"around {n} calls, median of 5; all {[round(r, 1) for r in runs]}) [{card}]")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = parser.add_mutually_exclusive_group()
@@ -816,6 +932,9 @@ def main() -> int:
     group.add_argument("--learned", action="store_true",
                        help="profile one AdamW step of the causal transformer at full width "
                             "and one launch of row L over the whole ladder")
+    group.add_argument("--gk", action="store_true",
+                       help="profile one RK4 step of the nonlinear GK run at the default "
+                            "config and the 32^3 spec, on plain ops and through row G")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -862,6 +981,9 @@ def main() -> int:
         return 0
     if opts.learned:
         profile_learned(card)
+        return 0
+    if opts.gk:
+        profile_gk(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
