@@ -115,9 +115,24 @@ them:
   (the card's initial-value lane against the CPU's ``eig``), the ITG
   spectrum and rate of ``validation/run_gk_growth_rates.py``, the native
   TGLF profile, the QL closure, the Maxwell evolution and one hybrid
-  scheduler-corrector round.
+  scheduler-corrector round;
+* (w) row N's plant kinds 2 and 3: ``run_fueling_mode`` (3000 ticks) in ONE
+  launch of kind 2 and ``run_torax_hybrid_campaign`` (16 episodes x 220
+  ticks, one CTA an episode) in ONE launch of kind 3, each against its plain
+  loop in float32 and float64, with the JAX tests' gates, and the float64
+  lanes against the CPU;
+* (x) row D, the digital twin (``run_digital_twin``, 48^2 x 200 steps) in
+  ONE launch of ``csrc/digital_twin.cu`` against the loop of ``twin_step``
+  in float32 and float64, uncontrolled and driven, with the JAX test's
+  gates; ``twin_ingest``'s default SPARC and NSTX-U sessions (plain ops,
+  the plan points one batch), ``quantization_report`` and the Director's
+  directed mission over the R/Z controller, in float64 against the CPU;
+* (y) the realtime bus: its numpy parity oracle against the port's
+  ``run_shot_reduced`` (one launch of row R) in float64 at atol 1e-12, and
+  one three-process session of 400 ticks with its gates.
 
-Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t) and (v) run plain
+Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v) and (x)'s
+sessions, report and mission run plain
 PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
@@ -231,6 +246,15 @@ Phases:
    within 1e-3 of the CPU's ``eig``, the growth-rate campaign's gates (lane
    1: converged, ion direction, neighbour jumps < 0.08; lane 2: within a
    factor 2.5 of the fixture), the Maxwell evolution accepted, no kernel;
+   (w): row N's kinds 2 and 3 ``torch.equal`` to their plain loops in
+   float32 and float64 (one launch a shot, one for the whole campaign), the
+   gates of ``tests/test_cad_fueling_torax.py:111-139``, the float64 lanes
+   within 1e-9 of the CPU; (x): row D ``torch.equal`` to its step loop in
+   both dtypes, the gates of ``tests/test_digital_twin.py:68-100``, the
+   float64 twin, sessions, report and mission within 1e-9 of the CPU, the
+   chaos-free SPARC session passing every plan, device launches a session;
+   (y): the bus oracle within 1e-12 of row R's float64 shot, the
+   three-process session's gates (``tests/test_realtime_bus.py:85-97``);
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -251,17 +275,21 @@ Phases:
    loop (once, on (p)'s check);
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
-and exits non-zero.  The last line is the JSON result; the line before it is
+and exits non-zero.  Right after the build it starts, each in a spawned
+process, the CPU twins of (k), (o) and (v) and the host-bound card-side
+runs of (k)'s plain Thomas loop and (o)'s optimiser and tracking shot, so
+that they overlap the earlier paths; every process is joined, or ended, on
+the way out.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
 ``launches`` counted over the 2049^2 mixed cascade for kernels 4-7 (the path
 that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
 the Thomas kernel, over (n) for the closed-loop kernel, over (p)'s
-campaign and tuner for row R, over (r)'s f32 ladder for row L and over
-(u)'s default run for row G, and
-``launches_by_path`` holding each kernel's wrapper calls on every path (zero
-on (g)-(i), (q), (s), (t) and (v), row R's one on (o), row N's three on
-(r));
+campaign and tuner for row R, over (r)'s f32 ladder for row L, over
+(u)'s default run for row G and over (x)'s default float32 shot for row D,
+and ``launches_by_path`` holding each kernel's wrapper calls on every path
+(zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
+and (y), row N's three on (r) and one a shot and a campaign on (w));
 the Thomas kernel's ``library_ms`` is
 ``torch.linalg.solve`` of the same system as a dense matrix.
 """
@@ -314,7 +342,7 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
-           "ladder", "gk_rhs")
+           "ladder", "gk_rhs", "twin_shot")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -334,6 +362,8 @@ SOURCES = {
     "ladder": ("csrc/ladder.cu", "scpn_fusion_tpu/control/disturbance_ladder.py:92"),
     # no Pallas kernel: gk_rhs and rk4_step are one jitted XLA program
     "gk_rhs": ("csrc/gk_rhs.cu", "scpn_fusion_tpu/models/gyrokinetics/nonlinear.py:395"),
+    # no Pallas kernel: the JAX twin's shot is one lax.scan of twin_step
+    "twin_shot": ("csrc/digital_twin.cu", "scpn_fusion_tpu/control/digital_twin.py:120"),
 }
 
 
@@ -512,7 +542,8 @@ def max_rel(a, b) -> float:
 @contextlib.contextmanager
 def cpu_twin(target, *args):
     """Run ``target(conn, *args)``, a module-level function that computes a
-    lane's CPU twin and sends its results through ``conn``, in a spawned
+    lane's CPU twin (or a host-bound part of a lane on the card, see
+    :func:`early_twins`) and sends its results through ``conn``, in a spawned
     process while the body drives the card; yields a function that waits
     for those results.  The process is joined, or ended, on the way out."""
     import multiprocessing
@@ -1049,7 +1080,7 @@ def torax_run(d):
 
 def torax_on_cpu(conn) -> None:
     """(k)'s CPU twin: the final state and the trace as numpy, and the wall ms."""
-    cpu = on_cpu()
+    cpu = on_cpu(2)
     t0 = time.perf_counter()
     fin, tr = torax_run(cpu)
     ms = (time.perf_counter() - t0) * 1e3
@@ -1058,13 +1089,27 @@ def torax_on_cpu(conn) -> None:
     conn.close()
 
 
-def torax_lane(dev, card: str, counted, by_path: dict) -> None:
+def torax_plain_on_card(conn) -> None:
+    """(k)'s run through the plain Thomas loop on the card, in a process of
+    its own (a host-bound loop of ~80-100 s that overlaps the earlier
+    paths): the final state and the trace as numpy, and its ms."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    with plain_thomas():
+        (fin, tr), ms = events_ms(lambda: torax_run(torch.device("cuda")))
+    conn.send(({k: v.cpu().numpy() for k, v in fin._asdict().items()},
+               {k: v.cpu().numpy() for k, v in tr.items()}, ms))
+    conn.close()
+
+
+def torax_lane(dev, card: str, counted, by_path: dict, plain_card, cpu) -> None:
     """(k) the TORAX-parity coarse tier (``bench_config.TORAX_COARSE``):
     ``run_transport`` of ``TransportParams()`` in float64 for 400 steps of
     0.5 s at 50 MW, against the same run through the plain Thomas loop on
-    the card (bit for bit over the whole run) and on the CPU (within 1e-9
-    span-relative, the same Picard count at every step; the CPU twin in a
-    process of its own while the card runs)."""
+    the card (bit for bit over the whole run; ``plain_card`` waits for
+    :func:`torax_plain_on_card`) and on the CPU (within 1e-9 span-relative,
+    the same Picard count at every step; ``cpu`` waits for
+    :func:`torax_on_cpu`), both in processes of their own started early."""
     import torch
     from scpn_fusion_tpu_torch.bench_config import TORAX_COARSE, limit_cycle
     from scpn_fusion_tpu_torch.models.transport.solver import TransportParams
@@ -1072,16 +1117,17 @@ def torax_lane(dev, card: str, counted, by_path: dict) -> None:
     tp = TransportParams()
     kw = dict(TORAX_COARSE)
     n_steps = kw.pop("n_steps")
-    with cpu_twin(torax_on_cpu) as twin:
-        ((fin_k, tr_k), ms_k), calls, launched = counted(lambda: events_ms(lambda: torax_run(dev)))
-        with plain_thomas():
-            (fin_p, tr_p), ms_p = events_ms(lambda: torax_run(dev))
-        fin_np, tr_np, ms_c = twin()
+    ((fin_k, tr_k), ms_k), calls, launched = counted(lambda: events_ms(lambda: torax_run(dev)))
+    fin_np, tr_np, ms_p = plain_card()
+    fin_p = type(fin_k)(**{k: torch.from_numpy(v) for k, v in fin_np.items()})
+    tr_p = {k: torch.from_numpy(v) for k, v in tr_np.items()}
+    fin_np, tr_np, ms_c = cpu()
     fin_c = type(fin_k)(**{k: torch.from_numpy(v) for k, v in fin_np.items()})
     tr_c = {k: torch.from_numpy(v) for k, v in tr_np.items()}
     ti = tr_k["ti0"].cpu().numpy()
     picard = tr_k["picard"]
-    same = state_equal(fin_k, fin_p) and all(torch.equal(tr_k[k], tr_p[k]) for k in tr_k)
+    same = (state_equal([t.cpu() for t in fin_k], fin_p)
+            and all(torch.equal(tr_k[k].cpu(), tr_p[k]) for k in tr_k))
     dev_cpu = max(max(span_rel(getattr(fin_k, k).cpu(), getattr(fin_c, k)) for k in
                       ("ti", "te", "ne", "n_d", "n_t", "n_he", "chi_i", "chi_e", "d_n")),
                   max(span_rel(tr_k[k].cpu(), tr_c[k]) for k in ("ti0", "te0", "ne0", "n_he0")))
@@ -1091,7 +1137,8 @@ def torax_lane(dev, card: str, counted, by_path: dict) -> None:
           f"limit cycle {limit_cycle(ti)}; Picard iterations {int(picard.sum())} "
           f"({int((picard == 1).sum())} steps at 1, {int((picard == tp.picard_max_iter).sum())} "
           f"at the cap of {tp.picard_max_iter}); card {ms_k:.3f} ms with the kernel, {ms_p:.3f} ms "
-          f"through the plain Thomas loop, bit-identical over the whole run {same}; CPU "
+          f"through the plain Thomas loop (in its own process), bit-identical over the whole run "
+          f"{same}; CPU "
           f"{ms_c:.1f} ms, span-rel {dev_cpu:.3e} (limit {LANE_TOL:.0e}), same Picard count at "
           f"every step {same_picard}; wrapper calls {calls}, __global__ launches {launched} "
           f"[{card}]")
@@ -1563,6 +1610,28 @@ def control_lane_runs() -> list:
             (OPTIMIZE_LANE, optimize), (TRACKING_LANE, tracking)]
 
 
+# (o)'s lanes that run for minutes on the card (host-bound loops of 0-d
+# float64 ops); they run in a process of their own started after the build
+CARD_LANES = (OPTIMIZE_LANE, TRACKING_LANE)
+
+
+def control_lanes_on_card(conn) -> None:
+    """(o)'s :data:`CARD_LANES` on the card: sends {label: (outputs as numpy
+    arrays, ms between CUDA events, wrapper calls by kernel)}."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    out = {}
+    for label, run in control_lane_runs():
+        if label in CARD_LANES:
+            cb.reset_launch_counts()
+            res, ms = events_ms(lambda: run(torch.device("cuda")))
+            out[label] = ([t.detach().cpu().numpy() for t in res], ms,
+                          {name: cb.CALLS[name] for name in KERNELS})
+    conn.send(out)
+    conn.close()
+
+
 def control_lanes_on_cpu(conn) -> None:
     """(o)'s CPU twins: sends {label: (outputs as numpy arrays, wall ms)}."""
     cpu = on_cpu(2)
@@ -1575,27 +1644,33 @@ def control_lanes_on_cpu(conn) -> None:
     conn.close()
 
 
-def control_lanes(dev, card: str, counted, by_path: dict) -> None:
+def control_lanes(dev, card: str, counted, by_path: dict, card_lanes, cpu) -> None:
     """(o) the control lanes (``control_lane_runs``) in float64, each on the
     card against the same call on the CPU within 1e-9 relative: the reduced
     shot in one launch of ``csrc/reduced_shot.cu`` (its plain loop on the
-    CPU), the other lanes with no kernel.  The CPU twins run in a process of their own while the
-    card runs (the lanes are host-bound loops of small ops on either device)."""
+    CPU), the other lanes with no kernel.  The lanes are host-bound loops of
+    small ops on either device: :data:`CARD_LANES` run on the card in a
+    process of their own (``card_lanes`` waits for
+    :func:`control_lanes_on_card`), the CPU twins in another (``cpu`` waits
+    for :func:`control_lanes_on_cpu`), both started early."""
     import torch
 
-    with cpu_twin(control_lanes_on_cpu) as twin:
-        on_card = {}
-        for label, run in control_lane_runs():
+    on_card = {}
+    for label, run in control_lane_runs():
+        if label not in CARD_LANES:
             (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
             on_card[label] = (out, ms, calls)
-        cpu_runs = twin()
+    for label, (out, ms, calls) in card_lanes().items():
+        on_card[label] = (tuple(torch.from_numpy(a) for a in out), ms, calls)
+    cpu_runs = cpu()
     lane_calls = {name: 0 for name in KERNELS}
     for label, (out, ms, calls) in on_card.items():
         cpu_out, ms_c = cpu_runs[label]
         for k, v in calls.items():
             lane_calls[k] += v
         dev_l = max_rel(out, tuple(torch.from_numpy(a) for a in cpu_out))
-        print(f"(o) {label}: card {ms:.3f} ms, CPU {ms_c:.1f} ms (in its own process), max "
+        where = " (in its own process)" if label in CARD_LANES else ""
+        print(f"(o) {label}: card {ms:.3f} ms{where}, CPU {ms_c:.1f} ms (in its own process), max "
               f"relative deviation {dev_l:.3e} (limit {LANE_TOL:.0e}), wrapper calls "
               f"{sum(calls.values())} [{card}]")
         want = {name: int(label == REDUCED_LANE and name == "reduced_shot") for name in KERNELS}
@@ -2833,7 +2908,7 @@ def gk_lanes_on_cpu(conn) -> None:
     """(v)'s CPU twin: every lane on the CPU, and the CPU's ``eig`` growth
     rates of ``solve_linear_gk`` at its defaults, as numpy."""
     from scpn_fusion_tpu_torch.models.gyrokinetics import linear
-    cpu = on_cpu(6)
+    cpu = on_cpu(3)
     t0 = time.perf_counter()
     runs, _ = gk_lane_runs(cpu)
     ms = (time.perf_counter() - t0) * 1e3
@@ -2852,7 +2927,7 @@ def gk_reduced_lanes(dev, card: str, counted, by_path: dict, twin) -> None:
     the QL closure's profile, the Maxwell evolution with the gate of
     ``validation/run_mif_frc.py:179-182`` and one hybrid scheduler-corrector
     round.  No kernel may launch.  ``twin`` waits for ``gk_lanes_on_cpu``'s
-    results (started with (u), so that it runs while the card does)."""
+    results (started after the build, so that it runs while the card does)."""
     import torch
 
     (runs, extra), calls, _ = counted(lambda: gk_lane_runs(dev))
@@ -2893,7 +2968,451 @@ def gk_reduced_lanes(dev, card: str, counted, by_path: dict, twin) -> None:
           f"{ms_c:.1f} ms (in its own process) [{card}]")
 
 
+# ── the fifteenth slice: (w) row N's plant kinds 2 and 3 (the fueling shot,
+# the TORAX-style campaign), (x) row D (the digital twin), the realtime twin
+# sessions, the FPGA export's report and the directed mission, (y) the bus's
+# parity oracle through row R and the three-process bus session ──
+
+FUELING_GATES = (0.02, 0.2, 2.0)   # test_cad_fueling_torax.py:113-116: |error|, rmse, |command|
+TORAX_GATES = (0.4, 0.3)           # :127-130: max beta_N rmse, max |beta_N final - 1.85|
+# dependent operations a tick on the kernel's chain (every stage's longest
+# path: injection, the firing sum over the places, the marking sums over the
+# transitions, the action clamps and the plant), and a twin step's (the MRE
+# width with its quotient, q, the danger test and the stencil of a point)
+CLOSED_LOOP_DEPTH = {"fueling": 60, "torax": 70}
+TWIN_DEPTH = 40
+TWIN_GATE_CFG = dict(grid_size=32)   # tests/test_digital_twin.py:68-100 (32^2, 300 steps)
+BUS_TICKS = 400                      # tests/test_realtime_bus.py:85-97
+BUS_ORACLE_TOL = 1e-12               # tests/test_realtime_bus.py:46-49: atol, float64
+SESSIONS = ("SPARC", "NSTX-U")       # twin_ingest's default sessions
+
+
+def fueling_lanes(device) -> dict:
+    """(w)'s float64 lanes: the fueling shot at its defaults and the TORAX-style
+    campaign at its defaults (its draws from a CPU generator, so that the card
+    and the CPU see the same), as numpy."""
+    import torch
+    from scpn_fusion_tpu_torch.control import fueling_torax as ft
+
+    fuel = ft.run_fueling_mode(dtype=torch.float64, device=device)
+    camp = ft.run_torax_hybrid_campaign(dtype=torch.float64, device=device)
+    out = {f"fueling {k}": v for k, v in fuel._asdict().items()}
+    out.update({f"campaign {k}": v for k, v in camp._asdict().items() if k != "within_limits"})
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def fueling_lanes_on_cpu(conn) -> None:
+    conn.send(fueling_lanes(on_cpu(2)))
+    conn.close()
+
+
+def mission_supervised(ctrl, cfg, plant0, period: int = 20):
+    """The Director's supervised callable over the R/Z controller (as
+    ``tests/test_torch_control_copies_4a.py`` builds it): ``period`` ticks of
+    controller and reduced plant an oversight period under the current axis
+    targets, the firing entropy of its last tick, a radial target 2 cm
+    further in proposed."""
+    import torch
+    from scpn_fusion_tpu_torch.control import director as dr
+    from scpn_fusion_tpu_torch.control import neuro_closed_loop as ncl
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+
+    carried = {"cs": sc.initial_controller_state(ctrl, cfg), "ps": plant0}
+    like = ctrl.w_in
+
+    def step(targets, k):
+        c = ctrl._replace(axis_targets=torch.tensor(targets, dtype=like.dtype, device=like.device))
+        cs, ps = carried["cs"], carried["ps"]
+        for t in range(period):
+            cs, actions, diag = sc.controller_step(c, cfg, cs, torch.stack([ps.r, ps.z]),
+                                                   k * period + t)
+            ps, _ = ncl.reduced_plant_step(ps, actions, 1e-3)
+        carried.update(cs=cs, ps=ps)
+        err = abs(float(ps.r) - targets[0])
+        snap = dr.DirectorSnapshot(stable=err < 0.25, axis_error_m=err, tick=k,
+                                   brain_entropy=dr.firing_entropy(diag["firing"].cpu().numpy()))
+        return snap, (targets[0] - 0.02, targets[1])
+
+    return step
+
+
+def twin_lanes(device) -> dict:
+    """(x)'s float64 lanes, as numpy: the twin's default shot uncontrolled and
+    under a seeded action trace (row D on the card), ``twin_ingest``'s default
+    SPARC and NSTX-U sessions, ``quantization_report`` on the R/Z controller
+    at Q2.14 and Q3.4, and the directed mission's log over it."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import RZ_SPECS, rz_net
+    from scpn_fusion_tpu_torch.control import digital_twin as dtw
+    from scpn_fusion_tpu_torch.control import director as dr
+    from scpn_fusion_tpu_torch.control import fpga_export as fe
+    from scpn_fusion_tpu_torch.control import twin_ingest as ti
+    from scpn_fusion_tpu_torch.control.neuro_closed_loop import ReducedPlantState
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+    from scpn_fusion_tpu_torch.scpn.structure import StochasticPetriNet
+
+    f64 = torch.float64
+    out = {}
+    acts = torch.tensor(np.random.default_rng(SEED).uniform(-1.0, 1.0, 200), dtype=f64,
+                        device=device)
+    for tag, a in (("uncontrolled", None), ("driven", acts)):
+        final, trace = dtw.run_digital_twin(dtype=f64, device=device, actions=a)
+        out.update({f"twin {tag} t_field": final.t_field, f"twin {tag} widths": final.island_widths,
+                    **{f"twin {tag} {k}": v for k, v in trace._asdict().items()}})
+    for machine in SESSIONS:
+        plans, info = ti.run_realtime_twin_session(machine, dtype=f64, device=device)
+        out.update({f"session {machine} {k}": v for k, v in plans._asdict().items()})
+        out[f"session {machine} worst_mean_risk"] = info["worst_mean_risk"]
+    ctrl = sc.build_controller(rz_net(StochasticPetriNet), dtype=f64, device=device, **RZ_SPECS)
+    cfg = sc.ControllerConfig(firing_mode="fractional", firing_margin=0.5, dt=1e-3)
+    for bits in ((16, 14), (8, 4)):
+        rep = fe.quantization_report(ctrl, cfg, fmt=fe.FixedPointFormat(*bits))
+        out[f"fpga Q{bits} report"] = torch.tensor(
+            [rep.max_action_dev, rep.rms_action_dev, rep.action_scale, float(rep.acceptable)],
+            dtype=f64)
+    plant0 = ReducedPlantState(*(torch.tensor(v, dtype=f64, device=device) for v in (6.5, 0.3)))
+    director = dr.DirectorInterface(mission_supervised(ctrl, cfg, plant0),
+                                    entropy_threshold=0.6, history_window=2)
+    final, log = director.run_directed_mission((6.2, 0.0), n_periods=12)
+    out["mission log"] = torch.tensor([[e[k] for k in sorted(e)] for e in log], dtype=f64)
+    out["mission final"] = torch.tensor(final, dtype=f64)
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def twin_lanes_on_cpu(conn) -> None:
+    conn.send(twin_lanes(on_cpu(2)))
+    conn.close()
+
+
+def agree(card: dict, cpu: dict, label: str, card_name: str) -> None:
+    """Every entry of two dicts of numpy results within 1e-9 relative."""
+    import torch
+    worst = {}
+    for key, ref in cpu.items():
+        worst[key] = max_rel(torch.from_numpy(np.asarray(card[key], np.float64)),
+                             torch.from_numpy(np.asarray(ref, np.float64)))
+    key = max(worst, key=worst.get)
+    print(f"{label} f64 against the CPU ({len(worst)} results): max relative deviation "
+          f"{worst[key]:.3e} ({key}; limit {LANE_TOL:.0e}) [{card_name}]")
+    require(worst[key] <= LANE_TOL, f"{label}: {key} deviates from the CPU")
+
+
+def closed_loop_kind_work(ctrl, n_ticks: int, episodes: int, extra_in: int,
+                          extra_ops: int) -> tuple[float, float]:
+    """Row N's kinds 2 and 3: :func:`closed_loop_work` of each episode, plus
+    ``extra_in`` values read a tick (disturbance, noise), a third trace
+    written a tick and ``extra_ops`` plant operations a tick."""
+    n_bytes, n_flops = closed_loop_work(ctrl, n_ticks)
+    item = ctrl.w_in.element_size()
+    return (episodes * (n_bytes + item * n_ticks * (1 + extra_in)),
+            episodes * (n_flops + float(extra_ops) * n_ticks))
+
+
+def twin_work(n: int, steps: int, item: int) -> tuple[float, float]:
+    """Row D: the geometry (r and a byte of mask a point), the actions, the
+    field in and out, the widths and the traces (3 + 4 values a step) once;
+    operations a step: 24 a point (q, the danger test, the stencil, the
+    update) and 8 a width."""
+    n_bytes = n * n * (item + 1) + steps * item + 2 * n * n * item + 8 * item + 6 * steps * item
+    return float(n_bytes), float(steps * (24 * n * n + 32))
+
+
+def fueling_checks(dev, card: str, counted, by_path: dict, cpu) -> None:
+    """(w) row N's plant kinds 2 and 3: ``run_fueling_mode`` (3000 ticks) in
+    ONE launch of kind 2 and ``run_torax_hybrid_campaign`` (16 episodes x 220
+    ticks, one CTA an episode) in ONE launch of kind 3, each ``torch.equal``
+    to its plain loop on the card (traces, final plant and controller state)
+    in float32 and float64; the JAX tests' gates
+    (``tests/test_cad_fueling_torax.py:111-139``); the float64 lanes within
+    1e-9 of the CPU (``cpu`` waits for :func:`fueling_lanes_on_cpu`); times
+    and both bounds of each launch."""
+    import torch
+    from scpn_fusion_tpu_torch.control import fueling_torax as ft
+    from scpn_fusion_tpu_torch.ops import cuda_closed_loop as ccl
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+
+    cfg = sc.ControllerConfig(firing_mode="fractional", firing_margin=0.5, dt=1e-3)
+    plant = ccl.FuelingPlant(target=1.0, density0=0.82, dt=1e-3)
+    one = {name: int(name == "closed_loop") for name in KERNELS}
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        entry = f"scpn_closed_loop_{tag}"
+        ctrl = ft._build_axis_controller(5000.0, dtype, dev)
+        res, calls, launched = counted(lambda: ft.run_fueling_mode(dtype=dtype, device=dev))
+        require(calls == one and launched == {entry: 1},
+                f"(w) fueling {tag}: {calls} / {launched}, not one launch of kind 2")
+        (cs_k, fin_k, tr_k), ms_k = events_ms(
+            lambda: ccl.closed_loop_fueling(ctrl, cfg, plant, n_ticks=3000))
+        (cs_p, fin_p, tr_p), ms_p = events_ms(
+            lambda: ccl.closed_loop_fueling_plain(ctrl, cfg, plant, n_ticks=3000))
+        equal = (all(torch.equal(tr_k[k], tr_p[k]) for k in tr_p) and torch.equal(fin_k, fin_p)
+                 and all(torch.equal(a, b) for a, b in zip(cs_k, cs_p)))
+        d = tr_k["density"]
+        gates = (float(res.final_abs_error) < FUELING_GATES[0] and float(res.rmse) < FUELING_GATES[1]
+                 and float(res.command_trace.abs().max()) <= FUELING_GATES[2]
+                 and bool((d >= 0.0).all()) and bool(torch.isfinite(d).all()))
+        print(f"(w) run_fueling_mode {tag} (3000 ticks, one launch of row N kind 2): kernel "
+              f"torch.equal to the plain loop {equal} (traces, final plant and controller "
+              f"state); final density {float(res.final_density)!r}, |error| "
+              f"{float(res.final_abs_error)!r} (< {FUELING_GATES[0]}), rmse {float(res.rmse)!r} "
+              f"(< {FUELING_GATES[1]}); gates {gates}; launches {launched}; kernel {ms_k:.4f} ms "
+              f"(one call), plain loop {ms_p:.1f} ms [{card}]")
+        require(equal, f"(w) fueling {tag}: the kernel differs from its plain loop")
+        require(gates, f"(w) fueling {tag}: the JAX test's gates are missed")
+        by_path[f"fueling_{tag}"] = calls
+        if tag == "f32":
+            hi, lo = (ft.run_fueling_mode(target_density=t, dtype=dtype, device=dev)
+                      for t in (1.2, 0.8))
+            ok = (float(hi.final_density) > float(lo.final_density)
+                  and float(hi.final_abs_error) < 0.05)
+            print(f"(w) fueling targets 1.2 / 0.8: final {float(hi.final_density)!r} / "
+                  f"{float(lo.final_density)!r}, |error| at 1.2 {float(hi.final_abs_error)!r} "
+                  f"(< 0.05): {ok}")
+            require(ok, "(w) fueling: the other targets miss the JAX test's gates")
+            times["fueling"] = (ctrl, ms_p, functools.partial(
+                ccl.closed_loop_fueling, ctrl, cfg, plant, n_ticks=3000))
+
+        camp, calls, launched = counted(
+            lambda: ft.run_torax_hybrid_campaign(dtype=dtype, device=dev))
+        require(calls == one and launched == {entry: 1},
+                f"(w) campaign {tag}: {calls} / {launched}, not one launch of kind 3")
+        gen = torch.Generator().manual_seed(SEED)
+        amps = (0.25 + 0.5 * torch.rand(16, generator=gen, dtype=torch.float64)).to(dev, dtype)
+        noise = torch.randn((16, 220, 2), generator=gen, dtype=torch.float64).to(dev, dtype)
+        dist = ft.torax_disturbance(amps, 220)
+        plant0 = tuple(torch.full((16,), v, dtype=dtype, device=dev)
+                       for v in (1.7, 5.1, 0.95, 140.0))
+        (cs_k, fin_k, tr_k), ms_k = events_ms(
+            lambda: ccl.closed_loop_torax(ctrl, cfg, plant0, dist, noise))
+        (cs_p, fin_p, tr_p), ms_p = events_ms(
+            lambda: ccl.closed_loop_torax_plain(ctrl, cfg, plant0, dist, noise))
+        equal = (all(torch.equal(tr_k[k], tr_p[k]) for k in tr_p) and torch.equal(fin_k, fin_p)
+                 and all(torch.equal(a, b) for a, b in zip(cs_k, cs_p)))
+        gates = (bool(camp.within_limits.all()) and float(camp.beta_rmse.max()) < TORAX_GATES[0]
+                 and float((camp.beta_n_final - 1.85).abs().max()) < TORAX_GATES[1]
+                 and bool(torch.isfinite(camp.risk_peak).all()))
+        print(f"(w) run_torax_hybrid_campaign {tag} (16 episodes x 220 ticks, one launch of row N "
+              f"kind 3, a CTA an episode): kernel torch.equal to the batched plain loop {equal}; "
+              f"within limits {int(camp.within_limits.sum())} of 16, max beta_N rmse "
+              f"{float(camp.beta_rmse.max())!r} (< {TORAX_GATES[0]}), max |beta_N - 1.85| "
+              f"{float((camp.beta_n_final - 1.85).abs().max())!r} (< {TORAX_GATES[1]}), risk peak "
+              f"max {float(camp.risk_peak.max())!r}; gates {gates}; launches {launched}; kernel "
+              f"{ms_k:.4f} ms (one call), plain loop {ms_p:.1f} ms [{card}]")
+        require(equal, f"(w) campaign {tag}: the kernel differs from its batched plain loop")
+        require(gates, f"(w) campaign {tag}: the JAX test's gates are missed")
+        by_path[f"torax_{tag}"] = calls
+        if tag == "f32":
+            times["torax"] = (ctrl, ms_p, functools.partial(ccl.closed_loop_torax, ctrl, cfg,
+                                                             plant0, dist, noise))
+    agree(fueling_lanes(dev), cpu(), "(w) the fueling shot and the campaign", card)
+    for label, episodes, extra_in, extra_ops in (("fueling", 1, 0, 20), ("torax", 16, 3, 45)):
+        ctrl, ms_p, run = times[label]
+        n_ticks = 3000 if label == "fueling" else 220
+        ms_k = cuda_ms(run)
+        work = closed_loop_kind_work(ctrl, n_ticks, episodes, extra_in, extra_ops)
+        b, by = bound(work)
+        chain = ladder_chain_ms(n_ticks, CLOSED_LOOP_DEPTH[label])
+        print(f"time (w) row N kind {2 if label == 'fueling' else 3} ({label}, f32): kernel "
+              f"{ms_k:.4f} ms ({1e3 * ms_k / n_ticks:.4f} us a tick; CUDA events, median of 5), "
+              f"plain loop {ms_p:.1f} ms (once), bound {b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, "
+              f"{work[1] / 1e6:.4g} Mflop), dependent chain ~{chain:.4f} ms ({n_ticks} ticks x "
+              f"~{CLOSED_LOOP_DEPTH[label]} dependent operations x 4 cycles at "
+              f"{SM_CLOCK_HZ / 1e9:.2f} GHz, 4 barriers a tick besides); library_ms null (no "
+              f"PyTorch call computes a closed loop) [{card}]")
+
+
+def twin_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                measured_plain: dict, cpu) -> int:
+    """(x) row D: ``run_digital_twin`` at its defaults (48^2, 200 steps) in ONE
+    launch, ``torch.equal`` to its plain loop on the card in float32 and
+    float64, uncontrolled and under a seeded action trace; the JAX test's
+    gates at 32^2 x 300 steps through the kernel; the float64 lanes of
+    :func:`twin_lanes` (the twin, ``twin_ingest``'s default SPARC and NSTX-U
+    sessions, ``quantization_report``, the directed mission) within 1e-9 of
+    the CPU (``cpu`` waits for :func:`twin_lanes_on_cpu`), the SPARC
+    session's all-pass gate, device launches a session; no kernel on the
+    sessions, the report or the mission.  Returns row D's launches on the
+    default float32 shot."""
+    import torch
+    from scpn_fusion_tpu_torch.control import digital_twin as dtw
+    from scpn_fusion_tpu_torch.control import twin_ingest as ti
+    from scpn_fusion_tpu_torch.ops import cuda_twin
+
+    cfg = dtw.TwinConfig()
+    launches = 0
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        _, calls, launched = counted(lambda: dtw.run_digital_twin(dtype=dtype, device=dev))
+        want = {name: int(name == "twin_shot") for name in KERNELS}
+        require(calls == want and launched == {f"scpn_twin_shot_{tag}": 1},
+                f"(x) twin {tag}: {calls} / {launched}, not one launch of row D")
+        if tag == "f32":
+            launches = calls["twin_shot"]
+            by_path["twin_f32"] = calls
+        r_map, mask = dtw._geometry(cfg, dtype, dev)
+        acts = torch.tensor(np.random.default_rng(SEED).uniform(-1.0, 1.0, 200), dtype=dtype,
+                            device=dev)
+        err = 0.0
+        for a in (torch.zeros(200, dtype=dtype, device=dev), acts):
+            s0 = dtw.twin_init(cfg, dtype, dev)
+            (sk, trk), ms_k = events_ms(lambda: cuda_twin.twin_shot(cfg, r_map, mask, s0, a))
+            (sp, trp), ms_p = events_ms(lambda: cuda_twin.twin_shot_plain(cfg, r_map, mask, s0, a))
+            equal = (torch.equal(sk.t_field, sp.t_field) and torch.equal(sk.island_widths,
+                                                                         sp.island_widths)
+                     and all(torch.equal(x, y) for x, y in zip(trk, trp)))
+            err = max(err, float((sk.t_field - sp.t_field).abs().max()))
+            print(f"(x) row D {tag}, 48^2 x 200 steps {'driven' if a is acts else 'uncontrolled'}: "
+                  f"kernel torch.equal to the step loop {equal} (field, widths, traces); t_core "
+                  f"{float(trk[0][-1])!r}, danger fraction {float(trk[2][-1])!r}; kernel "
+                  f"{ms_k:.4f} ms (one call), plain loop {ms_p:.1f} ms [{card}]")
+            require(equal, f"(x) row D {tag}: the kernel differs from its step loop")
+            require(bool(torch.isfinite(sk.t_field).all()), "(x) row D: the field is not finite")
+        if tag == "f32":
+            results["twin_shot"] = {"max_abs_err": err}
+            zero = torch.zeros(200, dtype=dtype, device=dev)
+            s0 = dtw.twin_init(cfg, dtype, dev)
+            measured_plain["twin_shot"] = events_ms(
+                lambda: cuda_twin.twin_shot_plain(cfg, r_map, mask, s0, zero))[1]
+            shot = (cfg, r_map, mask, s0, zero)
+            timing["twin_shot"] = (functools.partial(cuda_twin.twin_shot, *shot),
+                                   functools.partial(cuda_twin.twin_shot_plain, *shot),
+                                   "digital twin 48^2 x 200 steps f32", twin_work(48, 200, 4))
+
+    gate_cfg = dtw.TwinConfig(**TWIN_GATE_CFG)
+    final, base = dtw.run_digital_twin(gate_cfg, n_steps=300, device=dev)
+    _, mask32 = dtw._geometry(gate_cfg, torch.float32, dev)
+    driven = dtw.run_digital_twin(gate_cfg, n_steps=300, actions=dtw.avoidance_action_trace(
+        gate_cfg, 300, gain=1.0, device=dev))[1]
+    gates = (bool(torch.isfinite(final.t_field).all()) and float(base.t_core[-1]) > 0.0
+             and 0.0 <= float(base.danger_fraction[-1]) <= 1.0
+             and float(final.t_field[~mask32].abs().max()) == 0.0
+             and float(driven.danger_fraction[-1]) < float(base.danger_fraction[-1]))
+    print(f"(x) the JAX test's gates (32^2 x 300 steps, row D): t_core {float(base.t_core[-1])!r} "
+          f"> 0, zero outside the plasma, danger fraction driven "
+          f"{float(driven.danger_fraction[-1])!r} < uncontrolled "
+          f"{float(base.danger_fraction[-1])!r}: {gates}")
+    require(gates, "(x): the digital twin misses the JAX test's gates")
+
+    (card64, ms64), calls, _ = counted(lambda: events_ms(lambda: twin_lanes(dev)))
+    want = {name: 2 * (name == "twin_shot") for name in KERNELS}
+    require(calls == want, f"(x): the f64 lanes made {calls}, not row D's two shots alone")
+    by_path["twin_lanes_f64"] = calls
+    agree(card64, cpu(), "(x) the twin, the SPARC and NSTX-U sessions, the FPGA report and the "
+          "directed mission", card)
+    print(f"time (x) the float64 lanes on the card: {ms64:.1f} ms (CUDA events) [{card}]")
+    acts = card64["mission log"][:, 0]     # sorted keys: approved first
+    print(f"(x) directed mission over the R/Z controller: approvals {int(acts.sum())} of "
+          f"{len(acts)}, final targets {card64['mission final'].tolist()}")
+    require(0 < acts.sum() < len(acts), "(x): the directed mission approved all or nothing")
+
+    for machine in SESSIONS:
+        (_, info), calls, _ = counted(lambda: ti.run_realtime_twin_session(machine, device=dev))
+        require(sum(calls.values()) == 0, f"(x) session {machine}: a kernel launched: {calls}")
+        by_path[f"session_{machine}"] = calls
+        n_launch, (_, ms_s) = device_launches(
+            lambda: events_ms(lambda: ti.run_realtime_twin_session(machine, device=dev)))
+        print(f"(x) run_realtime_twin_session {machine} f32 (320 samples, {info['n_plans']} plan "
+              f"points x 24 horizon ticks, the plan points one batch): all-pass rate "
+              f"{float(info['all_pass_rate'])!r}, worst mean risk "
+              f"{float(info['worst_mean_risk'])!r}, min safe-horizon rate "
+              f"{float(info['min_safe_horizon_rate'])!r}; {n_launch} device launches a session "
+              f"(plain ops; profiled run {ms_s:.1f} ms) [{card}]")
+        if machine == "SPARC":
+            require(float(info["all_pass_rate"]) == 1.0 and info["chaos_dropouts"] == 0,
+                    "(x): the chaos-free SPARC session does not pass every plan")
+
+    s0 = dtw.twin_init(cfg, torch.float32, dev)
+    r_map, mask = dtw._geometry(cfg, torch.float32, dev)
+    zero = torch.zeros(200, dtype=torch.float32, device=dev)
+    ms_k = cuda_ms(lambda: cuda_twin.twin_shot(cfg, r_map, mask, s0, zero))
+    work = twin_work(48, 200, 4)
+    b, by = bound(work)
+    print(f"time (x) row D (48^2 x 200 steps, f32): kernel {ms_k:.4f} ms ({1e3 * ms_k / 200:.3f} "
+          f"us a step; median of 5), plain loop {measured_plain['twin_shot']:.1f} ms (once), bound "
+          f"{b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, {work[1] / 1e6:.4g} Mflop), dependent "
+          f"chain ~{ladder_chain_ms(200, TWIN_DEPTH):.4f} ms (200 steps x ~{TWIN_DEPTH} "
+          f"dependent operations x 4 cycles, 2 barriers a step besides); library_ms null (no "
+          f"PyTorch call computes a twin step) [{card}]")
+    return launches
+
+
+def device_launches(run):
+    """(device kernel launches, result) of one ``run()`` under ``torch.profiler``."""
+    import torch
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return n, out
+
+
+def bus_checks(dev, card: str, counted, by_path: dict) -> None:
+    """(y) the bus's parity oracle ``run_monolithic_twin`` (numpy, carried
+    over) against the port's ``run_shot_reduced`` in float64 on the card (one
+    launch of row R) at atol 1e-12, as ``tests/test_realtime_bus.py:31-52``
+    holds it against JAX; then one three-process ``run_realtime_session``
+    of 400 ticks (physics, controller and diagnostics in spawned
+    interpreters over a manager dict) with the gates of
+    ``tests/test_realtime_bus.py:85-97``."""
+    import torch
+    from scpn_fusion_tpu_torch.control import realtime_bus as bus
+    from scpn_fusion_tpu_torch.control.flight_sim import FlightSimParams, run_shot_reduced
+
+    params = FlightSimParams(control_hz=100.0, shot_duration_s=2.0)
+    (trace, metrics), calls, launched = counted(
+        lambda: run_shot_reduced(params, dtype=torch.float64, device=dev))
+    twin = bus.run_monolithic_twin(params)
+    worst = 0.0
+    for key, ours in (("r", trace.r), ("z", trace.z), ("beta", trace.beta),
+                      ("heating", trace.heating_mw), ("ip_ma", trace.ip_ma),
+                      ("r_err", trace.r_err), ("z_err", trace.z_err)):
+        worst = max(worst, float(np.max(np.abs(twin[key] - ours.cpu().numpy()))))
+    same_flags = bool(np.array_equal(twin["disrupted"], trace.disrupted.cpu().numpy()))
+    want = {name: int(name == "reduced_shot") for name in KERNELS}
+    print(f"(y) the bus oracle (run_monolithic_twin, {params.n_steps} ticks f64) against "
+          f"run_shot_reduced through row R: max abs deviation {worst!r} (limit "
+          f"{BUS_ORACLE_TOL:.0e}), disrupted flags equal {same_flags}, r_err final "
+          f"{float(metrics['r_err_final'])!r}; wrapper calls "
+          f"{ {k: v for k, v in calls.items() if v} }, launches {launched} [{card}]")
+    require(worst <= BUS_ORACLE_TOL and same_flags, "(y): the bus oracle deviates from row R")
+    require(calls == want and launched == {"scpn_reduced_shot_f64": 1},
+            f"(y): {calls} / {launched}, not one launch of row R")
+    by_path["bus_oracle"] = calls
+
+    res = bus.run_realtime_session(n_ticks=BUS_TICKS, tick_interval_s=0.002)
+    gates = (res.n_ticks == BUS_TICKS and res.final_r_err < 0.5 * res.open_loop_r_err
+             and res.final_r_err < 0.05 and res.final_z_err < 0.05
+             and res.controller_actions >= BUS_TICKS // 4
+             and res.diagnostics["n_seen"] == BUS_TICKS
+             and res.diagnostics["disrupted_any"] is False
+             and res.diagnostics["r_err_rms_window"] < 0.05)
+    print(f"(y) run_realtime_session({BUS_TICKS}), three spawned processes: final r error "
+          f"{res.final_r_err!r} (open loop {res.open_loop_r_err!r}), z error {res.final_z_err!r}, "
+          f"controller actions {res.controller_actions}, stale reads {res.stale_action_reads}, "
+          f"diagnostics seen {res.diagnostics['n_seen']}, window rms "
+          f"{res.diagnostics['r_err_rms_window']!r}; wall {res.wall_s:.2f} s; gates {gates}")
+    require(gates, "(y): the three-process bus session misses its gates")
+
+
+def early_twins(stack: contextlib.ExitStack) -> dict:
+    """Start, right after the build, the processes whose results later
+    paths wait for: the CPU twins of (k), (o) and (v), and the host-bound
+    card-side runs of (k)'s plain Thomas loop and (o)'s :data:`CARD_LANES`,
+    each in a spawned process that drives the card beside this one (the card
+    is idle > 90% of their time).  ``stack`` ends them on the way out."""
+    targets = {"torax_plain": torax_plain_on_card, "control_card": control_lanes_on_card,
+               "torax_cpu": torax_on_cpu, "control_cpu": control_lanes_on_cpu,
+               "gk_lanes_cpu": gk_lanes_on_cpu}
+    return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+
+
 def main() -> int:
+    with contextlib.ExitStack() as stack:
+        return _main(stack)
+
+
+def _main(stack: contextlib.ExitStack) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2993,6 +3512,7 @@ def main() -> int:
     require(clusters >= 1, f"no cluster of the fused V-cycle fits the device ({clusters})")
     require(resident >= cb.source_blocks(1 << 30),
             f"the fused source's blocks are not all resident ({resident})")
+    twins = early_twins(stack)
     phase_done("build")
 
     # ── 3. kernels against their plain versions, float32, the paths' shapes ──
@@ -3489,7 +4009,8 @@ def main() -> int:
                 "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
-                "reduced_shot": 0, "ladder": 0, "gk_rhs": 0}
+                "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
+                "twin_shot": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -3599,7 +4120,8 @@ def main() -> int:
                  "fused_coarse_vcycle": vcycles,
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
-                 "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0}
+                 "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
+                "twin_shot": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -3958,7 +4480,7 @@ def main() -> int:
     phase_done("Thomas kernel checks")
     coupled_calls = coupled_lane(dev, card, counted, by_path)
     phase_done("coupled GS <-> transport")
-    torax_lane(dev, card, counted, by_path)
+    torax_lane(dev, card, counted, by_path, twins["torax_plain"], twins["torax_cpu"])
     phase_done("TORAX coarse tier")
     transport_lanes(dev, card, counted, by_path)
     phase_done("transport lanes")
@@ -3972,7 +4494,7 @@ def main() -> int:
     closed_calls = closed_loop_checks(dev, card, counted, by_path, results, timing,
                                       measured_plain)
     phase_done("SCPN closed loop")
-    control_lanes(dev, card, counted, by_path)
+    control_lanes(dev, card, counted, by_path, twins["control_card"], twins["control_cpu"])
     phase_done("control lanes")
 
     # ── the eleventh slice: (p) row R with the stress campaign and the PID
@@ -3994,11 +4516,23 @@ def main() -> int:
 
     # ── the fourteenth slice: (u) the nonlinear GK run through row G, (v) the
     # reduced GK lanes on plain ops ──
-    with cpu_twin(gk_lanes_on_cpu) as gk_lanes_cpu:      # (v)'s CPU twin, beside (u)
-        gk_calls = gk_nonlinear_lane(dev, card, counted, by_path, results, timing)
-        phase_done("nonlinear GK (u)")
-        gk_reduced_lanes(dev, card, counted, by_path, gk_lanes_cpu)
-        phase_done("reduced GK lanes (v)")
+    gk_calls = gk_nonlinear_lane(dev, card, counted, by_path, results, timing)
+    phase_done("nonlinear GK (u)")
+    gk_reduced_lanes(dev, card, counted, by_path, twins["gk_lanes_cpu"])
+    phase_done("reduced GK lanes (v)")
+
+    # ── the fifteenth slice: (w) row N's kinds 2 and 3 (the fueling shot, the
+    # TORAX-style campaign), (x) row D (the digital twin) with the realtime twin
+    # sessions, the FPGA export's report and the directed mission, (y) the bus
+    # oracle through row R and the three-process bus session ──
+    with cpu_twin(fueling_lanes_on_cpu) as fueling_cpu, cpu_twin(twin_lanes_on_cpu) as twin_cpu:
+        fueling_checks(dev, card, counted, by_path, fueling_cpu)
+        phase_done("fueling and campaign (w)")
+        twin_calls = twin_checks(dev, card, counted, by_path, results, timing, measured_plain,
+                                 twin_cpu)
+        phase_done("digital twin (x)")
+    bus_checks(dev, card, counted, by_path)
+    phase_done("realtime bus (y)")
 
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
@@ -4010,6 +4544,7 @@ def main() -> int:
     launches["reduced_shot"] = reduced_calls
     launches["ladder"] = ladder_calls
     launches["gk_rhs"] = gk_calls
+    launches["twin_shot"] = twin_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

@@ -7,8 +7,10 @@ same names.  Ported: ``pid``, ``actuator``, ``flight_sim``,
 ``tuning``, ``stress``, ``surrogate_mpc``, ``disruption``,
 ``disruption_seq``, ``disruption_transfer``, ``replay``,
 ``disturbance_ladder``, ``federated``, ``safe_rl``, ``soc_learning``,
-``neuro_cybernetic``, ``nef_snn`` and ``neural_kernel``; the other modules of
-the JAX package's ``control/`` come with later slices.
+``neuro_cybernetic``, ``nef_snn``, ``neural_kernel``, ``fueling_torax``,
+``digital_twin``, ``twin_ingest`` and ``fpga_export``, with ``realtime_bus``
+and ``director`` carried over; the other modules of the JAX package's
+``control/`` come with later slices.
 """
 
 from scpn_fusion_tpu_torch.control.actuator import (  # noqa: F401
@@ -35,6 +37,12 @@ from scpn_fusion_tpu_torch.control.optimal_scenario import (  # noqa: F401
     ShotKnobs,
     optimize_shot,
     shot_objective,
+)
+from scpn_fusion_tpu_torch.control.twin_ingest import (  # noqa: F401
+    TelemetryStream,
+    generate_emulated_stream,
+    run_realtime_twin_session,
+    scenario_plan,
 )
 from scpn_fusion_tpu_torch.control.tuning import (  # noqa: F401
     CEMResult,

@@ -7,15 +7,23 @@ to ``cb.CALLS["closed_loop"]``.  :func:`closed_loop_linear` runs the same
 kernel against its second plant kind, the linear vertical plant of the
 disturbance-rejection ladder (``control/disturbance_ladder.py``: one
 observed axis z, one action u clipped to +-u_max, a disturbance a tick), and
-counts under the same name.  The JAX package has no Pallas kernel here: its
-``run_neuro_closed_loop`` and the ladder's ``run_snn`` are each one
-``lax.scan`` of controller and plant inside one compiled program, and this
-launch takes that program's place.
+counts under the same name.  :func:`closed_loop_fueling` (plant kind 2) runs
+the 0-D density model of ``control/fueling_torax.run_fueling_mode`` and
+:func:`closed_loop_torax` (plant kind 3) every episode of
+``run_torax_hybrid_campaign``, one CTA an episode, in one launch; both count
+under the same name too.  The JAX package has no Pallas kernel here: its
+``run_neuro_closed_loop``, the ladder's ``run_snn``, the fueling shot and the
+campaign are each one ``lax.scan`` of controller and plant inside one
+compiled program (the campaign ``vmap``s its episodes), and each launch
+takes that program's place.
 
 On a CPU tensor the wrappers run the kernel's plain versions, the per-tick
 loops of the port's ``controller_step`` and the plant step
 (:func:`closed_loop_plain`, :func:`closed_loop_linear_plain`; the linear
-plant's 2x2 product spelled out elementwise, as the kernel rounds it).  On a
+plant's 2x2 product spelled out elementwise, as the kernel rounds it;
+:func:`closed_loop_fueling_plain` and :func:`closed_loop_torax_plain` loop
+``fueling_torax.fueling_step`` and ``torax_step``, the campaign's episodes
+as one ``torch.func.vmap`` batch).  On a
 CUDA tensor they launch the kernel or raise; they raise on a configuration
 that draws random numbers (a sampled firing vector or bit flips), which
 ``run_neuro_closed_loop`` keeps on the per-tick loop, and on a net too large
@@ -35,6 +43,7 @@ _ENTRIES = {torch.float32: "scpn_closed_loop_f32", torch.float64: "scpn_closed_l
 MAX_THREADS = 1024
 MAX_SMEM_BYTES = 227 * 1024
 _MODES = {"fractional": 0, "binary_margin": 1, "binary": 2}
+LEAK = 1.15     # the fueling plant's leak rate and fueling gain (run_fueling_mode)
 
 
 class _Args(ctypes.Structure):
@@ -44,11 +53,24 @@ class _Args(ctypes.Structure):
         "w_in", "w_out", "thresholds", "delays", "axis_targets", "axis_scales", "inj_place",
         "inj_axis", "inj_is_pos", "inj_scale", "inj_offset", "act_pos", "act_neg", "act_gain",
         "act_abs_max", "act_slew", "marking", "pending", "cursor", "prev_actions", "plant",
-        "trace_r", "trace_z", "trace_actions", "trace_firing", "lin_plant", "lin_d")] + [
+        "trace_r", "trace_z", "trace_actions", "trace_firing", "lin_plant", "lin_d", "noise",
+        "trace_c")] + [
         (name, ctypes.c_int) for name in (
-            "n_p", "n_t", "n_i", "n_act", "n_slots", "n_ticks", "mode", "plant_kind")] + [
+            "n_p", "n_t", "n_i", "n_act", "n_slots", "n_ticks", "mode", "plant_kind",
+            "n_shots")] + [
         (name, ctypes.c_double) for name in ("margin", "ctrl_dt", "plant_dt", "drift_r",
-                                             "u_max")]
+                                             "u_max", "target", "baseline")]
+_POINTERS = 29      # the pointer fields lead the block
+
+
+class FuelingPlant(NamedTuple):
+    """The 0-D density model of ``run_fueling_mode`` for
+    :func:`closed_loop_fueling`: the density setpoint, the start density
+    and the step ``dt`` (leak and fueling gain 1.15, commands in [-2, 2])."""
+
+    target: float
+    density0: float
+    dt: float
 
 
 class LinearPlant(NamedTuple):
@@ -92,11 +114,15 @@ def closed_loop_plain(ctrl, cfg, plant0, *, n_ticks: int, dt: float):
     return cs, ps, {"r": r, "z": z, "actions": actions, "firing": firing}
 
 
-def check_closed_loop(ctrl, cfg, plant0, n_ticks: int, linear: LinearPlant | None = None) -> None:
+def check_closed_loop(ctrl, cfg, plant0, n_ticks: int, linear: LinearPlant | None = None,
+                      *, kind: int | None = None, inputs: dict | None = None) -> None:
     """Raise unless the kernel takes this controller, configuration and plant
-    (the reduced plant, or with ``linear`` the linear one)."""
+    (the reduced plant, with ``linear`` the linear one, or plant kind
+    ``kind`` 2 or 3 with its per-tick ``inputs``)."""
     from scpn_fusion_tpu_torch.scpn.controller import needs_draws
 
+    if kind is None:
+        kind = int(linear is not None)
     if needs_draws(cfg):
         raise ValueError("closed_loop: the kernel runs deterministic configurations only "
                          "(no sampled firing, no bit flips); this one draws random numbers")
@@ -105,27 +131,34 @@ def check_closed_loop(ctrl, cfg, plant0, n_ticks: int, linear: LinearPlant | Non
         raise TypeError(f"closed_loop: float32 or float64, got {dtype}")
     n_t, n_p = ctrl.w_in.shape
     n_act = ctrl.act_gain.shape[0]
-    if linear is not None:
+    tensors = {**ctrl._asdict(), **{f"plant[{i}]": t for i, t in enumerate(plant0)}}
+    if kind in (1, 2, 3):
         if ctrl.axis_targets.shape != (1,) or ctrl.axis_scales.shape != (1,) or n_act != 1:
-            raise ValueError("closed_loop: the linear plant observes z and takes one action")
+            raise ValueError("closed_loop: this plant feeds one axis and takes one action")
+    if kind == 1:
         if linear.matrices.shape != (8,) or linear.d.shape != (n_ticks,):
             raise ValueError("closed_loop: the linear plant takes 8 coefficients and a "
                              "disturbance a tick")
-        if not (linear.matrices.is_contiguous() and linear.d.is_contiguous()):
-            raise ValueError("closed_loop: the linear plant's tensors must be contiguous")
-    else:
+        tensors.update(matrices=linear.matrices, d=linear.d)
+    elif kind == 3:
+        n_shots = plant0[0].shape[0] if plant0[0].dim() else 0
+        if inputs["d"].shape != (n_shots, n_ticks) or inputs["noise"].shape != (
+                n_shots, n_ticks, 2) or n_shots < 1:
+            raise ValueError("closed_loop: the TORAX-style plant takes (episodes, ticks) "
+                             "disturbances and (episodes, ticks, 2) normals")
+        tensors.update(inputs)
+    elif kind == 0:
         if ctrl.axis_targets.shape != (2,) or ctrl.axis_scales.shape != (2,):
             raise ValueError("closed_loop: the reduced plant observes (r, z): two feature axes")
         if n_act < 2:
             raise ValueError("closed_loop: the reduced plant takes actions 0 and 1")
-    tensors = {**ctrl._asdict(), "r": plant0[0], "z": plant0[1]}
-    if linear is not None:
-        tensors.update(matrices=linear.matrices, d=linear.d)
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"closed_loop: {name} must be a CUDA tensor, got {t.device}")
         if t.is_floating_point() and t.dtype != dtype:
             raise TypeError(f"closed_loop: {name} is {t.dtype}, the net is {dtype}")
+        if name in ("matrices", "d", "noise") and not t.is_contiguous():
+            raise ValueError(f"closed_loop: the plant's {name} must be contiguous")
     if max(n_p, n_t, ctrl.inj_place_ids.shape[0], n_act) > MAX_THREADS:
         raise ValueError(f"closed_loop: more than {MAX_THREADS} places, transitions, "
                          "injections or actions")
@@ -138,46 +171,67 @@ def check_closed_loop(ctrl, cfg, plant0, n_ticks: int, linear: LinearPlant | Non
 
 
 def launch_args(ctrl, cfg, plant0, *, n_ticks: int, dt: float,
-                linear: LinearPlant | None = None):
+                linear: LinearPlant | None = None, kind: int | None = None,
+                inputs: dict | None = None, target: float = 0.0, baseline: float = 0.0):
     """The kernel's argument block, its outputs and its thread count: (args,
     (marking, pending, cursor, prev_actions, plant), trace, threads).  The
     outputs start as the initial controller state and ``plant0``; the
     tensors stay on ``ctrl``'s device (only the pointers go to the kernel).
     With ``linear`` the plant is the linear one (``plant0`` its (z, dz/dt))
-    and the trace's r and z hold the z seen and the clipped command u."""
+    and the trace's r and z hold the z seen and the clipped command u.  Plant
+    ``kind`` 2 (fueling: ``plant0`` (density, integral)) and 3 (TORAX-style:
+    ``plant0`` (beta_N, q95, li3, W_th), each of shape (episodes,), and
+    ``inputs`` the disturbance ``d`` and the normals ``noise``) add the
+    trace ``c``; kind 3 gives every output a leading episode axis."""
     from scpn_fusion_tpu_torch.scpn.controller import initial_controller_state
 
+    if kind is None:
+        kind = int(linear is not None)
     ctrl = type(ctrl)(*(t.contiguous() for t in ctrl))
     s0 = initial_controller_state(ctrl, cfg)
-    state = (s0.marking.clone(), s0.pending.clone(), s0.cursor.clone(), s0.prev_actions.clone(),
-             torch.stack([plant0[0], plant0[1]]).contiguous())
+    plant = torch.stack(list(plant0), dim=-1).contiguous()
+    batch = tuple(plant.shape[:-1])
+    # fresh tensors: the kernel writes the final state into them
+    state = (*(t.new_empty((*batch, *t.shape)).copy_(t) for t in s0), plant)
     n_t, n_p = ctrl.w_in.shape
     n_i, n_act = ctrl.inj_place_ids.shape[0], ctrl.act_gain.shape[0]
     dev, dtype = ctrl.w_in.device, ctrl.w_in.dtype
-    trace = {"r": torch.empty(n_ticks, dtype=dtype, device=dev),
-             "z": torch.empty(n_ticks, dtype=dtype, device=dev),
-             "actions": torch.empty((n_ticks, n_act), dtype=dtype, device=dev),
-             "firing": torch.empty((n_ticks, n_t), dtype=dtype, device=dev)}
+
+    def empty(*shape):
+        return torch.empty((*batch, n_ticks, *shape), dtype=dtype, device=dev)
+
+    trace = {"r": empty(), "z": empty(), "actions": empty(n_act), "firing": empty(n_t)}
+    if kind >= 2:
+        trace["c"] = empty()
     mode, margin = firing_mode(cfg)
     ptr = {name: t.data_ptr() for name, t in ctrl._asdict().items()}
     ptr.update(zip(("marking", "pending", "cursor", "prev_actions", "plant"),
                    (t.data_ptr() for t in state)))
     ptr.update({f"trace_{key}": t.data_ptr() for key, t in trace.items()})
+    ptr.setdefault("trace_c", None)
     renamed = {"inj_place": "inj_place_ids", "inj_axis": "inj_axis_idx",
                "act_slew": "act_slew_per_s"}
-    if linear is not None:
+    ptr.update(lin_plant=None, lin_d=None, noise=None)
+    if kind == 1:
         ptr.update(lin_plant=linear.matrices.data_ptr(), lin_d=linear.d.data_ptr())
-    else:
-        ptr.update(lin_plant=None, lin_d=None)
-    pointers = {name: ptr[renamed.get(name, name)] for name, _ in _Args._fields_[:27]}
+    elif kind == 3:
+        ptr.update(lin_d=inputs["d"].data_ptr(), noise=inputs["noise"].data_ptr())
+    pointers = {name: ptr[renamed.get(name, name)] for name, _ in _Args._fields_[:_POINTERS]}
     args = _Args(**pointers, n_p=n_p, n_t=n_t, n_i=n_i, n_act=n_act,
                  n_slots=cfg.max_delay_ticks + 1, n_ticks=n_ticks, mode=_MODES[mode],
-                 plant_kind=int(linear is not None), margin=margin, ctrl_dt=cfg.dt,
-                 plant_dt=linear.dt if linear is not None else dt,
+                 plant_kind=kind, n_shots=batch[0] if batch else 1, margin=margin,
+                 ctrl_dt=cfg.dt, plant_dt=linear.dt if kind == 1 else dt,
                  drift_r=0.01,     # reduced_plant_step's 0.01 * beta at its beta = 1
-                 u_max=linear.u_max if linear is not None else 0.0)
+                 u_max=linear.u_max if kind == 1 else 0.0, target=target, baseline=baseline)
     threads = min(MAX_THREADS, 32 * ((max(n_p, n_t, n_i, n_act) + 31) // 32))
     return args, state, trace, threads
+
+
+def _final_state(state):
+    from scpn_fusion_tpu_torch.scpn.controller import ControllerState
+
+    *controller, plant = state
+    return ControllerState(*controller), plant
 
 
 def closed_loop(ctrl, cfg, plant0, *, n_ticks: int, dt: float):
@@ -187,14 +241,13 @@ def closed_loop(ctrl, cfg, plant0, *, n_ticks: int, dt: float):
     if not ctrl.w_in.is_cuda:
         return closed_loop_plain(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt)
     from scpn_fusion_tpu_torch.control.neuro_closed_loop import ReducedPlantState
-    from scpn_fusion_tpu_torch.scpn.controller import ControllerState
 
     check_closed_loop(ctrl, cfg, plant0, n_ticks)
     args, state, trace, threads = launch_args(ctrl, cfg, plant0, n_ticks=n_ticks, dt=dt)
     cb.launch(_ENTRIES[ctrl.w_in.dtype], ctypes.addressof(args), threads)
     cb.CALLS["closed_loop"] += 1
-    *controller, plant = state
-    return ControllerState(*controller), ReducedPlantState(plant[0], plant[1]), trace
+    cs, plant = _final_state(state)
+    return cs, ReducedPlantState(plant[0], plant[1]), trace
 
 
 def closed_loop_linear_plain(ctrl, cfg, x0, plant: LinearPlant):
@@ -223,15 +276,104 @@ def closed_loop_linear(ctrl, cfg, x0, plant: LinearPlant):
     controller state and ``x0`` (z, dz/dt): as :func:`closed_loop_linear_plain`."""
     if not ctrl.w_in.is_cuda:
         return closed_loop_linear_plain(ctrl, cfg, x0, plant)
-    from scpn_fusion_tpu_torch.scpn.controller import ControllerState
-
     n_ticks = plant.d.shape[0]
     check_closed_loop(ctrl, cfg, (x0[0], x0[1]), n_ticks, plant)
     args, state, trace, threads = launch_args(ctrl, cfg, (x0[0], x0[1]), n_ticks=n_ticks,
                                               dt=plant.dt, linear=plant)
     cb.launch(_ENTRIES[ctrl.w_in.dtype], ctypes.addressof(args), threads)
     cb.CALLS["closed_loop"] += 1
-    *controller, final = state
-    return ControllerState(*controller), final, {
+    cs, final = _final_state(state)
+    return cs, final, {
         "z": trace["r"], "u": trace["z"], "actions": trace["actions"],
         "firing": trace["firing"]}
+
+
+def _fueling_start(ctrl, plant: FuelingPlant):
+    """The fueling plant's start state (density0, integral 0) on ``ctrl``'s device."""
+    like = ctrl.initial_marking
+    return (torch.full((), plant.density0, dtype=like.dtype, device=like.device),
+            torch.zeros((), dtype=like.dtype, device=like.device))
+
+
+def closed_loop_fueling_plain(ctrl, cfg, plant: FuelingPlant, *, n_ticks: int):
+    """The per-tick loop :func:`closed_loop_fueling` replaces: (final
+    controller state, final (density, integral) (2,), trace of density,
+    command, error (n,), actions (n, 1) and firing (n, nT))."""
+    from scpn_fusion_tpu_torch.control.fueling_torax import fueling_step
+    from scpn_fusion_tpu_torch.scpn.controller import initial_controller_state
+
+    carry = (*_fueling_start(ctrl, plant), initial_controller_state(ctrl, cfg))
+    rows = []
+    for k in range(n_ticks):
+        carry, row = fueling_step(ctrl, cfg, plant, carry, k)
+        rows.append(row)
+    density, integ, cs = carry
+    cols = (torch.stack(col) for col in zip(*rows))
+    return cs, torch.stack([density, integ]), dict(
+        zip(("density", "command", "error", "actions", "firing"), cols))
+
+
+def closed_loop_fueling(ctrl, cfg, plant: FuelingPlant, *, n_ticks: int):
+    """``n_ticks`` of controller + the fueling plant from the initial
+    controller state, density ``plant.density0`` and integral 0: as
+    :func:`closed_loop_fueling_plain`, in one launch on the card."""
+    if not ctrl.w_in.is_cuda:
+        return closed_loop_fueling_plain(ctrl, cfg, plant, n_ticks=n_ticks)
+    plant0 = _fueling_start(ctrl, plant)
+    check_closed_loop(ctrl, cfg, plant0, n_ticks, kind=2)
+    args, state, trace, threads = launch_args(
+        ctrl, cfg, plant0, n_ticks=n_ticks, dt=plant.dt, kind=2, target=plant.target,
+        baseline=LEAK * plant.target)
+    cb.launch(_ENTRIES[ctrl.w_in.dtype], ctypes.addressof(args), threads)
+    cb.CALLS["closed_loop"] += 1
+    cs, final = _final_state(state)
+    return cs, final, {"density": trace["r"], "command": trace["z"], "error": trace["c"],
+                       "actions": trace["actions"], "firing": trace["firing"]}
+
+
+def closed_loop_torax_plain(ctrl, cfg, plant0, d, noise):
+    """The per-tick loop :func:`closed_loop_torax` replaces, every episode
+    in one batch (``torch.func.vmap`` of ``fueling_torax.torax_step``):
+    (final controller states, final plant (E, 4), trace of beta_N, q95, risk
+    (E, n), actions (E, n, 1) and firing (E, n, nT))."""
+    from scpn_fusion_tpu_torch.control.fueling_torax import torax_step
+    from scpn_fusion_tpu_torch.scpn.controller import ControllerState, initial_controller_state
+
+    n_shots, n_ticks = d.shape
+    cs = tuple(t.expand(n_shots, *t.shape) for t in initial_controller_state(ctrl, cfg))
+    carry = (*plant0, cs)
+
+    def tick(k):
+        def one(beta, q95, li3, w_th, state, d_k, noise_k):
+            (*x, state), row = torax_step(ctrl, cfg, (beta, q95, li3, w_th,
+                                                      ControllerState(*state)), k, d_k, noise_k)
+            return (*x, tuple(state)), row
+        return torch.func.vmap(one)
+
+    rows = []
+    for k in range(n_ticks):
+        carry, row = tick(k)(*carry, d[:, k], noise[:, k])
+        rows.append(row)
+    *plant, cs = carry
+    cols = (torch.stack(col, dim=1) for col in zip(*rows))
+    return ControllerState(*cs), torch.stack(plant, dim=-1), dict(
+        zip(("beta_n", "q95", "risk", "actions", "firing"), cols))
+
+
+def closed_loop_torax(ctrl, cfg, plant0, d, noise):
+    """Every episode of the TORAX-style campaign from the initial controller
+    state and ``plant0`` (beta_N, q95, li3, W_th, each (E,)), with the
+    disturbance ``d`` (E, n) and the normals ``noise`` (E, n, 2) of every
+    tick: as :func:`closed_loop_torax_plain`, in one launch of E CTAs on the
+    card."""
+    if not ctrl.w_in.is_cuda:
+        return closed_loop_torax_plain(ctrl, cfg, plant0, d, noise)
+    inputs = {"d": d, "noise": noise}
+    check_closed_loop(ctrl, cfg, plant0, d.shape[1], kind=3, inputs=inputs)
+    args, state, trace, threads = launch_args(ctrl, cfg, plant0, n_ticks=d.shape[1], dt=0.0,
+                                              kind=3, inputs=inputs)
+    cb.launch(_ENTRIES[ctrl.w_in.dtype], ctypes.addressof(args), threads)
+    cb.CALLS["closed_loop"] += 1
+    cs, final = _final_state(state)
+    return cs, final, {"beta_n": trace["r"], "q95": trace["z"], "risk": trace["c"],
+                       "actions": trace["actions"], "firing": trace["firing"]}

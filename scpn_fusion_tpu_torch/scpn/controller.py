@@ -279,8 +279,7 @@ def _controller_step(
     axis = ctrl.inj_axis_idx.long()
     values = torch.where(ctrl.inj_is_pos, pos[axis], neg[axis])
     values = torch.clamp(values * ctrl.inj_scale + ctrl.inj_offset, 0.0, 1.0)
-    m = state.marking.clone()
-    m[ctrl.inj_place_ids.long()] = values.to(dtype)
+    m = state.marking.index_put((ctrl.inj_place_ids.long(),), values.to(dtype))
 
     # Activations and firing probability.
     p_fire = _firing_probability(ctrl, cfg, ctrl.w_in @ m)

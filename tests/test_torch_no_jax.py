@@ -69,3 +69,13 @@ def test_no_jax_import_in_source():
                 continue
             for name in names:
                 assert name.split(".")[0] not in BLOCKED, f"{f}: imports {name}"
+
+
+def test_slice_modules_are_scanned():
+    """The modules of each later slice are among those both checks cover
+    (control slice 4a: five ported, three carried over, and row D's wrapper)."""
+    mods = set(_modules())
+    for name in ("control.fueling_torax", "control.digital_twin", "control.twin_ingest",
+                 "control.fpga_export", "control.realtime_bus", "control.director",
+                 "io.imas_history", "ops.cuda_twin"):
+        assert f"scpn_fusion_tpu_torch.{name}" in mods, name

@@ -84,11 +84,18 @@ it profiles one RK4 step of the nonlinear gyrokinetic run
 and at the 32^3 complex128 spec (``bench_config.GK_SPEC_32``), on plain ops
 and through row G (``csrc/gk_rhs.cu``, four launches a step), times ms a
 step of each in turns with CUDA events, and times the host µs of one row-G
-wrapper call and of its parts.  Each prints what the solves above print.
+wrapper call and of its parts.  With ``--twin`` it profiles control slice
+4a's three kernel paths, each on its plain loop and through its kernel: the
+fueling shot (``run_fueling_mode``, 3000 ticks; row N's plant kind 2), the
+TORAX-style campaign (16 episodes x 220 ticks; kind 3) and the digital twin
+(48^2 x 200 steps; row D, ``csrc/digital_twin.cu``), all float32, and one
+default realtime twin session (``twin_ingest``, plain ops).  Each prints
+what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
-| --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk]``.
+| --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
+| --twin]``.
 Exits non-zero without one.
 """
 
@@ -856,6 +863,72 @@ def profile_gk(card: str) -> None:
         gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card)
 
 
+def profile_twin(card: str) -> None:
+    """Control slice 4a's kernel paths, float32, each profiled as one solve on
+    its plain loop and through its kernel (launches, device time, idle
+    share), and one default realtime twin session on plain ops."""
+    import torch
+    from scpn_fusion_tpu_torch.control import digital_twin as dtw
+    from scpn_fusion_tpu_torch.control import fueling_torax as ft
+    from scpn_fusion_tpu_torch.control import twin_ingest as ti
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_closed_loop as ccl
+    from scpn_fusion_tpu_torch.ops import cuda_twin
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+
+    dev, f32 = "cuda", torch.float32
+    ctrl = ft._build_axis_controller(5000.0, f32, dev)
+    cfg = sc.ControllerConfig(firing_mode="fractional", firing_margin=0.5, dt=1e-3)
+    plant = ccl.FuelingPlant(target=1.0, density0=0.82, dt=1e-3)
+    gen = torch.Generator().manual_seed(0)
+    amps = (0.25 + 0.5 * torch.rand(16, generator=gen, dtype=torch.float64)).to(dev, f32)
+    noise = torch.randn((16, 220, 2), generator=gen, dtype=torch.float64).to(dev, f32)
+    dist = ft.torax_disturbance(amps, 220)
+    plant0 = tuple(torch.full((16,), v, dtype=f32, device=dev) for v in (1.7, 5.1, 0.95, 140.0))
+    tcfg = dtw.TwinConfig()
+    r_map, mask = dtw._geometry(tcfg, f32, dev)
+    s0 = dtw.twin_init(tcfg, f32, dev)
+    zero = torch.zeros(200, dtype=f32, device=dev)
+    paths = (
+        ("fueling shot, 3000 ticks (row N kind 2)",
+         lambda: ccl.closed_loop_fueling_plain(ctrl, cfg, plant, n_ticks=3000),
+         lambda: ccl.closed_loop_fueling(ctrl, cfg, plant, n_ticks=3000)),
+        ("TORAX-style campaign, 16 x 220 ticks (row N kind 3)",
+         lambda: ccl.closed_loop_torax_plain(ctrl, cfg, plant0, dist, noise),
+         lambda: ccl.closed_loop_torax(ctrl, cfg, plant0, dist, noise)),
+        ("digital twin, 48^2 x 200 steps (row D)",
+         lambda: cuda_twin.twin_shot_plain(tcfg, r_map, mask, s0, zero),
+         lambda: cuda_twin.twin_shot(tcfg, r_map, mask, s0, zero)),
+    )
+    for label, plain, kernel in paths:
+        out = profile_solve(card, f"{label}, plain loop",
+                            lambda run=plain: {"ran": run() is not None}, None)
+        print(f"{label}, plain loop: {out['launches']} device launches, {out['device_ms']:.4f} ms "
+              f"of device time, {out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+        # the one launch: its count from the wrapper's launch counter, its
+        # device time from CUDA events around it, its wall time from the host
+        kernel()
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        device_ms = cuda_events_ms(kernel)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        print(f"{label}, kernel: {cb.kernel_launches()} device launch(es), {device_ms:.4f} ms "
+              f"between CUDA events around it, {wall_ms:.3f} ms of wall time, idle share "
+              f"{1.0 - device_ms / wall_ms:.3f} [{card}]")
+
+    def session():
+        _, info = ti.run_realtime_twin_session("SPARC", device=dev)
+        return {"plans": info["n_plans"], "all pass": float(info["all_pass_rate"])}
+
+    out = profile_solve(card, "realtime twin session, SPARC, 39 plans x 24 ticks (plain ops)",
+                        session, None)
+    print(f"realtime twin session: {out['launches']} device launches, {out['device_ms']:.4f} ms "
+          f"of device time, {out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card: str) -> None:
     """Host µs of one row-G wrapper call at stage 2 of 4 (perf_counter around
     200 calls, queued without a sync; median of 5), and of its parts: the
@@ -935,6 +1008,10 @@ def main() -> int:
     group.add_argument("--gk", action="store_true",
                        help="profile one RK4 step of the nonlinear GK run at the default "
                             "config and the 32^3 spec, on plain ops and through row G")
+    group.add_argument("--twin", action="store_true",
+                       help="profile the fueling shot, the TORAX-style campaign and the digital "
+                            "twin on their plain loops and through rows N and D, and one "
+                            "realtime twin session")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -984,6 +1061,9 @@ def main() -> int:
         return 0
     if opts.gk:
         profile_gk(card)
+        return 0
+    if opts.twin:
+        profile_twin(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
