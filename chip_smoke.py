@@ -130,9 +130,24 @@ them:
 * (y) the realtime bus: its numpy parity oracle against the port's
   ``run_shot_reduced`` (one launch of row R) in float64 at atol 1e-12, and
   one three-process session of 400 ticks with its gates.
+* (z) row B, the Newcomb field-line integration of the ideal ballooning
+  equation (``csrc/ballooning.cu``, ``ops/cuda_ballooning.newcomb_min_xi``:
+  one thread a line, the RK4 loop inside): the second-stability scan of
+  ``tests/test_ballooning.py`` (10 x 48 lines, 4000 steps, circular) and the
+  DIII-D bootstrap path (65 lines, 2000 steps, Miller) each in ONE launch,
+  ``torch.equal`` to the plain RK4 loop in float32 and float64; that test's
+  gates on the card; the s-alpha and shaped EPED tiers at the DIII-D
+  inputs, float64 against the CPU at 0.5, 1.0 and 1.5 MA;
+* (za) the detachment, RMF, PLL and converter loops and ``sensor_vote`` in
+  float64 against the CPU, and the three latency lanes of
+  ``validation/run_control_latency.py`` through the port's ``control.hil``
+  (the fused lane one launch of row N a call);
+* (zb) rt-EFIT built on the JAX test's layout at 129^2 and a round trip, in
+  float64 against the CPU; the default control-room session in float32
+  against the CPU; its kernel-backed psi lane on the 513^2 FMG psi.
 
-Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v) and (x)'s
-sessions, report and mission run plain
+Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
+sessions, report and mission, (za) but its fused lane, and (zb) run plain
 PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
@@ -255,6 +270,16 @@ Phases:
    chaos-free SPARC session passing every plan, device launches a session;
    (y): the bus oracle within 1e-12 of row R's float64 shot, the
    three-process session's gates (``tests/test_realtime_bus.py:85-97``);
+   (z): row B ``torch.equal`` to its plain loop on both shapes in both
+   dtypes, one launch a call, the gates of ``tests/test_ballooning.py`` in
+   65 counted launches, the EPED gates at 1.0 MA, f64 within 1e-9 of the
+   CPU; (za): the loops within 1e-9 of the CPU with their JAX tests' gates,
+   no kernel; the latency lanes' gates (PID p50 < 2000 us, SCPN tick p50 <
+   5000 us, fused mean < 100 us a tick in four row-N launches); (zb):
+   rt-EFIT within 1e-9 of the CPU with its gates, the control room within
+   1e-5 of the CPU with its summary's gates, the psi lane zero outside the
+   normalised psi's unit level and its z trace equal to the default
+   session's, no kernel;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -276,7 +301,7 @@ Phases:
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  Right after the build it starts, each in a spawned
-process, the CPU twins of (k), (o) and (v) and the host-bound card-side
+process, the CPU twins of (k), (o), (v) and (z)-(zb) and the host-bound card-side
 runs of (k)'s plain Thomas loop and (o)'s optimiser and tracking shot, so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
@@ -286,7 +311,8 @@ that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
 the Thomas kernel, over (n) for the closed-loop kernel, over (p)'s
 campaign and tuner for row R, over (r)'s f32 ladder for row L, over
-(u)'s default run for row G and over (x)'s default float32 shot for row D,
+(u)'s default run for row G, over (x)'s default float32 shot for row D and
+over (z)'s gates for row B,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -342,7 +368,7 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
-           "ladder", "gk_rhs", "twin_shot")
+           "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -364,6 +390,8 @@ SOURCES = {
     "gk_rhs": ("csrc/gk_rhs.cu", "scpn_fusion_tpu/models/gyrokinetics/nonlinear.py:395"),
     # no Pallas kernel: the JAX twin's shot is one lax.scan of twin_step
     "twin_shot": ("csrc/digital_twin.cu", "scpn_fusion_tpu/control/digital_twin.py:120"),
+    # no Pallas kernel: the JAX integration is one lax.scan, vmapped over the field lines
+    "newcomb_min_xi": ("csrc/ballooning.cu", "scpn_fusion_tpu/models/physics/ballooning.py:39"),
 }
 
 
@@ -3337,6 +3365,508 @@ def twin_checks(dev, card: str, counted, by_path: dict, results: dict, timing: d
     return launches
 
 
+# ── the sixteenth slice: (z) row B, the Newcomb field-line kernel, with the
+# ballooning and EPED tiers, (za) the plasma controllers, RMF, the converters
+# and the HIL latency lanes, (zb) rt-EFIT at 129^2 and the control room ──
+
+BALLOONING_GEOMETRY = dict(r0=1.67, a=0.67, rho=0.95, kappa=1.74, delta=0.3, q=5.7)  # test_ballooning.py:145
+EPED_DIIID = dict(n_ped_1e19=6.0, r0=1.67, a=0.67, b0=2.1, kappa=1.74)   # test_ballooning.py:188-192
+EPED_IP_MA = (0.5, 1.0, 1.5)
+EPED_P_KPA = 13.0            # the EPED1 point of tests/test_ballooning.py:196-198
+# operations a step of row B that the function needs.  On every line: w, f
+# and g depend on (s, alpha, theta) alone, so they are made at the step's
+# three theta values only (k2 and k3 share t + h/2): 8 each circular, 13
+# Miller (with the floor's max); the four u2 / f and g u1 (a negation is an
+# operand modifier, not counted); the stage inputs of k2, k3 and k4 (12);
+# the RK4 combination (14); the minimum.  Once a step for all lines: the
+# three theta values' coefficients (a sin, cos, rint or division counted as
+# one).  And the dependent operations a step on a line's chain (four
+# right-hand sides of ~8 with their division, the final combination): a
+# count, not a bound, for an IEEE division takes tens of cycles.
+NEWCOMB_OPS = {"circular": (59, 8), "miller": (74, 83)}
+NEWCOMB_DEPTH = {"circular": 33, "miller": 37}
+HIL_GATES = (2000.0, 5000.0, 100.0)   # run_control_latency.py:74, :99, :120: p50, p50, mean us
+EFIT_GRID = dict(NR=129, NZ=129, R_min=4.5, R_max=8.5, Z_min=-2.5, Z_max=2.5)  # test_realtime_efit.py:33-34 at 129^2
+EFIT_BUILD = dict(r_axis=6.5, a_minor=1.6, kappa=1.5)
+EFIT_COEFFS = (1.2e6, -0.3e6, 0.1e6, 0.5e6, 0.0, 0.0)      # test_realtime_efit.py:55-56
+EFIT_COILS = (1e5, -2e5, -2e5, 1e5)
+ROOM_TOL = 1e-5              # the control room, float32: of max |z|; absolute on the frames
+
+
+def newcomb_cases(dtype, device) -> dict:
+    """Row B's two timed shapes, as the entry points give them: the scan of
+    ``tests/test_ballooning.py:75-80`` (10 shears x 48 alphas, 4000 steps,
+    circular) and the DIII-D bootstrap path (65 points, 2000 steps, Miller):
+    op -> (s, alpha, tables, n_steps, label)."""
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import linspace
+    from scpn_fusion_tpu_torch.models.physics import ballooning as bal
+
+    s_vals = torch.tensor(np.linspace(0.2, 2.0, 10), dtype=dtype, device=device)
+    s, a, _ = bal._lines(s_vals[:, None], linspace(0.0, 5.0, 48, dtype, device)[None, :],
+                         dtype, device)
+    alphas = linspace(0.0, 16.0, 65, dtype, device)
+    s_eff = torch.tensor(2.04, dtype=dtype, device=device) - torch.tensor(
+        3.0, dtype=dtype, device=device) * alphas
+    tables = bal._miller_coefficients(**BALLOONING_GEOMETRY, n_theta=256, dtype=dtype,
+                                      device=device)
+    return {"circular": (s, a, None, 4000, "scan 10 x 48 lines x 4000 steps"),
+            "miller": (s_eff.contiguous(), alphas, tables, 2000,
+                       "DIII-D bootstrap path 65 lines x 2000 steps")}
+
+
+def newcomb_work(op: str, n_lines: int, n_steps: int, item: int, n_tab: int = 513):
+    """Row B: (bytes, operations, peak rate): s and alpha read and min xi
+    written once a line, the Miller tables once; the operations of
+    :data:`NEWCOMB_OPS`."""
+    per_line, shared = NEWCOMB_OPS[op]
+    n_bytes = 3 * n_lines * item + (7 * n_tab * item if op == "miller" else 0)
+    return (float(n_bytes), float(n_steps * (per_line * n_lines + shared)),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def ballooning_lanes(device, min_xi: dict | None = None, tiers: dict | None = None) -> dict:
+    """(z)'s float64 results as numpy: min xi of both timed shapes, and the
+    s-alpha and shaped EPED tiers at the DIII-D inputs and 0.5, 1.0, 1.5 MA.
+    ``min_xi`` (op -> min xi of both shapes) and ``tiers`` (Ip -> (shaped,
+    s-alpha)) hold results already made on ``device``, which are not made
+    again."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import ballooning as bal
+    from scpn_fusion_tpu_torch.models.physics import edge
+    from scpn_fusion_tpu_torch.ops import cuda_ballooning as cbal
+
+    f64, tiers = torch.float64, tiers or {}
+    if min_xi is None:
+        min_xi = {op: cbal.newcomb_min_xi(op, s, a, tables, bal.THETA_MAX, n_steps)
+                  for op, (s, a, tables, n_steps, _) in newcomb_cases(f64, device).items()}
+    out = {f"min xi {op}": v for op, v in min_xi.items()}
+    for ip in EPED_IP_MA:
+        sh, sa = tiers[ip] if ip in tiers else (
+            edge.eped_pedestal_shaped(**EPED_DIIID, ip_ma=ip, dtype=f64, device=device),
+            edge.eped_pedestal(**EPED_DIIID, ip_ma=ip, dtype=f64, device=device))
+        out.update({f"shaped {ip} {k}": v for k, v in sh.pedestal._asdict().items()})
+        out.update({f"s-alpha {ip} {k}": v for k, v in sa._asdict().items()})
+        out[f"shaped {ip} alphas"] = torch.stack([sh.alpha_crit, sh.alpha_ballooning,
+                                                  sh.alpha_peeling, sh.second_access.to(f64)])
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def control_4b_lanes(device) -> dict:
+    """(za)'s float64 lanes as numpy: the detachment loop (200 ticks), the RMF
+    spin-up (20,000 ticks) at the default and a synchronising amplitude, the
+    PLL (5000 ticks) and its drifting target (8000), a seeded command
+    sequence through the DAC and ``sensor_vote`` on an even count."""
+    import torch
+    from scpn_fusion_tpu_torch.control import hil_sensors as hs
+    from scpn_fusion_tpu_torch.control import plasma_controllers as pc
+    from scpn_fusion_tpu_torch.control import rmf
+
+    f64, out = torch.float64, {}
+    final, f_rad, q_t = pc.run_detachment_loop(pc.DetachmentControllerParams(), p_sol_mw=100.0,
+                                               n_u_19=3.0, dtype=f64, device=device)
+    out.update({"detachment f_rad": f_rad, "detachment q_target": q_t,
+                "detachment integral": final.integral})
+    for tag, kw in (("default", {}), ("8 mT", dict(b_rmf_mt=8.0))):
+        tr = rmf.run_rmf_spinup(rmf.RMFParams(**kw), dtype=f64, device=device)
+        out.update({f"rmf {tag} omega": tr.omega_e_hz, f"rmf {tag} sync": tr.sync_fraction,
+                    f"rmf {tag} duty": tr.drive_efficiency})
+    for tag, pll, kw in (("default", {}, {}), ("drift", dict(n_steps=8000),
+                                               dict(freq_drift_hz_s=2e5))):
+        tr = rmf.run_phase_lock(rmf.PLLParams(**pll), dtype=f64, device=device, **kw)
+        out.update({f"pll {tag} error": tr.phase_error, f"pll {tag} freq": tr.antenna_freq_hz,
+                    f"pll {tag} lock": torch.stack([tr.lock_time_s, tr.locked.to(f64)])})
+    cmds = torch.tensor(np.random.default_rng(SEED).uniform(-15.0, 15.0, (400, 4)), dtype=f64)
+    cmds[50:60, 1] = float("nan")
+    state, applied = hs.converter_loop(cmds.to(device), dt_us=0.05)
+    out.update({"dac applied": applied, "dac faults": state.faults.to(f64)})
+    readings = torch.tensor([1.0, 1.05, 0.97, 50.0, float("nan"), 1.2, 0.99], dtype=f64,
+                            device=device)
+    rep = pc.sensor_vote(readings, torch.full((7,), 0.1, dtype=f64, device=device))
+    out["vote"] = torch.cat([rep.healthy.to(f64), rep.fused_estimate[None],
+                             rep.degraded.to(f64)[None]])
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def efit_layout():
+    from scpn_fusion_tpu_torch.control.realtime_efit import MagneticsLayout
+    loops = tuple((r, z) for r in (4.0, 9.0) for z in (-3.5, 0.0, 3.5))
+    probes = tuple((r, z, d) for (r, z) in ((3.8, -2.0), (3.8, 2.0), (9.2, 0.0), (6.5, 4.0),
+                                            (6.5, -4.0)) for d in ("R", "Z"))
+    return MagneticsLayout(flux_loops=loops, b_probes=probes, coil_r=(3.5, 9.5, 9.5, 3.5),
+                           coil_z=(4.5, 2.5, -2.5, -4.5))
+
+
+def efit_model(device):
+    """(zb)'s rt-EFIT model in float64: the JAX test's layout at 129^2."""
+    import torch
+    from scpn_fusion_tpu_torch.control import realtime_efit as ef
+    from scpn_fusion_tpu_torch.core.grid import Grid
+
+    return ef.build_efit_model(Grid(**EFIT_GRID, dtype=torch.float64,
+                                    device=torch.device(device)), efit_layout(), **EFIT_BUILD)
+
+
+def efit_lanes(model) -> dict:
+    """(zb)'s rt-EFIT lane as numpy: ``model`` (:func:`efit_model`) and the
+    round trip of its coefficients on its device."""
+    import torch
+    from scpn_fusion_tpu_torch.control import realtime_efit as ef
+
+    f64, device = torch.float64, model.basis_ip.device
+    coeffs = torch.tensor(EFIT_COEFFS, dtype=f64, device=device)
+    coils = torch.tensor(EFIT_COILS, dtype=f64, device=device)
+    meas = ef.synthetic_measurements(model, coeffs, coils)
+    res = ef.reconstruct(model, meas, coils, model.basis_ip @ coeffs)
+    out = {f"model {k}": v for k, v in model._asdict().items()}
+    out.update({f"reconstruct {k}": v for k, v in res._asdict().items()})
+    out["measurements"] = meas
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def room_lane(device) -> dict:
+    """(zb)'s default control-room session (200 steps, 60^2, seed 42), float32,
+    as numpy."""
+    from scpn_fusion_tpu_torch.control.control_room import run_control_room_session
+
+    trace, summary = run_control_room_session(device=device)
+    out = {k: v.detach().cpu().numpy() for k, v in trace._asdict().items()}
+    out.update({k: v.detach().cpu().numpy() for k, v in summary.items()})
+    return out
+
+
+def slice16_on_cpu(conn) -> None:
+    """The CPU twins of (z), (za) and (zb)."""
+    dev = on_cpu(4)
+    conn.send({"z": ballooning_lanes(dev), "za": control_4b_lanes(dev),
+               "zb": efit_lanes(efit_model(dev)),
+               "room": room_lane(dev)})
+    conn.close()
+
+
+def ballooning_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                      measured_plain: dict, twin: dict) -> int:
+    """(z) row B: ``second_stability_scan`` of the JAX test and the DIII-D
+    bootstrap path each in ONE launch, and row B ``torch.equal`` to its plain
+    twin on both shapes in float32 and float64; the gates of
+    ``tests/test_ballooning.py`` (but the ``stability_mhd`` eigen lane) on the
+    card in float64, counted; the EPED tiers at 1.0 MA with that test's gates;
+    the float64 lanes within 1e-9 of the CPU (``twin``: the results of
+    :func:`slice16_on_cpu`).  Returns row B's launches over the gates."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import ballooning as bal
+    from scpn_fusion_tpu_torch.models.physics import edge
+    from scpn_fusion_tpu_torch.ops import cuda_ballooning as cbal
+
+    one = {name: int(name == "newcomb_min_xi") for name in KERNELS}
+    min_xi = {}              # the f64 kernel's results, for the comparison with the CPU
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        entry = f"scpn_newcomb_{tag}"
+        s_vals = torch.tensor(np.linspace(0.2, 2.0, 10), dtype=dtype, device=dev)
+        _, calls, launched = counted(lambda: bal.second_stability_scan(s_vals, alpha_max=5.0,
+                                                                       n_alpha=48))
+        require(calls == one and launched == {entry: 1},
+                f"(z) scan {tag}: {calls} / {launched}, not one launch of row B")
+        by_path[f"ballooning_scan_{tag}"] = calls
+        _, calls, launched = counted(lambda: bal.bootstrap_path_alpha_crit(
+            2.04, 3.0, alpha_hi=16.0, n_steps=2000, dtype=dtype, device=dev,
+            **BALLOONING_GEOMETRY))
+        require(calls == one and launched == {entry: 1},
+                f"(z) bootstrap path {tag}: {calls} / {launched}, not one launch of row B")
+        by_path[f"bootstrap_path_{tag}"] = calls
+        for op, (s, a, tables, n_steps, label) in newcomb_cases(dtype, dev).items():
+            args = (op, s, a, tables, bal.THETA_MAX, n_steps)
+            k, ms_k = events_ms(functools.partial(cbal.newcomb_min_xi, *args))
+            p, ms_p = events_ms(functools.partial(cbal.newcomb_min_xi_plain, *args))
+            equal = torch.equal(k, p)
+            print(f"(z) row B {tag} {op}, {label}: kernel torch.equal to the plain RK4 loop "
+                  f"{equal}; stable lines {int((k > 0).sum())} of {k.numel()}, min xi in "
+                  f"[{float(k.min())!r}, {float(k.max())!r}]; kernel {ms_k:.4f} ms (one call), "
+                  f"plain loop {ms_p:.1f} ms [{card}]")
+            require(equal, f"(z) row B {tag} {op}: the kernel differs from its plain loop")
+            require(bool(torch.isfinite(k).all()), f"(z) row B {tag} {op}: a min xi not finite")
+            if tag == "f64":
+                min_xi[op] = k
+            if tag == "f64" and op == "circular":
+                results["newcomb_min_xi"] = {"max_abs_err": float((k - p).abs().max())}
+                measured_plain["newcomb_min_xi"] = ms_p
+                timing["newcomb_min_xi"] = (
+                    functools.partial(cbal.newcomb_min_xi, *args),
+                    functools.partial(cbal.newcomb_min_xi_plain, *args), f"{label} f64",
+                    newcomb_work(op, s.numel(), n_steps, 8))
+
+    def gates():
+        f64 = torch.float64
+        lin = functools.partial(torch.linspace, dtype=f64, device=dev)
+        out = {"traversal": bal.ballooning_stable(0.5, torch.tensor(
+            [0.1, 0.8, 3.5], dtype=f64, device=dev)).tolist() == [True, False, True]}
+        band = bal.second_stability_scan(torch.tensor(np.linspace(0.1, 2.0, 8), dtype=f64,
+                                                      device=dev), alpha_max=5.0, n_alpha=48)
+        a1, a2 = band.alpha_crit_first, band.alpha_crit_second
+        out["band"] = bool(band.second_access.all() and (a1 > 0).all() and (a2 > a1).all()
+                           and (a2 <= 5.0).all())
+        mono = bal.second_stability_scan(torch.tensor(np.linspace(0.25, 2.0, 8), dtype=f64,
+                                                      device=dev), alpha_max=5.0, n_alpha=48)
+        out["non-decreasing"] = bool((torch.diff(mono.alpha_crit_first) >= -1e-12).all())
+        helper = bal.second_stability_scan(torch.tensor(np.linspace(0.2, 2.0, 10), dtype=f64,
+                                                        device=dev), alpha_max=5.0, n_alpha=48)
+        lo, mid, hi = (float(helper.alpha_crit_at(x)) for x in (0.2, 1.1, 2.0))
+        out["helpers"] = lo <= mid <= hi and bool(helper.has_second_stability_at(0.5))
+        a_ch = float(bal.marginal_alpha(1.0, alpha_hi=2.0, dtype=f64, device=dev))
+        out[f"Connor-Hastie {a_ch:.6f}"] = 0.45 < a_ch < 0.75
+        scan = bal.second_stability_scan(torch.tensor([0.8], dtype=f64, device=dev),
+                                         alpha_max=5.0, n_alpha=96)
+        a_bis = float(bal.marginal_alpha(0.8, alpha_hi=2.0, dtype=f64, device=dev))
+        out["bisection vs scan"] = abs(float(scan.alpha_crit_first[0]) - a_bis) <= 2 * 5.0 / 95
+        s3, al = torch.tensor([0.5, 1.0, 2.0], dtype=f64, device=dev)[:, None], lin(0.0, 3.0, 25)
+        out["thin tube"] = bool(torch.equal(bal.ballooning_stable(s3, al[None]),
+                                            bal.miller_ballooning_stable(s3, al[None], rho=1e-4)))
+        acs = [float(bal.miller_marginal_alpha(1.0, r0=3.0, a=1.0, rho=0.9, kappa=k, delta=0.0,
+                                               q=3.0, dtype=f64, device=dev))
+               for k in (1.0, 1.4, 1.8)]
+        out["elongation"] = acs[0] < acs[1] < acs[2]
+        a81 = torch.tensor(np.linspace(0.0, 8.0, 81), dtype=f64, device=dev)
+
+        def band_of(delta, s):
+            un = ~bal.miller_ballooning_stable(torch.tensor(s, dtype=f64, device=dev), a81,
+                                               rho=0.9, kappa=1.8, delta=delta, q=3.0).cpu()
+            idx = torch.nonzero(un).flatten()
+            return None if idx.numel() == 0 else (float(a81[idx[0]]), float(a81[idx[-1]]))
+
+        pt, nt, circ = band_of(0.4, 0.5), band_of(-0.4, 1.0), band_of(0.0, 1.0)
+        out["triangularity"] = pt is None and nt is not None and circ is not None and \
+            nt[1] > circ[1]
+        geo = dict(BALLOONING_GEOMETRY, n_steps=2000, dtype=f64, device=dev)
+        strong = bal.bootstrap_path_alpha_crit(2.04, 3.0, alpha_hi=16.0, **geo)
+        weak = bal.bootstrap_path_alpha_crit(2.04, 1.5, alpha_hi=16.0, **geo)
+        zero = bal.bootstrap_path_alpha_crit(2.04, 0.0, alpha_hi=8.0, n_grid=65, **geo)
+        fixed = float(bal.miller_marginal_alpha(2.04, alpha_hi=8.0, n_grid=65, **geo))
+        out["bootstrap strong / weak / zero"] = (
+            bool(strong.second_access) and float(strong.alpha_crit) == 16.0
+            and not bool(weak.second_access) and 0.0 < float(weak.alpha_crit) < 2.0
+            and abs(float(zero.alpha_crit) - (fixed - 8.0 / 64.0)) < 1e-9)
+        return out
+
+    # 4 scans, 24 + 1 + 24 for the two marginal gates, 2 thin tube, 3
+    # elongation, 3 triangularity, 3 paths + 1 fixed-shear scan
+    (out, ms_gates), calls, launched = counted(lambda: events_ms(gates))
+    want = {name: 65 * (name == "newcomb_min_xi") for name in KERNELS}
+    print(f"(z) the gates of tests/test_ballooning.py on the card (f64): {out}; row B launches "
+          f"{launched}; {ms_gates:.1f} ms (CUDA events) [{card}]")
+    require(all(out.values()), "(z): the port misses a gate of tests/test_ballooning.py")
+    require(calls == want and launched == {"scpn_newcomb_f64": 65},
+            f"(z) gates: {calls} / {launched}, not 65 launches of row B")
+    by_path["ballooning_gates_f64"] = calls
+    launches = calls["newcomb_min_xi"]
+
+    salpha = edge.eped_pedestal(**EPED_DIIID, ip_ma=1.0, dtype=torch.float64, device=dev)
+    shaped, calls, _ = counted(lambda: edge.eped_pedestal_shaped(**EPED_DIIID, ip_ma=1.0,
+                                                                 dtype=torch.float64, device=dev))
+    t_s, t_sh, p_sh = (float(salpha.t_ped_kev), float(shaped.pedestal.t_ped_kev),
+                       float(shaped.pedestal.p_ped_kpa))
+    gates = (t_s <= 0.1 + 1e-9 and bool(shaped.second_access) and t_sh > 0.3
+             and EPED_P_KPA / 3.0 < p_sh < EPED_P_KPA * 3.0)
+    print(f"(z) EPED at the DIII-D inputs, 1.0 MA, f64: s-alpha T_ped {t_s!r} keV (the 0.1 keV "
+          f"floor), shaped T_ped {t_sh!r} keV, p_ped {p_sh!r} kPa (in ({EPED_P_KPA / 3:.3f}, "
+          f"{EPED_P_KPA * 3:.1f})), alpha_crit {float(shaped.alpha_crit)!r} (ballooning "
+          f"{float(shaped.alpha_ballooning)!r}, peeling {float(shaped.alpha_peeling)!r}), second "
+          f"access {bool(shaped.second_access)}; gates {gates}; row B launches "
+          f"{calls['newcomb_min_xi']} [{card}]")
+    require(gates, "(z): the EPED tiers miss the gates of tests/test_ballooning.py:184-198")
+    require(calls == one, f"(z) shaped EPED: {calls}, not one launch of row B")
+    by_path["eped_shaped_f64"] = calls
+    agree(ballooning_lanes(dev, min_xi, {1.0: (shaped, salpha)}), twin["z"],
+          "(z) row B's min xi and the EPED tiers at 0.5, 1.0 and 1.5 MA", card)
+
+    for op, (s, a, tables, n_steps, label) in newcomb_cases(torch.float64, dev).items():
+        run = functools.partial(cbal.newcomb_min_xi, op, s, a, tables, bal.THETA_MAX, n_steps)
+        ms_k = cuda_ms(run)
+        work = newcomb_work(op, s.numel(), n_steps, 8)
+        b, by = bound(work)
+        chain = ladder_chain_ms(n_steps, NEWCOMB_DEPTH[op])
+        print(f"time (z) row B {op} ({label}, f64): kernel {ms_k:.4f} ms ({1e3 * ms_k / n_steps:.4f}"
+              f" us a step; CUDA events, median of 5), bound {b:.4g} ms ({by}: "
+              f"{work[0] / 1e6:.4g} MB, {work[1] / 1e6:.4g} Mflop); a line's dependent "
+              f"operations {n_steps * NEWCOMB_DEPTH[op]} ({n_steps} steps x ~{NEWCOMB_DEPTH[op]}), "
+              f"~{chain:.4f} ms at a nominal 4 cycles each and {SM_CLOCK_HZ / 1e9:.2f} GHz (a "
+              f"count, not a bound: the step's four IEEE f64 divisions on the chain take tens "
+              f"of cycles each); library_ms null (no PyTorch call integrates an ODE) [{card}]")
+    return launches
+
+
+def hil_lanes(dev, card: str, counted, by_path: dict) -> None:
+    """(za)'s latency lanes, as ``validation/run_control_latency.py:60-130``
+    runs them, through the port's ``control.hil``: the PID step's
+    synchronous dispatch, the SCPN controller tick pipelined (batches of 20),
+    and the fused closed loop (``run_neuro_closed_loop``, 10,000 ticks: one
+    launch of row N a call), each with the validation's gate."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import RZ_SPECS, rz_net
+    from scpn_fusion_tpu_torch.control import hil
+    from scpn_fusion_tpu_torch.control.neuro_closed_loop import (
+        ReducedPlantState, run_neuro_closed_loop,
+    )
+    from scpn_fusion_tpu_torch.control.pid import PIDGains, pid_init, pid_step
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+    from scpn_fusion_tpu_torch.scpn.structure import StochasticPetriNet
+
+    f32 = torch.float32
+    gains = PIDGains(kp=1.0, ki=0.2, kd=0.05)
+    ctrl = sc.build_controller(rz_net(StochasticPetriNet), dtype=f32, device=dev, **RZ_SPECS)
+    cfg = sc.ControllerConfig(firing_mode="fractional", firing_margin=0.5, dt=1e-3)
+
+    def dispatch_lanes():
+        pid = hil.measure_dispatch_latency(
+            lambda s, e: pid_step(gains, s, e),
+            (pid_init(device=dev), torch.tensor(0.1, device=dev)), n_samples=100)
+        tick = hil.measure_dispatch_latency(
+            lambda s, o: sc.controller_step(ctrl, cfg, s, o, 0),
+            (sc.initial_controller_state(ctrl, cfg),
+             torch.tensor([6.4, 0.1], dtype=f32, device=dev)), n_samples=100, pipelined=True)
+        return pid, tick
+
+    (rep1, rep2), calls, _ = counted(dispatch_lanes)
+    require(sum(calls.values()) == 0, f"(za) dispatch lanes: a kernel launched: {calls}")
+    by_path["hil_dispatch"] = calls
+    plant0 = ReducedPlantState(torch.tensor(6.5, dtype=f32, device=dev),
+                               torch.tensor(0.3, dtype=f32, device=dev))
+    rep3, calls, launched = counted(lambda: hil.measure_fused_throughput(
+        lambda: run_neuro_closed_loop(ctrl, cfg, plant0, n_ticks=10_000, dt=1e-3), (),
+        n_ticks=10_000, n_repeats=3))
+    want = {name: 4 * (name == "closed_loop") for name in KERNELS}
+    for label, rep, gate, key in (("pid_step dispatch", rep1, HIL_GATES[0], "p50_us"),
+                                  ("SCPN tick, pipelined", rep2, HIL_GATES[1], "p50_us"),
+                                  ("fused closed loop, 10,000 ticks (row N)", rep3, HIL_GATES[2],
+                                   "mean_us")):
+        print(f"(za) HIL {label}: p50 {rep.p50_us:.3f} us, p95 {rep.p95_us:.3f} us, p99 "
+              f"{rep.p99_us:.3f} us, mean {rep.mean_us:.3f} us ({rep.n_samples} samples; "
+              f"{key} < {gate:.0f}), rate at p95 {hil.control_rate_hz(rep):.4g} Hz [{card}]")
+        require(getattr(rep, key) < gate, f"(za) HIL {label}: {key} over the validation's gate")
+    require(calls == want and launched == {"scpn_closed_loop_f32": 4},
+            f"(za) fused lane: {calls} / {launched}, not one launch of row N a call")
+    by_path["hil_fused"] = calls
+
+
+def control_4b_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
+    """(za) the detachment, RMF, PLL and converter loops and ``sensor_vote``
+    in float64 on plain ops (no kernel) within 1e-9 of the CPU; the JAX
+    tests' gates of the loops' defaults; then the HIL lanes (``twin``: the
+    results of :func:`slice16_on_cpu`)."""
+    (card64, ms), calls, _ = counted(lambda: events_ms(lambda: control_4b_lanes(dev)))
+    require(sum(calls.values()) == 0, f"(za): a kernel launched on the plain loops: {calls}")
+    by_path["controllers_f64"] = calls
+    agree(card64, twin["za"], "(za) detachment, RMF, PLL, DAC and sensor vote", card)
+    gates = (float(card64["rmf 8 mT sync"]) > 0.85 and not float(card64["rmf default sync"]) > 0.85
+             and float(card64["pll default lock"][1]) == 1.0
+             and float(card64["pll default lock"][0]) < 0.05
+             and abs(float(card64["pll default freq"][-1]) - 95e3) < 2e3
+             and float(card64["pll drift lock"][1]) == 1.0
+             and card64["vote"][:7].tolist() == [1, 1, 1, 0, 0, 1, 1])
+    print(f"(za) gates: RMF 8 mT sync {float(card64['rmf 8 mT sync'])!r} (> 0.85), default "
+          f"{float(card64['rmf default sync'])!r}; PLL lock time "
+          f"{float(card64['pll default lock'][0])!r} s (< 0.05), final "
+          f"{float(card64['pll default freq'][-1])!r} Hz; detachment f_rad final "
+          f"{float(card64['detachment f_rad'][-1])!r}; vote healthy "
+          f"{card64['vote'][:7].tolist()}, fused {float(card64['vote'][7])!r}: {gates}; the "
+          f"float64 lanes {ms:.1f} ms (CUDA events; plain loops: RMF 20,000 ticks x 2, PLL "
+          f"5000 + 8000 ticks) [{card}]")
+    require(gates, "(za): the loops miss the JAX tests' gates")
+    hil_lanes(dev, card, counted, by_path)
+
+
+def room_and_efit_checks(dev, card: str, counted, by_path: dict, psi_513, twin: dict) -> None:
+    """(zb) rt-EFIT on the JAX test's layout at 129^2 in float64 (the build
+    once, then the round trip, on plain ops) within 1e-9 of the CPU, with the
+    gates of ``tests/test_realtime_efit.py``; the default control-room
+    session in float32 against the CPU at 1e-5 (of max |z|; absolute on the
+    frames) with its summary's gates; the kernel-backed psi lane on the
+    513^2 FMG result's psi (kernels 2-5, solved once earlier) at size 513."""
+    import torch
+    from scpn_fusion_tpu_torch.control import control_room as cr
+    from scpn_fusion_tpu_torch.control import realtime_efit as ef
+
+    f64 = torch.float64
+
+    def efit_run():
+        model, ms = events_ms(lambda: efit_model(dev))
+        return model, ms, efit_lanes(model)
+
+    (model, ms_build, card_efit), calls, _ = counted(efit_run)
+    require(sum(calls.values()) == 0, f"(zb) rt-EFIT: a kernel launched: {calls}")
+    by_path["efit_129"] = calls
+    agree(card_efit, twin["zb"], "(zb) rt-EFIT 129^2: the model and a round trip", card)
+    ip_true = float(card_efit["model basis_ip"] @ np.asarray(EFIT_COEFFS))
+    ip_rel = abs(float(card_efit["reconstruct ip_reconstructed"]) - ip_true) / abs(ip_true)
+    resid = float(card_efit["reconstruct residual_norm"])
+    meas_norm = float(np.linalg.norm(card_efit["measurements"]))
+    gates = (ip_rel < 0.05 and resid < 0.03 * meas_norm
+             and np.isfinite(card_efit["model basis_maps"]).all())
+    print(f"(zb) rt-EFIT 129^2 f64 round trip: Ip relative error {ip_rel!r} (< 0.05), residual "
+          f"{resid!r} (< 0.03 x {meas_norm!r}), axis ({float(card_efit['reconstruct axis_r'])!r}, "
+          f"{float(card_efit['reconstruct axis_z'])!r}) m; gates {gates} [{card}]")
+    require(gates, "(zb): rt-EFIT misses the gates of tests/test_realtime_efit.py")
+    coils = torch.tensor(EFIT_COILS, dtype=f64, device=dev)
+    meas = torch.from_numpy(card_efit["measurements"]).to(dev)
+    ip = torch.tensor(ip_true, dtype=f64, device=dev)
+    run = functools.partial(ef.reconstruct, model, meas, coils, ip)
+    ms_rec = cuda_ms(run)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        run()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    n_launch, _ = device_launches(run)
+    print(f"time (zb) rt-EFIT 129^2 f64: build {ms_build:.1f} ms (once, CUDA events, in the "
+          f"counted run above); "
+          f"reconstruct {ms_rec:.4f} ms (CUDA events, median of 5), {host_us:.1f} us a call on "
+          f"the host clock over 50 calls, {n_launch} device launches a call [{card}]")
+
+    # one session gives the comparison, the wrapper counts, its time between
+    # CUDA events and its device launches under the profiler
+    (n_room, ((trace, summary), ms_room)), calls, _ = counted(lambda: device_launches(
+        lambda: events_ms(lambda: cr.run_control_room_session(device=dev))))
+    require(sum(calls.values()) == 0, f"(zb) control room: a kernel launched: {calls}")
+    by_path["control_room"] = calls
+    ref = twin["room"]
+    scale = max(float(np.abs(ref["z_true"]).max()), 1.0)
+    dev_z = max(float(np.abs(getattr(trace, k).cpu().numpy() - ref[k]).max())
+                for k in ("z_true", "z_measured", "z_filtered", "top_action", "bottom_action"))
+    dev_d = float(np.abs(trace.density.cpu().numpy() - ref["density"]).max())
+    gates = float(summary["max_abs_z"]) < 1.5 and float(summary["mean_abs_z"]) < 0.5
+    print(f"(zb) control room, default session (200 steps, 60^2, f32): max |z| "
+          f"{float(summary['max_abs_z'])!r} (< 1.5), mean |z| {float(summary['mean_abs_z'])!r} "
+          f"(< 0.5), estimator rmse {float(summary['estimator_rmse'])!r}, measurement rmse "
+          f"{float(summary['measurement_rmse'])!r}; against the CPU: traces {dev_z!r} (limit "
+          f"{ROOM_TOL:.0e} x {scale!r}), frames {dev_d!r} (limit {ROOM_TOL:.0e}); gates {gates} "
+          f"[{card}]")
+    require(dev_z <= ROOM_TOL * scale and dev_d <= ROOM_TOL, "(zb): the control room deviates "
+            "from the CPU")
+    require(gates, "(zb): the control room misses its summary's gates")
+
+    (trace_k, _), calls, _ = counted(lambda: cr.run_control_room_session(
+        size=513, psi_kernel=psi_513))
+    require(sum(calls.values()) == 0, f"(zb) the psi lane: a kernel launched: {calls}")
+    by_path["control_room_psi_513"] = calls
+    pk = (psi_513 - psi_513.min()) / (psi_513.max() - psi_513.min())
+    core = torch.argmin(pk)
+    frames = trace_k.density
+    lane = (tuple(frames.shape) == (200, 513, 513) and bool(torch.isfinite(frames).all())
+            and float(frames.min()) >= 0.0 and float(frames.max()) <= 1.3
+            and bool((frames[:, pk >= 1.0] == 0.0).all())
+            and float(frames.reshape(200, -1)[:, core].min()) > 0.75
+            and torch.equal(trace_k.z_true, trace.z_true))
+    print(f"(zb) psi lane on the 513^2 FMG psi (size 513, 200 frames): frames finite in "
+          f"[{float(frames.min())!r}, {float(frames.max())!r}], zero where the normalised psi "
+          f">= 1, min density at its core {float(frames.reshape(200, -1)[:, core].min())!r} "
+          f"(> 0.75: the core's 1 less 5 sigma of the 5% noise), z trace torch.equal to the default session's: {lane}; the default session "
+          f"{ms_room:.1f} ms (CUDA events, under the profiler), {n_room} device launches "
+          f"[{card}]")
+    require(lane, "(zb): the kernel-backed psi lane does not follow the FMG psi")
+
+
 def device_launches(run):
     """(device kernel launches, result) of one ``run()`` under ``torch.profiler``."""
     import torch
@@ -3397,13 +3927,13 @@ def bus_checks(dev, card: str, counted, by_path: dict) -> None:
 
 def early_twins(stack: contextlib.ExitStack) -> dict:
     """Start, right after the build, the processes whose results later
-    paths wait for: the CPU twins of (k), (o) and (v), and the host-bound
+    paths wait for: the CPU twins of (k), (o), (v) and (z)-(zb), and the host-bound
     card-side runs of (k)'s plain Thomas loop and (o)'s :data:`CARD_LANES`,
     each in a spawned process that drives the card beside this one (the card
     is idle > 90% of their time).  ``stack`` ends them on the way out."""
     targets = {"torax_plain": torax_plain_on_card, "control_card": control_lanes_on_card,
                "torax_cpu": torax_on_cpu, "control_cpu": control_lanes_on_cpu,
-               "gk_lanes_cpu": gk_lanes_on_cpu}
+               "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu}
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
@@ -3475,7 +4005,7 @@ def _main(stack: contextlib.ExitStack) -> int:
           f"{' '.join(cb.NVCC_FLAGS)})")
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
-                   "ladder.cu", "gk_rhs.cu"):
+                   "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -4010,7 +4540,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
                 "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
-                "twin_shot": 0}
+                "twin_shot": 0, "newcomb_min_xi": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -4121,7 +4651,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
                  "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
-                "twin_shot": 0}
+                "twin_shot": 0, "newcomb_min_xi": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -4534,6 +5064,18 @@ def _main(stack: contextlib.ExitStack) -> int:
     bus_checks(dev, card, counted, by_path)
     phase_done("realtime bus (y)")
 
+    # ── the sixteenth slice: (z) row B with the ballooning and EPED tiers,
+    # (za) the controllers, RMF, the converters and the HIL lanes, (zb) rt-EFIT
+    # at 129^2 and the control room (its psi lane on the 513^2 FMG psi) ──
+    slice16 = twins["slice16_cpu"]()
+    newcomb_calls = ballooning_checks(dev, card, counted, by_path, results, timing,
+                                      measured_plain, slice16)
+    phase_done("ballooning and EPED (z)")
+    control_4b_checks(dev, card, counted, by_path, slice16)
+    phase_done("controllers and HIL (za)")
+    room_and_efit_checks(dev, card, counted, by_path, fmg_513.psi, slice16)
+    phase_done("rt-EFIT and control room (zb)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -4545,6 +5087,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["ladder"] = ladder_calls
     launches["gk_rhs"] = gk_calls
     launches["twin_shot"] = twin_calls
+    launches["newcomb_min_xi"] = newcomb_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

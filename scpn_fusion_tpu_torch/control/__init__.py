@@ -1,16 +1,8 @@
-"""Control layer (port of ``scpn_fusion_tpu/control/``): the exports of the
-JAX package's ``control/__init__.py`` whose modules are ported, under the
-same names.  Ported: ``pid``, ``actuator``, ``flight_sim``,
-``neuro_closed_loop``, ``mpc``, ``scenario``, ``optimal_scenario``,
-``free_boundary_tracking``, ``hinf``, ``robust``, ``vessel_rzip``,
-``gain_schedule``, ``sliding_mode``, ``estimator``, ``fault_tolerant``,
-``tuning``, ``stress``, ``surrogate_mpc``, ``disruption``,
-``disruption_seq``, ``disruption_transfer``, ``replay``,
-``disturbance_ladder``, ``federated``, ``safe_rl``, ``soc_learning``,
-``neuro_cybernetic``, ``nef_snn``, ``neural_kernel``, ``fueling_torax``,
-``digital_twin``, ``twin_ingest`` and ``fpga_export``, with ``realtime_bus``
-and ``director`` carried over; the other modules of the JAX package's
-``control/`` come with later slices.
+"""Control layer (port of ``scpn_fusion_tpu/control/``): every module of the
+JAX package's ``control/`` has its counterpart at the same path, and this
+package exports every name of the JAX package's ``control/__init__.py``
+under the same name.  ``realtime_bus`` and ``director`` are carried over
+(framework-neutral copies); the rest are ports.
 """
 
 from scpn_fusion_tpu_torch.control.actuator import (  # noqa: F401
@@ -24,6 +16,37 @@ from scpn_fusion_tpu_torch.control.flight_sim import (  # noqa: F401
     FlightSimParams,
     run_shot_reduced,
     run_shot_reduced_gains,
+)
+from scpn_fusion_tpu_torch.control.control_room import (  # noqa: F401
+    render_control_room_report,
+    run_control_room_session,
+)
+from scpn_fusion_tpu_torch.control.realtime_efit import (  # noqa: F401
+    EFITModel,
+    MagneticsLayout,
+    build_efit_model,
+    reconstruct,
+)
+from scpn_fusion_tpu_torch.control.hil import (  # noqa: F401
+    LatencyReport,
+    control_rate_hz,
+    measure_dispatch_latency,
+    measure_fused_throughput,
+)
+from scpn_fusion_tpu_torch.control.plasma_controllers import (  # noqa: F401
+    BurnControllerParams,
+    DensityControllerParams,
+    DetachmentControllerParams,
+    burn_controller_step,
+    density_controller_step,
+    run_detachment_loop,
+    sensor_vote,
+)
+from scpn_fusion_tpu_torch.control.rmf import (  # noqa: F401
+    PLLParams,
+    RMFParams,
+    run_phase_lock,
+    run_rmf_spinup,
 )
 from scpn_fusion_tpu_torch.control.scenario import (  # noqa: F401
     FluxBudget,

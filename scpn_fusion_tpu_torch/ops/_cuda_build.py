@@ -70,6 +70,8 @@ _SIGNATURES = {
     "scpn_gk_stage_c128": [_P, _P],
     "scpn_twin_shot_f32": [_P, _I, _P],
     "scpn_twin_shot_f64": [_P, _I, _P],
+    "scpn_newcomb_f32": [_P, _I, _P],
+    "scpn_newcomb_f64": [_P, _I, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

@@ -79,3 +79,18 @@ def test_slice_modules_are_scanned():
                  "control.fpga_export", "control.realtime_bus", "control.director",
                  "io.imas_history", "ops.cuda_twin"):
         assert f"scpn_fusion_tpu_torch.{name}" in mods, name
+
+
+def test_slice_4b_modules_are_scanned():
+    """Control slice 4b's modules and row B's wrapper are among those both
+    checks cover; with them every module of the JAX package's ``control/``
+    has its counterpart."""
+    mods = set(_modules())
+    for name in ("models.physics.ballooning", "models.physics.edge",
+                 "control.plasma_controllers", "control.stellarator_contracts", "control.rmf",
+                 "control.hil_sensors", "control.hil", "control.realtime_efit",
+                 "control.control_room", "ops.cuda_ballooning"):
+        assert f"scpn_fusion_tpu_torch.{name}" in mods, name
+    jax_control = {f.stem for f in (ROOT / "scpn_fusion_tpu" / "control").glob("*.py")}
+    port_control = {f.stem for f in (PKG / "control").glob("*.py")}
+    assert jax_control <= port_control, sorted(jax_control - port_control)

@@ -89,19 +89,29 @@ wrapper call and of its parts.  With ``--twin`` it profiles control slice
 fueling shot (``run_fueling_mode``, 3000 ticks; row N's plant kind 2), the
 TORAX-style campaign (16 episodes x 220 ticks; kind 3) and the digital twin
 (48^2 x 200 steps; row D, ``csrc/digital_twin.cu``), all float32, and one
-default realtime twin session (``twin_ingest``, plain ops).  Each prints
-what the solves above print.
+default realtime twin session (``twin_ingest``, plain ops).  With
+``--ballooning`` it profiles control slice 4b: row B (``csrc/ballooning.cu``)
+on the two shapes of ``chip_smoke.newcomb_cases`` (the scan, 10 x 48 lines x
+4000 steps; the DIII-D bootstrap path, 65 lines x 2000 steps; float64), the
+kernel at full length and its plain RK4 loop at a tenth of the steps
+(launches a step and idle share are a step's), with the kernel also timed by
+CUDA events; then the same profiler over one launch each of rows B, D and N
+(kind 2), to show whether it records a kernel launched through ``ctypes``;
+then the plain loops of the slice at their defaults: the RMF spin-up, the
+PLL, the detachment loop, the control-room session and an rt-EFIT
+reconstruct at 129^2.  Each prints what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin]``.
+| --twin | --ballooning]``.
 Exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import subprocess
 import sys
 import time
@@ -531,7 +541,8 @@ def profile_solve(card: str, label: str, solve, trace: str | None) -> dict:
         out.mkdir(exist_ok=True)
         prof.export_chrome_trace(str(out / trace))
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
-    return {"wall_ms": wall_ms, "device_ms": dev_us / 1e3, "launches": len(events)}
+    return {"wall_ms": wall_ms, "device_ms": dev_us / 1e3, "launches": len(events),
+            "port_launches": port_launches, "port_ms": port_us / 1e3}
 
 
 def profile_free_boundary(card: str) -> None:
@@ -929,6 +940,91 @@ def profile_twin(card: str) -> None:
           f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
 
+def profile_ballooning(card: str) -> None:
+    """Control slice 4b's paths: row B plain (a tenth of the steps) and
+    through the kernel, the profiler over one launch of rows B, D and N, and
+    the slice's plain loops at their defaults."""
+    import torch
+    from chip_smoke import EFIT_COEFFS, EFIT_COILS, efit_model, newcomb_cases
+    from scpn_fusion_tpu_torch.control import control_room as cr
+    from scpn_fusion_tpu_torch.control import digital_twin as dtw
+    from scpn_fusion_tpu_torch.control import fueling_torax as ft
+    from scpn_fusion_tpu_torch.control import plasma_controllers as pc
+    from scpn_fusion_tpu_torch.control import realtime_efit as ef
+    from scpn_fusion_tpu_torch.control import rmf
+    from scpn_fusion_tpu_torch.models.physics.ballooning import THETA_MAX
+    from scpn_fusion_tpu_torch.ops import cuda_ballooning as cbal
+    from scpn_fusion_tpu_torch.ops import cuda_closed_loop as ccl
+    from scpn_fusion_tpu_torch.ops import cuda_twin
+    from scpn_fusion_tpu_torch.scpn import controller as sc
+
+    dev, f32, f64 = "cuda", torch.float32, torch.float64
+    for op, (s, a, tables, n_steps, label) in newcomb_cases(f64, dev).items():
+        tenth = n_steps // 10
+        out = profile_solve(card, f"row B {op}, {label}, plain loop at {tenth} steps",
+                            lambda: {"lines": cbal.newcomb_min_xi_plain(
+                                op, s, a, tables, THETA_MAX, tenth).numel()}, None)
+        print(f"row B {op} plain: {out['launches'] / tenth:.1f} device launches a step, idle "
+              f"share {1.0 - out['device_ms'] / out['wall_ms']:.3f}, {out['wall_ms'] / tenth:.4f} "
+              f"ms a step of wall time (profiled) [{card}]")
+        run = functools.partial(cbal.newcomb_min_xi, op, s, a, tables, THETA_MAX, n_steps)
+        out = profile_solve(card, f"row B {op}, {label}, kernel (after a fill)",
+                            lambda run=run: {"fill": torch.zeros(1, device=dev).numel(),
+                                             "lines": run().numel()}, None)
+        ms = [cuda_events_ms(run) for _ in range(5)]
+        print(f"row B {op} kernel: {out['port_launches']} launch(es) of row B recorded by the "
+              f"profiler, {out['port_ms']:.4f} ms of device time there, idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}; CUDA events around the one "
+              f"launch, median of 5: {sorted(ms)[2]:.4f} ms [{card}]")
+
+    # the profiler over one launch of each ctypes-launched row, float32: alone
+    # in the profiled window, and after a one-element PyTorch fill on the card
+    # in the same window
+    ctrl = ft._build_axis_controller(5000.0, f32, dev)
+    cfg = sc.ControllerConfig(firing_mode="fractional", firing_margin=0.5, dt=1e-3)
+    plant = ccl.FuelingPlant(target=1.0, density0=0.82, dt=1e-3)
+    tcfg = dtw.TwinConfig()
+    r_map, mask = dtw._geometry(tcfg, f32, dev)
+    s0, zero = dtw.twin_init(tcfg, f32, dev), torch.zeros(200, dtype=f32, device=dev)
+    s, a, _, _, _ = newcomb_cases(f32, dev)["circular"]
+    for label, run in (("row B", lambda: cbal.newcomb_min_xi("circular", s, a, None, THETA_MAX,
+                                                              4000)),
+                       ("row D", lambda: cuda_twin.twin_shot(tcfg, r_map, mask, s0, zero)),
+                       ("row N kind 2", lambda: ccl.closed_loop_fueling(ctrl, cfg, plant,
+                                                                        n_ticks=3000))):
+        alone = profile_solve(card, f"{label}, one launch alone under the profiler",
+                              lambda run=run: {"ran": run() is not None}, None)
+        fill = profile_solve(card, f"{label}, one launch after a fill under the profiler",
+                             lambda run=run: {"ran": torch.zeros(1, device=dev) is not None
+                                              and run() is not None}, None)
+        print(f"{label}: the profiler recorded {alone['port_launches']} launch(es) of the "
+              f"port's kernel ({alone['port_ms']:.4f} ms) when the launch was alone in the "
+              f"window, {fill['port_launches']} ({fill['port_ms']:.4f} ms) after a PyTorch fill "
+              f"in the same window [{card}]")
+
+    model = efit_model(dev)
+    coils = torch.tensor(EFIT_COILS, dtype=f64, device=dev)
+    coeffs = torch.tensor(EFIT_COEFFS, dtype=f64, device=dev)
+    meas = ef.synthetic_measurements(model, coeffs, coils)
+    ip = model.basis_ip @ coeffs
+    loops = (
+        ("RMF spin-up, 20,000 ticks f64", lambda: rmf.run_rmf_spinup(
+            rmf.RMFParams(), dtype=f64, device=dev)),
+        ("PLL, 5000 ticks f64", lambda: rmf.run_phase_lock(rmf.PLLParams(), dtype=f64,
+                                                           device=dev)),
+        ("detachment loop, 200 ticks f64", lambda: pc.run_detachment_loop(
+            pc.DetachmentControllerParams(), p_sol_mw=100.0, n_u_19=3.0, dtype=f64,
+            device=dev)),
+        ("control room, 200 steps 60^2 f32", lambda: cr.run_control_room_session(device=dev)),
+        ("rt-EFIT reconstruct 129^2 f64", lambda: ef.reconstruct(model, meas, coils, ip)),
+    )
+    for label, run in loops:
+        out = profile_solve(card, label, lambda run=run: {"ran": run() is not None}, None)
+        print(f"{label}: {out['launches']} device launches, {out['device_ms']:.4f} ms of device "
+              f"time, {out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card: str) -> None:
     """Host µs of one row-G wrapper call at stage 2 of 4 (perf_counter around
     200 calls, queued without a sync; median of 5), and of its parts: the
@@ -1012,6 +1108,10 @@ def main() -> int:
                        help="profile the fueling shot, the TORAX-style campaign and the digital "
                             "twin on their plain loops and through rows N and D, and one "
                             "realtime twin session")
+    group.add_argument("--ballooning", action="store_true",
+                       help="profile row B on the scan and the bootstrap path (plain at a "
+                            "tenth of the steps, and the kernel), the profiler over one "
+                            "launch of rows B, D and N, and slice 4b's plain loops")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1064,6 +1164,9 @@ def main() -> int:
         return 0
     if opts.twin:
         profile_twin(card)
+        return 0
+    if opts.ballooning:
+        profile_ballooning(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
