@@ -145,9 +145,28 @@ them:
 * (zb) rt-EFIT built on the JAX test's layout at 129^2 and a round trip, in
   float64 against the CPU; the default control-room session in float32
   against the CPU; its kernel-backed psi lane on the 513^2 FMG psi.
+* (zc) row Q, the staged disruption (``csrc/disruption.cu``,
+  ``ops/cuda_disruption.disruption_sequence``: one thread a sequence, the
+  tick loop inside): the default 4000-tick sequence unmitigated (the CLI's
+  disruption mode) and with the whole-plant lane's SPI (200 at 0.2 ms) each
+  in ONE launch, the mitigation scan of ``test_disruption_edge_events.py``
+  in one launch for its three inventories, ``torch.equal`` to the plain tick
+  loop in float32 and float64; the Fokker-Planck, fluid-runaway, SPI
+  injection and SPI sweep lanes at the JAX tests' sizes; those tests' gates
+  and float64 against the CPU;
+* (zd) row S, the SOC sandpile (``csrc/sandpile.cu``,
+  ``ops/cuda_sandpile.sandpile_run``: one CTA, the drives and sweeps
+  inside): ``torch.equal`` to the plain loop at 64 cells x 100 drives in
+  float32 and float64; the default (128 x 2000), CLI (64 x 2000) and JAX test
+  (24 x 6000) runs each in ONE launch, equal to the CPU twin; the JAX test's
+  gates;
+* (ze) the MHD modes, the sawtooth cycle, the stability suite (its eigen lane
+  in two launches of row B), the ELM cycle and the edge events in float64
+  against the CPU, with their JAX tests' gates.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
-sessions, report and mission, (za) but its fused lane, and (zb) run plain
+sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
+Fokker-Planck, fluid and SPI lanes and (ze) but its eigen lane run plain
 PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
@@ -279,7 +298,12 @@ Phases:
    rt-EFIT within 1e-9 of the CPU with its gates, the control room within
    1e-5 of the CPU with its summary's gates, the psi lane zero outside the
    normalised psi's unit level and its z trace equal to the default
-   session's, no kernel;
+   session's, no kernel; (zc)-(ze): rows Q and S ``torch.equal`` to their
+   plain loops in both dtypes, one launch a sequence call, a scan or a
+   sandpile run, row S's runs equal to the CPU twin's integers (the mean
+   slope within an ulp), the JAX tests' gates, every float64 lane within
+   1e-9 of the CPU (the SPI deposition, a scatter-add of atomics, 1e-12),
+   and on (ze) row B's two eigen-lane launches and no other kernel;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -301,7 +325,7 @@ Phases:
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  Right after the build it starts, each in a spawned
-process, the CPU twins of (k), (o), (v) and (z)-(zb) and the host-bound card-side
+process, the CPU twins of (k), (o), (v) and (z)-(ze) and the host-bound card-side
 runs of (k)'s plain Thomas loop and (o)'s optimiser and tracking shot, so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
@@ -311,8 +335,9 @@ that runs six of the seven), over the rectangular solve for ``sor_sweeps``,
 over the 257^2 free-boundary forward for kernels 2 and 3 and over (j) for
 the Thomas kernel, over (n) for the closed-loop kernel, over (p)'s
 campaign and tuner for row R, over (r)'s f32 ladder for row L, over
-(u)'s default run for row G, over (x)'s default float32 shot for row D and
-over (z)'s gates for row B,
+(u)'s default run for row G, over (x)'s default float32 shot for row D,
+over (z)'s gates for row B, over (zc)'s counted sequences and scans for
+row Q and over (zd)'s counted runs for row S,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -368,7 +393,8 @@ TILED_SHAPES = ((1025, 1, (2,), None), (2049, 3, (0, 3), None), (4097, 3, (3,), 
 KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
-           "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi")
+           "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
+           "sandpile_run")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -392,6 +418,11 @@ SOURCES = {
     "twin_shot": ("csrc/digital_twin.cu", "scpn_fusion_tpu/control/digital_twin.py:120"),
     # no Pallas kernel: the JAX integration is one lax.scan, vmapped over the field lines
     "newcomb_min_xi": ("csrc/ballooning.cu", "scpn_fusion_tpu/models/physics/ballooning.py:39"),
+    # no Pallas kernel: the JAX sequence is one lax.scan, vmapped over SPI inventories
+    "disruption_sequence": ("csrc/disruption.cu",
+                            "scpn_fusion_tpu/models/physics/disruption_sequence.py:93"),
+    # no Pallas kernel: the JAX run is one lax.scan of drives, the sweeps an inner scan
+    "sandpile_run": ("csrc/sandpile.cu", "scpn_fusion_tpu/models/physics/sandpile.py:64"),
 }
 
 
@@ -3925,15 +3956,592 @@ def bus_checks(dev, card: str, counted, by_path: dict) -> None:
     require(gates, "(y): the three-process bus session misses its gates")
 
 
+# ── the seventeenth slice: (zc) row Q, the staged disruption, with the runaway
+# models and SPI ablation, (zd) row S, the SOC sandpile, (ze) the MHD modes,
+# sawteeth, the stability suite (its eigen lane through row B), ELMs and edge
+# events ──
+
+# (label, injected density [1e20 m^-3], delivery [ms]): the CLI's disruption
+# mode at its default (cli.py:256-266, --spi 0) and the whole-plant fault
+# lane's SPI (validation/run_whole_plant_fault.py:154-156)
+SEQ_CASES = (("unmitigated", 0.0, 0.0), ("SPI 200 at 0.2 ms", 200.0, 0.2))
+# the mitigation scan of test_disruption_edge_events.py:51-55
+SCAN_Q, SCAN_STEPS, SCAN_TIME_MS = (0.0, 5.0, 50.0), 2000, 0.5
+# operations a tick of row Q that the function needs: on each sequence the
+# density step, the loop field, the avalanche, the current balance, the halo
+# and the three scaled traces (35); once a tick for every sequence the tick
+# time, Te (its exp), eta (its pow), R and the seed's switch (15).  And the
+# dependent operations a tick on a sequence's chain (the ohmic current, E_par,
+# E/E_c, the avalanche rate, dI_RE, I_RE and its clamp: three divisions).
+DISRUPTION_OPS = (35, 15)
+DISRUPTION_DEPTH = 12
+# the SPI cloud of test_spi_ablation.py:21-23
+SPI_CFG = dict(n_fragments=64, injector_pos=(8.4, 0.0, 0.0), velocity_mps=500.0)
+SPI_MASSES = (0.002, 0.01, 0.03)                                  # test_spi_ablation.py:76
+# the fluid runs of test_runaway_fluid.py:72-92: a pure avalanche, the density cap
+FLUID_CASES = (((0.5, 0.01, 0.5, 1.0), dict(n_re_seed=1e10, t_max_s=0.01, n_steps=50)),
+               ((0.5, 0.1, 50.0, 1.0), dict(n_re_seed=1e16, t_max_s=1.0, n_steps=100,
+                                            max_runaway_fraction=0.05)))
+DEPOSITION_TOL = 1e-12       # the SPI deposition (index_add_'s atomics on the card) against the CPU
+SANDPILE_SHORT = (64, 100)   # (cells, drives) of row S against its plain loop, from a critical pile
+# (label, cells, drives): the default config (sandpile.py:24-30), the CLI's
+# sandpile mode (cli.py:890-894) and the JAX test's (test_sandpile_property.py:29)
+SANDPILE_RUNS = (("default 128 x 2000", 128, 2000), ("CLI 64 x 2000", 64, 2000),
+                 ("JAX test 24 x 6000", 24, 6000))
+SANDPILE_TIMED = (128, 200)  # the timed shape: the default pile, a tenth of its drives
+SANDPILE_OPS = 6             # operations a cell and a sweep: slope, test, move, two updates, count
+
+
+def disruption_work(n_seq: int, n_steps: int, item: int):
+    """Row Q: (bytes, operations, peak rate): each sequence's density read
+    and its six traces written; the operations of :data:`DISRUPTION_OPS`."""
+    per_seq, shared = DISRUPTION_OPS
+    return (float(n_seq * item * (1 + 6 * n_steps)), float(n_steps * (per_seq * n_seq + shared)),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def sandpile_work(n: int, n_steps: int, sweeps: int, item: int):
+    """Row S: (bytes, operations, peak rate): the drive cells (int64) read,
+    the starting and final heights and three values a drive written; the
+    operations of :data:`SANDPILE_OPS` a cell and a sweep, and a drive's
+    grain, slope differences and sums."""
+    n_bytes = 8 * n_steps + item * (2 * n + 3 * n_steps)
+    n_ops = n_steps * (sweeps * SANDPILE_OPS * n + 2 * n + 2)
+    return (float(n_bytes), float(n_ops), F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def as_numpy(results: dict) -> dict:
+    """Tensors as float64 numpy arrays (bools as 0 / 1)."""
+    import torch
+    return {k: v.detach().cpu().to(torch.float64).numpy() for k, v in results.items()}
+
+
+def fp_seed(device):
+    """The JAX test's seed population on the 64-point grid (made on the CPU)."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import fokker_planck_re as fp
+    p = fp.FokkerPlanckGrid(64).p(torch.float64, "cpu")
+    return (1e12 * torch.exp(-((torch.log10(p) + 1.0) ** 2) / 0.1)).to(device)
+
+
+def disruption_lanes(device, seqs: dict | None = None, scan=None) -> dict:
+    """(zc)'s float64 results as numpy: the default sequence unmitigated and
+    with SPI, the mitigation scan, ``run_fokker_planck`` (the JAX test's seed
+    on 64 points: 300 steps at 10 V/m, 50 field-free), ``run_fluid_runaway``
+    on :data:`FLUID_CASES`, ``run_spi_injection`` (600 steps) and
+    ``spi_quantity_sweep`` (500 steps) of the JAX test's cloud, drawn from
+    seeded generators.  ``seqs`` (label -> (trace, summary)) and ``scan``
+    hold results already made on ``device``."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import disruption_sequence as ds
+    from scpn_fusion_tpu_torch.models.physics import fokker_planck_re as fp
+    from scpn_fusion_tpu_torch.models.physics import runaway_fluid as rf
+    from scpn_fusion_tpu_torch.models.physics import spi_ablation as spi
+
+    f64, out = torch.float64, {}
+    for label, q, ts in SEQ_CASES:
+        trace, summ = (seqs or {}).get(label) or ds.run_disruption_sequence(
+            ds.DisruptionParams(), spi_ne20_injected=q, spi_time_ms=ts, dtype=f64, device=device)
+        out.update({f"{label} {k}": v for k, v in (*trace._asdict().items(),
+                                                    *summ._asdict().items())})
+    scan = scan if scan is not None else ds.spi_mitigation_scan(
+        ds.DisruptionParams(n_steps=SCAN_STEPS), torch.tensor(SCAN_Q, dtype=f64, device=device),
+        spi_time_ms=SCAN_TIME_MS)
+    out.update({f"scan {k}": v for k, v in scan._asdict().items()})
+    grid, f0 = fp.FokkerPlanckGrid(64), fp_seed(device)
+    for e_field, n_steps in ((10.0, 300), (0.0, 50)):
+        f, tr = fp.run_fokker_planck(grid, f0, 1e-6, e_field, 5e19, 5000.0, 1.5, n_steps=n_steps)
+        out.update({f"fp {e_field} f": f, f"fp {e_field} n_re": tr.n_re,
+                    f"fp {e_field} j_re": tr.j_re})
+    for i, (args, kw) in enumerate(FLUID_CASES):
+        tr = rf.run_fluid_runaway(*args, **kw, dtype=f64, device=device)
+        out.update({f"fluid {i} {k}": v for k, v in tr._asdict().items()})
+    out["fluid gamma"] = rf.avalanche_rate(0.5, 0.01, 0.5, 1.0, dtype=f64, device=device)
+    cfg = spi.SpiConfig(**SPI_CFG)
+    ne19, te = (torch.tensor(np.linspace(a, b, 33), dtype=f64, device=device)
+                for a, b in ((8.0, 2.0), (8.0, 0.05)))     # test_spi_ablation.py:19-20
+    trace, summ = spi.run_spi_injection(cfg, torch.Generator().manual_seed(1), ne19, te,
+                                        dt_s=5e-5, n_steps=600)
+    out.update({f"spi {k}": v for k, v in (*trace._asdict().items(), *summ._asdict().items())})
+    sweep = spi.spi_quantity_sweep(cfg, torch.Generator().manual_seed(4),
+                                   torch.tensor(SPI_MASSES, dtype=f64, device=device), ne19, te,
+                                   dt_s=5e-5, n_steps=500)
+    out.update({f"sweep {k}": v for k, v in sweep._asdict().items()})
+    return as_numpy(out)
+
+
+def sandpile_lanes(device) -> dict:
+    """(zd)'s float32 runs of :data:`SANDPILE_RUNS` (seed 0), as numpy."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import sandpile as sp
+    return {label: as_numpy(sp.run_sandpile(sp.SandpileConfig(n_cells=n, n_steps=steps), seed=0,
+                                            dtype=torch.float32, device=device)._asdict())
+            for label, n, steps in SANDPILE_RUNS}
+
+
+def mhd_lanes(device) -> dict:
+    """(ze)'s float64 results as numpy, on the JAX tests' inputs: the TAE and
+    MRTI screens, Delta', the Rutherford island (5000 steps, growing; 3000,
+    decaying) and the locked mode (3000, both cases); the q=1 radius, the
+    Kadomtsev crash and the sawtooth step at q0 0.8 and 1.1 (NaN radii as
+    -1, with their masks); the q-profile, the full stability check and the
+    eigenvalue ballooning lane (two launches of row B on the card); the ELM
+    limit cycle (3000 steps); the pellet at three core temperatures, blobs
+    and MARFE onset."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import edge_events as ev
+    from scpn_fusion_tpu_torch.models.physics import elm
+    from scpn_fusion_tpu_torch.models.physics import mhd_modes as mm
+    from scpn_fusion_tpu_torch.models.physics import sawtooth as sw
+    from scpn_fusion_tpu_torch.models.physics import stability_mhd as st
+
+    f64, out = torch.float64, {}
+    kw = dict(dtype=f64, device=device)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, dtype=np.float64), dtype=f64, device=device)
+
+    def put(prefix, result):
+        for k, v in result._asdict().items():
+            if hasattr(v, "_asdict"):
+                put(f"{prefix} {k}", v)
+            else:
+                v = torch.as_tensor(v, device=device)
+                if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                    # NaN 1, +inf 2, -inf 3 in a code; the values as -1, -2, -3
+                    out[f"{prefix} {k} nonfinite"] = (torch.isnan(v) + 2 * torch.isposinf(v)
+                                                      + 3 * torch.isneginf(v))
+                    v = torch.nan_to_num(v, nan=-1.0, posinf=-2.0, neginf=-3.0)
+                out[f"{prefix} {k}"] = v
+
+    out["tae f"] = mm.tae_frequency(5.3, 10.0, 1.5, 6.2, **kw)
+    for i, extra in enumerate((dict(beta_fast_pct=0.1, v_fast_over_va=0.8),
+                               dict(beta_fast_pct=8.0, v_fast_over_va=1.8))):
+        put(f"tae {i}", mm.tae_stability(b_t=5.3, n_i_19=10.0, q=1.5, r0_m=6.2, a_m=2.0, **extra,
+                                         **kw))
+    for i, extra in enumerate((dict(k_m=100.0, b_t=0.0, n_i_19=1.0),
+                               dict(k_m=1e6, b_t=2.0, n_i_19=0.01),
+                               dict(k_m=1e6, b_t=2.0, n_i_19=0.01, theta_kb_rad=np.pi / 2),
+                               dict(k_m=1.0, b_t=2.0, n_i_19=0.01))):
+        put(f"mrti {i}", mm.mrti_growth_rate(g_eff_m_s2=1e9, **extra, **kw))
+    rho = np.linspace(0.01, 1.0, 64)
+    for width in (0.632, 0.15):
+        put(f"delta' {width}", mm.delta_prime_cylindrical(
+            t(rho), t(1.0 + 2.5 * rho ** 2), t(np.exp(-(rho / width) ** 2)), 2.0))
+    put("island grow", mm.rutherford_island_evolution(delta_prime=5.0, r_s_m=1.2, eta_ohm_m=1e-7,
+                                                      n_steps=5000, dt=1e-2, **kw))
+    put("island decay", mm.rutherford_island_evolution(delta_prime=-4.0, r_s_m=1.2,
+                                                       eta_ohm_m=1e-7, w0_m=0.02, n_steps=3000,
+                                                       dt=1e-2, **kw))
+    put("locked ok", mm.locked_mode_evolution(w_island_m=0.03, b_error_mt=0.05, omega0_hz=5000.0,
+                                              **kw))
+    put("locked bad", mm.locked_mode_evolution(w_island_m=0.12, b_error_mt=5.0, omega0_hz=100.0,
+                                               **kw))
+    rho = np.linspace(0.0, 1.0, 100)
+    for q0 in (0.8, 1.1):
+        q = t(q0 + 2.5 * rho ** 2)
+        prof = (t(rho), t(10.0 * (1 - rho ** 2) + 0.1), t(8.0 * (1 - rho ** 2) ** 0.5 + 0.5))
+        shear = t(np.gradient(q0 + 2.5 * rho ** 2) / (rho[1] - rho[0]) * rho
+                  / np.maximum(q0 + 2.5 * rho ** 2, 1e-6))
+        radius = sw.find_q1_radius(prof[0], q)
+        out[f"saw {q0} rho_1 nan"] = torch.isnan(radius)
+        out[f"saw {q0} rho_1"] = torch.nan_to_num(radius, nan=-1.0)
+        put(f"saw {q0} crash", sw.kadomtsev_crash(*prof, q))
+        put(f"saw {q0} step", sw.sawtooth_step(*prof, q, shear))
+    rho = np.linspace(0.0, 1.0, 50)
+    ne, te = 10.0 * (1 - rho ** 2) ** 0.5 + 0.5, 20.0 * (1 - rho ** 2) + 0.1
+    geom = dict(r0=6.2, a=2.0, b0=5.3, ip_ma=15.0)
+    qp = st.compute_q_profile(t(rho), t(ne), t(te), t(te), **geom, kappa=1.7, delta=0.33)
+    put("q", qp)
+    put("ballooning", st.ballooning_stability(qp))
+    put("s 0.5", st.ballooning_stability(qp._replace(shear=torch.full_like(qp.q, 0.5),
+                                                     alpha_mhd=torch.zeros_like(qp.q))))
+    put("cold mercier", st.mercier_stability(st.compute_q_profile(
+        t(rho), t(np.ones(50)), t(np.full(50, 0.5)), t(np.full(50, 0.5)), **geom)))
+    put("troyon", st.troyon_beta_limit(0.025, 15.0, 2.0, 5.3, **kw))
+    for beta_n in (3.0, 2.0):
+        put(f"rwm {beta_n}", st.rwm_stability(beta_n, **kw))
+    put("ntm", st.ntm_stability(qp, torch.full_like(qp.rho, 0.2e6), torch.full_like(qp.rho, 1e6),
+                                2.0))
+    for tag, j_edge, p_ped in (("low", 1e4, 1e4), ("high", 1e7, 2e5)):
+        put(f"pb {tag}", st.peeling_ballooning_stability(qp, j_edge, p_ped, 6.2, 2.0, 5.3))
+    put("full", st.run_full_stability_check(t(rho), t(ne), t(te), t(te), t(np.full(50, 1e5)),
+                                            t(np.full(50, 1e6)), **geom, beta_t=0.02, j_edge=1e5,
+                                            p_ped_pa=5e4))
+    n = 7
+    qp = st.QProfile(t(np.linspace(0.1, 1.0, n)), t(np.linspace(1.0, 4.0, n)), t(np.full(n, 0.4)),
+                     t(np.full(n, 3.5)), t(1.0), t(0.1), t(4.0))
+    put("eigen", st.ballooning_stability_eigen(qp))
+    put("closed form", st.ballooning_stability(qp))
+    put("elm cycle", elm.run_elm_cycle(t_ped0_kev=1.0, n_ped_1e19=8.0, w_ped_mj=10.0,
+                                       heat_rate_kev_s=50.0, alpha_per_kev=1.0, s_edge=1.5,
+                                       j_edge_norm=0.1, dt=1e-3, n_steps=3000, **kw))
+    rho = np.linspace(0.0, 1.0, 33)
+    for t_core in (10.0, 25.0, 2.0):
+        put(f"pellet {t_core}", ev.pellet_ablation(te_profile_kev=t(t_core * (1 - 0.9 * rho ** 2)),
+                                                   ne_profile_19=t(8.0 * (1 - 0.7 * rho ** 2))))
+    for size in (2.0, 30.0):
+        put(f"blob {size}", ev.blob_transport(blob_size_mm=size, **kw))
+    for i, extra in enumerate((dict(n_edge_19=1.0, te_edge_ev=50.0),
+                               dict(n_edge_19=20.0, te_edge_ev=15.0, impurity_fraction=0.06),
+                               dict(n_edge_19=1.0, te_edge_ev=50.0, impurity_fraction=0.1))):
+        put(f"marfe {i}", ev.marfe_onset(ip_ma=2.0, a_m=0.6, **extra, **kw))
+    return as_numpy(out)
+
+
+def slice17_on_cpu(conn) -> None:
+    """The CPU twins of (zc), (zd) and (ze)."""
+    dev = on_cpu(4)
+    conn.send({"zc": disruption_lanes(dev), "zd": sandpile_lanes(dev), "ze": mhd_lanes(dev)})
+    conn.close()
+
+
+def disruption_gates(r: dict) -> dict:
+    """The gates of ``tests/test_disruption_edge_events.py`` (``TestDisruption``),
+    the whole-plant lane's (``run_whole_plant_fault.py:157-159``), the
+    runaway tests' (``TestFokkerPlanck`` at 10 V/m, ``test_runaway_fluid.py``)
+    and ``tests/test_spi_ablation.py``'s, on :func:`disruption_lanes`'
+    results."""
+    from scpn_fusion_tpu_torch.models.physics import fokker_planck_re as fp
+    from scpn_fusion_tpu_torch.models.physics import spi_ablation as spi
+
+    u, m = "unmitigated", "SPI 200 at 0.2 ms"
+    ip, i_re = r[f"{u} ip_ma"], r[f"{u} i_re_ma"]
+    j, n = r["fp 10.0 j_re"][49], r["fp 10.0 n_re"][49]
+    fluid = r["fluid 0 n_re"], 1e10 * np.exp(r["fluid gamma"] * r["fluid 0 time_s"])
+    dep = r["spi deposition_m3s"]
+    gates = {
+        "ohmic current quenched": abs(ip[0] - 15.0) <= 0.15 and ip[-1] - i_re[-1] < 1.0
+        and ip[-1] < ip[0] and float(r[f"{u} tau_cq_ms"]) > 0.0
+        and abs(r[f"{u} te_ev"][-1] - 10.0) <= 2.0,
+        "unmitigated RE beam": float(r[f"{u} i_re_final_ma"]) > 0.5
+        and not bool(r[f"{u} mitigated"]),
+        "SPI suppresses": float(r[f"{m} i_re_final_ma"]) < 0.2 * float(r[f"{u} i_re_final_ma"]),
+        "whole-plant lane": bool(r[f"{m} mitigated"]) and float(r[f"{m} i_re_final_ma"]) < 0.15,
+        "halo": float(r[f"{u} halo_peak_ma"]) > 0.5,
+        "scan monotone": r["scan i_re_final_ma"][2] < r["scan i_re_final_ma"][0],
+        "FP grows": bool(np.all(np.isfinite(r["fp 10.0 n_re"])))
+        and r["fp 10.0 n_re"][-1] > r["fp 10.0 n_re"][0] and bool(np.all(r["fp 10.0 f"] >= 0.0))
+        and 0 <= j <= fp.E_CHARGE * fp.C * n * (1 + 1e-6),
+        "fluid exact avalanche": bool(np.allclose(*fluid, rtol=1e-9, atol=0.0)),
+        "fluid cap": float(np.max(r["fluid 1 n_re"])) <= 0.05 * 0.5e20 * (1 + 1e-12),
+        "SPI ledger": abs(r["spi mass_total_kg"][-1] + float(r["spi assimilated_particles"])
+                          * spi.M_NEON_KG - 0.01) <= 1e-5 * 0.01
+        and 0.0 < float(r["spi assimilated_fraction"]) <= 1.0,
+        "SPI deposition": bool(np.all(np.isfinite(dep)) and np.all(dep >= 0.0))
+        and dep.shape == (600, 33),
+        "sweep monotone": bool(np.all(np.diff(r["sweep assimilated_particles"]) > 0.0)
+                               and np.all(r["sweep delta_ne20_volavg"] > 0.0)),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def disruption_ptx() -> dict:
+    """Instructions of ``csrc/disruption.cu``'s PTX (``nvcc -ptx``, sm_90a)
+    that a rewrite of ``pow`` for its constant exponent 1.5 (x * sqrt(x))
+    would bring in: the exponent reaches the kernel as an argument, as in
+    torch's elementwise ``pow``, so none is expected."""
+    import tempfile
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        out = Path(tmp) / "disruption.ptx"
+        subprocess.run([cb._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
+                        str(cb.CSRC / "disruption.cu"), "-o", str(out)], check=True,
+                       capture_output=True)
+        ptx = out.read_text()
+    return {op: len(re.findall(rf"\b{op}\.", ptx)) for op in ("sqrt", "rsqrt", "call")}
+
+
+def disruption_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                      measured_plain: dict, twin: dict) -> int:
+    """(zc) row Q: the default sequence unmitigated and with SPI each ONE
+    launch, and the mitigation scan one launch for its three inventories,
+    ``torch.equal`` to the plain tick loop on the card in float32 and
+    float64; the gates of :func:`disruption_gates` (the field-free
+    Fokker-Planck run at the JAX test's 300 steps besides); every float64
+    result within 1e-9 of the CPU (``twin``: :func:`slice17_on_cpu`'s), the
+    SPI deposition within 1e-12.  Returns row Q's counted launches."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import disruption_sequence as ds
+    from scpn_fusion_tpu_torch.models.physics import fokker_planck_re as fp
+    from scpn_fusion_tpu_torch.ops import cuda_disruption as cdis
+
+    one = {name: int(name == "disruption_sequence") for name in KERNELS}
+    launches, seqs = 0, {}
+    print(f"(zc) csrc/disruption.cu's PTX (nvcc -ptx): {disruption_ptx()} sqrt / rsqrt / call "
+          f"instructions (pow's exponent is an argument; a rewrite for 1.5 would bring a sqrt)")
+    p, p_scan = ds.DisruptionParams(), ds.DisruptionParams(n_steps=SCAN_STEPS)
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        entry = f"scpn_disruption_{tag}"
+        for label, q, ts in SEQ_CASES:
+            (trace, summ), calls, launched = counted(functools.partial(
+                ds.run_disruption_sequence, p, spi_ne20_injected=q, spi_time_ms=ts, dtype=dtype,
+                device=dev))
+            require(calls == one and launched == {entry: 1},
+                    f"(zc) {label} {tag}: {calls} / {launched}, not one launch of row Q")
+            by_path[f"disruption {label} {tag}"] = calls
+            launches += calls["disruption_sequence"]
+            q_t = torch.tensor([q], dtype=dtype, device=dev)
+            plain, ms_p = events_ms(functools.partial(cdis.disruption_sequence_plain, p, q_t, ts))
+            equal = all(torch.equal(a, b[0]) for a, b in zip(trace, plain))
+            print(f"(zc) row Q {tag} {label} ({p.n_steps} ticks): one launch, torch.equal to the "
+                  f"plain tick loop {equal}; I_RE final {float(summ.i_re_final_ma)!r} MA, tau_CQ "
+                  f"{float(summ.tau_cq_ms)!r} ms, halo peak {float(summ.halo_peak_ma)!r} MA; "
+                  f"plain loop {ms_p:.1f} ms [{card}]")
+            require(equal, f"(zc) row Q {tag} {label}: the kernel differs from its plain loop")
+            if tag == "f64":
+                seqs[label] = (trace, summ)
+            if tag == "f64" and label == "unmitigated":
+                kernel = functools.partial(cdis.disruption_sequence, p, q_t, ts)
+                results["disruption_sequence"] = {"max_abs_err": max(
+                    float((a - b).abs().max()) for a, b in zip(kernel(), plain))}
+                measured_plain["disruption_sequence"] = ms_p
+                timing["disruption_sequence"] = (
+                    kernel, functools.partial(cdis.disruption_sequence_plain, p, q_t, ts),
+                    f"one default sequence, {p.n_steps} ticks f64",
+                    disruption_work(1, p.n_steps, 8))
+        q_scan = torch.tensor(SCAN_Q, dtype=dtype, device=dev)
+        scan, calls, launched = counted(functools.partial(
+            ds.spi_mitigation_scan, p_scan, q_scan, spi_time_ms=SCAN_TIME_MS))
+        require(calls == one and launched == {entry: 1},
+                f"(zc) scan {tag}: {calls} / {launched}, not one launch of row Q")
+        by_path[f"disruption scan {tag}"] = calls
+        launches += calls["disruption_sequence"]
+        equal = all(torch.equal(a, b) for a, b in zip(
+            cdis.disruption_sequence(p_scan, q_scan, SCAN_TIME_MS),
+            cdis.disruption_sequence_plain(p_scan, q_scan, SCAN_TIME_MS)))
+        print(f"(zc) row Q {tag} mitigation scan ({len(SCAN_Q)} inventories x {SCAN_STEPS} ticks): "
+              f"one launch, torch.equal to the plain loop {equal}; I_RE final "
+              f"{scan.i_re_final_ma.tolist()} MA [{card}]")
+        require(equal, f"(zc) row Q {tag} scan: the kernel differs from its plain loop")
+        if tag == "f64":
+            scan64 = scan
+
+    (r, ms), calls, _ = counted(lambda: events_ms(lambda: disruption_lanes(dev, seqs, scan64)))
+    require(calls == {name: 0 for name in KERNELS},
+            f"(zc) lanes: {calls}: the runaway and SPI lanes launch no kernel")
+    by_path["runaway_spi_lanes_f64"] = calls
+    _, decay = fp.run_fokker_planck(fp.FokkerPlanckGrid(64), fp_seed(dev), 1e-6, 0.0, 5e19, 5000.0,
+                                    1.5, n_steps=300)
+    gates = disruption_gates(r)
+    n_re0 = decay.n_re.cpu().numpy()
+    gates["FP decays field-free"] = bool(np.all(np.isfinite(n_re0)) and n_re0[-1] < n_re0[0])
+    print(f"(zc) gates of the JAX tests on the card (f64): {gates}; the runaway, fluid, SPI "
+          f"injection (600 steps, 64 fragments) and sweep lanes {ms:.1f} ms (CUDA events) "
+          f"[{card}]")
+    require(all(gates.values()), "(zc): the port misses a gate of the JAX tests")
+    agree(r, twin["zc"], "(zc) row Q's sequences, the scan, Fokker-Planck, fluid and SPI lanes",
+          card)
+    dep = max_rel(torch.from_numpy(r["spi deposition_m3s"]),
+                  torch.from_numpy(twin["zc"]["spi deposition_m3s"]))
+    print(f"(zc) SPI deposition (index_add_, atomics on the card) against the CPU: {dep:.3e} of "
+          f"its largest value (limit {DEPOSITION_TOL:.0e}) [{card}]")
+    require(dep <= DEPOSITION_TOL, "(zc): the SPI deposition deviates from the CPU's")
+
+    kernel, _, label, work = timing["disruption_sequence"]
+    ms_k = cuda_ms(kernel)
+    b, by = bound(work)
+    chain = ladder_chain_ms(p.n_steps, DISRUPTION_DEPTH)
+    print(f"time (zc) row Q ({label}): kernel {ms_k:.4f} ms ({1e3 * ms_k / p.n_steps:.4f} us a "
+          f"tick; CUDA events, median of 5), bound {b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, "
+          f"{work[1] / 1e6:.4g} Mflop); a sequence's dependent operations "
+          f"{p.n_steps * DISRUPTION_DEPTH} ({p.n_steps} ticks x ~{DISRUPTION_DEPTH}), "
+          f"~{chain:.4f} ms at a nominal 4 cycles each and {SM_CLOCK_HZ / 1e9:.2f} GHz (a count, "
+          f"not a bound: three IEEE f64 divisions a tick on the chain); plain loop "
+          f"{measured_plain['disruption_sequence']:.1f} ms; library_ms null (no PyTorch call "
+          f"runs a disruption sequence) [{card}]")
+    return launches
+
+
+def sandpile_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                    measured_plain: dict, twin: dict) -> int:
+    """(zd) row S: ``torch.equal`` to its plain loop on the card at
+    :data:`SANDPILE_SHORT` from a pile at its critical slope, in float32 and
+    float64; the default, CLI and JAX
+    test sizes (:data:`SANDPILE_RUNS`, float32, seed 0) each ONE launch,
+    their heights, avalanche sizes and flux equal to the CPU twin's and the
+    mean slope within one ulp; mass conservation on every run and on the
+    JAX test's 32 x 500 (seed 1), the marginal-slope gates at 24 x 6000.
+    Returns row S's counted launches."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import sandpile as sp
+    from scpn_fusion_tpu_torch.ops import cuda_sandpile as csp
+
+    one = {name: int(name == "sandpile_run") for name in KERNELS}
+    n, steps = SANDPILE_SHORT
+    cfg = sp.SandpileConfig(n_cells=n, n_steps=steps)
+    idx = sp.drive_indices(cfg, 0).to(dev)
+    # a pile at its critical slope (4.2 a cell less 0-2 grains at random), so
+    # that the short run avalanches and spills from its first drive
+    pile = np.round(np.linspace(4.2 * (n - 1), 0.0, n)) - np.random.default_rng(SEED).integers(
+        0, 3, n)
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        h0 = torch.tensor(np.maximum(pile, 0.0), dtype=dtype, device=dev)
+        k, ms_k = events_ms(functools.partial(csp.sandpile_run, cfg, h0, idx))
+        plain, ms_p = events_ms(functools.partial(csp.sandpile_run_plain, cfg, h0, idx))
+        equal = all(torch.equal(a, b) for a, b in zip(k, plain))
+        print(f"(zd) row S {tag} {n} cells x {steps} drives x {cfg.relax_sweeps} sweeps: kernel "
+              f"torch.equal to the plain loop {equal}; {int(k[1].sum())} topples, "
+              f"{float(k[2].sum())!r} grains out; kernel {ms_k:.4f} ms (one call), plain loop "
+              f"{ms_p:.1f} ms [{card}]")
+        require(equal, f"(zd) row S {tag}: the kernel differs from its plain loop")
+        if tag == "f32":
+            results["sandpile_run"] = {"max_abs_err": max(float((a - b).abs().max())
+                                                          for a, b in zip(k, plain))}
+
+    launches = 0
+    for label, n, steps in SANDPILE_RUNS:
+        cfg = sp.SandpileConfig(n_cells=n, n_steps=steps)
+        trace, calls, launched = counted(functools.partial(sp.run_sandpile, cfg, 0,
+                                                           dtype=torch.float32, device=dev))
+        require(calls == one and launched == {"scpn_sandpile_f32": 1},
+                f"(zd) {label}: {calls} / {launched}, not one launch of row S")
+        by_path[f"sandpile {label}"] = calls
+        launches += calls["sandpile_run"]
+        ours, ref = as_numpy(trace._asdict()), twin["zd"][label]
+        same = all(np.array_equal(ours[k], ref[k]) for k in ("heights_final", "avalanche_sizes",
+                                                              "flux_out"))
+        ulp = np.spacing(np.abs(ref["mean_slope"]).astype(np.float32)).astype(np.float64)
+        slope_equal = bool(np.array_equal(ours["mean_slope"], ref["mean_slope"]))
+        slope_ok = bool(np.all(np.abs(ours["mean_slope"] - ref["mean_slope"]) <= ulp))
+        stats = sp.avalanche_statistics(trace)
+        mass = float(trace.heights_final.sum()) + float(trace.flux_out.sum())
+        print(f"(zd) row S {label} f32: one launch; heights, sizes and flux equal to the CPU twin "
+              f"{same}, mean slope equal {slope_equal} (within one ulp {slope_ok}); grains held + "
+              f"out {mass!r} of {cfg.drive_amount * steps!r}; {stats} [{card}]")
+        require(same and slope_ok, f"(zd) row S {label}: the card differs from the CPU twin")
+        require(mass == cfg.drive_amount * steps, f"(zd) {label}: grains not conserved")
+        if label.startswith("JAX test"):
+            gates = (stats["total_flux_out"] > 0.0
+                     and 0.3 * cfg.critical_slope < stats["final_mean_slope"] <= cfg.critical_slope
+                     and stats["max_avalanche"] > 5.0 * max(stats["mean_avalanche"], 1.0))
+            require(gates, "(zd): the 24 x 6000 run misses test_reaches_marginal_slope's gates")
+    cfg = sp.SandpileConfig(n_cells=32, n_steps=500)
+    trace, calls, _ = counted(functools.partial(sp.run_sandpile, cfg, 1, dtype=torch.float32,
+                                                device=dev))
+    held, out = float(trace.heights_final.sum()), float(trace.flux_out.sum())
+    require(calls == one and abs(held + out - 500.0) <= 1e-6 * 500.0,
+            "(zd): the 32 x 500 run misses test_mass_conservation's gate")
+    by_path["sandpile mass 32 x 500"] = calls
+    launches += calls["sandpile_run"]
+
+    n, steps = SANDPILE_TIMED
+    cfg = sp.SandpileConfig(n_cells=n, n_steps=steps)
+    idx, h0 = sp.drive_indices(cfg, 0).to(dev), torch.zeros(n, device=dev)
+    _, ms_p = events_ms(functools.partial(csp.sandpile_run_plain, cfg, h0, idx))
+    measured_plain["sandpile_run"] = ms_p
+    label = f"{n} cells x {steps} drives x {cfg.relax_sweeps} sweeps f32"
+    work = sandpile_work(n, steps, cfg.relax_sweeps, 4)
+    timing["sandpile_run"] = (functools.partial(csp.sandpile_run, cfg, h0, idx),
+                              functools.partial(csp.sandpile_run_plain, cfg, h0, idx), label, work)
+    full = sp.SandpileConfig()
+    idx_full, h0_full = sp.drive_indices(full, 0).to(dev), torch.zeros(full.n_cells, device=dev)
+    ms_full = cuda_ms(functools.partial(csp.sandpile_run, full, h0_full, idx_full))
+    b, by = bound(work)
+    stages = full.n_steps * full.relax_sweeps
+    print(f"time (zd) row S ({label}): kernel {cuda_ms(timing['sandpile_run'][0]):.4f} ms, plain "
+          f"loop {ms_p:.1f} ms (once), bound {b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, "
+          f"{work[1] / 1e6:.4g} Mflop); the default run (128 x 2000 x 64, one CTA of "
+          f"{csp.threads_for(full.n_cells)} threads) {ms_full:.4f} ms (CUDA events, median of 5), "
+          f"{1e3 * ms_full / stages:.4f} us a sweep over its {stages} barrier stages; library_ms "
+          f"null (no PyTorch call runs a sandpile) [{card}]")
+    return launches
+
+
+def mhd_gates(r: dict) -> dict:
+    """The gates of ``tests/test_mhd_modes.py``, the sawtooth cases of
+    ``test_edge_orbits_frc.py``, the stability parts of
+    ``test_stability_scaling.py``, the eigen lane of ``test_ballooning.py:87-103``,
+    the ELM limit cycle of ``test_elm_impurity.py`` and the pellet, blob and
+    MARFE cases of ``test_disruption_edge_events.py``, on :func:`mhd_lanes`'
+    results."""
+    w = r["island grow w_m"]
+    q = r["q q"]
+    rho = np.linspace(0.0, 1.0, 100)
+    mix = rho < float(r["saw 0.8 crash rho_mix"])
+    n0, t0 = 8.0 * (1 - rho ** 2) ** 0.5 + 0.5, 10.0 * (1 - rho ** 2) + 0.1
+    n1, t1 = r["saw 0.8 crash n_new"], r["saw 0.8 crash t_new"]
+    trap = np.trapezoid
+    gates = {
+        "TAE": 3e4 < float(r["tae f"]) < 3e5 and not bool(r["tae 0 unstable"])
+        and bool(r["tae 1 unstable"]),
+        "MRTI": abs(float(r["mrti 0 gamma_s"]) - np.sqrt(1e11)) <= 1e-6 * np.sqrt(1e11)
+        and bool(r["mrti 1 stabilised"]) and not bool(r["mrti 2 stabilised"]),
+        "Delta'": bool(r["delta' 0.632 classically_unstable"])
+        and not bool(r["delta' 0.15 classically_unstable"])
+        and abs(float(r["delta' 0.632 r_s_m"]) - 1.264) <= 0.05 * 1.264,
+        "Rutherford": w[-1] > w[0] and abs(w[-1] - float(r["island grow saturated_w_m"]))
+        <= 0.05 * abs(float(r["island grow saturated_w_m"]))
+        and r["island decay w_m"][-1] < 0.02 and not bool(r["island decay locked_risk"]),
+        "locked mode": not bool(r["locked ok locked"]) and bool(r["locked bad locked"])
+        and float(r["locked bad omega_final"]) < float(r["locked ok omega_final"]),
+        "sawtooth": abs(float(r["saw 0.8 rho_1"]) - np.sqrt(0.08)) <= 0.02
+        and bool(r["saw 1.1 rho_1 nan"]) and not bool(r["saw 1.1 crash triggered"])
+        and bool(r["saw 0.8 crash triggered"]) and t1[0] < t0[0]
+        and abs(r["saw 0.8 crash q_new"][0] - 1.01) <= 1e-12
+        and abs(trap(n1[mix] * rho[mix], rho[mix]) / trap(n0[mix] * rho[mix], rho[mix]) - 1) <= 0.02
+        and abs(trap((n1 * t1)[mix] * rho[mix], rho[mix])
+                / trap((n0 * t0)[mix] * rho[mix], rho[mix]) - 1) <= 0.02
+        and bool(r["saw 0.8 step triggered"]),
+        "q-profile": bool(np.all(np.isfinite(q)) and np.all(q > 0))
+        and 0.5 < float(r["q q_min"]) < 2.0 and 2.0 < float(r["q q_edge"]) < 6.0,
+        "criteria": bool(r["cold mercier all_stable"])
+        and bool(np.all(r["ballooning alpha_crit"] >= 0.0))
+        and bool(np.allclose(r["s 0.5 alpha_crit"], 0.375, rtol=1e-6))
+        and abs(float(r["troyon beta_n"]) - 100 * 0.025 * 2.0 * 5.3 / 15.0) <= 1e-6
+        and bool(r["troyon stable_nowall"])
+        and not bool(r["rwm 3.0 stable"]) and float(r["rwm 3.0 mode_growth_rate"]) > 0.0
+        and bool(r["rwm 2.0 stable"]) and float(r["rwm 2.0 mode_growth_rate"]) == 0.0
+        and bool(np.allclose(r["ntm w_marginal"], 0.2, rtol=1e-6))
+        and float(r["pb low stability_distance"]) > float(r["pb high stability_distance"])
+        and r["full overall_stable"] in (0.0, 1.0),
+        "eigen lane": bool(np.all(r["eigen stable"] == 1.0))
+        and not bool(np.any(r["closed form stable"] == 1.0)),
+        "ELM cycle": float(r["elm cycle n_crashes"]) >= 3
+        and bool(np.all(np.isfinite(r["elm cycle t_ped"]))) and r["elm cycle t_ped"].max() < 10.0,
+        "pellet": float(r["pellet 10.0 radius_mm"][-1]) < 2.0
+        and r["pellet 10.0 deposition"].sum() > 0.0 and float(r["pellet 10.0 penetration_rho"]) > 0
+        and float(r["pellet 25.0 penetration_rho"]) > float(r["pellet 2.0 penetration_rho"]),
+        "blob": float(r["blob 2.0 v_blob_m_s"]) > 0.0
+        and float(r["blob 30.0 v_blob_m_s"]) != float(r["blob 2.0 v_blob_m_s"])
+        and float(r["blob 2.0 gamma_flux_m2_s"]) > 0.0,
+        "MARFE": not bool(r["marfe 0 at_risk"]) and bool(r["marfe 1 at_risk"])
+        and float(r["marfe 2 n_marfe_19"]) < float(r["marfe 0 n_marfe_19"]),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def mhd_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
+    """(ze) the MHD modes, sawteeth, the stability suite, ELMs and edge events
+    in float64 on the card: the eigen lane in two launches of row B, nothing
+    else launching a kernel; the gates of :func:`mhd_gates`; every result
+    within 1e-9 of the CPU (``twin``: :func:`slice17_on_cpu`'s)."""
+    (r, ms), calls, launched = counted(lambda: events_ms(lambda: mhd_lanes(dev)))
+    want = {name: 2 * (name == "newcomb_min_xi") for name in KERNELS}
+    gates = mhd_gates(r)
+    print(f"(ze) the MHD, sawtooth, stability, ELM and edge-event lanes on the card (f64): gates "
+          f"{gates}; row B launches {launched} (the eigen lane: ballooning_stable and "
+          f"second_stability_scan); {ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(ze): the port misses a gate of the JAX tests")
+    require(calls == want and launched == {"scpn_newcomb_f64": 2},
+            f"(ze): {calls} / {launched}, not the eigen lane's two launches of row B")
+    by_path["mhd_stability_f64"] = calls
+    agree(r, twin["ze"], "(ze) the MHD modes, sawteeth, stability suite, ELMs and edge events",
+          card)
+
+
 def early_twins(stack: contextlib.ExitStack) -> dict:
     """Start, right after the build, the processes whose results later
-    paths wait for: the CPU twins of (k), (o), (v) and (z)-(zb), and the host-bound
+    paths wait for: the CPU twins of (k), (o), (v) and (z)-(ze), and the host-bound
     card-side runs of (k)'s plain Thomas loop and (o)'s :data:`CARD_LANES`,
     each in a spawned process that drives the card beside this one (the card
     is idle > 90% of their time).  ``stack`` ends them on the way out."""
     targets = {"torax_plain": torax_plain_on_card, "control_card": control_lanes_on_card,
                "torax_cpu": torax_on_cpu, "control_cpu": control_lanes_on_cpu,
-               "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu}
+               "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu,
+               "slice17_cpu": slice17_on_cpu}
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
@@ -4005,7 +4613,8 @@ def _main(stack: contextlib.ExitStack) -> int:
           f"{' '.join(cb.NVCC_FLAGS)})")
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
-                   "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu"):
+                   "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu",
+                   "disruption.cu", "sandpile.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -4540,7 +5149,8 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
                 "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
-                "twin_shot": 0, "newcomb_min_xi": 0}
+                "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
+                "sandpile_run": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -4651,7 +5261,8 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
                  "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
-                "twin_shot": 0, "newcomb_min_xi": 0}
+                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
+                 "sandpile_run": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -5076,6 +5687,19 @@ def _main(stack: contextlib.ExitStack) -> int:
     room_and_efit_checks(dev, card, counted, by_path, fmg_513.psi, slice16)
     phase_done("rt-EFIT and control room (zb)")
 
+    # ── the seventeenth slice: (zc) row Q with the runaway models and SPI, (zd)
+    # row S, (ze) the MHD modes, sawteeth, the stability suite (its eigen lane
+    # through row B), ELMs and edge events ──
+    slice17 = twins["slice17_cpu"]()
+    disruption_calls = disruption_checks(dev, card, counted, by_path, results, timing,
+                                         measured_plain, slice17)
+    phase_done("disruption, runaways and SPI (zc)")
+    sandpile_calls = sandpile_checks(dev, card, counted, by_path, results, timing, measured_plain,
+                                     slice17)
+    phase_done("sandpile (zd)")
+    mhd_checks(dev, card, counted, by_path, slice17)
+    phase_done("MHD, stability, ELMs and edge events (ze)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -5088,6 +5712,8 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["gk_rhs"] = gk_calls
     launches["twin_shot"] = twin_calls
     launches["newcomb_min_xi"] = newcomb_calls
+    launches["disruption_sequence"] = disruption_calls
+    launches["sandpile_run"] = sandpile_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

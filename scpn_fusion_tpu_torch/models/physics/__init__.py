@@ -3,6 +3,40 @@
 Ported so far: ``scaling_burn`` (the transport stepper's He pump takes its
 IPB98(y,2) scaling), ``integrated_scenario`` (the whole-shot scenario of
 ``control/optimal_scenario.py``), ``ballooning`` (the Newcomb integration
-through row B on the card) and ``edge`` (the SOL model and the EPED tiers).  The JAX package's exports of this package
+through row B on the card), ``edge`` (the SOL model and the EPED tiers), and
+the MHD, disruption and runaway lanes: ``disruption_sequence`` (row Q on the
+card), ``fokker_planck_re``, ``runaway_fluid``, ``spi_ablation``,
+``mhd_modes``, ``sawtooth``, ``stability_mhd``, ``elm``, ``edge_events`` and
+``sandpile`` (row S on the card).  The names the JAX package exports from
+those modules are exported here under the same names; its other exports
 come with the modules that define them.
 """
+
+from scpn_fusion_tpu_torch.models.physics.fokker_planck_re import (  # noqa: F401
+    FokkerPlanckGrid,
+    fp_step,
+    run_fokker_planck,
+)
+from scpn_fusion_tpu_torch.models.physics.disruption_sequence import (  # noqa: F401
+    DisruptionParams,
+    run_disruption_sequence,
+    spi_mitigation_scan,
+    structural_response_screen,
+)
+from scpn_fusion_tpu_torch.models.physics.edge_events import (  # noqa: F401
+    blob_transport,
+    marfe_onset,
+    pellet_ablation,
+)
+from scpn_fusion_tpu_torch.models.physics.mhd_modes import (  # noqa: F401
+    delta_prime_cylindrical,
+    locked_mode_evolution,
+    mrti_growth_rate,
+    rutherford_island_evolution,
+    tae_stability,
+)
+from scpn_fusion_tpu_torch.models.physics.sandpile import (  # noqa: F401
+    SandpileConfig,
+    avalanche_statistics,
+    run_sandpile,
+)

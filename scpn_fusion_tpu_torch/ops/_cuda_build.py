@@ -72,6 +72,10 @@ _SIGNATURES = {
     "scpn_twin_shot_f64": [_P, _I, _P],
     "scpn_newcomb_f32": [_P, _I, _P],
     "scpn_newcomb_f64": [_P, _I, _P],
+    "scpn_disruption_f32": [_P, _P],
+    "scpn_disruption_f64": [_P, _P],
+    "scpn_sandpile_f32": [_P, _I, _P],
+    "scpn_sandpile_f64": [_P, _I, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

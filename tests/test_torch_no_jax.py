@@ -94,3 +94,14 @@ def test_slice_4b_modules_are_scanned():
     jax_control = {f.stem for f in (ROOT / "scpn_fusion_tpu" / "control").glob("*.py")}
     port_control = {f.stem for f in (PKG / "control").glob("*.py")}
     assert jax_control <= port_control, sorted(jax_control - port_control)
+
+
+def test_mhd_disruption_slice_modules_are_scanned():
+    """The MHD, disruption and runaway modules and the wrappers of rows Q
+    and S are among those both checks cover."""
+    mods = set(_modules())
+    for name in ("disruption_sequence", "fokker_planck_re", "runaway_fluid", "spi_ablation",
+                 "mhd_modes", "sawtooth", "stability_mhd", "elm", "edge_events", "sandpile"):
+        assert f"scpn_fusion_tpu_torch.models.physics.{name}" in mods, name
+    for name in ("cuda_disruption", "cuda_sandpile"):
+        assert f"scpn_fusion_tpu_torch.ops.{name}" in mods, name

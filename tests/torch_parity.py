@@ -8,6 +8,8 @@ because the suite runs under several xdist workers.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -86,3 +88,20 @@ def fields(seed: int, shape, n: int = 2, dtype=np.float64) -> list[np.ndarray]:
     """``n`` standard-normal fields from one seed."""
     g = rng(seed)
     return [g.standard_normal(shape).astype(dtype) for _ in range(n)]
+
+
+def c_struct_fields(source: str, struct: str) -> list[tuple[str, str]]:
+    """The fields of C struct ``struct`` in a kernel source, in order, as
+    (name, "ptr" | "int" | "double"): what a ctypes argument block must list."""
+    body = re.search(r"struct " + struct + r" \{(.*?)\n\};", source, re.S).group(1)
+    fields = []
+    for ctype, names in re.findall(r"^\s*(const void\*|void\*|const long long\*|int|double)"
+                                   r"\s+([\w, ]+);", body, re.M):
+        fields += [(n.strip(), "ptr" if "*" in ctype else ctype) for n in names.split(",")]
+    return fields
+
+
+def ctypes_fields(args_type) -> list[tuple[str, str]]:
+    """A ctypes ``Structure``'s fields as :func:`c_struct_fields` lists them."""
+    kinds = {"c_void_p": "ptr", "c_int": "int", "c_double": "double"}
+    return [(name, kinds[t.__name__]) for name, t in args_type._fields_]

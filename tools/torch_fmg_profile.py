@@ -99,12 +99,21 @@ CUDA events; then the same profiler over one launch each of rows B, D and N
 (kind 2), to show whether it records a kernel launched through ``ctypes``;
 then the plain loops of the slice at their defaults: the RMF spin-up, the
 PLL, the detachment loop, the control-room session and an rt-EFIT
-reconstruct at 129^2.  Each prints what the solves above print.
+reconstruct at 129^2.  With ``--disruption`` it checks rows Q
+(``csrc/disruption.cu``) and S (``csrc/sandpile.cu``) ``torch.equal`` to their
+plain loops at short lengths, profiles each plain at a tenth of its length
+(the default disruption sequence, 400 of 4000 ticks, float64; the default
+sandpile, 200 of 2000 drives, float32; launches and idle share a tick or a
+sweep) and times each kernel at full length by CUDA events, then profiles
+the slice's plain loops at their JAX tests' lengths (SPI injection and
+sweep, Fokker-Planck, fluid runaway, the ELM cycle, the Rutherford island,
+the locked mode, the pellet) and the eigen lane.  Each prints what the
+solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin | --ballooning]``.
+| --twin | --ballooning | --disruption]``.
 Exits non-zero without one.
 """
 
@@ -1025,6 +1034,118 @@ def profile_ballooning(card: str) -> None:
               f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
 
+def profile_disruption(card: str) -> None:
+    """The MHD, disruption and runaway slice: rows Q and S first checked
+    ``torch.equal`` to their plain loops at short lengths in float32 and
+    float64, then each plain at a tenth of its length (row Q: the default
+    sequence at 400 of its 4000 ticks, float64; row S: the default pile at
+    200 of its 2000 drives, float32) and through its kernel at full length
+    (CUDA events around the one launch, median of 5), then the slice's
+    plain loops at their JAX tests' lengths, and the eigen lane (two
+    launches of row B among plain ops)."""
+    import numpy as np
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import disruption_sequence as ds
+    from scpn_fusion_tpu_torch.models.physics import edge_events as ev
+    from scpn_fusion_tpu_torch.models.physics import elm
+    from scpn_fusion_tpu_torch.models.physics import fokker_planck_re as fp
+    from scpn_fusion_tpu_torch.models.physics import mhd_modes as mm
+    from scpn_fusion_tpu_torch.models.physics import runaway_fluid as rf
+    from scpn_fusion_tpu_torch.models.physics import sandpile as sp
+    from scpn_fusion_tpu_torch.models.physics import spi_ablation as spi
+    from scpn_fusion_tpu_torch.models.physics import stability_mhd as st
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_disruption as cdis
+    from scpn_fusion_tpu_torch.ops import cuda_sandpile as csp
+
+    dev, f32, f64 = "cuda", torch.float32, torch.float64
+    short_q = ds.DisruptionParams(n_steps=400)
+    short_s = sp.SandpileConfig(n_cells=64, n_steps=20)
+    for dtype in (f32, f64):
+        q = torch.tensor([0.0, 200.0, 5.0], dtype=dtype, device=dev)
+        same_q = all(torch.equal(a, b) for a, b in zip(
+            cdis.disruption_sequence(short_q, q, 0.2),
+            cdis.disruption_sequence_plain(short_q, q, 0.2)))
+        h0, idx = torch.zeros(64, dtype=dtype, device=dev), sp.drive_indices(short_s, 0).to(dev)
+        same_s = all(torch.equal(a, b) for a, b in zip(csp.sandpile_run(short_s, h0, idx),
+                                                       csp.sandpile_run_plain(short_s, h0, idx)))
+        print(f"{dtype}: row Q (3 sequences x 400 ticks) torch.equal to its plain loop {same_q}; "
+              f"row S (64 cells x 20 drives) {same_s} [{card}]")
+
+    p, q1 = ds.DisruptionParams(), torch.zeros(1, dtype=f64, device=dev)
+    tenth = ds.DisruptionParams(n_steps=400)
+    full = sp.SandpileConfig()
+    part = sp.SandpileConfig(n_steps=200)
+    idx_full, idx_part = (sp.drive_indices(c, 0).to(dev) for c in (full, part))
+    h0 = torch.zeros(full.n_cells, device=dev)
+    rows = (("row Q, the default sequence f64", tenth.n_steps, "tick",
+             lambda: cdis.disruption_sequence_plain(tenth, q1, 0.0),
+             lambda: cdis.disruption_sequence(p, q1, 0.0)),
+            ("row S, the default sandpile f32", part.n_steps * part.relax_sweeps, "sweep",
+             lambda: csp.sandpile_run_plain(part, h0, idx_part),
+             lambda: csp.sandpile_run(full, h0, idx_full)))
+    for label, units, unit, plain, kernel in rows:
+        out = profile_solve(card, f"{label}, plain loop at a tenth of its length",
+                            lambda run=plain: {"ran": run() is not None}, None)
+        print(f"{label}, plain: {out['launches'] / units:.2f} device launches a {unit}, idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}, {1e3 * out['wall_ms'] / units:.2f} "
+              f"us a {unit} of wall time (profiled) [{card}]")
+        kernel()
+        cb.reset_launch_counts()
+        ms = sorted(cuda_events_ms(kernel) for _ in range(5))
+        print(f"{label}, kernel at full length: {cb.kernel_launches()} launches in 5 calls, "
+              f"{ms[2]:.4f} ms between CUDA events around the one launch (median of 5; all "
+              f"{[round(m, 4) for m in ms]}) [{card}]")
+
+    rho33 = torch.tensor(np.linspace(0.0, 1.0, 33), dtype=f64, device=dev)
+    ne19 = torch.tensor(np.linspace(8.0, 2.0, 33), dtype=f64, device=dev)
+    te = torch.tensor(np.linspace(8.0, 0.05, 33), dtype=f64, device=dev)
+    grid = fp.FokkerPlanckGrid(64)
+    p64 = grid.p(f64, "cpu")
+    f0 = (1e12 * torch.exp(-((torch.log10(p64) + 1.0) ** 2) / 0.1)).to(dev)
+    n = 7
+    qp = st.QProfile(*(torch.tensor(np.asarray(x, dtype=np.float64), device=dev) for x in (
+        np.linspace(0.1, 1.0, n), np.linspace(1.0, 4.0, n), np.full(n, 0.4), np.full(n, 3.5),
+        1.0, 0.1, 4.0)))
+    cfg = spi.SpiConfig(n_fragments=64, injector_pos=(8.4, 0.0, 0.0), velocity_mps=500.0)
+    loops = (
+        ("run_spi_injection, 64 fragments x 600 steps f64", lambda: spi.run_spi_injection(
+            cfg, torch.Generator().manual_seed(1), ne19, te, dt_s=5e-5, n_steps=600)),
+        ("spi_quantity_sweep, 3 inventories x 500 steps f64", lambda: spi.spi_quantity_sweep(
+            cfg, torch.Generator().manual_seed(4), torch.tensor([0.002, 0.01, 0.03], dtype=f64,
+                                                                device=dev), ne19, te,
+            dt_s=5e-5, n_steps=500)),
+        ("run_fokker_planck, 64 points x 300 steps f64", lambda: fp.run_fokker_planck(
+            grid, f0, 1e-6, 10.0, 5e19, 5000.0, 1.5, n_steps=300)),
+        ("run_fluid_runaway, 100 steps f64", lambda: rf.run_fluid_runaway(
+            0.5, 0.1, 50.0, 1.0, n_re_seed=1e16, t_max_s=1.0, n_steps=100,
+            max_runaway_fraction=0.05, dtype=f64, device=dev)),
+        ("run_elm_cycle, 3000 steps f64", lambda: elm.run_elm_cycle(
+            t_ped0_kev=1.0, n_ped_1e19=8.0, w_ped_mj=10.0, heat_rate_kev_s=50.0,
+            alpha_per_kev=1.0, s_edge=1.5, j_edge_norm=0.1, dt=1e-3, n_steps=3000, dtype=f64,
+            device=dev)),
+        ("rutherford_island_evolution, 5000 steps f64", lambda: mm.rutherford_island_evolution(
+            delta_prime=5.0, r_s_m=1.2, eta_ohm_m=1e-7, n_steps=5000, dt=1e-2, dtype=f64,
+            device=dev)),
+        ("locked_mode_evolution, 3000 steps f64", lambda: mm.locked_mode_evolution(
+            w_island_m=0.12, b_error_mt=5.0, omega0_hz=100.0, dtype=f64, device=dev)),
+        ("pellet_ablation, 400 ticks f64", lambda: ev.pellet_ablation(
+            te_profile_kev=10.0 * (1 - 0.9 * rho33 ** 2),
+            ne_profile_19=8.0 * (1 - 0.7 * rho33 ** 2))),
+        ("ballooning_stability_eigen, 7 points (row B twice)",
+         lambda: st.ballooning_stability_eigen(qp)),
+    )
+    for label, run in loops:
+        out = profile_solve(card, label, lambda run=run: {"ran": run() is not None}, None)
+        cb.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        print(f"{label}: {out['launches']} device launches ({cb.kernel_launches()} of the port's "
+              f"kernels, counted), {out['device_ms']:.4f} ms of device time, "
+              f"{out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card: str) -> None:
     """Host µs of one row-G wrapper call at stage 2 of 4 (perf_counter around
     200 calls, queued without a sync; median of 5), and of its parts: the
@@ -1112,6 +1233,10 @@ def main() -> int:
                        help="profile row B on the scan and the bootstrap path (plain at a "
                             "tenth of the steps, and the kernel), the profiler over one "
                             "launch of rows B, D and N, and slice 4b's plain loops")
+    group.add_argument("--disruption", action="store_true",
+                       help="check rows Q and S against their plain loops, profile each plain "
+                            "(a tenth of its length) and through its kernel, and the MHD, "
+                            "disruption and runaway slice's plain loops")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1167,6 +1292,9 @@ def main() -> int:
         return 0
     if opts.ballooning:
         profile_ballooning(card)
+        return 0
+    if opts.disruption:
+        profile_disruption(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
