@@ -350,6 +350,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import importlib
 import json
 import re
 import statistics
@@ -394,7 +395,7 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
            "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
-           "sandpile_run")
+           "sandpile_run", "compression_run", "compression_adjoint")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -423,6 +424,11 @@ SOURCES = {
                             "scpn_fusion_tpu/models/physics/disruption_sequence.py:93"),
     # no Pallas kernel: the JAX run is one lax.scan of drives, the sweeps an inner scan
     "sandpile_run": ("csrc/sandpile.cu", "scpn_fusion_tpu/models/physics/sandpile.py:64"),
+    # no Pallas kernel: the JAX trajectory is one lax.scan, differentiated by jax.grad
+    "compression_run": ("csrc/compression.cu",
+                        "scpn_fusion_tpu/models/physics/pulsed_compression.py:154"),
+    "compression_adjoint": ("csrc/compression.cu",
+                            "scpn_fusion_tpu/models/physics/pulsed_compression.py:154"),
 }
 
 
@@ -4236,17 +4242,17 @@ def disruption_gates(r: dict) -> dict:
     return {k: bool(v) for k, v in gates.items()}
 
 
-def disruption_ptx() -> dict:
-    """Instructions of ``csrc/disruption.cu``'s PTX (``nvcc -ptx``, sm_90a)
-    that a rewrite of ``pow`` for its constant exponent 1.5 (x * sqrt(x))
-    would bring in: the exponent reaches the kernel as an argument, as in
-    torch's elementwise ``pow``, so none is expected."""
+def disruption_ptx(source: str = "disruption.cu") -> dict:
+    """Instructions of a kernel source's PTX (``nvcc -ptx``, sm_90a) that a
+    rewrite of ``pow`` for a constant exponent (1.5 in ``csrc/disruption.cu``:
+    x * sqrt(x)) would bring in: the exponent reaches the kernel as an
+    argument, as in torch's elementwise ``pow``, so none is expected."""
     import tempfile
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
     with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
-        out = Path(tmp) / "disruption.ptx"
+        out = Path(tmp) / "kernel.ptx"
         subprocess.run([cb._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
-                        str(cb.CSRC / "disruption.cu"), "-o", str(out)], check=True,
+                        str(cb.CSRC / source), "-o", str(out)], check=True,
                        capture_output=True)
         ptx = out.read_text()
     return {op: len(re.findall(rf"\b{op}\.", ptx)) for op in ("sqrt", "rsqrt", "call")}
@@ -4532,16 +4538,610 @@ def mhd_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
           card)
 
 
+# ── the eighteenth slice: (zf) row P, the voltage-driven compression, and its
+# adjoint, with the rigid rotor, the tilt diagnostics and Faraday recovery; (zg)
+# the pulsed Hall-MHD carrier and the Hall-MHD discovery sandbox ──
+
+FARADAY_COIL = dict(n_turns=20, l_coil_m=1.0, resistance_ohm=5e-3, inductance_h=2e-6)
+FARADAY_CFG = dict(min_radius_m=0.02, gamma=5.0 / 3.0, plasma_mass_kg=2e-5)
+FARADAY_STATE = dict(radius_m=0.3, t_i_ev=100.0, t_e_ev=100.0, density_m3=5e19)
+# (label, config kwargs, coil kwargs, initial state kwargs, drive a + b t, dt_s, n_steps, t0):
+# the JAX tests' drives (test_pulsed_compression.py:52-100, the 4000-step one also lanes 1-2
+# of validation/run_pulsed_suppression.py; test_faraday_recovery.py:115-126, lane 3 of
+# validation/run_mif_frc.py) and a ramp from a nonzero start, so that the table's times matter
+COMPRESSION_CASES = (
+    ("4000 V, 3000 steps", {}, {}, dict(radius_m=0.25), (4000.0, 0.0), 2e-8, 3000, 0.0),
+    ("4000 V, 4000 steps", {}, {}, dict(radius_m=0.25), (4000.0, 0.0), 2e-8, 4000, 0.0),
+    ("3000 V, 1500 steps", {}, {}, dict(radius_m=0.25), (3000.0, 0.0), 2e-8, 1500, 0.0),
+    ("3000 V, 1500 steps, loss", dict(radial_loss_time_s=5e-6), {}, dict(radius_m=0.25),
+     (3000.0, 0.0), 2e-8, 1500, 0.0),
+    ("Faraday 400 V, 800 steps", FARADAY_CFG, FARADAY_COIL, FARADAY_STATE, (400.0, 0.0), 1e-7,
+     800, 0.0),
+    ("ramp from 30 ns, 2000 steps", {}, {}, dict(radius_m=0.25), (1000.0, 5e10), 2e-8, 2000,
+     3e-8),
+)
+COMPRESSION_TIMED = "4000 V, 4000 steps"
+GRAD_STEPS, COTANGENT_STEPS, GRADCHECK_STEPS = 500, 200, 30
+ADJOINT_F64_TOL, ADJOINT_F32_TOL = 1e-10, 1e-4
+# row P's float32 gradient on random cotangents carries ~1e-3 of rounding (each step
+# differentiates the ratio of two nearly equal volumes): the kernel's and autograd's differ by
+# that much, so the kernel is held to no more than this many times autograd's distance from the
+# float64 gradient (plus ADJOINT_F32_TOL); the JAX test's d min(radius)/dV to ADJOINT_F32_TOL
+F32_GRADIENT_SPREAD = 4.0
+# operations a step of row P that the function needs (the circuit with its clip 20, the
+# piston 19, compression, loss and ledgers 39), and the dependent operations a step on the
+# chain (T_i -> p_int -> acceleration -> velocity -> radius -> volume -> ratio -> pow -> T_i:
+# two divisions and a pow among them); the adjoint recomputes the step and applies its
+# vector-Jacobian product (~181 more)
+COMPRESSION_OPS, COMPRESSION_DEPTH, ADJOINT_OPS = 78, 18, 259
+# results of (zf) and (zg) that are rounding noise of a cancellation, held absolutely: the
+# dimensionless residuals at 1e-12; the carrier's source residual, (psi' - psi) / dt - source +
+# psi' / tau over max(|source|, |psi' / tau|, 1), whose noise is eps |psi| / (dt scale), ~2e-11
+# at the JAX test's dt = 1e-8, at 1e-10
+NOISE_KEYS = {"balance_residual": 1e-12, "force_balance_residual": 1e-12,
+              "pressure_balance_residual": 1e-12, "flux_derivative_residual": 1e-12,
+              "source_residual": 1e-10}
+
+
+def compression_work(n: int, item: int):
+    """Row P: (bytes, operations, peak rate): the drive table, state0 and the
+    constants read, the fifteen trace rows written."""
+    return (float(item * (n + 15 * n + 12 + 18)), float(COMPRESSION_OPS * n),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def compression_adjoint_work(n: int, item: int):
+    """Row P's adjoint: the drive, the twelve state rows and the fifteen
+    cotangent rows read, dL/dV and dL/dstate0 written."""
+    return (float(item * (n + 12 * n + 15 * n + 12 + 18 + n + 12)), float(ADJOINT_OPS * n),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def compression_case(label: str):
+    return next(case for case in COMPRESSION_CASES if case[0] == label)
+
+
+def compression_inputs(cfg, s_kw: dict, drive, dt: float, n: int, t0: float, dtype, device):
+    """(step constants, state0 (12,), drive table (n,)) of a run, as
+    ``run_voltage_driven_compression`` forms them."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    st = pc.initial_state(cfg, **s_kw, dtype=dtype, device=device)
+    st = st._replace(t_s=torch.tensor(t0, dtype=dtype, device=device))
+    _, table = pc.drive_table(drive, st.t_s, dt, n, dtype, device)
+    return pc.step_constants(cfg, dt, dtype, device), torch.stack(list(st)), table
+
+
+def compression_case_config(label: str):
+    """(config, initial state kwargs, drive, dt_s, n_steps, t0) of a
+    :data:`COMPRESSION_CASES` run."""
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    _, cfg_kw, coil_kw, s_kw, (a, b), dt, n, t0 = compression_case(label)
+    return (pc.CompressionConfig(coil=pc.CoilGeometry(**coil_kw), **cfg_kw), s_kw,
+            lambda t: a + b * t, dt, n, t0)
+
+
+def compression_run_case(label: str, dtype, device):
+    """(config, trace) of a :data:`COMPRESSION_CASES` run through the entry point."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    cfg, s_kw, drive, dt, n, t0 = compression_case_config(label)
+    st = pc.initial_state(cfg, **s_kw, dtype=dtype, device=device)
+    st = st._replace(t_s=torch.tensor(t0, dtype=dtype, device=device))
+    return cfg, pc.run_voltage_driven_compression(cfg, st, drive, dt_s=dt, n_steps=n)
+
+
+def compression_plain_case(label: str, dtype, device):
+    """The same run through the plain twin: the trace (15, n)."""
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+    return ccp.compression_run_plain(*compression_inputs(*compression_case_config(label), dtype,
+                                                         device))
+
+
+def trace_rows(tr):
+    import torch
+    return torch.stack([*tr.state, tr.b_ext_t, tr.beta, tr.balance_residual])
+
+
+def cotangent_weights(trace64):
+    """Random cotangents on the fifteen rows: standard normals (seed 18) over
+    each row's largest magnitude in the float64 trace (1 for an all-zero row
+    and for the balance residual, rounding noise of a cancellation)."""
+    import torch
+    scale = trace64.detach().abs().amax(dim=1, keepdim=True).cpu()
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    scale[14] = 1.0
+    return torch.randn(tuple(trace64.shape), generator=torch.Generator().manual_seed(18),
+                       dtype=torch.float64) / scale
+
+
+def adjoint_lanes(dtype, device, run, weights=None) -> dict:
+    """The two gradient lanes with ``run`` (``compression_run`` or its plain
+    twin): d min(radius) / d V at :data:`GRAD_STEPS` (the JAX test's and lane
+    4 of ``run_pulsed_suppression.py``), and the gradients of a random
+    cotangent on all fifteen rows at :data:`COTANGENT_STEPS` (4000 V) by the
+    drive table and by state0 (its start time excluded), the latter in
+    relative units (times |state0|), and the cotangents used.  ``weights``:
+    the cotangents, float64 (else :func:`cotangent_weights` of this run's
+    trace)."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    cfg = pc.CompressionConfig()
+    v = torch.tensor(3000.0, dtype=dtype, device=device, requires_grad=True)
+    c, s0, table = compression_inputs(cfg, dict(radius_m=0.25), lambda t: v, 2e-8, GRAD_STEPS,
+                                      0.0, dtype, device)
+    (g,) = torch.autograd.grad(run(c, s0, table)[1].min(), v)
+    c, s0, table = compression_inputs(cfg, dict(radius_m=0.25), lambda t: 4000.0, 2e-8,
+                                      COTANGENT_STEPS, 0.0, dtype, device)
+    s0, table = s0.detach().clone().requires_grad_(), table.detach().clone().requires_grad_()
+    trace = run(c, s0, table)
+    w = (cotangent_weights(trace) if weights is None else weights).to(dtype).to(device)
+    g_drive, g_s0 = torch.autograd.grad((trace * w).sum(), (table, s0))
+    return {"dmin_dv": g.detach().cpu().double(), "drive": g_drive.cpu().double(),
+            "state0": (g_s0 * s0.detach().abs())[1:].cpu().double(),
+            "weights": w.detach().cpu().double()}
+
+
+def adjoint_gaps(dtype, device) -> dict:
+    """max |kernel - autograd| over max |autograd| of each lane of
+    :func:`adjoint_lanes`, autograd through the plain loop on ``device``
+    (the profile tool's short check)."""
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+    ref = adjoint_lanes(dtype, device, ccp.compression_run_plain)
+    ours = adjoint_lanes(dtype, device, ccp.compression_run)
+    return {k: max_rel(ours[k], ref[k]) for k in ref if k != "weights"}
+
+
+def compression_gradcheck(device) -> bool:
+    """``torch.autograd.gradcheck`` of row P and its adjoint in float64 over
+    :data:`GRADCHECK_STEPS` steps at 4000 V, the drive and state0 (its start
+    time fixed) scaled to O(1) inputs and each trace row to O(1) outputs."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+    c, s0, table = compression_inputs(pc.CompressionConfig(), dict(radius_m=0.25),
+                                      lambda t: 4000.0, 2e-8, GRADCHECK_STEPS, 0.0,
+                                      torch.float64, device)
+    ref = ccp.compression_run(c, s0, table)
+    row = ref.abs().amax(dim=1, keepdim=True)
+    row = torch.where(row > 0, row, torch.ones_like(row))
+    row[14] = 1.0
+    s_scale = torch.where(s0 != 0, s0.abs(), torch.ones_like(s0))
+
+    def fn(x_v, x_s):
+        return ccp.compression_run(c, torch.cat([s0[:1], x_s * s_scale[1:]]), x_v * 4000.0) / row
+
+    return bool(torch.autograd.gradcheck(
+        fn, ((table / 4000.0).requires_grad_(), (s0[1:] / s_scale[1:]).requires_grad_())))
+
+
+def frc_lanes(device, cases: dict | None = None, grads: dict | None = None) -> dict:
+    """(zf)'s float64 results as numpy: every :data:`COMPRESSION_CASES`
+    trace and its diagnostics, the gradient lanes of :func:`adjoint_lanes`,
+    the tilt diagnostic over the Faraday trace, ``run_pulsed_suppression.py``'s
+    lanes 1, 2 and 4 and ``run_mif_frc.py``'s lanes 1-3 at 512 points.
+    ``cases`` (label -> (cfg, trace)) and ``grads`` hold results made
+    already on ``device``."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import frc
+    from scpn_fusion_tpu_torch.models.physics import frc_stability as fs
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+    fr = importlib.import_module("scpn_fusion_tpu_torch.models.physics.faraday_recovery")
+
+    f64, out = torch.float64, {}
+    cases = cases or {label: compression_run_case(label, f64, device)
+                      for label, *_ in COMPRESSION_CASES}
+    for label, (cfg, tr) in cases.items():
+        r0 = compression_case(label)[3]["radius_m"]
+        out.update({f"{label} {k}": v for k, v in (
+            *tr.state._asdict().items(), ("b_ext_t", tr.b_ext_t), ("beta", tr.beta),
+            ("balance_residual", tr.balance_residual),
+            *pc.trajectory_diagnostics(tr, cfg, r0)._asdict().items())})
+    grads = grads or adjoint_lanes(f64, device, ccp.compression_run)
+    out.update({f"gradient {k}": v for k, v in grads.items() if k != "weights"})
+
+    eq = frc.solve_rigid_rotor(b_external_t=1.5, separatrix_radius_m=0.3, peak_density_m3=2e20,
+                               n_points=512, dtype=f64, device=device)
+    out.update({f"audit {k}": v for k, v in fs.validate_rigid_rotor(eq)._asdict().items()})
+    t_i, rho, b_z, r_s = 500.0, eq.rho.cpu().numpy(), eq.b_z.cpu().numpy(), float(eq.r_s)
+    p_th = np.sqrt(2.0 * fs.DEUTERIUM_MASS_AMU * fs.ATOMIC_MASS_KG * t_i * fs.ELEMENTARY_CHARGE_C)
+    integrand = rho * fs.ELEMENTARY_CHARGE_C * np.abs(b_z) / p_th
+    stop = int(np.searchsorted(rho, r_s, side="right"))
+    out["tilt s twin"] = np.trapezoid(np.append(integrand[:stop], np.interp(r_s, rho, integrand)),
+                                      np.append(rho[:stop], r_s)) / r_s
+    out["tilt s"] = fs.s_parameter(eq, t_i)
+    out.update({f"tilt report {k}": v for k, v in fs.tilt_mode_report(eq, t_i, 4.0)._asdict().items()})
+    out["tilt stable"] = float(fs.tilt_mode_stable(eq, t_i, 4.0)[0])
+    pair = {k: torch.tensor(v, dtype=f64, device=device) for k, v in (
+        ("t_s", [0.0, 1e-6]), ("radius_m", [0.3, 0.15]), ("t_i_ev", [500.0, 2000.0]),
+        ("density_m3", [2e20, 8e20]), ("b_ext_t", [1.5, 6.0]))}
+    out.update({f"tilt pair {k}": v for k, v in fs.tilt_trajectory_from_compression(
+        eq, t_i, 4.0, **pair)._asdict().items()})
+    st = cases["Faraday 400 V, 800 steps"][1]
+    out.update({f"tilt faraday {k}": v for k, v in fs.tilt_trajectory_from_compression(
+        eq, t_i, 4.0, t_s=st.state.t_s, radius_m=st.state.radius_m, t_i_ev=st.state.t_i_ev,
+        density_m3=st.state.density_m3, b_ext_t=st.b_ext_t)._asdict().items()})
+    rep = fr.recovery_from_compression(st, n_turns=8, coil_resistance_ohm=0.1)
+    out.update({f"faraday {k}": v for k, v in rep.result._asdict().items()})
+    out.update({f"faraday {k}": float(getattr(rep, k)) for k in (
+        "flux_derivative_closure_passed", "compression_work_j", "energy_budget_relative_error",
+        "coil_source_work_j", "source_energy_budget_relative_error")})
+    out["faraday statuses evaluated"] = float(rep.budget_claim_status in ("passed", "failed")
+                                              and rep.source_budget_claim_status
+                                              in ("passed", "failed"))
+    return as_numpy({k: torch.as_tensor(v) for k, v in out.items()})
+
+
+def frc_gates(r: dict) -> dict:
+    """The gates of ``tests/test_pulsed_compression.py``, lanes 1, 2 and 4 of
+    ``run_pulsed_suppression.py``, lanes 1-3 of ``run_mif_frc.py`` and
+    ``tests/test_faraday_recovery.py``'s adapter case, on :func:`frc_lanes`'
+    results."""
+    u3, u4 = "4000 V, 3000 steps", "4000 V, 4000 steps"
+    i_min = int(np.argmin(r[f"{u3} radius_m"]))
+    inv = r[f"{u4} t_i_ev"] * (np.pi * r[f"{u4} radius_m"] ** 2) ** (2.0 / 3.0)
+    inv15 = (r["3000 V, 1500 steps t_i_ev"]
+             * (np.pi * r["3000 V, 1500 steps radius_m"] ** 2) ** (2.0 / 3.0))
+    gates = {
+        "compresses, heats, densifies (3000 steps)": float(r[f"{u3} radius_m"].min()) < 0.2
+        and r[f"{u3} t_i_ev"][i_min] > 150.0 and r[f"{u3} density_m3"][i_min] > 7.5e20
+        and float(np.max(np.abs(r[f"{u3} balance_residual"]))) < 1e-8
+        and bool(np.all(np.isfinite(r[f"{u3} radius_m"]))),
+        "adiabatic invariant (1500 steps)": bool(np.allclose(inv15, inv15[0], rtol=1e-6)),
+        "loss channel radiates": float(r["3000 V, 1500 steps, loss radiated_loss_j"][-1]) > 0.0
+        and float(r["3000 V, 1500 steps, loss max_balance_residual"]) < 1e-8,
+        "bounce (4000 steps)": float(r[f"{u4} radial_turning_points"]) >= 1
+        and abs(float(r[f"{u4} compression_ratio"]) - 0.25 / float(r[f"{u4} radius_m"].min()))
+        <= 1e-6 * float(r[f"{u4} compression_ratio"])
+        and float(r[f"{u4} max_balance_residual"]) < 1e-8,
+        "pulsed lane 1": float(r[f"{u4} compression_ratio"]) > 1.3
+        and float(r[f"{u4} radial_turning_points"]) >= 1
+        and float(r[f"{u4} max_balance_residual"]) < 1e-8,
+        "pulsed lane 2": float(np.max(np.abs(inv / inv[0] - 1.0))) < 1e-6,
+        "pulsed lane 4": np.isfinite(float(r["gradient dmin_dv"]))
+        and float(r["gradient dmin_dv"]) < 0.0,
+        "mif lane 1": bool(r["audit all_passed"]),
+        "mif lane 2": abs(float(r["tilt s"]) - float(r["tilt s twin"])) <= 1e-6 * float(
+            r["tilt s twin"])
+        and float(r["tilt stable"]) == 0.0
+        and abs(float(r["tilt pair s_parameter"][1] / r["tilt pair s_parameter"][0])
+                - 0.5 * 4.0 * np.sqrt(0.25)) <= 1e-6,
+        "mif lane 3": bool(r["faraday flux_derivative_closure_passed"])
+        and float(r["faraday recovered_energy_j"]) >= 0.0
+        and bool(r["faraday statuses evaluated"]),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def agree_noise(card: dict, cpu: dict, label: str, card_name: str) -> None:
+    """:func:`agree` on every result but those of :data:`NOISE_KEYS`, which
+    are held absolutely, each to its limit there."""
+    limits = {k: min(tol for n, tol in NOISE_KEYS.items() if n in k) for k in cpu
+              if any(n in k for n in NOISE_KEYS)}
+    agree({k: card[k] for k in cpu if k not in limits},
+          {k: v for k, v in cpu.items() if k not in limits}, label, card_name)
+    gap = {k: float(np.max(np.abs(np.asarray(card[k], np.float64) - np.asarray(cpu[k], np.float64))))
+           for k in limits}
+    key = max(gap, key=lambda k: gap[k] / limits[k])
+    print(f"{label}: {len(gap)} residuals of a cancellation against the CPU: max absolute "
+          f"deviation {gap[key]:.3e} ({key}; limit {limits[key]:.0e}) [{card_name}]")
+    require(all(gap[k] <= limits[k] for k in gap), f"{label}: a residual deviates from the CPU")
+
+
+# (zg): the carrier cases of test_physics_kernels.py TestHallMHD, (params, psi0 zero, ramp
+# (a, b) of a + b t or a flat a, dt, steps), and the discovery runs of
+# test_hall_mhd_discovery.py at 64^2, drawn from torch.Generator seeds 0-4 and 7
+CARRIER_CASES = (
+    ("decay", dict(tau_psi_s=1e-3), False, (0.1, None), 1e-5, 200),
+    ("ramp drive", dict(tau_psi_s=1.0), True, (0.1, 50.0), 1e-5, 100),
+    ("BE residual", dict(tau_psi_s=1e-3), False, (0.1, 5.0), 1e-6, 10),
+    ("implicit_be", dict(tau_psi_s=1e-3), False, (0.1, 5.0), 1e-8, 50),
+    ("imex_rk2", dict(tau_psi_s=1e-3, time_integrator="imex_rk2"), False, (0.1, 5.0), 1e-8, 50),
+)
+SWEEP = dict(eta_range=(1e-5, 3e-3), nu_range=(1e-5, 1e-4), n_points=3, sim_steps=250)
+BISECTION = dict(eta_range=(1e-6, 1e-2), n_bisect=6, sim_steps=300)
+
+
+def hall_lanes(device) -> dict:
+    """(zg)'s float64 results as numpy: the carrier cases, the rigid rotor
+    feeding the carrier, the Spitzer anchor and its cross-module agreement,
+    and the discovery runs, sweep and bisection at 64^2 (complex128)."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import disruption_sequence as ds
+    from scpn_fusion_tpu_torch.models.physics import frc
+    from scpn_fusion_tpu_torch.models.physics import hall_mhd_discovery as hd
+    from scpn_fusion_tpu_torch.models.physics import hall_mhd_pulsed as hp
+
+    f64, out = torch.float64, {}
+    rho = torch.tensor(np.linspace(0.01, 0.5, 65), dtype=f64, device=device)
+    psi0 = 0.02 * torch.sin(torch.pi * rho / 0.5)
+    for label, kw, zero, (a, b), dt, steps in CARRIER_CASES:
+        ramp = (lambda t, a=a: a) if b is None else (lambda t, a=a, b=b: a + b * t)
+        params = hp.HallMHDPulsedParams(electron_temperature_ev=50.0, r_null_m=0.3, **kw)
+        final, b_z, diags = hp.run_hall_mhd_pulsed(
+            params, torch.zeros_like(psi0) if zero else psi0, rho, torch.zeros_like(rho), ramp,
+            dt, n_steps=steps)
+        out.update({f"carrier {label} psi": final.psi, f"carrier {label} b_z": b_z,
+                    **{f"carrier {label} {k}": v for k, v in diags._asdict().items()}})
+    eq = frc.solve_rigid_rotor(b_external_t=0.5, separatrix_radius_m=0.3, dtype=f64,
+                               device=device)
+    params = hp.HallMHDPulsedParams(tau_psi_s=1e-3, electron_temperature_ev=50.0,
+                                    r_null_m=float(eq.r_null))
+    final, b_z, _ = hp.run_hall_mhd_pulsed(params, eq.psi[1:], eq.rho[1:], eq.j_theta[1:],
+                                           lambda t: 0.5 + 10.0 * t, 1e-6, n_steps=100)
+    out.update({"feeds psi": final.psi, "feeds b_z": b_z})
+    t_ev = torch.tensor([10.0, 100.0, 1000.0], dtype=f64, device=device)
+    out["spitzer 100 eV"] = hp.spitzer_resistivity_ohm_m(100.0, dtype=f64, device=device)
+    out["spitzer pulsed"] = hp.spitzer_resistivity_ohm_m(t_ev, z_eff=1.5,
+                                                         ln_lambda=float(ds.LN_LAMBDA))
+    out["spitzer disruption"] = ds.spitzer_resistivity(t_ev, z_eff=1.5)
+
+    def state(seed):
+        return hd.init_hall_mhd(torch.Generator().manual_seed(seed), dtype=f64, device=device)
+
+    for label, seed, kw in (("unforced 300", 0, dict(n_steps=300)),
+                            ("free 400", 1, dict(eta=1e-4, n_steps=400)),
+                            ("driven 400", 1, dict(eta=1e-4, background_amplitude=1.0, n_steps=400)),
+                            ("zonal 150", 2, dict(background_amplitude=1.0, n_steps=150)),
+                            ("replay 100", 7, dict(n_steps=100))):
+        tr = hd.run_hall_mhd(state(seed), **kw)
+        out.update({f"{label} total": tr.total_energy, f"{label} zonal": tr.zonal_energy})
+    out["replay 100 again"] = hd.run_hall_mhd(state(7), n_steps=100).total_energy
+    out["sheet"] = torch.fft.ifft2(hd.background_flux_k(64, 2.0, dtype=f64, device=device)).real
+    etas, nus, growth = hd.parameter_sweep(torch.Generator().manual_seed(3), **SWEEP, dtype=f64,
+                                           device=device)
+    out.update({"sweep etas": etas, "sweep nus": nus, "sweep growth": growth})
+    res = hd.find_tearing_threshold(torch.Generator().manual_seed(4), **BISECTION, dtype=f64,
+                                    device=device)
+    out.update({f"bisection {k}": v for k, v in res.items()})
+    return as_numpy(out)
+
+
+def hall_gates(r: dict) -> dict:
+    """The gates of ``tests/test_physics_kernels.py`` (``TestHallMHD``),
+    ``test_edge_orbits_frc.py``'s carrier case, ``run_physics_closures.py``'s
+    Spitzer lane and ``tests/test_hall_mhd_discovery.py``, on
+    :func:`hall_lanes`' results."""
+    psi0 = 0.02 * np.sin(np.pi * np.linspace(0.01, 0.5, 65) / 0.5)
+    e = r["unforced 300 total"]
+    etas, growth = r["sweep etas"], r["sweep growth"]
+    x = np.linspace(0.0, 2 * np.pi, 64, endpoint=False)
+    gates = {
+        "carrier decays e^-2": abs(np.max(np.abs(r["carrier decay psi"])) / np.max(np.abs(psi0))
+                                   - np.exp(-2.0)) <= 0.05 * np.exp(-2.0),
+        "ramp drives flux": np.max(np.abs(r["carrier ramp drive psi"])) > 0.0
+        and r["carrier ramp drive hall_drive_l2"][-1] > 0.0
+        and bool(np.all(np.isfinite(r["carrier ramp drive b_z"]))),
+        "BE residual": float(np.max(r["carrier BE residual source_residual_linf"])) < 1e-6,
+        "integrators agree": bool(np.allclose(r["carrier implicit_be psi"],
+                                              r["carrier imex_rk2 psi"], rtol=1e-4, atol=1e-12)),
+        "rigid rotor feeds the carrier": bool(np.all(np.isfinite(r["feeds psi"]))),
+        "Spitzer anchor": abs(float(r["spitzer 100 eV"]) / (0.51 * 1.03e-4 * 17.0 / 100.0**1.5)
+                              - 1.0) < 0.05
+        and float(np.max(np.abs(r["spitzer pulsed"] / r["spitzer disruption"] - 1.0))) < 0.01,
+        "unforced decays": bool(np.all(np.isfinite(e))) and e[-1] < 5.0 * e.max()
+        and e[-1] <= np.max(e[:50]) * 2.0,
+        "replay": bool(np.array_equal(r["replay 100 total"], r["replay 100 again"])),
+        "sheet injects energy": np.isfinite(r["driven 400 total"][-1])
+        and r["driven 400 total"][-1] > 1.05 * r["free 400 total"][-1],
+        "zonal within total": bool(np.all(r["zonal 150 zonal"] <= r["zonal 150 total"] + 1e-12)),
+        "cos x sheet": bool(np.allclose(r["sheet"][0, :], 2.0 * np.cos(x), atol=1e-10, rtol=0.0)
+                            and np.allclose(r["sheet"][10, :], r["sheet"][0, :], atol=1e-10,
+                                            rtol=0.0)),
+        "sweep": bool(np.all(np.isfinite(growth)))
+        and growth[etas == etas.min()].mean() > growth[etas == etas.max()].mean(),
+        "bisection bracketed": 1e-6 <= float(r["bisection threshold_eta"]) <= 1e-2
+        and float(r["bisection lo"]) <= float(r["bisection threshold_eta"])
+        <= float(r["bisection hi"]),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def slice18_on_cpu(conn) -> None:
+    """The CPU twins of (zf) and (zg)."""
+    dev = on_cpu(4)
+    conn.send({"zf": frc_lanes(dev), "zg": hall_lanes(dev)})
+    conn.close()
+
+
+def slice18_plain_on_card(conn) -> None:
+    """(zf)'s plain references on the card, in a process of its own: row P's
+    plain twin on every :data:`COMPRESSION_CASES` run in float32 and float64
+    (but the timed float64 one, which (zf) runs in line), and autograd
+    through it on the gradient lanes in float32 and float64, and in float64
+    on the float32 lane's cotangents, as numpy arrays of the run's dtype (a
+    tensor through a pipe would share memory with a process that ends)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+    dev, out = torch.device("cuda"), {}
+    for dtype in (torch.float32, torch.float64):
+        for label, *_ in COMPRESSION_CASES:
+            if not (dtype == torch.float64 and label == COMPRESSION_TIMED):
+                out[(str(dtype), label)] = compression_plain_case(label, dtype, dev).cpu().numpy()
+    g64 = adjoint_lanes(torch.float64, dev, ccp.compression_run_plain)
+    g32 = adjoint_lanes(torch.float32, dev, ccp.compression_run_plain)
+    g64_32 = adjoint_lanes(torch.float64, dev, ccp.compression_run_plain, weights=g32["weights"])
+    for key, g in (("grad f64", g64), ("grad f32", g32), ("grad f64 at f32's cotangents", g64_32)):
+        out[key] = {k: v.numpy() for k, v in g.items()}
+    conn.send(out)
+    conn.close()
+
+
+def compression_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                       measured_plain: dict, plain_card, twin: dict) -> tuple[int, int]:
+    """(zf) row P: every :data:`COMPRESSION_CASES` run ONE launch, in float32
+    and float64, ``torch.equal`` to its plain twin on the card
+    (``plain_card``: :func:`slice18_plain_on_card`'s, the timed run's in
+    line); row P's adjoint against autograd through the plain twin on the
+    card (float64 within :data:`ADJOINT_F64_TOL`; float32 d min(radius) / d V
+    within :data:`ADJOINT_F32_TOL`, and on random cotangents no further from
+    the float64 gradient than :data:`F32_GRADIENT_SPREAD` times autograd's
+    float32 gradient is, plus that tolerance; the float32 lane's minimum can
+    sit at another step than the float64 one's, so only the float64 gradient
+    is held to the JAX test's sign), ``gradcheck`` in float64; the gates of :func:`frc_gates`
+    and every float64 result within 1e-9 of the CPU (``twin``:
+    :func:`slice18_on_cpu`'s), the diagnostics' counts equal.  Returns the
+    counted launches of row P and of its adjoint."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+
+    f32, f64 = torch.float32, torch.float64
+    print(f"(zf) csrc/compression.cu's PTX (nvcc -ptx): {disruption_ptx('compression.cu')} sqrt / "
+          f"rsqrt / call instructions (pow's exponent is read from the constants)")
+    one = {name: int(name == "compression_run") for name in KERNELS}
+    two = {name: 2 * int(name in ("compression_run", "compression_adjoint")) for name in KERNELS}
+    timed, ms_p = events_ms(functools.partial(compression_plain_case, COMPRESSION_TIMED, f64, dev))
+    plain = plain_card()
+    runs, adjoints, cases64, grads = 0, 0, {}, {}
+    for dtype in (f32, f64):
+        tag = "f32" if dtype == f32 else "f64"
+        for label, *_ in COMPRESSION_CASES:
+            (cfg, tr), calls, launched = counted(functools.partial(compression_run_case, label,
+                                                                   dtype, dev))
+            require(calls == one and launched == {f"scpn_compression_{tag}": 1},
+                    f"(zf) {label} {tag}: {calls} / {launched}, not one launch of row P")
+            by_path[f"compression {label} {tag}"] = calls
+            runs += calls["compression_run"]
+            ref = (timed.cpu() if (tag == "f64" and label == COMPRESSION_TIMED)
+                   else torch.from_numpy(plain[(str(dtype), label)]))
+            rows = trace_rows(tr)
+            equal = torch.equal(rows.cpu(), ref)
+            d = pc.trajectory_diagnostics(tr, cfg, compression_case(label)[3]["radius_m"])
+            print(f"(zf) row P {tag} {label}: one launch, torch.equal to the plain loop {equal}; "
+                  f"min radius {float(d.min_radius_m)!r} m, ratio {float(d.compression_ratio)!r}, "
+                  f"{int(d.radial_turning_points)} turning points, {int(d.floor_contact_count)} "
+                  f"floor contacts, max |balance residual| {float(d.max_balance_residual)!r} "
+                  f"[{card}]")
+            require(equal, f"(zf) row P {tag} {label}: the kernel differs from its plain loop")
+            if tag == "f64":
+                cases64[label] = (cfg, tr)
+            if tag == "f64" and label == COMPRESSION_TIMED:
+                results["compression_run"] = {"max_abs_err": float((rows - timed).abs().max())}
+
+        g, calls, launched = counted(functools.partial(adjoint_lanes, dtype, dev,
+                                                       ccp.compression_run))
+        require(calls == two and launched == {f"scpn_compression_{tag}": 2,
+                                              f"scpn_compression_adjoint_{tag}": 2},
+                f"(zf) gradient lanes {tag}: {calls} / {launched}, not two launches of row P and "
+                f"two of its adjoint")
+        by_path[f"compression gradients {tag}"] = calls
+        runs += calls["compression_run"]
+        adjoints += calls["compression_adjoint"]
+        grads[tag] = g
+    keys = ("dmin_dv", "drive", "state0")
+    ref64, ref32, ref64_32 = ({k: torch.from_numpy(v) for k, v in plain[key].items()} for key in (
+        "grad f64", "grad f32", "grad f64 at f32's cotangents"))
+    gap64 = {k: max_rel(grads["f64"][k], ref64[k]) for k in keys}
+    gap32 = {k: max_rel(grads["f32"][k], ref32[k]) for k in keys}
+    to64 = {k: max_rel(grads["f32"][k], ref64_32[k]) for k in keys}
+    auto64 = {k: max_rel(ref32[k], ref64_32[k]) for k in keys}
+    print(f"(zf) row P's adjoint against autograd through the plain loop on the card: f64 {gap64} "
+          f"(limit {ADJOINT_F64_TOL:.0e}); f32 {gap32}; f32 against the f64 gradient: the kernel "
+          f"{to64}, autograd {auto64}; d min(radius)/dV at {GRAD_STEPS} steps "
+          f"{float(grads['f64']['dmin_dv'])!r} m/V f64, {float(grads['f32']['dmin_dv'])!r} f32 "
+          f"[{card}]")
+    require(all(v <= ADJOINT_F64_TOL for v in gap64.values()),
+            "(zf) row P's float64 adjoint deviates from autograd through the plain loop")
+    require(gap32["dmin_dv"] <= ADJOINT_F32_TOL,
+            "(zf) row P's float32 d min(radius)/dV deviates from autograd's")
+    require(all(to64[k] <= F32_GRADIENT_SPREAD * auto64[k] + ADJOINT_F32_TOL
+                for k in ("drive", "state0")),
+            "(zf) row P's float32 adjoint is further from the float64 gradient than autograd's")
+    require(float(grads["f64"]["dmin_dv"]) < 0.0, "(zf) d min(radius)/dV is not negative")
+    ok = compression_gradcheck(dev)
+    print(f"(zf) gradcheck of row P and its adjoint, f64, {GRADCHECK_STEPS} steps: {ok} [{card}]")
+    require(ok, "(zf) gradcheck of row P failed")
+
+    (r, ms), calls, launched = counted(lambda: events_ms(
+        lambda: frc_lanes(dev, cases64, grads["f64"])))
+    require(calls == {name: 0 for name in KERNELS} and not launched,
+            f"(zf) lanes: {calls} / {launched}: the FRC and Faraday lanes launch no kernel")
+    by_path["frc_faraday_lanes_f64"] = calls
+    gates = frc_gates(r)
+    print(f"(zf) gates of the JAX tests and validations on the card (f64): {gates}; the FRC, tilt "
+          f"and Faraday lanes {ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(zf): the port misses a gate of the JAX tests")
+    counts = [k for k in twin["zf"] if k.endswith(("radial_turning_points", "floor_contact_count"))]
+    require(all(np.array_equal(r[k], twin["zf"][k]) for k in counts),
+            "(zf): a diagnostic's count differs from the CPU's")
+    agree_noise(r, twin["zf"], "(zf) row P's runs and gradients, the FRC, tilt and Faraday lanes",
+                card)
+
+    label, *_ = compression_case(COMPRESSION_TIMED)
+    c, s0, table = compression_inputs(pc.CompressionConfig(), dict(radius_m=0.25),
+                                      lambda t: 4000.0, 2e-8, 4000, 0.0, f64, dev)
+    measured_plain["compression_run"] = ms_p
+    timing["compression_run"] = (functools.partial(ccp.compression_run, c, s0, table),
+                                 functools.partial(ccp.compression_run_plain, c, s0, table),
+                                 f"{label} f64", compression_work(4000, 8))
+    c, s0, table = compression_inputs(pc.CompressionConfig(), dict(radius_m=0.25),
+                                      lambda t: 3000.0, 2e-8, GRAD_STEPS, 0.0, f64, dev)
+    v_k, v_p = table.clone().requires_grad_(), table.clone().requires_grad_()
+    trace_k, trace_p = ccp.compression_run(c, s0, v_k), ccp.compression_run_plain(c, s0, v_p)
+    seed = torch.zeros_like(trace_p)
+    seed[1, int(trace_p[1].argmin())] = 1.0
+
+    def adjoint(trace, v):
+        return torch.autograd.grad(trace, v, seed, retain_graph=True)[0]
+
+    g_p, ms_pa = events_ms(functools.partial(adjoint, trace_p, v_p))
+    measured_plain["compression_adjoint"] = ms_pa
+    results["compression_adjoint"] = {"max_abs_err": float((adjoint(trace_k, v_k)
+                                                             - g_p).abs().max())}
+    timing["compression_adjoint"] = (functools.partial(adjoint, trace_k, v_k),
+                                     functools.partial(adjoint, trace_p, v_p),
+                                     f"d min(radius)/dV backward, {GRAD_STEPS} steps f64",
+                                     compression_adjoint_work(GRAD_STEPS, 8))
+    for name, n in (("compression_run", 4000), ("compression_adjoint", GRAD_STEPS)):
+        kernel, _, shape, work = timing[name]
+        ms_k = cuda_ms(kernel)
+        b, by = bound(work)
+        chain = ladder_chain_ms(n, COMPRESSION_DEPTH)
+        print(f"time (zf) {name} ({shape}): kernel {ms_k:.4f} ms ({1e3 * ms_k / n:.4f} us a "
+              f"step; CUDA events, median of 5), bound {b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, "
+              f"{work[1] / 1e6:.4g} Mflop); the forward's dependent chain "
+              f"{n * COMPRESSION_DEPTH} operations ({n} steps x ~{COMPRESSION_DEPTH}), "
+              f"~{chain:.4f} ms at a nominal 4 cycles each and {SM_CLOCK_HZ / 1e9:.2f} GHz (a "
+              f"count, not a bound: a pow and two IEEE f64 divisions a step on the chain); plain "
+              f"{measured_plain[name]:.1f} ms (once); library_ms null (no PyTorch call runs a "
+              f"compression trajectory or its gradient) [{card}]")
+    return runs, adjoints
+
+
+def hall_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
+    """(zg) the pulsed carrier, the rigid rotor feeding it, the Spitzer lane
+    and the discovery sandbox at 64^2 (the JAX tests' runs, sweep and
+    bisection) in float64 on the card: no kernel launches; the gates of
+    :func:`hall_gates`; every result within 1e-9 of the CPU (``twin``:
+    :func:`slice18_on_cpu`'s), the residuals absolutely."""
+    (r, ms), calls, launched = counted(lambda: events_ms(lambda: hall_lanes(dev)))
+    gates = hall_gates(r)
+    print(f"(zg) the carrier, Spitzer and discovery lanes on the card (f64, 64^2 c128): gates "
+          f"{gates}; sweep growth {r['sweep growth'].tolist()}, threshold eta "
+          f"{float(r['bisection threshold_eta'])!r} in [{float(r['bisection lo'])!r}, "
+          f"{float(r['bisection hi'])!r}]; {ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(zg): the port misses a gate of the JAX tests")
+    require(calls == {name: 0 for name in KERNELS} and not launched,
+            f"(zg): {calls} / {launched}: the Hall-MHD lanes launch no kernel")
+    by_path["hall_mhd_f64"] = calls
+    agree_noise(r, twin["zg"], "(zg) the pulsed carrier and the Hall-MHD sandbox", card)
+
+
 def early_twins(stack: contextlib.ExitStack) -> dict:
     """Start, right after the build, the processes whose results later
-    paths wait for: the CPU twins of (k), (o), (v) and (z)-(ze), and the host-bound
-    card-side runs of (k)'s plain Thomas loop and (o)'s :data:`CARD_LANES`,
+    paths wait for: the CPU twins of (k), (o), (v) and (z)-(zg), and the host-bound
+    card-side runs of (k)'s plain Thomas loop, (o)'s :data:`CARD_LANES` and (zf)'s plain
+    references,
     each in a spawned process that drives the card beside this one (the card
     is idle > 90% of their time).  ``stack`` ends them on the way out."""
     targets = {"torax_plain": torax_plain_on_card, "control_card": control_lanes_on_card,
                "torax_cpu": torax_on_cpu, "control_cpu": control_lanes_on_cpu,
                "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu,
-               "slice17_cpu": slice17_on_cpu}
+               "slice17_cpu": slice17_on_cpu, "slice18_cpu": slice18_on_cpu,
+               "slice18_card": slice18_plain_on_card}
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
@@ -4614,7 +5214,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
                    "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu",
-                   "disruption.cu", "sandpile.cu"):
+                   "disruption.cu", "sandpile.cu", "compression.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -5150,7 +5750,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
                 "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
-                "sandpile_run": 0}
+                "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -5262,7 +5862,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
                  "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                  "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
-                 "sandpile_run": 0}
+                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -5700,6 +6300,15 @@ def _main(stack: contextlib.ExitStack) -> int:
     mhd_checks(dev, card, counted, by_path, slice17)
     phase_done("MHD, stability, ELMs and edge events (ze)")
 
+    # ── the eighteenth slice: (zf) row P and its adjoint with the FRC, tilt and
+    # Faraday lanes, (zg) the pulsed carrier and the Hall-MHD sandbox ──
+    slice18 = twins["slice18_cpu"]()
+    compression_calls = compression_checks(dev, card, counted, by_path, results, timing,
+                                           measured_plain, twins["slice18_card"], slice18)
+    phase_done("compression, FRC and Faraday recovery (zf)")
+    hall_checks(dev, card, counted, by_path, slice18)
+    phase_done("Hall-MHD carrier and sandbox (zg)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -5714,6 +6323,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["newcomb_min_xi"] = newcomb_calls
     launches["disruption_sequence"] = disruption_calls
     launches["sandpile_run"] = sandpile_calls
+    launches["compression_run"], launches["compression_adjoint"] = compression_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

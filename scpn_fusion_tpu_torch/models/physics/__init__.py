@@ -7,15 +7,24 @@ through row B on the card), ``edge`` (the SOL model and the EPED tiers), and
 the MHD, disruption and runaway lanes: ``disruption_sequence`` (row Q on the
 card), ``fokker_planck_re``, ``runaway_fluid``, ``spi_ablation``,
 ``mhd_modes``, ``sawtooth``, ``stability_mhd``, ``elm``, ``edge_events`` and
-``sandpile`` (row S on the card).  The names the JAX package exports from
-those modules are exported here under the same names; its other exports
-come with the modules that define them.
+``sandpile`` (row S on the card), and the FRC and pulsed physics: ``frc``,
+``frc_stability``, ``frc_public``, ``pulsed_compression`` (row P and its
+adjoint on the card), ``faraday_recovery``, ``hall_mhd_pulsed`` and
+``hall_mhd_discovery``.  The names the JAX package exports from those
+modules are exported here under the same names; its other exports come with
+the modules that define them.
 """
 
 from scpn_fusion_tpu_torch.models.physics.fokker_planck_re import (  # noqa: F401
     FokkerPlanckGrid,
     fp_step,
     run_fokker_planck,
+)
+from scpn_fusion_tpu_torch.models.physics.hall_mhd_pulsed import (  # noqa: F401
+    HallMHDPulsedParams,
+    run_hall_mhd_pulsed,
+    spitzer_resistivity_ohm_m,
+    step_hall_mhd_pulsed,
 )
 from scpn_fusion_tpu_torch.models.physics.disruption_sequence import (  # noqa: F401
     DisruptionParams,
@@ -39,4 +48,20 @@ from scpn_fusion_tpu_torch.models.physics.sandpile import (  # noqa: F401
     SandpileConfig,
     avalanche_statistics,
     run_sandpile,
+)
+from scpn_fusion_tpu_torch.models.physics.frc_stability import (  # noqa: F401
+    TiltModeReport,
+    TiltTrajectory,
+    s_parameter as frc_s_parameter,
+    tilt_mode_report,
+    tilt_mode_stable,
+    tilt_trajectory_from_compression,
+    validate_rigid_rotor,
+)
+from scpn_fusion_tpu_torch.models.physics.faraday_recovery import (  # noqa: F401
+    FaradayRecoveryReport,
+    faraday_back_emf,
+    faraday_recovery,
+    integrated_recovery_energy,
+    recovery_from_compression,
 )

@@ -76,6 +76,10 @@ _SIGNATURES = {
     "scpn_disruption_f64": [_P, _P],
     "scpn_sandpile_f32": [_P, _I, _P],
     "scpn_sandpile_f64": [_P, _I, _P],
+    "scpn_compression_f32": [_P, _P],
+    "scpn_compression_f64": [_P, _P],
+    "scpn_compression_adjoint_f32": [_P, _P],
+    "scpn_compression_adjoint_f64": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

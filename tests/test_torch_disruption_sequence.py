@@ -11,10 +11,9 @@ one at 1000 ticks and the mitigation scan of
 balance and the exponential-integrator run.  The gates of
 ``test_disruption_edge_events.py`` (``TestDisruption``),
 ``test_physics_kernels.py`` (``TestFokkerPlanck``) and
-``test_runaway_fluid.py`` hold for the port.  Waiting for their modules:
-the Hall-MHD half of ``test_physics_kernels.py`` (``hall_mhd_pulsed`` is
-not ported) and the DREAM cross-code bands (the artifact is not in the
-repository).  The batched plain twin equals, bit for bit, the module's step
+``test_runaway_fluid.py`` hold for the port; the Hall-MHD half of
+``test_physics_kernels.py`` is held in ``test_torch_hall_mhd.py``.  Waiting
+for its artifact: the DREAM cross-code bands (not in the repository).  The batched plain twin equals, bit for bit, the module's step
 looped over one sequence at a time; the kernel's argument block lists the C
 struct field for field.
 """

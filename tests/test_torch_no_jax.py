@@ -105,3 +105,15 @@ def test_mhd_disruption_slice_modules_are_scanned():
         assert f"scpn_fusion_tpu_torch.models.physics.{name}" in mods, name
     for name in ("cuda_disruption", "cuda_sandpile"):
         assert f"scpn_fusion_tpu_torch.ops.{name}" in mods, name
+
+
+def test_frc_pulsed_slice_modules_are_scanned():
+    """The FRC and pulsed modules and row P's wrapper are among those both
+    checks cover, and each has its JAX module at the same path."""
+    mods = set(_modules())
+    names = ("frc", "frc_stability", "frc_public", "pulsed_compression", "faraday_recovery",
+             "hall_mhd_pulsed", "hall_mhd_discovery")
+    for name in names:
+        assert f"scpn_fusion_tpu_torch.models.physics.{name}" in mods, name
+        assert (ROOT / "scpn_fusion_tpu" / "models" / "physics" / f"{name}.py").is_file(), name
+    assert "scpn_fusion_tpu_torch.ops.cuda_compression" in mods

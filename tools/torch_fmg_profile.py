@@ -107,13 +107,22 @@ sandpile, 200 of 2000 drives, float32; launches and idle share a tick or a
 sweep) and times each kernel at full length by CUDA events, then profiles
 the slice's plain loops at their JAX tests' lengths (SPI injection and
 sweep, Fokker-Planck, fluid runaway, the ELM cycle, the Rutherford island,
-the locked mode, the pellet) and the eigen lane.  Each prints what the
-solves above print.
+the locked mode, the pellet) and the eigen lane.  With ``--frc`` it checks
+row P (``csrc/compression.cu``) ``torch.equal`` to its plain loop (3000
+steps at 4000 V, float32 and float64), its adjoint against autograd through
+the plain loop (d min(radius) / d V at 500 steps, random cotangents on the
+fifteen trace rows at 200 steps) and ``gradcheck`` at 30 steps in float64,
+profiles the plain loop at a tenth of its length (400 of 4000 steps,
+float64) and autograd's backward through it (500 steps), times the kernel
+at full length and its adjoint by CUDA events, then profiles the slice's
+plain loops: the pulsed Hall-MHD carrier (200 steps), ``run_hall_mhd`` (300
+steps), ``parameter_sweep`` (3 x 3 x 250) and ``find_tearing_threshold`` (6 x
+300) at 64^2, all float64.  Each prints what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin | --ballooning | --disruption]``.
+| --twin | --ballooning | --disruption | --frc]``.
 Exits non-zero without one.
 """
 
@@ -1146,6 +1155,99 @@ def profile_disruption(card: str) -> None:
               f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
 
+def profile_frc(card: str) -> None:
+    """The FRC and pulsed slice: row P ``torch.equal`` to its plain loop in
+    float32 and float64 (the JAX test's 3000-step drive at 4000 V), its
+    adjoint against autograd through the plain loop and ``gradcheck``, the
+    plain loop at a tenth of its length and autograd's backward through 500
+    steps profiled, row P and its adjoint at full length by CUDA events, then
+    the slice's plain loops on 64^2 and 65 points, float64."""
+    import torch
+    import chip_smoke as smoke
+    from scpn_fusion_tpu_torch.models.physics import pulsed_compression as pc
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_compression as ccp
+
+    dev, f64 = "cuda", torch.float64
+    cfg = pc.CompressionConfig()
+    for dtype in (torch.float32, f64):
+        c, s0, table = smoke.compression_inputs(cfg, dict(radius_m=0.25), lambda t: 4000.0, 2e-8,
+                                                3000, 0.0, dtype, dev)
+        same = torch.equal(ccp.compression_run(c, s0, table), ccp.compression_run_plain(c, s0, table))
+        print(f"{dtype}: row P (3000 steps at 4000 V) torch.equal to its plain loop {same} [{card}]")
+        print(f"{dtype}: adjoint against autograd through the plain loop: "
+              f"{smoke.adjoint_gaps(dtype, dev)} [{card}]")
+    print(f"gradcheck of row P and its adjoint, float64, 30 steps: {smoke.compression_gradcheck(dev)}"
+          f" [{card}]")
+
+    c, s0, table = smoke.compression_inputs(cfg, dict(radius_m=0.25), lambda t: 4000.0, 2e-8,
+                                            4000, 0.0, f64, dev)
+    out = profile_solve(card, "row P, the 4000-step drive f64, plain loop at 400 of its steps",
+                        lambda: {"ran": ccp.compression_run_plain(c, s0, table[:400]) is not None},
+                        None)
+    print(f"row P plain: {out['launches'] / 400:.2f} device launches a step, idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}, {1e3 * out['wall_ms'] / 400:.2f} us a "
+          f"step of wall time (profiled) [{card}]")
+    v = table[:500].clone().requires_grad_()
+    trace = ccp.compression_run_plain(c, s0, v)
+    grad = torch.zeros_like(trace)
+    grad[1, int(trace[1].argmin())] = 1.0
+    out = profile_solve(card, "row P's adjoint, autograd through the plain loop (500 steps f64)",
+                        lambda: {"ran": torch.autograd.grad(trace, v, grad, retain_graph=True)
+                                 is not None}, None)
+    print(f"row P adjoint plain: {out['launches'] / 500:.2f} device launches a step backward, idle "
+          f"share {1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+    v_k = table[:500].clone().requires_grad_()
+    trace_k = ccp.compression_run(c, s0, v_k)
+    for label, run in (("row P, 4000 steps f64", lambda: ccp.compression_run(c, s0, table)),
+                       ("row P's adjoint, 500 steps f64",
+                        lambda: torch.autograd.grad(trace_k, v_k, grad, retain_graph=True))):
+        run()
+        cb.reset_launch_counts()
+        ms = sorted(cuda_events_ms(run) for _ in range(5))
+        print(f"{label}: {cb.kernel_launches()} launches in 5 calls, {ms[2]:.4f} ms between CUDA "
+              f"events around the one launch (median of 5; all {[round(m, 4) for m in ms]}) "
+              f"[{card}]")
+
+    profile_hall_loops(card)
+
+
+def profile_hall_loops(card: str) -> None:
+    """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
+    the sweep and the bisection) profiled, float64."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import hall_mhd_discovery as hd
+    from scpn_fusion_tpu_torch.models.physics import hall_mhd_pulsed as hp
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+
+    dev, f64 = "cuda", torch.float64
+    rho = torch.linspace(0.01, 0.5, 65, dtype=f64, device=dev)
+    psi0 = 0.02 * torch.sin(torch.pi * rho / 0.5)
+    params = hp.HallMHDPulsedParams(tau_psi_s=1e-3, electron_temperature_ev=50.0, r_null_m=0.3)
+    normals = torch.randn((2, 64, 64), generator=torch.Generator().manual_seed(4),
+                          dtype=f64).to(dev)
+    loops = (
+        ("run_hall_mhd_pulsed, 65 points x 200 steps f64", lambda: hp.run_hall_mhd_pulsed(
+            params, psi0, rho, torch.zeros_like(rho), lambda t: 0.1, 1e-5, n_steps=200)),
+        ("run_hall_mhd, 64^2 x 300 steps c128", lambda: hd.run_hall_mhd(
+            hd._init_hall_mhd(normals), n_steps=300)),
+        ("parameter_sweep, 3 x 3 x 250 steps at 64^2 c128", lambda: hd._parameter_sweep(
+            normals, eta_range=(1e-5, 3e-3), nu_range=(1e-5, 1e-4), n_points=3, sim_steps=250)),
+        ("find_tearing_threshold, 6 x 300 steps at 64^2 c128",
+         lambda: hd._find_tearing_threshold(normals, eta_range=(1e-6, 1e-2), n_bisect=6,
+                                            sim_steps=300)),
+    )
+    for label, run in loops:
+        out = profile_solve(card, label, lambda run=run: {"ran": run() is not None}, None)
+        cb.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        print(f"{label}: {out['launches']} device launches ({cb.kernel_launches()} of the port's "
+              f"kernels, counted), {out['device_ms']:.4f} ms of device time, "
+              f"{out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def gk_wrapper_host(label, cfg, g, spec, gram_inv, state, card: str) -> None:
     """Host µs of one row-G wrapper call at stage 2 of 4 (perf_counter around
     200 calls, queued without a sync; median of 5), and of its parts: the
@@ -1237,6 +1339,9 @@ def main() -> int:
                        help="check rows Q and S against their plain loops, profile each plain "
                             "(a tenth of its length) and through its kernel, and the MHD, "
                             "disruption and runaway slice's plain loops")
+    group.add_argument("--frc", action="store_true",
+                       help="row P and its adjoint against their plain versions, then the FRC "
+                            "and pulsed slice's plain loops")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1295,6 +1400,9 @@ def main() -> int:
         return 0
     if opts.disruption:
         profile_disruption(card)
+        return 0
+    if opts.frc:
+        profile_frc(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
