@@ -163,10 +163,26 @@ them:
 * (ze) the MHD modes, the sawtooth cycle, the stability suite (its eigen lane
   in two launches of row B), the ELM cycle and the edge events in float64
   against the CPU, with their JAX tests' gates.
+* (zf) row P, the voltage-driven compression, and its adjoint with the
+  rigid rotor, tilt and Faraday lanes; (zg) the pulsed carrier and the
+  Hall-MHD sandbox (see :func:`compression_checks`, :func:`hall_checks`);
+* (zh) row F, the guiding-centre orbit (``csrc/orbits.cu``,
+  ``ops/cuda_orbits.gc_ensemble`` and ``gc_orbit``: one thread a particle,
+  the RK4 step loop inside): the JAX tests' fast-ion populations (256, 512,
+  512 and 2048 alphas x 4000 steps) and the 20,000-step guiding-centre orbit
+  each in ONE launch, ``torch.equal`` to the plain twin in float32 and
+  float64; ``validation/run_fast_ions.py``'s lanes (384 x 8000 steps at four
+  plasma currents through ``follow_ensemble``); ``TestOrbits``' Boris and
+  lambda-field lanes on plain ops; the gates, float64 against the CPU;
+* (zi) ICRH ray tracing and deposition, ECRH, current drive, the drift-wave
+  runs of ``test_drift_wave_esn.py``, ``run_divertor_ballooning.py`` (its
+  ballooning lane through row B) and ``run_stellarator_lane.py``, with
+  their gates, float64 against the CPU.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
-Fokker-Planck, fluid and SPI lanes and (ze) but its eigen lane run plain
+Fokker-Planck, fluid and SPI lanes, (ze) but its eigen lane, (zg), (zh)'s
+Boris and lambda-field lanes and (zi) but its ballooning lane run plain
 PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
@@ -303,7 +319,13 @@ Phases:
    sandpile run, row S's runs equal to the CPU twin's integers (the mean
    slope within an ulp), the JAX tests' gates, every float64 lane within
    1e-9 of the CPU (the SPI deposition, a scatter-add of atomics, 1e-12),
-   and on (ze) row B's two eigen-lane launches and no other kernel;
+   and on (ze) row B's two eigen-lane launches and no other kernel; (zh):
+   row F ``torch.equal`` to its plain twin in both dtypes, one launch a call,
+   the gates of ``tests/test_fast_ions.py``, ``TestOrbits`` and
+   ``validation/run_fast_ions.py``, float64 within 1e-9 of the CPU with the
+   counts and flags equal; (zi): the JAX tests' and validations' gates,
+   float64 within 1e-9 of the CPU (ECRH's float32 parts 1e-5), row B's 25
+   launches on the ballooning lane and no other kernel;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -325,8 +347,10 @@ Phases:
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  Right after the build it starts, each in a spawned
-process, the CPU twins of (k), (o), (v) and (z)-(ze) and the host-bound card-side
-runs of (k)'s plain Thomas loop and (o)'s optimiser and tracking shot, so
+process, the CPU twins of (k), (o), (v) and (z)-(zg) and the host-bound card-side
+runs of (k)'s plain Thomas loop, (o)'s optimiser and tracking shot and (zf)'s
+plain references (after (i), those of (zh)-(zi) and (zh)'s plain twins and
+lanes), so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
@@ -337,7 +361,8 @@ the Thomas kernel, over (n) for the closed-loop kernel, over (p)'s
 campaign and tuner for row R, over (r)'s f32 ladder for row L, over
 (u)'s default run for row G, over (x)'s default float32 shot for row D,
 over (z)'s gates for row B, over (zc)'s counted sequences and scans for
-row Q and over (zd)'s counted runs for row S,
+row Q, over (zd)'s counted runs for row S, over (zf)'s runs and gradient
+lanes for row P and its adjoint and over (zh)'s counted calls for row F,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -395,7 +420,7 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
            "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
-           "sandpile_run", "compression_run", "compression_adjoint")
+           "sandpile_run", "compression_run", "compression_adjoint", "gc_ensemble", "gc_orbit")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -429,6 +454,10 @@ SOURCES = {
                         "scpn_fusion_tpu/models/physics/pulsed_compression.py:154"),
     "compression_adjoint": ("csrc/compression.cu",
                             "scpn_fusion_tpu/models/physics/pulsed_compression.py:154"),
+    # no Pallas kernel: the JAX population is one vmap of a lax.scan of RK4 steps
+    "gc_ensemble": ("csrc/orbits.cu", "scpn_fusion_tpu/models/physics/fast_ions.py:146"),
+    # no Pallas kernel: the JAX orbit is one lax.scan of RK4 steps
+    "gc_orbit": ("csrc/orbits.cu", "scpn_fusion_tpu/models/physics/orbits.py:90"),
 }
 
 
@@ -5130,6 +5159,674 @@ def hall_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
     agree_noise(r, twin["zg"], "(zg) the pulsed carrier and the Hall-MHD sandbox", card)
 
 
+# ── the nineteenth slice: (zh) row F, the guiding-centre orbit -- a fast-ion
+# population and one orbit -- with the fast-ion validation lanes and the plain
+# Boris and lambda-field lanes; (zi) ICRH, ECRH, current drive, the drift-wave
+# turbulence, the divertor lab and the stellarator lane ──
+
+FAST_R0, FAST_A, FAST_B0 = 6.2, 2.0, 5.3     # tests/test_fast_ions.py:29
+FAST_DT, FAST_STEPS = 1e-8, 4000
+# (label, torch.Generator seed, particles, birth minor radius): the JAX tests' populations
+# (test_fast_ions.py:36-48, 94-102) and the 2048 of its birth test, each followed 4000 steps
+FAST_POPULATIONS = (("central 256", 0, 256, 2.0), ("narrow 512", 7, 512, 0.4),
+                    ("wide 512", 7, 512, 1.6), ("birth 2048", 1, 2048, 2.0))
+FAST_TIMED = "birth 2048"
+# test_edge_orbits_frc.py:90-102: the guiding centre, its 20,000 steps; the plain twin on the
+# card is held to the kernel's first GC_PLAIN_STEPS (the trace is a prefix) and to a
+# GC_PLAIN_STEPS-step launch
+GC = dict(m_amu=2.0, charge_z=1, e_kev=80.0, pitch_angle=0.4, r0=6.8, z0=0.0)
+GC_STEPS, GC_PLAIN_STEPS = 20000, 4000
+# validation/run_fast_ions.py:40-46: lanes 3-5, 384 alphas x 8000 steps of 5 ns
+LANE_IPS, LANE_N, LANE_STEPS, LANE_DT = (15.0, 2.0, 5.0, 10.0), 384, 8000, 5e-9
+LANE_SEED = 20260819     # the validation's PRNG key, seeding a torch.Generator
+# operations a particle-step of row F (csrc/orbits.cu: four right-hand sides of 109 -- the
+# field and its gradient 75, the guiding-centre equations 34 -- the stage and final updates
+# 52, the wall and bounce tests 6), and the dependent operations a step on a particle's chain
+# (~25 a right-hand side, two square roots and ~6 divisions among them)
+ORBIT_OPS, ORBIT_DEPTH = 494, 100
+# (zi): the drift-wave lanes of test_drift_wave_esn.py (64^2, 800 + 200 steps at kappa 0
+# and 2; 32^2, 200 + 500), the float32 lane held to the CPU (32^2, 20 + 30 steps) and its
+# limit (cuFFT against pocketfft, float32), and the float64 step lane (64^2, 100 steps)
+DRIFT_F32_TOL, DRIFT_F64_STEPS = 1e-4, 100
+# ECRH's float32 inputs (JAX's :241,243,258) round in float32 on each device (a quotient by a
+# constant is a product on the card, float32 sin and cos are libdevice's there and SLEEF's on
+# the CPU): its deposition and efficiency against the CPU, relative
+ECRH_F32_TOL = 1e-5
+
+
+def fast_field(ip_ma: float = 15.0):
+    """The analytic ITER-like field; validation/run_fast_ions.py:111-114 scales
+    q0 and qa with 15 MA / Ip."""
+    from scpn_fusion_tpu_torch.models.physics import fast_ions as fi
+    return fi.tokamak_field(FAST_B0, FAST_R0, FAST_A, q0=15.0 / ip_ma, qa=3.0 * (15.0 / ip_ma))
+
+
+def fast_population(label: str, dtype, device):
+    """A population of :data:`FAST_POPULATIONS`, drawn on the CPU (so card and
+    CPU see the same draws)."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import fast_ions as fi
+    _, seed, n, a = next(p for p in FAST_POPULATIONS if p[0] == label)
+    return fi.sample_fast_ion_birth(torch.Generator().manual_seed(seed), n, fast_field(),
+                                    r0=FAST_R0, a=a, dtype=dtype, device=device)
+
+
+def fast_constants(dtype, device):
+    """Row F's constants for the JAX tests' alphas: 1e-8 s steps, walls 0.5 m
+    outside the plasma (test_fast_ions.py:44-46)."""
+    from scpn_fusion_tpu_torch.models.physics import fast_ions as fi
+    return fi.ensemble_constants(fi.ALPHA_AMU, fi.ALPHA_Z, FAST_DT, FAST_R0 - FAST_A - 0.5,
+                                 FAST_R0 + FAST_A + 0.5, FAST_A + 0.5, dtype, device)
+
+
+def packed(state):
+    import torch
+    return torch.stack(list(state))
+
+
+def orbit_state(dtype, device):
+    """(step constants, state (5,)) of the JAX test's guiding centre in
+    :func:`fast_field`."""
+    from scpn_fusion_tpu_torch.models.physics import orbits
+    s0 = orbits.init_guiding_center(fast_field(), **GC, dtype=dtype, device=device)
+    return orbits.step_constants(2.0, 1, 1e-8, dtype, device), packed(s0)
+
+
+def orbit_work(n: int, n_steps: int, item: int, ensemble: bool = True):
+    """Row F: (bytes, operations, peak rate): the state (5 n) and constants
+    read; the final state, flags and drift (ensemble) or the final state and
+    the two traces (orbit) written."""
+    out = item * (4 * n + n) + 2 * n if ensemble else item * (4 + 2 * n_steps)
+    return (float(item * (5 * n + 16) + out), float(ORBIT_OPS * n * n_steps),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def orbit_ptx() -> dict:
+    """Square roots and divisions of ``csrc/orbits.cu``'s PTX by rounding:
+    only ``.rn`` (IEEE) forms are expected, no ``approx`` or ``full``."""
+    import tempfile
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        out = Path(tmp) / "kernel.ptx"
+        subprocess.run([cb._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
+                        str(cb.CSRC / "orbits.cu"), "-o", str(out)], check=True,
+                       capture_output=True)
+        ptx = out.read_text()
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", ptx)) for op in (
+        "sqrt.rn.f32", "sqrt.rn.f64", "div.rn.f32", "div.rn.f64", "sqrt.approx.f32",
+        "sqrt.approx.ftz.f32", "div.approx.f32", "div.full.f32", "rcp.approx.ftz.f64",
+        "fma.rn.f32", "fma.rn.f64")}
+
+
+def fast_ion_lanes(device) -> dict:
+    """``validation/run_fast_ions.py``'s lanes in float64: 1 (Stix critical
+    energy, slowing-down time), 2 (the slow-down-averaged heating partition)
+    and 3-5 (384 alphas x 8000 steps at 5, 10, 15 and 2 MA through
+    ``follow_ensemble``: row F on the card), drawn from a ``torch.Generator``
+    seeded with the validation's key."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import fast_ions as fi
+    f64, out = torch.float64, {}
+    kw = dict(dtype=f64, device=device)
+    m_alpha = fi.ALPHA_AMU * fi.ATOMIC_MASS_KG
+    v_c = fi.critical_velocity(20.0, **kw)
+    out["e_c_over_te"] = 0.5 * m_alpha * v_c**2 / fi.E_CHARGE / 1e3 / 20.0
+    out["tau_se"] = fi.tau_spitzer_electron(20.0, 1.0, **kw)
+    out["coulomb_log"] = fi.coulomb_log_ei(20.0, 1.0, **kw)
+    v_birth = float(np.sqrt(2.0 * fi.ALPHA_BIRTH_KEV * 1e3 * fi.E_CHARGE / m_alpha))
+    out["thermalisation"] = fi.slowing_down_time(v_birth, 0.1 * v_birth, v_c, out["tau_se"])
+    v_grid = torch.tensor(np.linspace(0.05 * v_birth, v_birth, 2001), **kw)
+    for te in (10.0, 20.0, 30.0):
+        f_ion, _ = fi.heating_partition(v_grid, fi.critical_velocity(te, **kw))
+        out[f"f_ion_avg {te:g}"] = torch.trapezoid(f_ion * v_grid, v_grid) / torch.trapezoid(
+            v_grid, v_grid)
+    for ip in LANE_IPS:
+        field = fast_field(ip)
+        birth = fi.sample_fast_ion_birth(torch.Generator().manual_seed(LANE_SEED), LANE_N, field,
+                                         r0=FAST_R0, a=FAST_A, **kw)
+        s = fi.follow_ensemble(birth, field, m_amu=fi.ALPHA_AMU, charge_z=fi.ALPHA_Z, dt=LANE_DT,
+                               n_steps=LANE_STEPS, r_wall_in=FAST_R0 - 1.15 * FAST_A,
+                               r_wall_out=FAST_R0 + 1.15 * FAST_A, z_wall=1.15 * FAST_A)
+        out.update({f"{ip:g} MA {k}": getattr(s, k) for k in (
+            "n_passing", "n_trapped", "n_lost", "loss_fraction", "trapped_fraction",
+            "energy_drift_rel_max")})
+        out[f"{ip:g} MA final"] = torch.stack(list(s.final))
+    out["bound 15 MA"] = fi.first_orbit_loss(FAST_R0, FAST_A, 15.0, **kw)
+    return as_numpy({k: torch.as_tensor(v) for k, v in out.items()})
+
+
+def fast_ion_gates(r: dict) -> dict:
+    """The gates of ``validation/run_fast_ions.py``'s five lanes."""
+    loss = {ip: float(r[f"{ip:g} MA loss_fraction"]) for ip in LANE_IPS}
+    gates = {
+        "lane 1 Stix": 28.0 <= float(r["e_c_over_te"]) <= 36.0 and 0.6 <= float(r["tau_se"]) <= 1.6
+        and 15.0 <= float(r["coulomb_log"]) <= 20.0 and 0.3 <= float(r["thermalisation"]) <= 2.0,
+        "lane 2 partition": 0.15 <= float(r["f_ion_avg 20"]) <= 0.45
+        and float(r["f_ion_avg 10"]) < float(r["f_ion_avg 20"]) < float(r["f_ion_avg 30"]) < 0.5,
+        "lane 3 energy drift < 1e-5": np.isfinite(float(r["15 MA energy_drift_rel_max"]))
+        and float(r["15 MA energy_drift_rel_max"]) < 1e-5,
+        "lane 4 prompt loss": loss[15.0] <= float(r["bound 15 MA"]) + 0.05,
+        "lane 5 Ip scaling": loss[2.0] > 0.01
+        and loss[2.0] >= loss[5.0] >= loss[10.0] >= loss[15.0],
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def fast_ion_test_gates(stats: dict) -> dict:
+    """The gates of ``tests/test_fast_ions.py`` on the statistics of
+    :data:`FAST_POPULATIONS` (label -> ``EnsembleStats``), and its birth test
+    on the 2048 births."""
+    import torch
+    central, narrow, wide = (stats[k] for k in ("central 256", "narrow 512", "wide 512"))
+    birth = fast_population("birth 2048", torch.float64, "cpu")
+    rm = np.hypot(birth.r.numpy() - FAST_R0, birth.z.numpy())
+    v_par = birth.v_par.numpy()
+    gates = {
+        "partition": int(central.n_passing + central.n_trapped + central.n_lost) == 256,
+        "loss fraction < 0.35": float(central.loss_fraction) < 0.35,
+        "trapped fraction in (0.05, 0.75)": 0.05 < float(central.trapped_fraction) < 0.75,
+        "energy drift < 1e-2": float(central.energy_drift_rel_max) < 1e-2,
+        "wider birth traps more": float(wide.trapped_fraction)
+        > float(narrow.trapped_fraction) + 0.02,
+        "birth prior": rm.max() < FAST_A and np.median(rm) < 0.45 * FAST_A
+        and (v_par > 0).mean() > 0.35 and (v_par < 0).mean() > 0.35,
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def lambda_field(r, z, b0=5.3, r0=6.2):
+    """``TestOrbits._tokamak_field`` (test_edge_orbits_frc.py:80-86)."""
+    return -0.1 * z, 0.1 * (r - r0), b0 * r0 / r
+
+
+def orbit_plain_lanes(device) -> dict:
+    """``TestOrbits`` on plain ops at its lengths, float64: the lambda-field
+    guiding centre (20,000 steps; grad |B| by ``torch.func.grad``), the Boris
+    gyration (5000 steps) and the E x B drift (40,000 steps), with their
+    gates; the port's kernel calls while they ran."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import orbits
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    f64, out = torch.float64, {}
+    cb.reset_launch_counts()
+    s0 = orbits.init_guiding_center(lambda_field, **GC, dtype=f64, device=device)
+    (final, tr), ms = events_ms(lambda: orbits.run_guiding_center(
+        s0, lambda_field, m_amu=2.0, charge_z=1, dt=1e-8, n_steps=GC_STEPS))
+    r = tr["r"].cpu().numpy()
+    br, bz, bphi = lambda_field(float(final.r), float(final.z))
+    e_final = (0.5 * 2.0 * 1.66053906660e-27 * float(final.v_par) ** 2
+               + float(final.mu) * np.sqrt(br**2 + bz**2 + bphi**2))
+    out["gc ms"] = ms
+    out["gc gate"] = bool(np.all(np.isfinite(r)) and np.all((r > 4.0) & (r < 9.0))
+                          and abs(e_final / (80.0e3 * 1.602176634e-19) - 1.0) <= 0.02)
+    qm = 1.602176634e-19 / (2.0 * 1.66053906660e-27)
+    e0, b5 = torch.zeros(3, dtype=f64, device=device), torch.tensor([0.0, 0.0, 5.0], dtype=f64,
+                                                                     device=device)
+    st = orbits.BorisState(torch.zeros(3, dtype=f64, device=device),
+                           torch.tensor([1e6, 0.0, 0.0], dtype=f64, device=device))
+    (_, tr), ms = events_ms(lambda: orbits.run_boris(st, lambda x: (e0, b5), q_over_m=qm,
+                                                     dt=1e-9, n_steps=5000))
+    en, x = tr["energy"].cpu().numpy(), tr["x"].cpu().numpy()
+    out["gyration ms"] = ms
+    out["gyration gate"] = bool(np.allclose(en, en[0], rtol=1e-6, atol=0.0) and abs(
+        0.5 * (x[:, 0].max() - x[:, 0].min()) / (1e6 / (qm * 5.0)) - 1.0) <= 0.01)
+    e1 = torch.tensor([0.0, 1e4, 0.0], dtype=f64, device=device)
+    b2 = torch.tensor([0.0, 0.0, 2.0], dtype=f64, device=device)
+    st = orbits.BorisState(torch.zeros(3, dtype=f64, device=device),
+                           torch.zeros(3, dtype=f64, device=device))
+    (final, _), ms = events_ms(lambda: orbits.run_boris(st, lambda x: (e1, b2), q_over_m=qm,
+                                                        dt=5e-9, n_steps=40000))
+    out["exb ms"] = ms
+    out["exb drift"] = float(final.x[0]) / (5e-9 * 40000)
+    out["exb gate"] = bool(abs(out["exb drift"] / (1e4 / 2.0) - 1.0) <= 0.05)
+    out["kernel calls"] = sum(cb.CALLS.values())
+    return out
+
+
+def heating_lanes(device) -> dict:
+    """(zi)'s float64 results as numpy: the default ICRH bundle (10 x 160), its
+    deposition, ECRH at two launches, the current-drive mix of
+    ``test_rf_current_drive.py``, the drift-wave step at 64^2 with float64
+    operators (:data:`DRIFT_F64_STEPS`), ``run_divertor_ballooning.py``'s lanes
+    1-3 (lane 3 through row B) and ``run_stellarator_lane.py``'s lanes 1-3."""
+    import dataclasses
+
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import ballooning as bl
+    from scpn_fusion_tpu_torch.models.physics import current_drive as cd
+    from scpn_fusion_tpu_torch.models.physics import divertor_lab as dl
+    from scpn_fusion_tpu_torch.models.physics import drift_wave as dw
+    from scpn_fusion_tpu_torch.models.physics import rf_heating as rf
+    from scpn_fusion_tpu_torch.models.physics import stellarator as st
+    f64, out = torch.float64, {}
+    kw = dict(dtype=f64, device=device)
+    p = rf.ICRHParams()
+    rays = rf.trace_icrh_rays(p, **kw)
+    out.update({f"icrh {k}": getattr(rays, k) for k in ("r", "z", "k_r", "k_z", "frozen")})
+    out.update({f"icrh deposition {i}": v for i, v in enumerate(
+        rf.icrh_power_deposition(p, rays, 20.0))})
+    for label, ekw in (("default", {}), ("angled", dict(launch_angle_deg=25.0, t_e_kev=4.0))):
+        out.update({f"ecrh {label} {i}": v for i, v in enumerate(
+            rf.ecrh_deposition(rf.ECRHParams(), **ekw, **kw))})
+    rho = torch.linspace(0.0, 1.0, 50, **kw)
+    ne, te = 8.0 * (1 - rho**2) ** 0.5 + 1.0, 20.0 * (1 - rho**2) + 0.5
+    mix = cd.CurrentDriveMix(a_minor=2.0).with_source(cd.ECCDSource(10.0, 0.3, 0.08)) \
+        .with_source(cd.NBISource(33.0, 1000.0, 0.2)).with_source(cd.LHCDSource(5.0, 0.6, 0.1))
+    out["cd j"] = mix.total_j_cd(rho, ne, te, te)
+    out["cd p"] = mix.total_heating_power(rho)
+    out["cd i 1.7"] = mix.total_driven_current(rho, ne, te, te, elongation=1.7)
+    out["cd i 1"] = mix.total_driven_current(rho, ne, te, te)
+    out["cd i kappa"] = mix.total_driven_current(rho, ne, te, te, elongation=1.4 + 0.3 * rho**2)
+    cfg = dw.DriftWaveConfig(n=64)
+    noise = torch.randn((2, 64, 64), generator=torch.Generator().manual_seed(2), dtype=f64)
+    s = dw._initial_state(noise[0].to(device), noise[1].to(device), cfg)
+    ops = dw._operators(cfg, f64, device)
+    for _ in range(DRIFT_F64_STEPS):
+        s = dw.step(s, cfg, ops)
+    out["drift f64 phi"], out["drift f64 n"] = dw.real_fields(s)
+    load = dl.divertor_heat_load(80.0, 2.1, 2.5, expansion_factor=15.0, **kw)
+    out.update({f"divertor load {k}": v for k, v in load._asdict().items()})
+    out.update({f"divertor tungsten {k}": v for k, v in dl.tungsten_monoblock(
+        load.q_target)._asdict().items()})
+    out.update({f"divertor lithium {k}": v for k, v in dl.lithium_vapor_shield(
+        load.q_target)._asdict().items()})
+    v = torch.tensor([0.5, 2.0, 8.0, 20.0], **kw)
+    for p_sol in (80.0, 20.0):
+        out.update({f"divertor scan {p_sol:g} {k}": x for k, x in dl.flow_velocity_scan(
+            v, p_sol, 2.1, 2.5)._asdict().items()})
+    scan = bl.second_stability_scan(torch.linspace(0.25, 2.0, 8, **kw), alpha_max=5.0,
+                                    n_alpha=48)
+    out.update({f"ballooning {k}": x for k, x in scan._asdict().items()})
+    out["ballooning marginal"] = bl.marginal_alpha(1.0, alpha_hi=2.0, **kw)
+    w7x = st.w7x_config()
+    out["iss04"] = st.iss04_tau_e(w7x, 8.0, 5.0, **kw)
+    out["iss04 p"] = st.iss04_tau_e(w7x, 8.0, 5.5, **kw)
+    out["iss04 n"] = st.iss04_tau_e(w7x, 8.8, 5.0, **kw)
+    out["iota 2/3"] = st.iota_profile(w7x, 2.0 / 3.0, **kw)
+    out["ripple axi"] = st.effective_ripple(dataclasses.replace(
+        w7x, mirror_ratio=0.0, helical_excursion=0.0), 0.5, **kw)
+    for s_ in (0.5, 1.0):
+        out[f"ripple {s_:g}"] = st.effective_ripple(w7x, s_, **kw)
+        out.update({f"surface {s_:g} {i}": x for i, x in enumerate(
+            st.stellarator_flux_surface(w7x, s_, n_theta=32, n_phi=40, **kw))})
+    for t in (1.0, 10.0):
+        out[f"chi {t:g}"] = st.stellarator_neoclassical_chi(w7x, 0.5, t, 5.0, **kw)
+    out["chi mirror x2"] = st.stellarator_neoclassical_chi(
+        dataclasses.replace(w7x, mirror_ratio=2.0 * w7x.mirror_ratio), 0.5, 1.0, 5.0, **kw)
+    return as_numpy({k: torch.as_tensor(x) for k, x in out.items()})
+
+
+def heating_gates(r: dict) -> dict:
+    """The gates of ``tests/test_rf_current_drive.py`` (on the default
+    bundle), ``run_divertor_ballooning.py``'s and ``run_stellarator_lane.py``'s
+    lanes 1-3, on :func:`heating_lanes`' results."""
+    from scpn_fusion_tpu_torch.models.physics import rf_heating as rf
+    cfg_tau = r["iss04"]
+    a, r0, b0 = 0.53, 5.5, 2.5
+    tau_lit = (0.134 * a**2.28 * r0**0.64 * 5.0**-0.61 * 8.0**0.54 * b0**0.84
+               * float(r["iota 2/3"]) ** 0.41)
+    rho, p_dep = r["ecrh default 0"], r["ecrh default 1"]
+    ecrh = rf.ECRHParams()
+    rho_res = abs(ecrh.resonance_radius - ecrh.r0_major) / ecrh.a_minor
+    a1, a2 = r["ballooning alpha_crit_first"], r["ballooning alpha_crit_second"]
+    idx_full, idx_red = r["divertor scan 80 stability_index"], r["divertor scan 20 stability_index"]
+    gates = {
+        "rays inward and finite": bool(np.all(np.isfinite(r["icrh r"])))
+        and bool(np.all(r["icrh r"][:, 10] < 9.0)),
+        "deposition absorbs": r["icrh deposition 1"].shape == (50,)
+        and bool(np.all(r["icrh deposition 1"] >= 0)) and 0.01 < float(r["icrh deposition 2"])
+        <= 1.0,
+        "ECRH at the resonance": abs(float(rho[int(np.argmax(p_dep))]) - rho_res) < 0.1
+        and 0.01 <= float(r["ecrh default 2"]) <= 0.9901,
+        "driven current grows with elongation": float(r["cd i 1.7"]) > float(r["cd i 1"]) > 0.0,
+        "divertor lane 1": bool(r["divertor tungsten melted"])
+        and float(r["divertor lithium f_rad"]) >= 0.95
+        and float(r["divertor lithium t_surface_c"]) < 2000.0
+        and abs(float(r["divertor load lambda_q_m"]) - 0.63e-3 * 2.5 ** (-1.19))
+        < 1e-12 * 0.63e-3 * 2.5 ** (-1.19) + 1e-15
+        and float(r["divertor load q_target"]) == float(r["divertor load q_parallel"]) / 15.0,
+        "divertor lane 2": bool(np.all(np.diff(idx_full) > 0.0)) and idx_red[0] <= 1.0
+        and idx_full[-1] > 1.0,
+        "ballooning lane 3": bool(np.all(r["ballooning second_access"]))
+        and bool(np.all(a2 > a1)) and bool(np.all(np.diff(a1) >= -1e-12))
+        and 0.45 < float(r["ballooning marginal"]) < 0.75,
+        "stellarator lane 1": abs(float(cfg_tau) - tau_lit) / tau_lit < 1e-10
+        and abs(np.log(float(r["iss04 p"]) / float(cfg_tau)) / np.log(1.1) + 0.61) < 1e-6
+        and abs(np.log(float(r["iss04 n"]) / float(cfg_tau)) / np.log(1.1) - 0.54) < 1e-6,
+        "stellarator lane 2": float(r["ripple axi"]) == 0.0 and 0.0 < float(r["ripple 0.5"]) < 0.1
+        and 0.05 < float(cfg_tau) < 0.5 and float(r["ripple 1"]) > float(r["ripple 0.5"]),
+        "stellarator lane 3": abs(np.log(float(r["chi 10"]) / float(r["chi 1"])) / np.log(10.0)
+                                  - 2.5) < 0.125
+        and float(r["chi mirror x2"]) > float(r["chi 1"]),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def drift_probe_runs(device) -> dict:
+    """The float32 drift-wave lanes: ``test_drift_wave_esn.py``'s drive test
+    (64^2 from the test's own draw, ``bench_config.DRIFT_WAVE_JAX_NOISE``: its
+    gate depends on the draw; 800 + 200 steps at kappa 0 and 2, 8 probes) and
+    its oracle run (32^2 from a ``torch.Generator`` seeded 1, 200 + 500 steps,
+    16 probes), and the short run held to the CPU (32^2, seed 3, 20 + 30)."""
+    import dataclasses
+
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import DRIFT_WAVE_JAX_NOISE
+    from scpn_fusion_tpu_torch.models.physics import drift_wave as dw
+    out = {}
+    cfg64 = dw.DriftWaveConfig(n=64)
+    noise = torch.from_numpy(np.load(DRIFT_WAVE_JAX_NOISE)).to(device)
+    s0 = dw._initial_state(noise[0], noise[1], cfg64)
+    idx = dw.default_probe_indices(64, 8, device=device)
+    for kappa in (0.0, 2.0):
+        _, out[f"drive {kappa:g}"] = dw.simulate_probes(
+            s0, dataclasses.replace(cfg64, kappa=kappa), idx, warmup=800, steps=200)
+    cfg32 = dw.DriftWaveConfig(n=32)
+    s1 = dw.initial_state(torch.Generator().manual_seed(1), cfg32, device=device)
+    idx32 = dw.default_probe_indices(32, 16, device=device)
+    _, out["oracle"] = dw.simulate_probes(s1, cfg32, idx32, warmup=200, steps=500)
+    s3 = dw.initial_state(torch.Generator().manual_seed(3), cfg32, device=device)
+    final, out["short"] = dw.simulate_probes(s3, cfg32, idx32, warmup=20, steps=30)
+    out["short phi_k"] = torch.view_as_real(final.phi_k)
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def slice19_on_cpu(conn) -> None:
+    """The CPU twins of (zh) and (zi): row F's plain twin on every
+    :data:`FAST_POPULATIONS` population and the 20,000-step orbit in float64,
+    the fast-ion lanes, (zi)'s float64 lanes and the short float32 drift-wave
+    run."""
+    import torch
+    from scpn_fusion_tpu_torch.ops import cuda_orbits as co
+    dev, f64 = on_cpu(1), torch.float64
+    out, start = {}, 0
+    res = co.gc_ensemble_plain(fast_constants(f64, dev), fast_field(), torch.cat(
+        [packed(fast_population(label, f64, dev)) for label, *_ in FAST_POPULATIONS], dim=1),
+        FAST_STEPS)
+    for label, _, n, _ in FAST_POPULATIONS:
+        out[label] = as_numpy(dict(zip(("final", "lost", "bounced", "drift"),
+                                       (t[start:start + n] for t in res))))
+        start += n
+    c, s0 = orbit_state(f64, dev)
+    fin, r_tr, z_tr = co.gc_orbit_plain(c, fast_field(), s0, GC_STEPS)
+    out["orbit"] = as_numpy({"final": fin, "r": r_tr, "z": z_tr})
+    out["lanes"] = fast_ion_lanes(dev)
+    out["zi"] = heating_lanes(dev)
+    out["drift"] = drift_probe_runs(dev)
+    conn.send(out)
+    conn.close()
+
+
+def slice19_plain_on_card(conn) -> None:
+    """(zh)'s plain runs on the card, in a process of its own: row F's plain
+    twin on every :data:`FAST_POPULATIONS` population -- in float32 all four as
+    one batch, in float64 the first three as one and the timed one alone,
+    between CUDA events -- and on :data:`GC_PLAIN_STEPS` steps of the orbit
+    (the float64 one timed), and :func:`orbit_plain_lanes`, as numpy arrays by
+    (dtype, population) (a tensor through a pipe would share memory with a
+    process that ends)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from scpn_fusion_tpu_torch.ops import cuda_orbits as co
+    dev, out = torch.device("cuda"), {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)
+        c = fast_constants(dtype, dev)
+        batched = [p for p in FAST_POPULATIONS if dtype == torch.float32 or p[0] != FAST_TIMED]
+        res = co.gc_ensemble_plain(c, fast_field(), torch.cat(
+            [packed(fast_population(label, dtype, dev)) for label, *_ in batched], dim=1),
+            FAST_STEPS)
+        start = 0
+        for label, _, n, _ in batched:
+            out[(tag, label)] = [t[start:start + n].cpu().numpy() for t in res]
+            start += n
+        if dtype == torch.float64:
+            res, ms = events_ms(functools.partial(co.gc_ensemble_plain, c, fast_field(),
+                                                  packed(fast_population(FAST_TIMED, dtype, dev)),
+                                                  FAST_STEPS))
+            out[(tag, FAST_TIMED)] = [t.cpu().numpy() for t in res]
+            out[(tag, "ensemble ms")] = ms
+        c, s0 = orbit_state(dtype, dev)
+        res, ms = events_ms(functools.partial(co.gc_orbit_plain, c, fast_field(), s0,
+                                              GC_PLAIN_STEPS))
+        out[(tag, "orbit")] = [t.cpu().numpy() for t in res]
+        out[(tag, "orbit ms")] = ms
+    out["lanes"] = orbit_plain_lanes(dev)
+    conn.send(out)
+    conn.close()
+
+
+def orbit_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                 measured_plain: dict, plain_card, twin: dict) -> tuple[int, int]:
+    """(zh) row F: ``gc_ensemble`` on every :data:`FAST_POPULATIONS` population
+    (4000 steps) and ``gc_orbit`` (the 20,000-step orbit through
+    ``run_guiding_center``, and a :data:`GC_PLAIN_STEPS`-step launch) ONE
+    launch each, in float32 and float64, ``torch.equal`` to the plain twin on
+    the card (``plain_card``: :func:`slice19_plain_on_card`'s; the orbit's
+    trace a prefix of the kernel's); ``follow_ensemble`` equal to the wrapper
+    and ``ensemble_stats``; the gates of ``tests/test_fast_ions.py`` and of
+    ``validation/run_fast_ions.py`` (lanes 3-5 through ``follow_ensemble``,
+    four launches); every float64 result within 1e-9 of the CPU and the
+    counts equal (``twin``: :func:`slice19_on_cpu`'s); the plain lanes'
+    ``TestOrbits`` gates, no kernel among them.  Returns the counted
+    launches of ``gc_ensemble`` and ``gc_orbit``."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import fast_ions as fi
+    from scpn_fusion_tpu_torch.models.physics import orbits
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_orbits as co
+
+    f32, f64 = torch.float32, torch.float64
+    print(f"(zh) csrc/orbits.cu's PTX (nvcc -ptx, sm_90a): {orbit_ptx()} (no approx or full "
+          f"division or square root expected)")
+    print(f"(zh) row F: 64 threads a CTA: {-(-2048 // 64)} CTAs for 2048 particles, "
+          f"{-(-384 // 64)} for the validation's 384; ptxas: "
+          f"{ptxas_registers(cb.BUILD_LOG.get('orbits.cu', ''))}")
+    one = {name: int(name == "gc_ensemble") for name in KERNELS}
+    one_orbit = {name: int(name == "gc_orbit") for name in KERNELS}
+    plain = plain_card()
+    ensembles, orbit_calls, stats = 0, 0, {}
+    for dtype in (f32, f64):
+        tag = "f32" if dtype == f32 else "f64"
+        c = fast_constants(dtype, dev)
+        got = {}
+        for label, *_ in FAST_POPULATIONS:
+            s = fast_population(label, dtype, dev)
+            res, calls, launched = counted(functools.partial(
+                co.gc_ensemble, c, fast_field(), packed(s), FAST_STEPS))
+            require(calls == one and launched == {f"scpn_gc_ensemble_{tag}": 1},
+                    f"(zh) {label} {tag}: {calls} / {launched}, not one launch of row F")
+            by_path[f"gc_ensemble {label} {tag}"] = calls
+            ensembles += 1
+            ref = [torch.from_numpy(a) for a in plain[(str(dtype), label)]]
+            equal = all(torch.equal(a.cpu(), b) for a, b in zip(res, ref))
+            st = fi.ensemble_stats(s, *res)
+            print(f"(zh) row F {tag} {label} x {FAST_STEPS} steps: one launch, torch.equal to the "
+                  f"plain twin {equal}; passing / trapped / lost {int(st.n_passing)} / "
+                  f"{int(st.n_trapped)} / {int(st.n_lost)}, energy drift "
+                  f"{float(st.energy_drift_rel_max)!r} [{card}]")
+            require(equal, f"(zh) row F {tag} {label}: the kernel differs from its plain twin")
+            got[label] = res
+            stats[(tag, label)] = st
+            if tag == "f64" and label == FAST_TIMED:
+                results["gc_ensemble"] = {"max_abs_err": max(
+                    float((a.cpu().to(f64) - b.to(f64)).abs().max()) for a, b in zip(res, ref))}
+        if tag == "f64":
+            for label, res in got.items():
+                cpu = twin[label]
+                card_np = as_numpy(dict(zip(("final", "lost", "bounced", "drift"), res)))
+                require(np.array_equal(card_np["lost"], cpu["lost"])
+                        and np.array_equal(card_np["bounced"], cpu["bounced"]),
+                        f"(zh) {label}: the lost or bounced flags differ from the CPU's")
+                agree({"final": card_np["final"]}, {"final": cpu["final"]},
+                      f"(zh) row F {label}", card)
+                # the relative energy drift is rounding noise of E_f - E_0 (~1e-12)
+                require(float(np.max(np.abs(card_np["drift"] - cpu["drift"]))) <= 1e-12,
+                        f"(zh) {label}: an energy drift deviates from the CPU's")
+        c_o, s0 = orbit_state(dtype, dev)
+        (final, tr), calls, launched = counted(lambda: orbits.run_guiding_center(
+            orbits.GuidingCenterState(*s0.unbind()), fast_field(), m_amu=2.0, charge_z=1,
+            dt=1e-8, n_steps=GC_STEPS))
+        require(calls == one_orbit and launched == {f"scpn_gc_orbit_{tag}": 1},
+                f"(zh) orbit {tag}: {calls} / {launched}, not one launch of row F")
+        by_path[f"gc_orbit run_guiding_center {tag}"] = calls
+        res, calls, launched = counted(functools.partial(co.gc_orbit, c_o, fast_field(), s0,
+                                                         GC_PLAIN_STEPS))
+        require(calls == one_orbit, f"(zh) orbit {tag} {GC_PLAIN_STEPS}: {calls}")
+        by_path[f"gc_orbit {GC_PLAIN_STEPS} {tag}"] = calls
+        orbit_calls += 2
+        ref = [torch.from_numpy(a) for a in plain[(str(dtype), "orbit")]]
+        equal = (all(torch.equal(a.cpu(), b) for a, b in zip(res, ref))
+                 and torch.equal(tr["r"][:GC_PLAIN_STEPS].cpu(), ref[1])
+                 and torch.equal(tr["z"][:GC_PLAIN_STEPS].cpu(), ref[2]))
+        r = tr["r"].cpu().numpy()
+        print(f"(zh) row F {tag} orbit, {GC_STEPS} steps in one launch: its first "
+              f"{GC_PLAIN_STEPS} and a {GC_PLAIN_STEPS}-step launch torch.equal to the plain twin "
+              f"{equal}; R in [{r.min():.6f}, {r.max():.6f}] m [{card}]")
+        require(equal, f"(zh) row F {tag} orbit: the kernel differs from its plain twin")
+        if tag == "f64":
+            results["gc_orbit"] = {"max_abs_err": max(float((a.cpu() - b).abs().max())
+                                                      for a, b in zip(res, ref))}
+            agree({"r": tr["r"].cpu().numpy(), "z": tr["z"].cpu().numpy(),
+                   "final": torch.stack([final.r, final.z, final.phi, final.v_par]).cpu().numpy()},
+                  {k: twin["orbit"][k] for k in ("r", "z", "final")}, "(zh) row F's orbit", card)
+    gates = fast_ion_test_gates({label: stats[("f64", label)] for label, *_ in FAST_POPULATIONS})
+    print(f"(zh) gates of tests/test_fast_ions.py on row F's float64 results: {gates} [{card}]")
+    require(all(gates.values()), "(zh): the port misses a gate of tests/test_fast_ions.py")
+    s = fast_population("central 256", f64, dev)
+    entry, calls, _ = counted(lambda: fi.follow_ensemble(
+        s, fast_field(), m_amu=fi.ALPHA_AMU, charge_z=fi.ALPHA_Z, dt=FAST_DT, n_steps=FAST_STEPS,
+        r_wall_in=FAST_R0 - FAST_A - 0.5, r_wall_out=FAST_R0 + FAST_A + 0.5,
+        z_wall=FAST_A + 0.5))
+    require(calls == one, f"(zh) follow_ensemble: {calls}, not one launch of row F")
+    by_path["follow_ensemble central 256 f64"] = calls
+    ensembles += 1
+    ref = stats[("f64", "central 256")]
+    require(all(torch.equal(getattr(entry, k), getattr(ref, k)) for k in (
+        "n_passing", "n_trapped", "n_lost", "loss_fraction", "trapped_fraction",
+        "energy_drift_rel_max")) and torch.equal(entry.final.r, ref.final.r),
+        "(zh) follow_ensemble differs from the wrapper and ensemble_stats")
+
+    (r, ms), calls, launched = counted(lambda: events_ms(lambda: fast_ion_lanes(dev)))
+    require(calls == {name: len(LANE_IPS) * int(name == "gc_ensemble") for name in KERNELS},
+            f"(zh) fast-ion lanes: {calls} / {launched}, not one launch of row F a current")
+    by_path["fast_ion_lanes_f64"] = calls
+    ensembles += len(LANE_IPS)
+    gates = fast_ion_gates(r)
+    print(f"(zh) validation/run_fast_ions.py's lanes on the card (384 x 8000 steps f64, row F): "
+          f"{gates}; loss fractions "
+          f"{ {ip: float(r[f'{ip:g} MA loss_fraction']) for ip in LANE_IPS} }, bound at 15 MA "
+          f"{float(r['bound 15 MA'])!r}, energy drift at 15 MA "
+          f"{float(r['15 MA energy_drift_rel_max'])!r}; {ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(zh): the port misses a gate of validation/run_fast_ions.py")
+    counts = [k for k in twin["lanes"] if k.endswith(("n_passing", "n_trapped", "n_lost"))]
+    require(all(np.array_equal(r[k], twin["lanes"][k]) for k in counts),
+            "(zh): a fast-ion lane's count differs from the CPU's")
+    agree({k: r[k] for k in twin["lanes"] if "drift" not in k},
+          {k: v for k, v in twin["lanes"].items() if "drift" not in k},
+          "(zh) the fast-ion lanes", card)
+    drift = {k: abs(float(r[k]) - float(v)) for k, v in twin["lanes"].items() if "drift" in k}
+    print(f"(zh) the lanes' energy drifts (rounding noise of E_f - E_0, ~1e-13) against the CPU: "
+          f"max absolute deviation {max(drift.values()):.3e} (limit 1e-12) [{card}]")
+    require(max(drift.values()) <= 1e-12, "(zh): an energy drift deviates from the CPU")
+
+    lanes = plain["lanes"]
+    print(f"(zh) TestOrbits on plain ops on the card (f64): lambda-field guiding centre "
+          f"{GC_STEPS} steps {lanes['gc ms']:.0f} ms gate {lanes['gc gate']}; Boris gyration 5000 "
+          f"steps {lanes['gyration ms']:.0f} ms gate {lanes['gyration gate']}; E x B 40,000 steps "
+          f"{lanes['exb ms']:.0f} ms, drift {lanes['exb drift']!r} m/s, gate {lanes['exb gate']}; "
+          f"{lanes['kernel calls']} port kernel calls [{card}]")
+    require(lanes["gc gate"] and lanes["gyration gate"] and lanes["exb gate"],
+            "(zh): the port misses a gate of TestOrbits")
+    require(lanes["kernel calls"] == 0, "(zh): the plain orbit lanes launched a port kernel")
+
+    measured_plain["gc_ensemble"] = plain[(str(f64), "ensemble ms")]
+    measured_plain["gc_orbit"] = plain[(str(f64), "orbit ms")]
+    c = fast_constants(f64, dev)
+    s = packed(fast_population(FAST_TIMED, f64, dev))
+    timing["gc_ensemble"] = (functools.partial(co.gc_ensemble, c, fast_field(), s, FAST_STEPS),
+                             functools.partial(co.gc_ensemble_plain, c, fast_field(), s,
+                                               FAST_STEPS),
+                             f"{FAST_TIMED} x {FAST_STEPS} steps f64",
+                             orbit_work(2048, FAST_STEPS, 8))
+    c_o, s0 = orbit_state(f64, dev)
+    timing["gc_orbit"] = (functools.partial(co.gc_orbit, c_o, fast_field(), s0, GC_PLAIN_STEPS),
+                          functools.partial(co.gc_orbit_plain, c_o, fast_field(), s0,
+                                            GC_PLAIN_STEPS),
+                          f"one orbit, {GC_PLAIN_STEPS} steps f64",
+                          orbit_work(1, GC_PLAIN_STEPS, 8, ensemble=False))
+    for name, n_steps, n in (("gc_ensemble", FAST_STEPS, 2048), ("gc_orbit", GC_PLAIN_STEPS, 1)):
+        kernel, _, shape, work = timing[name]
+        ms_k = cuda_ms(kernel)
+        b, by = bound(work)
+        print(f"time (zh) {name} ({shape}): kernel {ms_k:.4f} ms ({1e6 * ms_k / (n * n_steps):.3f} "
+              f"ns a particle-step; CUDA events, median of 5), bound {b:.4g} ms ({by}: "
+              f"{work[0] / 1e6:.4g} MB, {work[1] / 1e6:.4g} Mflop); a particle's dependent chain "
+              f"{n_steps * ORBIT_DEPTH} operations ({n_steps} steps x ~{ORBIT_DEPTH}), "
+              f"~{ladder_chain_ms(n_steps, ORBIT_DEPTH):.4f} ms at a nominal 4 cycles each and "
+              f"{SM_CLOCK_HZ / 1e9:.2f} GHz (a count, not a bound: square roots and IEEE f64 "
+              f"divisions on the chain); plain {measured_plain[name]:.1f} ms (once, in the "
+              f"spawned process); library_ms null (no PyTorch call integrates an orbit) [{card}]")
+    return ensembles, orbit_calls
+
+
+def heating_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
+    """(zi) ICRH, ECRH and current drive, the drift-wave runs, the divertor lab
+    and the stellarator lane on the card: float64 within 1e-9 of the CPU
+    (``twin``: :func:`slice19_on_cpu`'s), row B's 25 launches of
+    ``run_divertor_ballooning.py``'s lane 3 (one scan, 24 bisection steps)
+    and no other kernel; the gates of :func:`heating_gates`; the drift-wave
+    drive and oracle runs with ``test_drift_wave_esn.py``'s gates, and the
+    short float32 run within :data:`DRIFT_F32_TOL` of the CPU's."""
+    (r, ms), calls, launched = counted(lambda: events_ms(lambda: heating_lanes(dev)))
+    require(calls == {name: 25 * int(name == "newcomb_min_xi") for name in KERNELS},
+            f"(zi): {calls} / {launched}: only row B's 25 launches of the ballooning lane")
+    by_path["heating_divertor_stellarator_f64"] = calls
+    gates = heating_gates(r)
+    print(f"(zi) ICRH, ECRH, current drive, the divertor and stellarator lanes on the card (f64): "
+          f"gates {gates}; ICRH efficiency {float(r['icrh deposition 2'])!r}, ECRH efficiency "
+          f"{float(r['ecrh default 2'])!r} (float32), marginal alpha "
+          f"{float(r['ballooning marginal'])!r}, eps_eff(0.5) {float(r['ripple 0.5'])!r}; "
+          f"{ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(zi): the port misses a gate of the JAX tests or validations")
+    require(np.array_equal(r["icrh frozen"], twin["zi"]["icrh frozen"]),
+            "(zi): the rays' frozen masks differ from the CPU's")
+    require(int(r["divertor lithium iterations"]) == int(twin["zi"]["divertor lithium iterations"]),
+            "(zi): the vapor shield's Picard count differs from the CPU's")
+    ecrh = [k for k in twin["zi"] if k.startswith("ecrh") and not k.endswith(" 0")]
+    agree({k: r[k] for k in twin["zi"] if k not in ecrh},
+          {k: v for k, v in twin["zi"].items() if k not in ecrh},
+          "(zi) heating, drift-wave step, divertor and stellarator", card)
+    gap = max(max_rel(torch_from(r[k]), torch_from(twin["zi"][k])) for k in ecrh)
+    print(f"(zi) ECRH's deposition and efficiency (float32 temperature, angle and density, as "
+          f"JAX forces them) against the CPU: {gap:.3e} (limit {ECRH_F32_TOL:.0e}) [{card}]")
+    require(gap <= ECRH_F32_TOL, "(zi): ECRH deviates from the CPU")
+    (p, ms), calls, launched = counted(lambda: events_ms(lambda: drift_probe_runs(dev)))
+    require(calls == {name: 0 for name in KERNELS} and not launched,
+            f"(zi) drift waves: {calls} / {launched}: no kernel")
+    by_path["drift_wave_f32"] = calls
+    var0, var2 = float(np.var(p["drive 0"])), float(np.var(p["drive 2"]))
+    oracle = p["oracle"]
+    short = max(max_rel(*(torch_from(a) for a in (p[k], twin["drift"][k])))
+                for k in ("short", "short phi_k"))
+    print(f"(zi) drift waves on the card (f32 / c64, torch.fft): probe variance at kappa 2 / 0 "
+          f"{var2!r} / {var0!r}, oracle probes {oracle.shape} finite "
+          f"{bool(np.all(np.isfinite(oracle)))}; the 20 + 30-step run against the CPU: "
+          f"{short:.3e} (limit {DRIFT_F32_TOL:.0e}); {ms:.1f} ms (CUDA events) [{card}]")
+    require(var2 > 2.0 * var0 and p["drive 2"].shape == (200, 8)
+            and bool(np.all(np.isfinite(p["drive 0"]))) and bool(np.all(np.isfinite(p["drive 2"]))),
+            "(zi): the port misses test_density_gradient_drive_pumps_fluctuations")
+    require(oracle.shape == (500, 16) and bool(np.all(np.isfinite(oracle))),
+            "(zi): the oracle run's probes are not finite")
+    require(short <= DRIFT_F32_TOL, "(zi): the short drift-wave run deviates from the CPU")
+
+
+def torch_from(a):
+    import torch
+    return torch.from_numpy(np.asarray(a, np.float64))
+
+
 def early_twins(stack: contextlib.ExitStack) -> dict:
     """Start, right after the build, the processes whose results later
     paths wait for: the CPU twins of (k), (o), (v) and (z)-(zg), and the host-bound
@@ -5142,6 +5839,15 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
                "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu,
                "slice17_cpu": slice17_on_cpu, "slice18_cpu": slice18_on_cpu,
                "slice18_card": slice18_plain_on_card}
+    return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+
+
+def late_twins(stack: contextlib.ExitStack) -> dict:
+    """Start (zh)-(zi)'s CPU twin and (zh)'s plain runs on the card (~230 s and
+    ~300 s of host time) once the host-bound early paths, (a)-(i), are done:
+    started with the others, they slowed those paths on an 8-core host with
+    one H100 (the whole smoke 899 s, where it had taken 770 s without them)."""
+    targets = {"slice19_cpu": slice19_on_cpu, "slice19_card": slice19_plain_on_card}
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
@@ -5214,7 +5920,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
                    "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu",
-                   "disruption.cu", "sandpile.cu", "compression.cu"):
+                   "disruption.cu", "sandpile.cu", "compression.cu", "orbits.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -5750,7 +6456,8 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
                 "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
-                "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0}
+                "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
+                "gc_ensemble": 0, "gc_orbit": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -5862,7 +6569,8 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
                  "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                  "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
-                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0}
+                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
+                "gc_ensemble": 0, "gc_orbit": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -6212,6 +6920,8 @@ def _main(stack: contextlib.ExitStack) -> int:
     phase_done("small lanes")
     fd_check(*adjoint, card)
     phase_done("FD check")
+    # (zh)'s twins start here, past the host-bound early paths they would slow
+    twins.update(late_twins(stack))
 
     # ── the ninth slice: the Thomas kernel against its plain version, then
     # (j) the coupled GS <-> transport solve, (k) the TORAX coarse tier and
@@ -6309,6 +7019,17 @@ def _main(stack: contextlib.ExitStack) -> int:
     hall_checks(dev, card, counted, by_path, slice18)
     phase_done("Hall-MHD carrier and sandbox (zg)")
 
+    # ── the nineteenth slice: (zh) row F, the fast-ion ensemble and the
+    # guiding-centre orbit, with the fast-ion lanes and the plain Boris and
+    # lambda-field lanes; (zi) ICRH, ECRH, current drive, drift waves, the
+    # divertor lab and the stellarator lane ──
+    slice19 = twins["slice19_cpu"]()
+    orbit_calls = orbit_checks(dev, card, counted, by_path, results, timing, measured_plain,
+                               twins["slice19_card"], slice19)
+    phase_done("fast ions and orbits (zh)")
+    heating_checks(dev, card, counted, by_path, slice19)
+    phase_done("heating, drift waves, divertor and stellarator (zi)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -6324,6 +7045,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["disruption_sequence"] = disruption_calls
     launches["sandpile_run"] = sandpile_calls
     launches["compression_run"], launches["compression_adjoint"] = compression_calls
+    launches["gc_ensemble"], launches["gc_orbit"] = orbit_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

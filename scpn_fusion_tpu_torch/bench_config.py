@@ -350,3 +350,11 @@ GK_VARIANT_MILLER = dict(kappa=1.6, delta=0.3, s_kappa=0.1, s_delta=0.2, n_theta
 # lane's gate depends on the draw -- JAX's own draws miss it at seeds 4-7 --
 # so the port's run of the validation lane starts from the validation's draw.
 GK_LINEAR_ITG_JAX_F0 = Path(__file__).resolve().parent / "data" / "gk_linear_itg_jax_f0.npy"
+# The drift-wave drive test's noise as the JAX package draws it
+# (tests/test_drift_wave_esn.py:52-55: drift_wave.initial_state(PRNGKey(2),
+# DriftWaveConfig(n=64)): the two standard-normal (64, 64) float32 fields of
+# the split key, phi's then n's; a test holds the file to them).  The test's
+# gate (probe variance at kappa 2 above twice that at kappa 0) depends on the
+# draw -- JAX's own draws miss it at keys 0, 1, 3 and 4 -- so the port's run
+# of that lane starts from the test's draw.
+DRIFT_WAVE_JAX_NOISE = Path(__file__).resolve().parent / "data" / "drift_wave_jax_noise_key2.npy"

@@ -38,25 +38,39 @@ def _round_exact(x: Fraction, dt) -> np.floating:
 
 
 @functools.lru_cache(maxsize=64)
-def linspace_like_jax(start: float, stop: float, num: int, dtype: torch.dtype) -> np.ndarray:
-    """``jnp.linspace(start, stop, num, dtype=dtype)`` reproduced bit for bit."""
+def linspace_like_jax(start: float, stop: float, num: int, dtype: torch.dtype,
+                      endpoint: bool = True) -> np.ndarray:
+    """``jnp.linspace(start, stop, num, endpoint=endpoint, dtype=dtype)``
+    reproduced bit for bit."""
     dt = _NP_DTYPES[dtype]
     if num == 1:
         return np.asarray([start], dt)
-    div = num - 1
+    div = num - 1 if endpoint else num
     inv = dt(1) / dt(div)
     idx = np.arange(div, dtype=dt)
     head = dt(start) * (dt(1) - idx * inv)
     b_inv = Fraction(float(dt(stop) * inv))
     out = [_round_exact(Fraction(float(i)) * b_inv + Fraction(float(h)), dt)
            for i, h in zip(idx, head)]
-    return np.asarray(out + [dt(stop)], dt)
+    return np.asarray(out + ([dt(stop)] if endpoint else []), dt)
 
 
 def linspace(start: float, stop: float, num: int, dtype: torch.dtype,
-             device: torch.device | str) -> torch.Tensor:
-    """``jnp.linspace(start, stop, num, dtype=dtype)`` on ``device``."""
-    return torch.from_numpy(linspace_like_jax(start, stop, num, dtype).copy()).to(device)
+             device: torch.device | str, endpoint: bool = True) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num, endpoint=endpoint, dtype=dtype)`` on
+    ``device``."""
+    return torch.from_numpy(linspace_like_jax(start, stop, num, dtype, endpoint).copy()).to(device)
+
+
+def xla_mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.mean`` as XLA rounds it under ``jit``: the sum times the
+    reciprocal of the count, rounded once in the dtype (``torch.mean`` on a
+    CPU tensor divides; on a CUDA tensor it multiplies, as here)."""
+    if dim is None:
+        total, count = torch.sum(x), x.numel()
+    else:
+        total, count = torch.sum(x, dim=dim, keepdim=keepdim), x.shape[dim]
+    return total * torch.reciprocal(x.new_full((), float(count)))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,9 +10,11 @@ card), ``fokker_planck_re``, ``runaway_fluid``, ``spi_ablation``,
 ``sandpile`` (row S on the card), and the FRC and pulsed physics: ``frc``,
 ``frc_stability``, ``frc_public``, ``pulsed_compression`` (row P and its
 adjoint on the card), ``faraday_recovery``, ``hall_mhd_pulsed`` and
-``hall_mhd_discovery``.  The names the JAX package exports from those
-modules are exported here under the same names; its other exports come with
-the modules that define them.
+``hall_mhd_discovery``, and the heating, orbit, divertor and stellarator
+physics: ``orbits``, ``fast_ions`` (row F on the card), ``current_drive``,
+``rf_heating``, ``drift_wave``, ``divertor_lab`` and ``stellarator``.  The
+names the JAX package exports from those modules are exported here under the
+same names; its other exports come with the modules that define them.
 """
 
 from scpn_fusion_tpu_torch.models.physics.fokker_planck_re import (  # noqa: F401
@@ -37,6 +39,18 @@ from scpn_fusion_tpu_torch.models.physics.edge_events import (  # noqa: F401
     marfe_onset,
     pellet_ablation,
 )
+from scpn_fusion_tpu_torch.models.physics.fast_ions import (  # noqa: F401
+    EnsembleStats,
+    coulomb_log_ei,
+    critical_velocity,
+    first_orbit_loss,
+    follow_ensemble,
+    heating_partition,
+    sample_fast_ion_birth,
+    slowing_down_time,
+    tau_spitzer_electron,
+    tokamak_field,
+)
 from scpn_fusion_tpu_torch.models.physics.mhd_modes import (  # noqa: F401
     delta_prime_cylindrical,
     locked_mode_evolution,
@@ -48,6 +62,12 @@ from scpn_fusion_tpu_torch.models.physics.sandpile import (  # noqa: F401
     SandpileConfig,
     avalanche_statistics,
     run_sandpile,
+)
+from scpn_fusion_tpu_torch.models.physics.drift_wave import (  # noqa: F401
+    DriftWaveConfig,
+    DriftWaveState,
+    default_probe_indices,
+    simulate_probes,
 )
 from scpn_fusion_tpu_torch.models.physics.frc_stability import (  # noqa: F401
     TiltModeReport,

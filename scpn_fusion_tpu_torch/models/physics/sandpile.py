@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from scpn_fusion_tpu_torch.core.grid import xla_mean as _xla_mean
+
 
 @dataclasses.dataclass(frozen=True)
 class SandpileConfig:
@@ -109,12 +111,6 @@ def run_sandpile(cfg: SandpileConfig, seed: int = 0, *, dtype: torch.dtype = tor
                  device: torch.device | str = "cuda") -> SandpileTrace:
     """Drive-relax SOC evolution, the drive cells drawn from ``seed``."""
     return _run_sandpile(cfg, drive_indices(cfg, seed), dtype=dtype, device=device)
-
-
-def _xla_mean(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.mean`` as XLA rounds it: the sum times the reciprocal of the
-    count, rounded once in the dtype."""
-    return torch.sum(x) * torch.reciprocal(x.new_full((), float(x.numel())))
 
 
 def avalanche_statistics(trace: SandpileTrace) -> dict:

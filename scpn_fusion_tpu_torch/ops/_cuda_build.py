@@ -80,6 +80,10 @@ _SIGNATURES = {
     "scpn_compression_f64": [_P, _P],
     "scpn_compression_adjoint_f32": [_P, _P],
     "scpn_compression_adjoint_f64": [_P, _P],
+    "scpn_gc_ensemble_f32": [_P, _P],
+    "scpn_gc_ensemble_f64": [_P, _P],
+    "scpn_gc_orbit_f32": [_P, _P],
+    "scpn_gc_orbit_f64": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

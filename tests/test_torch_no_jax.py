@@ -117,3 +117,16 @@ def test_frc_pulsed_slice_modules_are_scanned():
         assert f"scpn_fusion_tpu_torch.models.physics.{name}" in mods, name
         assert (ROOT / "scpn_fusion_tpu" / "models" / "physics" / f"{name}.py").is_file(), name
     assert "scpn_fusion_tpu_torch.ops.cuda_compression" in mods
+
+
+def test_heating_orbit_slice_modules_are_scanned():
+    """The heating, orbit, divertor and stellarator modules and row F's
+    wrapper are among those both checks cover, and each has its JAX module at
+    the same path."""
+    mods = set(_modules())
+    names = ("orbits", "fast_ions", "current_drive", "rf_heating", "drift_wave", "divertor_lab",
+             "stellarator")
+    for name in names:
+        assert f"scpn_fusion_tpu_torch.models.physics.{name}" in mods, name
+        assert (ROOT / "scpn_fusion_tpu" / "models" / "physics" / f"{name}.py").is_file(), name
+    assert "scpn_fusion_tpu_torch.ops.cuda_orbits" in mods

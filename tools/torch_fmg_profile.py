@@ -117,12 +117,19 @@ float64) and autograd's backward through it (500 steps), times the kernel
 at full length and its adjoint by CUDA events, then profiles the slice's
 plain loops: the pulsed Hall-MHD carrier (200 steps), ``run_hall_mhd`` (300
 steps), ``parameter_sweep`` (3 x 3 x 250) and ``find_tearing_threshold`` (6 x
-300) at 64^2, all float64.  Each prints what the solves above print.
+300) at 64^2, all float64.  With ``--orbits`` it checks row F
+(``csrc/orbits.cu``) ``torch.equal`` to its plain twins at short lengths in
+float32 and float64, profiles the ensemble's plain twin at a tenth of its
+length (2048 particles x 400 of 4000 steps, float64), times row F at full
+length by CUDA events, then profiles the slice's plain loops: the
+lambda-field guiding centre, the Boris E x B drift, the ICRH bundle, a
+drift-wave run, the vapor shield and the stellarator ripple.  Each prints
+what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin | --ballooning | --disruption | --frc]``.
+| --twin | --ballooning | --disruption | --frc | --orbits]``.
 Exits non-zero without one.
 """
 
@@ -1212,6 +1219,92 @@ def profile_frc(card: str) -> None:
     profile_hall_loops(card)
 
 
+def profile_orbits(card: str) -> None:
+    """The heating, orbit, divertor and stellarator slice: row F's
+    ``gc_ensemble`` and ``gc_orbit`` first checked ``torch.equal`` to their
+    plain twins at short lengths (256 particles x 200 steps, one orbit of 200
+    steps) in float32 and float64, then the ensemble's plain twin profiled at
+    a tenth of its length (2048 particles x 400 of 4000 steps, float64) and
+    row F timed at full length by CUDA events (2048 x 4000 and the
+    20,000-step orbit, float64); then the slice's plain loops: the
+    lambda-field guiding centre (2000 of its 20,000 steps), the Boris E x B
+    drift (4000 of 40,000 steps), the ICRH bundle (10 x 160), a drift-wave run
+    (64^2, 100 steps, float32), the vapor shield and the stellarator ripple,
+    float64 but for the drift waves."""
+    import torch
+    import chip_smoke as smoke
+    from scpn_fusion_tpu_torch.models.physics import divertor_lab as dl
+    from scpn_fusion_tpu_torch.models.physics import drift_wave as dw
+    from scpn_fusion_tpu_torch.models.physics import orbits
+    from scpn_fusion_tpu_torch.models.physics import rf_heating as rf
+    from scpn_fusion_tpu_torch.models.physics import stellarator as st
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_orbits as co
+
+    dev, f64 = "cuda", torch.float64
+    field = smoke.fast_field()
+    for dtype in (torch.float32, f64):
+        c = smoke.fast_constants(dtype, dev)
+        s = smoke.packed(smoke.fast_population("central 256", dtype, dev))
+        same = all(torch.equal(a, b) for a, b in zip(co.gc_ensemble(c, field, s, 200),
+                                                     co.gc_ensemble_plain(c, field, s, 200)))
+        c_o, s0 = smoke.orbit_state(dtype, dev)
+        same_o = all(torch.equal(a, b) for a, b in zip(co.gc_orbit(c_o, field, s0, 200),
+                                                       co.gc_orbit_plain(c_o, field, s0, 200)))
+        print(f"{dtype}: row F torch.equal to its plain twin: ensemble (256 x 200) {same}, orbit "
+              f"(200 steps) {same_o} [{card}]")
+    c = smoke.fast_constants(f64, dev)
+    s = smoke.packed(smoke.fast_population(smoke.FAST_TIMED, f64, dev))
+    out = profile_solve(card, "row F, 2048 particles f64, plain twin at 400 of its 4000 steps",
+                        lambda: {"ran": co.gc_ensemble_plain(c, field, s, 400) is not None}, None)
+    print(f"row F plain: {out['launches'] / 400:.2f} device launches a step, idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}, {1e3 * out['wall_ms'] / 400:.2f} us a "
+          f"step of wall time (profiled) [{card}]")
+    c_o, s0 = smoke.orbit_state(f64, dev)
+    for label, run in (("row F gc_ensemble, 2048 x 4000 steps f64",
+                        lambda: co.gc_ensemble(c, field, s, smoke.FAST_STEPS)),
+                       ("row F gc_orbit, 20,000 steps f64",
+                        lambda: co.gc_orbit(c_o, field, s0, smoke.GC_STEPS))):
+        run()
+        cb.reset_launch_counts()
+        ms = sorted(cuda_events_ms(run) for _ in range(5))
+        print(f"{label}: {cb.kernel_launches()} launches in 5 calls, {ms[2]:.4f} ms between CUDA "
+              f"events around the one launch (median of 5; all {[round(m, 4) for m in ms]}) "
+              f"[{card}]")
+
+    qm = 1.602176634e-19 / (2.0 * 1.66053906660e-27)
+    gc0 = orbits.init_guiding_center(smoke.lambda_field, **smoke.GC, dtype=f64, device=dev)
+    e1 = torch.tensor([0.0, 1e4, 0.0], dtype=f64, device=dev)
+    b2 = torch.tensor([0.0, 0.0, 2.0], dtype=f64, device=dev)
+    boris0 = orbits.BorisState(torch.zeros(3, dtype=f64, device=dev),
+                               torch.zeros(3, dtype=f64, device=dev))
+    cfg64 = dw.DriftWaveConfig(n=64)
+    drift0 = dw.initial_state(torch.Generator().manual_seed(2), cfg64, device=dev)
+    loops = (
+        ("lambda-field guiding centre, 2000 steps f64", 2000, lambda: orbits.run_guiding_center(
+            gc0, smoke.lambda_field, m_amu=2.0, charge_z=1, dt=1e-8, n_steps=2000)),
+        ("Boris E x B, 4000 steps f64", 4000, lambda: orbits.run_boris(
+            boris0, lambda x: (e1, b2), q_over_m=qm, dt=5e-9, n_steps=4000)),
+        ("ICRH bundle, 10 rays x 160 steps f64", 160, lambda: rf.trace_icrh_rays(
+            rf.ICRHParams(), dtype=f64, device=dev)),
+        ("drift waves, 64^2 x 100 steps c64", 100, lambda: dw.simulate_probes(
+            drift0, cfg64, dw.default_probe_indices(64, 16, device=dev), 0, 100)),
+        ("vapor shield at 1.9 GW/m^2 f64", 27, lambda: dl.lithium_vapor_shield(
+            1.9e9, dtype=f64, device=dev)),
+        ("stellarator ripple, 96 x 80 f64", 1, lambda: st.effective_ripple(
+            st.w7x_config(), 0.5, dtype=f64, device=dev)),
+    )
+    for label, steps, run in loops:
+        out = profile_solve(card, label, lambda run=run: {"ran": run() is not None}, None)
+        cb.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        print(f"{label}: {out['launches']} device launches ({out['launches'] / steps:.1f} a step; "
+              f"{cb.kernel_launches()} of the port's kernels, counted), {out['device_ms']:.4f} ms "
+              f"of device time, {out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def profile_hall_loops(card: str) -> None:
     """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
     the sweep and the bisection) profiled, float64."""
@@ -1342,6 +1435,9 @@ def main() -> int:
     group.add_argument("--frc", action="store_true",
                        help="row P and its adjoint against their plain versions, then the FRC "
                             "and pulsed slice's plain loops")
+    group.add_argument("--orbits", action="store_true",
+                       help="row F against its plain twins, then the heating, orbit, divertor "
+                            "and stellarator slice's plain loops")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1403,6 +1499,9 @@ def main() -> int:
         return 0
     if opts.frc:
         profile_frc(card)
+        return 0
+    if opts.orbits:
+        profile_orbits(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
