@@ -178,12 +178,27 @@ them:
   runs of ``test_drift_wave_esn.py``, ``run_divertor_ballooning.py`` (its
   ballooning lane through row B) and ``run_stellarator_lane.py``, with
   their gates, float64 against the CPU.
+* (zj) rows E and H: the 0-D burn relaxation (``csrc/burn.cu``,
+  ``ops/cuda_burn.burn_relax``: one thread a design point, the 200
+  iterations inside) on ``compact_reactor_search``'s 4096 designs, the JAX
+  test's 512 and the ITER-like point, and the HTS quench transient
+  (``csrc/quench.cu``, ``ops/cuda_quench.quench_run``: one thread, the 2000
+  steps inside) on the default and the degraded screen, each in ONE launch,
+  ``torch.equal`` to the plain twin in float32 and float64; the compact
+  searches (float32, as JAX casts the scan), the design chain, lanes 2-4 of
+  ``run_confinement_burn.py`` and lanes 2, 3 and 5 of
+  ``run_whole_plant_fault.py`` with their gates, float64 against the CPU;
+* (zk) the blanket and TEMHD (every group and step one launch of the Thomas
+  kernel), wall loading, PWI with lanes 6-7 of ``run_physics_closures.py``,
+  the heating proxy, MCNP-lite and lane 5 of ``run_mif_frc.py``, and the
+  occluded CAD loading of a generated 10,368-face torus, with the JAX tests'
+  gates, float64 against the CPU.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
 Fokker-Planck, fluid and SPI lanes, (ze) but its eigen lane, (zg), (zh)'s
-Boris and lambda-field lanes and (zi) but its ballooning lane run plain
-PyTorch ops, as the JAX package runs them without its Pallas kernels; the
+Boris and lambda-field lanes, (zi) but its ballooning lane and (zk) but its
+blanket, TEMHD, lane-7 and candidate lanes run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
 
@@ -325,7 +340,14 @@ Phases:
    ``validation/run_fast_ions.py``, float64 within 1e-9 of the CPU with the
    counts and flags equal; (zi): the JAX tests' and validations' gates,
    float64 within 1e-9 of the CPU (ECRH's float32 parts 1e-5), row B's 25
-   launches on the ballooning lane and no other kernel;
+   launches on the ballooning lane and no other kernel; (zj): rows E and H
+   ``torch.equal`` to their plain twins in both dtypes, one launch a call, a
+   design scan, a burn point or a transient, the gates of the JAX tests and
+   validations named above, float64 within 1e-9 of the CPU, the float32
+   scans within 1e-5 with their feasibility equal but at a limit, the
+   verdicts equal; (zk): row T once a blanket group and a TEMHD step, row E
+   on lane 7 and the candidate, no other kernel, the gates, float64 within
+   1e-9 of the CPU with the CAD shadows equal, the phase's peak memory;
 13. times each kernel beside its plain version at a shape its path gives it
    (the tiled legs also beside the fine legs at 513^2 and 2049^2; the
    one-launch kernels, the fine legs and the tiled legs alternately with
@@ -362,7 +384,8 @@ campaign and tuner for row R, over (r)'s f32 ladder for row L, over
 (u)'s default run for row G, over (x)'s default float32 shot for row D,
 over (z)'s gates for row B, over (zc)'s counted sequences and scans for
 row Q, over (zd)'s counted runs for row S, over (zf)'s runs and gradient
-lanes for row P and its adjoint and over (zh)'s counted calls for row F,
+lanes for row P and its adjoint, over (zh)'s counted calls for row F and
+over (zj)-(zk)'s counted calls for rows E and H,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -420,7 +443,8 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "fine_prolong_smooth", "fused_coarse_vcycle", "tiled_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
            "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
-           "sandpile_run", "compression_run", "compression_adjoint", "gc_ensemble", "gc_orbit")
+           "sandpile_run", "compression_run", "compression_adjoint", "gc_ensemble", "gc_orbit",
+           "burn_relax", "quench_run")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -458,6 +482,10 @@ SOURCES = {
     "gc_ensemble": ("csrc/orbits.cu", "scpn_fusion_tpu/models/physics/fast_ions.py:146"),
     # no Pallas kernel: the JAX orbit is one lax.scan of RK4 steps
     "gc_orbit": ("csrc/orbits.cu", "scpn_fusion_tpu/models/physics/orbits.py:90"),
+    # no Pallas kernel: the JAX relaxation is one lax.fori_loop, vmapped over designs
+    "burn_relax": ("csrc/burn.cu", "scpn_fusion_tpu/models/physics/scaling_burn.py:114"),
+    # no Pallas kernel: the JAX transient is one lax.scan
+    "quench_run": ("csrc/quench.cu", "scpn_fusion_tpu/models/engineering/hts_quench.py:165"),
 }
 
 
@@ -1255,7 +1283,8 @@ def transport_lanes(dev, card: str, counted, by_path: dict) -> None:
     burn point and the blanket.  Adaptive stepping with the neural surrogate
     is held within ``SURROGATE_TOL``: its float32 MLP sums in cuBLAS's order
     on the card and in another on the CPU.  The Thomas kernel launches on
-    every lane that solves a tridiagonal system, and no other kernel does."""
+    every lane that solves a tridiagonal system, row E once on the burn
+    point's relaxation, and no other kernel does."""
     import torch
     from scpn_fusion_tpu_torch.bench_config import aurora_case_arrays, lane_profiles
     from scpn_fusion_tpu_torch.models.physics import scaling_burn as sb
@@ -1275,11 +1304,11 @@ def transport_lanes(dev, card: str, counted, by_path: dict) -> None:
     def t(name, d):
         return torch.tensor(prof[name], dtype=f64, device=d)
 
-    def both(name, run, solves: bool, tol: float = LANE_TOL):
+    def both(name, run, solves: bool, tol: float = LANE_TOL, burns: int = 0):
         (out, ms), calls, _ = counted(lambda: events_ms(lambda: run(dev)))
         n_thomas = calls["thomas_solve_batched"]
-        require(sum(calls.values()) == n_thomas and (n_thomas > 0) == solves,
-                f"{name}: wrapper calls {calls}")
+        require(sum(calls.values()) == n_thomas + burns and calls["burn_relax"] == burns
+                and (n_thomas > 0) == solves, f"{name}: wrapper calls {calls}")
         for k, v in calls.items():
             lane_calls[k] += v
         lanes.append((name, out, run(cpu), tol))
@@ -1363,7 +1392,8 @@ def transport_lanes(dev, card: str, counted, by_path: dict) -> None:
                                     a_m=2.0, kappa=1.7, device=d)
         return tuple(x.to(f64) for x in pt)
 
-    out = both("burn_equilibrium_0d (200 iterations)", burn, False)
+    out = both("burn_equilibrium_0d (200 iterations; one launch of row E)", burn, False,
+               burns=1)
     print(f"(l)   Q {float(out[0])!r}, P_fus {float(out[1])!r} MW, converged {bool(out[5])}")
 
     def blanket(d):
@@ -5241,15 +5271,16 @@ def orbit_work(n: int, n_steps: int, item: int, ensemble: bool = True):
             F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
 
 
-def orbit_ptx() -> dict:
-    """Square roots and divisions of ``csrc/orbits.cu``'s PTX by rounding:
-    only ``.rn`` (IEEE) forms are expected, no ``approx`` or ``full``."""
+def orbit_ptx(source: str = "orbits.cu") -> dict:
+    """Square roots and divisions of a kernel source's PTX (``csrc/orbits.cu``
+    by default) by rounding: only ``.rn`` (IEEE) forms are expected, no
+    ``approx`` or ``full``."""
     import tempfile
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
     with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
         out = Path(tmp) / "kernel.ptx"
         subprocess.run([cb._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
-                        str(cb.CSRC / "orbits.cu"), "-o", str(out)], check=True,
+                        str(cb.CSRC / source), "-o", str(out)], check=True,
                        capture_output=True)
         ptx = out.read_text()
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", ptx)) for op in (
@@ -5822,6 +5853,606 @@ def heating_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
     require(short <= DRIFT_F32_TOL, "(zi): the short drift-wave run deviates from the CPU")
 
 
+# ── the twentieth slice: (zj) rows E and H with the plant lanes, (zk) the
+# nuclear, heating-neutronics and CAD lanes ──
+
+# (label, designs, seed) of row E's cases: compact_reactor_search's default 4096 draws, the
+# JAX test's 512 (test_scenario_design.py:134) and the ITER-like point (:125), scalar
+BURN_CASES = (("compact search 4096 (seed 0)", 4096, 0), ("JAX test 512 (seed 1)", 512, 1),
+              ("ITER-like point", 1, None))
+BURN_TIMED = "compact search 4096 (seed 0)"
+ITER_DESIGN = (6.2, 2.0, 5.3, 15.0, 10.0, 50.0)    # R0, a, B0, Ip, ne19, P_aux; kappa 1.8
+# operations of an iteration of a design point on row E (csrc/burn.cu: Bosch-Hale 27 with its
+# pow, sqrt and exp, the power balance and IPB98 16 with its pow, the update and clamps 9),
+# and the dependent operations an iteration on a point's chain (four IEEE divisions, two
+# pows, sqrt and exp among them)
+BURN_OPS, BURN_DEPTH = 52, 39
+# (label, conductor, scenario) of row H's cases: the default transient and the degraded
+# screen of validation/run_whole_plant_fault.py lane 2 (:68-70)
+QUENCH_CASES = (("default 2000 steps", {}, {}),
+                ("degraded (whole-plant lane 2)", {},
+                 dict(initial_normal_zone_m=1e-3, normal_zone_velocity_m_s=1e-3)))
+QUENCH_TIMED = "default 2000 steps"
+QUENCH_OPS, QUENCH_DEPTH = 30, 13    # a step: operations, dependent ones (two IEEE divisions)
+# the float32 design scan (compact_reactor_search casts to float32, as JAX does) on the card
+# against the CPU, relative: libdevice's pow and exp against the CPU's through 200
+# iterations; a design whose feasibility differs must lie this close to a limit
+SCAN_F32_TOL = 1e-5
+TEMHD_RUN = (10.0, 0.05, 600)           # test_temhd_wall.py:27: MW/m^2, dt, steps
+TEMHD_SCAN = ((1.0, 5.0, 20.0), 200)    # :47-52
+TEMHD_CONVECTION = (20.0, 400)          # :36-45, at 10 T and at 0 T
+CAD_TORUS = (72, 72, 6.2, 2.0)          # poloidal x toroidal cells (10,368 faces), R0, a
+CAD_SOURCE = ((6.5, 0.0, 0.3), 1.0e6)   # a point source inside the tube [m], [W]
+
+
+def burn_case(label: str, dtype, device):
+    """Row E's constants for a :data:`BURN_CASES` case, as the main path forms
+    them: the compact search's designs (drawn on the CPU in float64, cast to
+    ``dtype``, P_aux 50 MW, kappa 1.8) or the ITER-like point (0-d)."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import design_scan as ds
+    from scpn_fusion_tpu_torch.models.physics import scaling_burn as sb
+    _, n, seed = next(c for c in BURN_CASES if c[0] == label)
+    if seed is None:
+        r, a, b, ip, ne, _ = (torch.tensor(v, dtype=torch.float64) for v in ITER_DESIGN)
+    else:
+        r, a, b, ip, ne = ds.search_designs(*ds.search_draws(n, seed))
+    r, a, b, ip, ne = (x.to(dtype=dtype, device=device) for x in (r, a, b, ip, ne))
+    return sb.burn_constants(ne, torch.full_like(r, 50.0), ip, b, r, a, torch.full_like(r, 1.8),
+                             0.8, 2.0)
+
+
+def quench_case(label: str, dtype, device):
+    """(numbers, step constants, steps) of a :data:`QUENCH_CASES` case."""
+    from scpn_fusion_tpu_torch.models.engineering import hts_quench as hq
+    _, c_kw, s_kw = next(c for c in QUENCH_CASES if c[0] == label)
+    s = hq.QuenchScenario(**s_kw)
+    values = hq.quench_values(hq.REBCOConductor(**c_kw), s)
+    return values, hq.step_constants(values, dtype, device), s.n_steps
+
+
+def burn_work(n: int, n_iter: int, item: int):
+    """Row E: (bytes, operations, peak rate): eight values read and one
+    written a point, :data:`BURN_OPS` an iteration."""
+    return (float(item * 9 * n), float(BURN_OPS * n * n_iter),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def quench_work(n_steps: int, item: int):
+    """Row H: (bytes, operations, peak rate): the five traces written,
+    :data:`QUENCH_OPS` a step."""
+    return (float(item * 5 * n_steps), float(QUENCH_OPS * n_steps),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def torus_mesh():
+    """The generated first wall of (zk)'s CAD lane: a torus of
+    :data:`CAD_TORUS` cells, two triangles a cell."""
+    n_pol, n_tor, r0, a = CAD_TORUS
+    th = np.linspace(0.0, 2.0 * np.pi, n_pol, endpoint=False)
+    ph = np.linspace(0.0, 2.0 * np.pi, n_tor, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    r = r0 + a * np.cos(tt)
+    vertices = np.stack([r * np.cos(pp), r * np.sin(pp), a * np.sin(tt)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(n_pol), np.arange(n_tor), indexing="ij")
+    v00, v10 = i * n_tor + j, ((i + 1) % n_pol) * n_tor + j
+    v01, v11 = i * n_tor + (j + 1) % n_tor, ((i + 1) % n_pol) * n_tor + (j + 1) % n_tor
+    faces = np.concatenate([np.stack([v00, v10, v11], -1).reshape(-1, 3),
+                            np.stack([v00, v11, v01], -1).reshape(-1, 3)])
+    return vertices, faces
+
+
+class Lanes:
+    """A slice's lane results: float64 numbers (``num``), float32 numbers
+    (``f32``), verdicts (``verdicts``) and the port's kernel calls of each lane
+    (``counts``, by wrapper, on the card)."""
+
+    def __init__(self):
+        self.num, self.f32, self.verdicts, self.counts = {}, {}, {}, {}
+
+    def run(self, label: str, run):
+        from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+        before = dict(cb.CALLS)
+        out = run()
+        self.counts[label] = {k: cb.CALLS[k] - before.get(k, 0) for k in KERNELS
+                              if cb.CALLS[k] != before.get(k, 0)}
+        return out
+
+    def put(self, prefix: str, values, f32: bool = False) -> None:
+        """Record ``values`` (a NamedTuple or a dict) under ``prefix``; float32
+        ones (and all of them with ``f32``) among the float32 numbers."""
+        import torch
+        items = values._asdict().items() if hasattr(values, "_asdict") else values.items()
+        for k, v in items:
+            t = (torch.tensor(float(v), dtype=torch.float64) if isinstance(v, (int, float))
+                 else torch.as_tensor(v).detach())
+            (self.f32 if f32 or t.dtype == torch.float32 else self.num)[f"{prefix} {k}"] = \
+                t.cpu().to(torch.float64).numpy()
+
+    def as_dict(self) -> dict:
+        return {"num": self.num, "f32": self.f32, "verdicts": self.verdicts,
+                "counts": self.counts}
+
+
+def plant_lanes(device) -> dict:
+    """(zj)'s lanes: the compact search at its defaults and at the JAX test's
+    512 (float32, as JAX casts the scan), the 4096 designs and the ITER-like
+    point through ``evaluate_design`` in float64, lanes 2-4 of
+    ``validation/run_confinement_burn.py``, lanes 2, 3 and 5 of
+    ``validation/run_whole_plant_fault.py`` (the quench screen with the
+    transients, the DEC load rejection, the coolant loop) in float64."""
+    import torch
+    from scpn_fusion_tpu_torch.models.engineering import balance_of_plant as bop
+    from scpn_fusion_tpu_torch.models.engineering import direct_energy as dec
+    from scpn_fusion_tpu_torch.models.engineering import hts_quench as hq
+    from scpn_fusion_tpu_torch.models.nuclear import blanket as bk
+    from scpn_fusion_tpu_torch.models.physics import design_scan as ds
+    from scpn_fusion_tpu_torch.models.physics import scaling_burn as sb
+    lanes, kw = Lanes(), dict(dtype=torch.float64, device=device)
+    for _, n, seed in BURN_CASES[:2]:
+        res = lanes.run(f"compact search {n}", lambda: ds.compact_reactor_search(
+            n_samples=n, seed=seed, device=device))
+        lanes.put(f"search {n}", res.points, f32=True)
+        lanes.verdicts[f"search {n}"] = (int(res.best_index), int(res.n_feasible))
+    r, a, b, ip, ne = ds.search_designs(*(d.to(device) for d in ds.search_draws(4096, 0)))
+    lanes.put("designs 4096", lanes.run("evaluate_design 4096 f64", lambda: ds.evaluate_design(
+        r, a, b, ip, ne, 50.0)))
+    lanes.put("ITER", lanes.run("evaluate_design ITER f64", lambda: ds.evaluate_design(
+        *ITER_DESIGN, kappa=1.8, **kw)))
+    lanes.put("confinement lane 2", lanes.run("confinement lane 2", lambda: sb.burn_equilibrium_0d(
+        ne19=10.0, p_aux_mw=50.0, ip_ma=15.0, bt_t=5.3, r_m=6.2, a_m=2.0, kappa=1.8, **kw)))
+    lanes.put("confinement lane 3", lanes.run("confinement lane 3", lambda: bk.multigroup_tbr(
+        bk.MultiGroupConfig(thickness_cm=80.0, li6_enrichment=0.9), **kw)))
+    for label, c_kw, s_kw in QUENCH_CASES:
+        c, s = hq.REBCOConductor(**c_kw), hq.QuenchScenario(**s_kw)
+        lanes.put(f"quench {label}", lanes.run(f"quench {label}", lambda: hq.simulate_quench_transient(
+            c, s, **kw)))
+        rep = lanes.run(f"quench screen {label}", lambda: hq.evaluate_rebco_quench(c, s, **kw))
+        lanes.put(f"quench {label} report", {k: v for k, v in rep._asdict().items()
+                                             if isinstance(v, float)})
+        lanes.verdicts[f"quench {label}"] = (rep.passed, rep.failures)
+    for label, fault in (("nominal", dec.DECFault()),
+                         ("degraded", dec.DECFault(sensor_detection_latency_ms=100.0))):
+        rep = dec.evaluate_direct_energy_conversion(fault=fault)
+        lanes.verdicts[f"dec {label}"] = (rep.passed, rep.failures)
+    lanes.put("whole-plant lane 5", {"pumps": lanes.run("whole-plant lane 5", lambda: torch.stack(
+        [bop.pumping_power(p, bop.PlantParams(), **kw) for p in (500.0, 1000.0, 2000.0)]))})
+    return lanes.as_dict()
+
+
+def nuclear_lanes(device, cad: bool = True) -> dict:
+    """(zk)'s lanes in float64: the blanket (1-group, 3-group, volumetric at
+    24 x 72 x 48), TEMHD (the JAX tests' transient, flux scan and TE
+    convection pair), wall loading on the 65^2 mesh with every material and
+    the ash dilution, PWI with lane 6 of ``validation/run_physics_closures.py``
+    and its lane 7 (the Lawson product of the Q >= 10 burn point), the
+    heating proxy, MCNP-lite at 2000 histories (thin and thick) and lane 5 of
+    ``validation/run_mif_frc.py`` (a candidate and its refinement), and, with
+    ``cad``, the occluded CAD loading of :func:`torus_mesh`."""
+    import torch
+    from scpn_fusion_tpu_torch.models.engineering import cad_raytrace as cad_rt
+    from scpn_fusion_tpu_torch.models.nuclear import blanket as bk
+    from scpn_fusion_tpu_torch.models.nuclear import heating_neutronics as hn
+    from scpn_fusion_tpu_torch.models.nuclear import pwi
+    from scpn_fusion_tpu_torch.models.nuclear import temhd as te
+    from scpn_fusion_tpu_torch.models.nuclear import wall_loading as wl
+    from scpn_fusion_tpu_torch.models.physics import scaling_burn as sb
+    lanes, kw = Lanes(), dict(dtype=torch.float64, device=device)
+    lanes.put("single group", lanes.run("single group", lambda: bk.single_group_tbr(
+        bk.BlanketConfig(), **kw)))
+    lanes.put("multigroup", lanes.run("multigroup", lambda: bk.multigroup_tbr(
+        bk.MultiGroupConfig(), **kw)))
+    lanes.put("volumetric", lanes.run("volumetric", lambda: bk.volumetric_tbr(
+        bk.BlanketConfig(), **kw)))
+    flux, dt, steps = TEMHD_RUN
+    tr = lanes.run("TEMHD run", lambda: te.run_temhd(te.TEMHDParams(), flux, dt=dt,
+                                                     n_steps=steps, **kw))
+    lanes.put("TEMHD run", {"surface": tr.surface_t_k, "k": tr.k_eff_max, "t": tr.state.t_k})
+    fluxes, steps = TEMHD_SCAN
+    lanes.put("TEMHD scan", dict(zip(("surface", "k_enh"), lanes.run(
+        "TEMHD scan", lambda: te.temhd_flux_scan(te.TEMHDParams(), torch.tensor(fluxes, **kw),
+                                                 n_steps=steps, **kw)))))
+    flux, steps = TEMHD_CONVECTION
+    for b in (10.0, 0.0):
+        tr = lanes.run(f"TEMHD {b:g} T", lambda: te.run_temhd(te.TEMHDParams(b_field_t=b), flux,
+                                                              n_steps=steps, **kw))
+        lanes.put(f"TEMHD {b:g} T", {"surface": tr.surface_t_k[-1], "k": tr.k_eff_max[-1]})
+    rr, zz = (torch.tensor(x, **kw) for x in np.meshgrid(np.linspace(3.5, 9.0, 65),
+                                                         np.linspace(-4.5, 4.5, 65)))
+
+    def wall():
+        loading = wl.compute_wall_loading(wl.neutron_source_density(rr, zz, p_fusion_mw=500.0),
+                                          rr, zz)
+        return loading, {m: wl.analyze_material(loading, m) for m in wl.MATERIALS}
+
+    loading, reports = lanes.run("wall loading", wall)
+    lanes.put("wall", loading)
+    for m, rep in reports.items():
+        lanes.put(f"wall {m}", rep)
+    lanes.put("ash", {f: wl.ash_poisoning_dilution(f, **kw) for f in (0.0, 0.1, 0.6)})
+
+    def sputtering():
+        w, c = pwi.SputteringMaterial.from_name("Tungsten"), pwi.SputteringMaterial.from_name("Carbon")
+        out = {f"{m.e_th_ev:g} {e:g} {ang:g}": pwi.sputtering_yield(m, e, ang, **kw)
+               for m in (w, c) for e in (100.0, 500.0, 1000.0, 2000.0) for ang in (0.0, 45.0, 80.0)}
+        out.update(dict(zip(("temps", "erosion", "yield"), pwi.erosion_scan(
+            w, 1e24, 10.0, 100.0, 50, **kw))))
+        w0 = pwi.SputteringMaterial.from_name("Tungsten", redeposition_factor=0.0)
+        out["net 0.95"] = pwi.erosion_rate(w, 1e24, 100.0, **kw)["Net_Flux"]
+        out["net 0"] = pwi.erosion_rate(w0, 1e24, 100.0, **kw)["Net_Flux"]
+        return out
+
+    lanes.put("pwi", lanes.run("PWI and closures lane 6", sputtering))
+    lanes.put("closures lane 7", lanes.run("closures lane 7", lambda: sb.burn_equilibrium_0d(
+        ne19=10.0, p_aux_mw=50.0, ip_ma=15.0, bt_t=5.3, r_m=6.2, a_m=2.0, kappa=1.8, **kw)))
+    lanes.put("heating", lanes.run("heating proxy", lambda: hn.genray_heating_proxy(
+        torch.Generator().manual_seed(0), major_radius_m=6.2, elongation=1.8, b_t=5.5,
+        rf_power_mw=30.0, nbi_power_mw=25.0, **kw)))
+    for thick in (5.0, 100.0):
+        lanes.put(f"mcnp {thick:g}", lanes.run(f"mcnp {thick:g} cm", lambda: hn.mcnp_lite_transport_tbr(
+            torch.Generator().manual_seed(7), histories=2000, thickness_cm=thick,
+            li6_enrichment=0.9, be_multiplier_fraction=0.5, reflector_albedo=0.3, **kw)))
+    cand = lanes.run("mif_frc lane 5 candidate", lambda: hn.quick_candidate(
+        torch.Generator().manual_seed(11), 0, **kw))
+    refined = lanes.run("mif_frc lane 5 refinement", lambda: hn.refine_candidate_tbr(
+        cand, torch.Generator().manual_seed(111), **kw))
+    lanes.put("candidate", refined)
+    blend = 0.60 * float(hn.mcnp_lite_tbr(
+        raw_tbr=refined["raw_tbr"], li6_enrichment=refined["li6_enrichment"],
+        be_multiplier_fraction=refined["be_multiplier_fraction"],
+        reflector_albedo=refined["reflector_albedo"], **kw)[0]) + 0.40 * refined["tbr_mc"]
+    lanes.put("candidate blend", {"blend": blend})
+    if cad:
+        (source, power) = CAD_SOURCE
+        vertices, faces = torus_mesh()
+        rep = lanes.run("CAD torus", lambda: cad_rt.estimate_surface_loading(
+            vertices, faces, np.asarray([source]), np.asarray([power]), occlusion_cull=True,
+            **kw))
+        lanes.put("cad", {"loading": rep.face_loading_w_m2, "peak": rep.peak_loading_w_m2,
+                          "mean": rep.mean_loading_w_m2})
+    return lanes.as_dict()
+
+
+def slice20_on_cpu(conn) -> None:
+    """The CPU twins of (zj) and (zk): their lanes in float64 (the design scans
+    in float32, as JAX casts them) on two threads."""
+    dev = on_cpu(2)
+    conn.send({"zj": plant_lanes(dev), "zk": nuclear_lanes(dev)})
+    conn.close()
+
+
+def slice20_plain_on_card(conn) -> None:
+    """Rows E and H's plain twins on the card, in a process of its own: every
+    :data:`BURN_CASES` and :data:`QUENCH_CASES` case in float32 and float64,
+    the timed ones (row E's float32 compact search, row H's float64 default
+    transient) between CUDA events after a warm-up, as numpy arrays by
+    (dtype, case)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from scpn_fusion_tpu_torch.ops import cuda_burn as cbn
+    from scpn_fusion_tpu_torch.ops import cuda_quench as cq
+    dev, out = torch.device("cuda"), {}
+    for dtype in (torch.float32, torch.float64):
+        # a warm-up of every op the timed loops run (the process's first launches load them)
+        for label, *_ in BURN_CASES[1:]:
+            cbn.burn_relax_plain(burn_case(label, dtype, dev), 8.0, 2)
+        cq.quench_run_plain(quench_case(QUENCH_TIMED, dtype, dev)[1], 2)
+    for dtype in (torch.float32, torch.float64):
+        for label, *_ in BURN_CASES:
+            t, ms = events_ms(functools.partial(cbn.burn_relax_plain, burn_case(label, dtype, dev),
+                                                8.0, 200))
+            out[(str(dtype), label)] = t.cpu().numpy()
+            out[(str(dtype), label, "ms")] = ms
+        for label, *_ in QUENCH_CASES:
+            _, c, n_steps = quench_case(label, dtype, dev)
+            traces, ms = events_ms(functools.partial(cq.quench_run_plain, c, n_steps))
+            out[(str(dtype), label)] = [x.cpu().numpy() for x in traces]
+            out[(str(dtype), label, "ms")] = ms
+    conn.send(out)
+    conn.close()
+
+
+def feasibility_agrees(card: dict, cpu: dict, prefix: str, limits) -> int:
+    """The float32 scan's feasibility on the card against the CPU: a design
+    whose mask differs must lie within :data:`SCAN_F32_TOL` of a limit (or
+    of the convergence test).  Returns the count of differing designs."""
+    fields = (("greenwald_fraction", limits.greenwald_fraction_max),
+              ("beta_n", limits.beta_n_max), ("q_star", limits.q_star_min),
+              ("b_coil_t", limits.b_max_coil_t), ("wall_load_mw_m2", limits.p_wall_max_mw_m2),
+              ("q_fusion", 10.0))
+    differ = np.flatnonzero(card[f"{prefix} feasible"] != cpu[f"{prefix} feasible"])
+    for i in differ:
+        near = [abs(cpu[f"{prefix} {k}"][i] / lim - 1.0) <= SCAN_F32_TOL for k, lim in fields]
+        require(any(near), f"{prefix}: design {i} differs in feasibility from the CPU's, away "
+                           f"from every limit")
+    return len(differ)
+
+
+def plant_gates(r: dict) -> dict:
+    """The gates of (zj) on :func:`plant_lanes`' results: those of
+    ``tests/test_scenario_design.py:124-152`` and of the quench tests, lanes
+    2-4 of ``run_confinement_burn.py`` and lanes 2, 3 and 5 of
+    ``run_whole_plant_fault.py``."""
+    from scpn_fusion_tpu_torch.models.engineering import hts_quench as hq
+    num, f32r, verdicts = r["num"], r["f32"], r["verdicts"]
+    best, n_ok = verdicts["search 512"]
+    gates = {
+        "ITER-like point Q > 5 and feasible": float(num["ITER q_fusion"]) > 5.0
+        and bool(num["ITER feasible"]),
+        "compact search 512 finds a Q >= 10 device, R0 < 7 m": n_ok > 0
+        and bool(f32r["search 512 feasible"][best]) and float(f32r["search 512 q_fusion"][best]) >= 10.0
+        and float(f32r["search 512 r_m"][best]) < 7.0,
+        "confinement lane 2: Q >= 10, converged": float(num["confinement lane 2 q_fusion"]) >= 10.0
+        and bool(num["confinement lane 2 converged"]),
+        "confinement lane 3: |TBR - 1.1409| <= 1e-3, groups 2e-3":
+        abs(float(num["confinement lane 3 tbr"]) - 1.1409) <= 1e-3
+        and float(np.max(np.abs(num["confinement lane 3 tbr_per_group"]
+                                - np.asarray((0.0278, 0.2257, 0.8875))))) <= 2e-3,
+        "confinement lane 4: TBR > 1.05": float(num["confinement lane 3 tbr"]) > 1.05,
+        "whole-plant lane 2: nominal passes, degraded fails detection":
+        verdicts["quench default 2000 steps"] == (True, ())
+        and not verdicts["quench degraded (whole-plant lane 2)"][0]
+        and "detection_voltage_below_threshold" in verdicts["quench degraded (whole-plant lane 2)"][1],
+        "whole-plant lane 3: DEC nominal passes, degraded fails": verdicts["dec nominal"][0]
+        and not verdicts["dec degraded"][0],
+        "whole-plant lane 5: pumping < 0.2 P, monotone": bool(np.all(
+            (num["whole-plant lane 5 pumps"] > 0) & (num["whole-plant lane 5 pumps"]
+                                                     < 0.2 * np.asarray([500.0, 1000.0, 2000.0]))))
+        and bool(np.all(np.diff(num["whole-plant lane 5 pumps"]) > 0)),
+    }
+    c, s = hq.REBCOConductor(), hq.QuenchScenario()
+    t_tr, i_tr = num["quench default 2000 steps t"], num["quench default 2000 steps current_a"]
+    t_det = s.detection_delay_s + s.protection_switch_delay_s
+    gates["quench tests: dump decay, monotone, hotspot < 200 K"] = (
+        abs(i_tr[-1] / (c.operating_current_a * np.exp(-(t_tr[-1] - t_det) * c.dump_resistance_ohm
+                                                        / c.inductance_h)) - 1.0) <= 0.05
+        and bool(np.all(np.diff(i_tr[t_tr > t_det]) <= 1e-9)) and 0.3 * i_tr[0] < i_tr[-1] < i_tr[0]
+        and float(num["quench default 2000 steps hotspot_k"].max()) < 200.0)
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def plant_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                 measured_plain: dict, plain_card, twin: dict) -> tuple[int, int]:
+    """(zj) rows E and H: ``burn_relax`` on every :data:`BURN_CASES` case and
+    ``quench_run`` on every :data:`QUENCH_CASES` case ONE launch each, in
+    float32 and float64, ``torch.equal`` to the plain twin on the card
+    (``plain_card``: :func:`slice20_plain_on_card`'s); then :func:`plant_lanes`
+    on the card with one launch of row E a design call, one of row H a
+    transient and one of row T a blanket group; the gates of
+    ``tests/test_scenario_design.py:124-152``, of the quench tests, of
+    ``run_whole_plant_fault.py`` lanes 2, 3 and 5 and of
+    ``run_confinement_burn.py`` lanes 2-4; float64 within 1e-9 of the CPU
+    (``twin``: :func:`slice20_on_cpu`'s), the float32 scans within
+    :data:`SCAN_F32_TOL` with their masks equal but at a limit, the verdicts
+    equal.  Returns the counted launches of ``burn_relax`` and ``quench_run``."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import design_scan as ds
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_burn as cbn
+    from scpn_fusion_tpu_torch.ops import cuda_quench as cq
+
+    f32, f64 = torch.float32, torch.float64
+    for source in ("burn.cu", "quench.cu"):
+        print(f"(zj) csrc/{source}'s PTX (nvcc -ptx, sm_90a): {orbit_ptx(source)} (no approx or "
+              f"full division or square root expected); ptxas: "
+              f"{ptxas_registers(cb.BUILD_LOG.get(source, ''))}")
+    print(f"(zj) row E: {cbn.THREADS} threads a CTA: {-(-4096 // cbn.THREADS)} CTAs for the "
+          f"compact search's 4096 designs, one thread for a scalar point")
+    one_e = {name: int(name == "burn_relax") for name in KERNELS}
+    one_h = {name: int(name == "quench_run") for name in KERNELS}
+    plain = plain_card()
+    burns, quenches = 0, 0
+    for dtype in (f32, f64):
+        tag = "f32" if dtype == f32 else "f64"
+        for label, *_ in BURN_CASES:
+            k = burn_case(label, dtype, dev)
+            t, calls, launched = counted(functools.partial(cbn.burn_relax, k, 8.0, 200))
+            require(calls == one_e and launched == {f"scpn_burn_relax_{tag}": 1},
+                    f"(zj) row E {label} {tag}: {calls} / {launched}, not one launch")
+            by_path[f"burn_relax {label} {tag}"] = calls
+            burns += 1
+            ref = torch.from_numpy(plain[(str(dtype), label)])
+            equal = torch.equal(t.cpu(), ref)
+            print(f"(zj) row E {tag} {label} x 200 iterations: one launch, torch.equal to the "
+                  f"plain twin {equal}; T in [{float(t.min())!r}, {float(t.max())!r}] keV "
+                  f"[{card}]")
+            require(equal, f"(zj) row E {tag} {label}: the kernel differs from its plain twin")
+            if label == BURN_TIMED and dtype == f32:
+                results["burn_relax"] = {"max_abs_err": float((t.cpu() - ref).abs().max())}
+        for label, *_ in QUENCH_CASES:
+            values, c, n_steps = quench_case(label, dtype, dev)
+            traces, calls, launched = counted(functools.partial(cq.quench_run, values, c, n_steps))
+            require(calls == one_h and launched == {f"scpn_quench_run_{tag}": 1},
+                    f"(zj) row H {label} {tag}: {calls} / {launched}, not one launch")
+            by_path[f"quench_run {label} {tag}"] = calls
+            quenches += 1
+            ref = [torch.from_numpy(a) for a in plain[(str(dtype), label)]]
+            equal = all(torch.equal(a.cpu(), b) for a, b in zip(traces, ref))
+            print(f"(zj) row H {tag} {label}: one launch, torch.equal to the plain twin {equal}; "
+                  f"peak hotspot {float(traces[2].max())!r} K, final current "
+                  f"{float(traces[1][-1])!r} A [{card}]")
+            require(equal, f"(zj) row H {tag} {label}: the kernel differs from its plain twin")
+            if label == QUENCH_TIMED and dtype == f64:
+                results["quench_run"] = {"max_abs_err": max(
+                    float((a.cpu() - b).abs().max()) for a, b in zip(traces, ref))}
+
+    (r, ms), calls, launched = counted(lambda: events_ms(lambda: plant_lanes(dev)))
+    expect = {"compact search 4096": {"burn_relax": 1}, "compact search 512": {"burn_relax": 1},
+              "evaluate_design 4096 f64": {"burn_relax": 1},
+              "evaluate_design ITER f64": {"burn_relax": 1}, "confinement lane 2": {"burn_relax": 1},
+              "confinement lane 3": {"thomas_solve_batched": 3},
+              "whole-plant lane 5": {}}
+    for label, *_ in QUENCH_CASES:
+        expect[f"quench {label}"] = expect[f"quench screen {label}"] = {"quench_run": 1}
+    require(r["counts"] == expect, f"(zj) lane kernel calls {r['counts']}, expected {expect}")
+    by_path["plant_lanes"] = calls
+    burns += calls["burn_relax"]
+    quenches += calls["quench_run"]
+    num, f32r, verdicts = r["num"], r["f32"], r["verdicts"]
+    cpu = twin["zj"]
+    limits = ds.DesignLimits()
+    gates = plant_gates(r)
+    print(f"(zj) plant lanes on the card: gates {gates}; compact search (4096, f32): best R0 "
+          f"{float(f32r['search 4096 r_m'][verdicts['search 4096'][0]])!r} m of "
+          f"{verdicts['search 4096'][1]} feasible Q >= 10 designs; lane 2 Q "
+          f"{float(num['confinement lane 2 q_fusion'])!r}, lane 3 TBR "
+          f"{float(num['confinement lane 3 tbr'])!r}; {ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(zj): the port misses a gate of the JAX tests or validations")
+    require(all(verdicts[k] == cpu["verdicts"][k] for k in verdicts if not k.startswith("search")),
+            "(zj): a verdict differs from the CPU's")
+    agree(num, cpu["num"], "(zj) plant lanes", card)
+    worst = max(max_rel(torch_from(f32r[k]), torch_from(cpu["f32"][k]))
+                for k in cpu["f32"] if not k.endswith("feasible"))
+    differ = sum(feasibility_agrees(f32r, cpu["f32"], f"search {n}", limits)
+                 for _, n, _ in BURN_CASES[:2])
+    print(f"(zj) the float32 compact searches against the CPU: max relative deviation "
+          f"{worst:.3e} (limit {SCAN_F32_TOL:.0e}), {differ} designs of 4608 differ in "
+          f"feasibility (each at a limit); best index and count "
+          f"{[verdicts[k] for k in ('search 4096', 'search 512')]} on the card, "
+          f"{[cpu['verdicts'][k] for k in ('search 4096', 'search 512')]} on the CPU [{card}]")
+    require(worst <= SCAN_F32_TOL, "(zj): a float32 compact search deviates from the CPU")
+    if differ == 0:
+        require(all(verdicts[k] == cpu["verdicts"][k] for k in ("search 4096", "search 512")),
+                "(zj): a compact search's best design differs from the CPU's")
+
+    measured_plain["burn_relax"] = plain[(str(f32), BURN_TIMED, "ms")]
+    measured_plain["quench_run"] = plain[(str(f64), QUENCH_TIMED, "ms")]
+    k = burn_case(BURN_TIMED, f32, dev)
+    timing["burn_relax"] = (functools.partial(cbn.burn_relax, k, 8.0, 200),
+                            functools.partial(cbn.burn_relax_plain, k, 8.0, 200),
+                            "compact search 4096 x 200 iterations f32", burn_work(4096, 200, 4))
+    values, c_h, n_steps = quench_case(QUENCH_TIMED, f64, dev)
+    timing["quench_run"] = (functools.partial(cq.quench_run, values, c_h, n_steps),
+                            functools.partial(cq.quench_run_plain, c_h, n_steps),
+                            "the default transient, 2000 steps f64", quench_work(2000, 8))
+    k64 = burn_case(BURN_TIMED, f64, dev)
+    rows = ((f"row E burn_relax ({BURN_TIMED} x 200 iterations f32)", timing["burn_relax"][0],
+             burn_work(4096, 200, 4), 200 * BURN_DEPTH, plain[(str(f32), BURN_TIMED, "ms")]),
+            (f"row E burn_relax ({BURN_TIMED} x 200 iterations f64)",
+             functools.partial(cbn.burn_relax, k64, 8.0, 200), burn_work(4096, 200, 8),
+             200 * BURN_DEPTH, plain[(str(f64), BURN_TIMED, "ms")]),
+            ("row E burn_relax (the ITER-like point f64)",
+             functools.partial(cbn.burn_relax, burn_case("ITER-like point", f64, dev), 8.0, 200),
+             burn_work(1, 200, 8), 200 * BURN_DEPTH, plain[(str(f64), "ITER-like point", "ms")]),
+            ("row H quench_run (the default transient, 2000 steps f64)", timing["quench_run"][0],
+             quench_work(2000, 8), 2000 * QUENCH_DEPTH, plain[(str(f64), QUENCH_TIMED, "ms")]),
+            ("row H quench_run (the default transient, 2000 steps f32)",
+             functools.partial(cq.quench_run, *quench_case(QUENCH_TIMED, f32, dev)),
+             quench_work(2000, 4), 2000 * QUENCH_DEPTH, plain[(str(f32), QUENCH_TIMED, "ms")]))
+    for label, kernel, work, chain, plain_ms in rows:
+        ms_k = cuda_ms(kernel)
+        b, by = bound(work)
+        print(f"time (zj) {label}: kernel {ms_k:.4f} ms (CUDA events, median of 5), bound "
+              f"{b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, {work[1] / 1e6:.4g} Mflop); the dependent "
+              f"chain {chain} operations, ~{ladder_chain_ms(chain, 1):.4f} ms at a nominal 4 "
+              f"cycles each and {SM_CLOCK_HZ / 1e9:.2f} GHz (a count, not a bound: IEEE "
+              f"divisions, pow, sqrt and exp on the chain); plain {plain_ms:.1f} ms (once, in the "
+              f"spawned process); library_ms null (no PyTorch call relaxes a burn point or "
+              f"integrates a quench) [{card}]")
+    return burns, quenches
+
+
+def nuclear_gates(n: dict) -> dict:
+    """The gates of (zk) on :func:`nuclear_lanes`' float64 results: those of
+    ``tests/test_nuclear.py``, ``test_temhd_wall.py`` and
+    ``test_heating_neutronics.py``, of ``run_physics_closures.py`` lanes 6-7
+    and of ``run_mif_frc.py`` lane 5, and the CAD shadows' presence."""
+    pg = n["multigroup tbr_per_group"]
+    phi = n["multigroup flux"]
+    surf = n["TEMHD run surface"]
+    nwl, r_w, z_w = n["wall nwl_mw_m2"], n["wall r_wall"], n["wall z_wall"]
+    y = {k.split(" ", 1)[1]: float(v) for k, v in n.items() if k.startswith("pwi ") and
+         k.count(" ") == 3}
+    cand = {k[len("candidate "):]: float(v) for k, v in n.items() if k.startswith("candidate ")
+            and k != "candidate blend blend"}
+    triple = 10.0 * 1e19 * float(n["closures lane 7 t_kev"]) * float(n["closures lane 7 tau_e_s"])
+    shadowed = int(np.sum(n["cad loading"] == 0.0))
+    gates = {
+        "blanket (test_nuclear.py)": abs(float(n["multigroup tbr"]) - 1.14) <= 0.02
+        and pg[2] > pg[1] > pg[0] and abs(pg.sum() / float(n["multigroup tbr"]) - 1.0) <= 1e-6
+        and phi[0, -1] < 0.05 * phi[0, 0] and phi[2, 1:20].min() > 0
+        and 1.0 < float(n["single group tbr"]) < 2.5,
+        "PWI and closures lane 6": y["200 100 45"] == 0.0 and y["200 1000 45"] > 0.0
+        and y["30 500 45"] > y["200 500 45"] and y["200 2000 80"] > 2.0 * y["200 2000 0"]
+        and y["30 100 45"] > 0.0 and n["pwi erosion"][0] == 0.0 and n["pwi erosion"][-1] > 0.0
+        and bool(np.all(np.diff(n["pwi erosion"]) >= -1e-12))
+        and abs(float(n["pwi net 0.95"]) / float(n["pwi net 0"]) - 0.05) <= 0.05 * 1e-5,
+        "closures lane 7: Lawson window": bool(n["closures lane 7 converged"])
+        and float(n["closures lane 7 q_fusion"]) >= 10.0 and 1.5e21 <= triple <= 6e21,
+        "TEMHD (test_temhd_wall.py)": surf[-1] > 300.0 + 5.0 and abs(surf[-1] - surf[-10]) < 1e-3
+        and float(n["TEMHD 10 T k"]) > 50.0 * 1.05 and abs(float(n["TEMHD 0 T k"]) / 50.0 - 1.0) <= 1e-6
+        and float(n["TEMHD 10 T surface"]) < float(n["TEMHD 0 T surface"])
+        and bool(np.all(np.diff(n["TEMHD scan surface"]) > 0)) and bool(np.all(n["TEMHD scan k_enh"] >= 1.0)),
+        "wall loading": bool(np.all(nwl >= 0.0)) and 0.1 < nwl.mean() < 1.5
+        and 1.0 < float(n["wall peaking_factor"]) < 4.0 and r_w[np.argmax(nwl)] > np.median(r_w)
+        and abs(z_w[np.argmax(nwl)]) < 2.0
+        and float(n["wall eurofer lifetime_fpy"]) < float(n["wall tungsten lifetime_fpy"])
+        and float(n["ash 0.0"]) == 1.0 and abs(float(n["ash 0.1"]) - 0.64) <= 1e-12
+        and float(n["ash 0.6"]) == 0.0,
+        "heating proxy": 0.35 <= float(n["heating rf_absorption_eff"]) <= 0.95
+        and 0.28 <= float(n["heating nbi_absorption_eff"]) <= 0.93
+        and float(n["heating mean_path_length_norm"]) > 0.9,
+        "MCNP-lite: thick breeds more, leaks less": float(n["mcnp 100 tbr_mc"]) > float(n["mcnp 5 tbr_mc"])
+        and float(n["mcnp 100 leakage_rate"]) < float(n["mcnp 5 leakage_rate"]),
+        "mif_frc lane 5": abs(cand["tbr_final"] / float(n["candidate blend blend"]) - 1.0) <= 1e-6
+        and all(np.isfinite(v) for v in cand.values()),
+        "CAD: some faces shadowed, some lit": 0 < shadowed < len(n["cad loading"]),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def nuclear_checks(dev, card: str, counted, by_path: dict, twin: dict) -> tuple[int, int]:
+    """(zk) :func:`nuclear_lanes` on the card: row T once a blanket group and
+    once a TEMHD step, row E once on lane 7 and on the candidate, no other
+    kernel; the gates of ``tests/test_nuclear.py``, ``test_temhd_wall.py``,
+    ``test_heating_neutronics.py``, of ``run_physics_closures.py`` lanes 6-7
+    and of ``run_mif_frc.py`` lane 5; float64 within 1e-9 of the CPU
+    (``twin``: :func:`slice20_on_cpu`'s), the CAD shadows equal; the CAD
+    lane's peak device memory.  Returns the counted launches of row E and
+    row T."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (r, ms), calls, launched = counted(lambda: events_ms(lambda: nuclear_lanes(dev)))
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = TEMHD_RUN[2] + TEMHD_SCAN[1] + 2 * TEMHD_CONVECTION[1]
+    expect = {"single group": {"thomas_solve_batched": 1},
+              "multigroup": {"thomas_solve_batched": 3},
+              "volumetric": {"thomas_solve_batched": 1},
+              "TEMHD run": {"thomas_solve_batched": TEMHD_RUN[2]},
+              "TEMHD scan": {"thomas_solve_batched": TEMHD_SCAN[1]},
+              "TEMHD 10 T": {"thomas_solve_batched": TEMHD_CONVECTION[1]},
+              "TEMHD 0 T": {"thomas_solve_batched": TEMHD_CONVECTION[1]},
+              "wall loading": {}, "PWI and closures lane 6": {},
+              "closures lane 7": {"burn_relax": 1}, "heating proxy": {}, "mcnp 5 cm": {},
+              "mcnp 100 cm": {}, "mif_frc lane 5 candidate": {"burn_relax": 1},
+              "mif_frc lane 5 refinement": {"thomas_solve_batched": 1}, "CAD torus": {}}
+    require(r["counts"] == expect, f"(zk) lane kernel calls {r['counts']}, expected {expect}")
+    require(not r["f32"], f"(zk): float32 results {sorted(r['f32'])}: every lane is float64")
+    by_path["nuclear_lanes"] = calls
+    n = r["num"]
+    gates = nuclear_gates(n)
+    surf, nwl = n["TEMHD run surface"], n["wall nwl_mw_m2"]
+    cand_tbr = float(n["candidate tbr_final"])
+    triple = 10.0 * 1e19 * float(n["closures lane 7 t_kev"]) * float(n["closures lane 7 tau_e_s"])
+    shadowed = int(np.sum(n["cad loading"] == 0.0))
+    print(f"(zk) nuclear, heating-neutronics and CAD lanes on the card (f64): gates {gates}; "
+          f"TBR {float(n['multigroup tbr'])!r}, volumetric TBR {float(n['volumetric tbr'])!r}, "
+          f"TEMHD surface {float(surf[-1])!r} K, peak NWL {float(nwl.max())!r} MW/m^2, lane 5 "
+          f"TBR {cand_tbr!r}, Lawson n T tau {triple:.4g}; CAD {len(n['cad loading'])} "
+          f"faces, {shadowed} shadowed, peak device memory of the phase {peak / 2**20:.1f} MiB "
+          f"(occlusion chunks of {2**22} pairs); row T {calls['thomas_solve_batched']} launches "
+          f"({steps} of them TEMHD steps), row E {calls['burn_relax']}; {ms:.1f} ms (CUDA "
+          f"events) [{card}]")
+    require(all(gates.values()), "(zk): the port misses a gate of the JAX tests or validations")
+    cpu = twin["zk"]
+    require(np.array_equal(n["cad loading"] == 0.0, cpu["num"]["cad loading"] == 0.0),
+            "(zk): the CAD shadows differ from the CPU's")
+    agree(n, cpu["num"], "(zk) nuclear, heating-neutronics and CAD", card)
+    return calls["burn_relax"], calls["thomas_solve_batched"]
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.asarray(a, np.float64))
@@ -5843,11 +6474,13 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
 
 
 def late_twins(stack: contextlib.ExitStack) -> dict:
-    """Start (zh)-(zi)'s CPU twin and (zh)'s plain runs on the card (~230 s and
-    ~300 s of host time) once the host-bound early paths, (a)-(i), are done:
+    """Start (zh)-(zi)'s and (zj)-(zk)'s CPU twins and the plain runs of rows
+    F, E and H on the card (~230 s, ~40 s, ~300 s and ~20 s of host time) once
+    the host-bound early paths, (a)-(i), are done:
     started with the others, they slowed those paths on an 8-core host with
     one H100 (the whole smoke 899 s, where it had taken 770 s without them)."""
-    targets = {"slice19_cpu": slice19_on_cpu, "slice19_card": slice19_plain_on_card}
+    targets = {"slice19_cpu": slice19_on_cpu, "slice19_card": slice19_plain_on_card,
+               "slice20_cpu": slice20_on_cpu, "slice20_card": slice20_plain_on_card}
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
@@ -5920,7 +6553,8 @@ def _main(stack: contextlib.ExitStack) -> int:
     for source in ("sor_band.cu", "fine_legs.cu", "tiled_legs.cu", "tiled_legs_slab.cu",
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
                    "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu",
-                   "disruption.cu", "sandpile.cu", "compression.cu", "orbits.cu"):
+                   "disruption.cu", "sandpile.cu", "compression.cu", "orbits.cu", "burn.cu",
+                   "quench.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -6457,7 +7091,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
-                "gc_ensemble": 0, "gc_orbit": 0}
+                "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -6570,7 +7204,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                  "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
                  "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
-                "gc_ensemble": 0, "gc_orbit": 0}
+                 "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -7030,6 +7664,17 @@ def _main(stack: contextlib.ExitStack) -> int:
     heating_checks(dev, card, counted, by_path, slice19)
     phase_done("heating, drift waves, divertor and stellarator (zi)")
 
+    # ── the twentieth slice: (zj) rows E and H, the design scans, the quench
+    # screen and the plant lanes; (zk) the blanket and TEMHD through row T,
+    # wall loading, PWI, the heating-neutronics candidates and CAD loading ──
+    slice20 = twins["slice20_cpu"]()
+    burn_calls, quench_calls = plant_checks(dev, card, counted, by_path, results, timing,
+                                            measured_plain, twins["slice20_card"], slice20)
+    phase_done("rows E and H, design scans and plant lanes (zj)")
+    zk_burns, _ = nuclear_checks(dev, card, counted, by_path, slice20)
+    burn_calls += zk_burns
+    phase_done("nuclear, heating-neutronics and CAD (zk)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -7046,6 +7691,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["sandpile_run"] = sandpile_calls
     launches["compression_run"], launches["compression_adjoint"] = compression_calls
     launches["gc_ensemble"], launches["gc_orbit"] = orbit_calls
+    launches["burn_relax"], launches["quench_run"] = burn_calls, quench_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

@@ -73,6 +73,18 @@ def xla_mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     return total * torch.reciprocal(x.new_full((), float(count)))
 
 
+def as_tensors(*values, dtype=None, device="cuda"):
+    """``values`` as tensors of one dtype on one device: a tensor among them
+    sets the device, and its dtype unless ``dtype`` is given (float32 for an
+    integer tensor); else ``dtype`` (float32 by default) on ``device``."""
+    like = next((v for v in values if isinstance(v, torch.Tensor)), None)
+    if like is not None:
+        device = like.device
+        dtype = dtype or (like.dtype if like.is_floating_point() else torch.float32)
+    dtype = dtype or torch.float32
+    return tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in values)
+
+
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """Uniform rectangular (R, Z) mesh on one device in one dtype.

@@ -12,7 +12,9 @@ card), ``fokker_planck_re``, ``runaway_fluid``, ``spi_ablation``,
 adjoint on the card), ``faraday_recovery``, ``hall_mhd_pulsed`` and
 ``hall_mhd_discovery``, and the heating, orbit, divertor and stellarator
 physics: ``orbits``, ``fast_ions`` (row F on the card), ``current_drive``,
-``rf_heating``, ``drift_wave``, ``divertor_lab`` and ``stellarator``.  The
+``rf_heating``, ``drift_wave``, ``divertor_lab`` and ``stellarator``, and
+``design_scan`` (the design scan and the compact-reactor search, their burn
+relaxations through row E on the card).  The
 names the JAX package exports from those modules are exported here under the
 same names; its other exports come with the modules that define them.
 """
@@ -57,6 +59,12 @@ from scpn_fusion_tpu_torch.models.physics.mhd_modes import (  # noqa: F401
     mrti_growth_rate,
     rutherford_island_evolution,
     tae_stability,
+)
+from scpn_fusion_tpu_torch.models.physics.design_scan import (  # noqa: F401
+    DesignLimits,
+    compact_reactor_search,
+    evaluate_design,
+    scan_designs,
 )
 from scpn_fusion_tpu_torch.models.physics.sandpile import (  # noqa: F401
     SandpileConfig,

@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from scpn_fusion_tpu_torch.core.grid import as_tensors  # noqa: F401
+
 E_CHARGE = 1.602176634e-19
 M_E = 9.109e-31
 EPS0 = 8.8541878128e-12
@@ -30,18 +32,6 @@ MU0 = 4.0e-7 * math.pi
 # f32-safe electron Coulomb prefactor: nu_ei = K_E * n_19 * Z_eff * ln_lambda / T_keV^1.5
 _K_NU_E = float(1e19 * E_CHARGE**4
                 / (12.0 * np.pi**1.5 * EPS0**2 * np.sqrt(M_E) * (1e3 * E_CHARGE) ** 1.5))
-
-
-def as_tensors(*values, dtype=None, device="cuda"):
-    """``values`` as tensors of one dtype on one device: a tensor among them
-    sets the device, and its dtype unless ``dtype`` is given (float32 for an
-    integer tensor); else ``dtype`` (float32 by default) on ``device``."""
-    like = next((v for v in values if isinstance(v, torch.Tensor)), None)
-    if like is not None:
-        device = like.device
-        dtype = dtype or (like.dtype if like.is_floating_point() else torch.float32)
-    dtype = dtype or torch.float32
-    return tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in values)
 
 
 def eich_heat_flux_width(p_sol_mw, r0, b_pol, epsilon, *, dtype=None, device="cuda"):

@@ -249,11 +249,13 @@ def tilt_trajectory_from_compression(
         amplification_overflow_limited=cumulative > log_max)
 
 
-def gradient(f: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """``jnp.gradient(f, h)`` for a scalar spacing: ``(f[2:] - f[:-2]) * 0.5 /
-    h`` inside, first-order one-sided differences at the ends."""
-    inner = (f[2:] - f[:-2]) * 0.5 / h
-    return torch.cat([((f[1] - f[0]) / h).reshape(1), inner, ((f[-1] - f[-2]) / h).reshape(1)])
+def gradient(f: torch.Tensor, h) -> torch.Tensor:
+    """``jnp.gradient(f, h, axis=-1)`` for a scalar spacing: ``(f[2:] -
+    f[:-2]) * 0.5 / h`` inside, first-order one-sided differences at the
+    ends, along the last axis."""
+    inner = (f[..., 2:] - f[..., :-2]) * 0.5 / h
+    return torch.cat([(f[..., 1:2] - f[..., :1]) / h, inner, (f[..., -1:] - f[..., -2:-1]) / h],
+                     dim=-1)
 
 
 def validate_rigid_rotor(eq: FRCEquilibriumState, *, tolerance: float = 2e-2

@@ -4,8 +4,9 @@
 * IPB98(y,2) energy-confinement scaling with the published ITER Physics
   Basis coefficients (NF 39 (1999) 2175) and the H-factor helper;
 * the 0D burn point: power balance P_aux + P_alpha = W / tau_E(IPB98)
-  relaxed as a damped fixed point over temperature (a Python loop of 0-d
-  tensors where JAX has a ``fori_loop``);
+  relaxed as a damped fixed point over temperature, for one design point or
+  a batch (JAX's ``fori_loop``: on the card one launch of row E,
+  ``csrc/burn.cu``, on the CPU its plain loop of :func:`balance`);
 * 1D cylindrical breeding-blanket neutronics: the diffusion-reaction
   equation with the reference's reduced-order closure, one Thomas solve
   (``ops/tridiag.py``: the CUDA kernel on the card), TBR from the
@@ -63,6 +64,66 @@ class BurnPoint(NamedTuple):
     converged: torch.Tensor
 
 
+# 1e38 (from n19^2) * E_FUSION_J folded into one f32-safe constant (~2.8e26,
+# times sigmav ~1e-22)
+FUS_CONST_MW = 1e38 * E_FUSION_J / 1e6
+M_AMU_FACTOR = 2.5 ** IPB98Y2_EXP["m_amu"]   # the burn point's m_amu = 2.5 factor
+RELAX = 0.3                                   # the damping of the temperature update
+
+
+class BurnConstants(NamedTuple):
+    """What hangs on a design point alone, formed once (tensors of the
+    inputs' broadcast shape, in the plain code's order) for :func:`balance`
+    and for row E (``ops/cuda_burn.py``)."""
+    p_aux_mw: torch.Tensor
+    nd2: torch.Tensor             # (0.5 dilution ne19)^2
+    volume: torch.Tensor
+    tau_pre: torch.Tensor         # C ip^0.93 bt^0.15 ne19^0.41
+    r_f: torch.Tensor             # r^1.97
+    k_f: torch.Tensor             # kappa^0.78
+    e_f: torch.Tensor             # epsilon^0.58
+    w_coeff: torch.Tensor         # W/T in 1e19-scaled units: 3 n_e T V e -> MW s / keV
+    f_profile: float              # peaking factor of the <sigma v> average
+    f_divisor: torch.Tensor       # 0-d f_profile, the divisor of <sigma v>
+    five: torch.Tensor            # 0-d 5, P_alpha = P_fus / 5
+
+
+def burn_constants(ne19, p_aux_mw, ip_ma, bt_t, r_m, a_m, kappa, dilution: float,
+                   f_profile: float) -> BurnConstants:
+    """:class:`BurnConstants` of tensors of one dtype on one device.  The
+    divisors are 0-d tensors: on a CUDA tensor PyTorch multiplies by the
+    reciprocal of a Python divisor, and row E divides."""
+    e = IPB98Y2_EXP
+    volume = 2.0 * math.pi**2 * r_m * a_m**2 * kappa
+    epsilon = a_m / r_m
+    # Density arithmetic in 1e19 units (n^2 in SI is above the f32 range).
+    n_d19 = 0.5 * (dilution * ne19)
+    tau_pre = IPB98Y2_C * ip_ma ** e["ip_ma"] * bt_t ** e["bt_t"] * ne19 ** e["ne19"]
+    shape = torch.broadcast_shapes(*(x.shape for x in (ne19, p_aux_mw, ip_ma, bt_t, r_m, a_m,
+                                                       kappa)))
+    return BurnConstants(
+        *(x.expand(shape) for x in (p_aux_mw, n_d19 * n_d19, volume, tau_pre, r_m ** e["r_m"],
+                                    kappa ** e["kappa"], epsilon ** e["epsilon"],
+                                    3.0 * ne19 * (1e19 * E_KEV_J / 1e6) * volume)),
+        float(f_profile),
+        *(torch.tensor(v, dtype=ne19.dtype, device=ne19.device) for v in (f_profile, 5.0)))
+
+
+def balance(k: BurnConstants, t_kev):
+    """(P_fus, P_alpha, tau_E, the energy-balance temperature) at ``t_kev``:
+    the body of JAX's ``fori_loop`` (``scaling_burn.py:96-104``), whose last
+    entry the relaxation moves toward."""
+    t = torch.clamp(t_kev, 0.5, 100.0)
+    sigmav = bosch_hale_sigmav(k.f_profile * t) / k.f_divisor
+    p_fus_mw = (k.nd2 * (sigmav * FUS_CONST_MW)) * k.volume
+    p_alpha_mw = p_fus_mw / k.five
+    p_heat = k.p_aux_mw + p_alpha_mw
+    # ipb98y2_tau_e's product, left to right, with the point's factors formed once
+    tau = (k.tau_pre * torch.clamp(p_heat, min=1.0) ** IPB98Y2_EXP["ploss_mw"] * k.r_f * k.k_f
+           * k.e_f * M_AMU_FACTOR)
+    return p_fus_mw, p_alpha_mw, tau, p_heat * tau / k.w_coeff
+
+
 def burn_equilibrium_0d(*, ne19, p_aux_mw, ip_ma, bt_t, r_m, a_m, kappa, t_init_kev=8.0,
                         dilution=0.8, f_profile=2.0, n_iter: int = 200,
                         dtype: torch.dtype = torch.float64,
@@ -71,43 +132,22 @@ def burn_equilibrium_0d(*, ne19, p_aux_mw, ip_ma, bt_t, r_m, a_m, kappa, t_init_
 
     W = 3 n T V;  P_loss = W / tau_E(IPB98);  P_aux + P_alpha = P_loss.
     ``dilution`` is the fuel-ion fraction n_DT / n_e, ``f_profile`` the
-    peaking factor of the <sigma v> average."""
+    peaking factor of the <sigma v> average.  The inputs broadcast together
+    (a batch of design points); on the card the relaxation of every point is
+    one launch of row E (``ops/cuda_burn.burn_relax``), on the CPU its plain
+    loop."""
+    from scpn_fusion_tpu_torch.ops.cuda_burn import burn_relax
+
     def as_t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
-    ne19, p_aux_mw, ip_ma, bt_t = as_t(ne19), as_t(p_aux_mw), as_t(ip_ma), as_t(bt_t)
-    r_m, a_m, kappa = as_t(r_m), as_t(a_m), as_t(kappa)
-    volume = 2.0 * math.pi**2 * r_m * a_m**2 * kappa
-    epsilon = a_m / r_m
-    # Density arithmetic in 1e19 units (n^2 in SI is above the f32 range).
-    n_fuel19 = dilution * ne19
-    fus_const_mw = 1e38 * E_FUSION_J / 1e6
-
-    def p_fus_mw_at(t_kev):
-        t = torch.clamp(t_kev, 0.5, 100.0)
-        sigmav = bosch_hale_sigmav(f_profile * t) / f_profile
-        n_d19 = 0.5 * n_fuel19
-        return (n_d19 * n_d19) * (sigmav * fus_const_mw) * volume
-
-    # W/T coefficient in 1e19-scaled units: 3 n_e T V e -> MW s / keV.
-    w_coeff_mw_per_kev = 3.0 * ne19 * (1e19 * E_KEV_J / 1e6) * volume
-
-    def balance(t_kev):
-        """(P_fus, P_alpha, tau_E, the energy-balance temperature) at t_kev."""
-        p_fus_mw = p_fus_mw_at(t_kev)
-        p_alpha_mw = p_fus_mw / 5.0
-        p_heat = p_aux_mw + p_alpha_mw
-        tau = ipb98y2_tau_e(ip_ma, bt_t, ne19, torch.clamp(p_heat, min=1.0),
-                            r_m, kappa, epsilon)
-        return p_fus_mw, p_alpha_mw, tau, p_heat * tau / w_coeff_mw_per_kev
-
-    t_final = as_t(t_init_kev)
-    for _ in range(n_iter):
-        t_final = t_final + 0.3 * (balance(t_final)[3] - t_final)
+    k = burn_constants(*(as_t(x) for x in (ne19, p_aux_mw, ip_ma, bt_t, r_m, a_m, kappa)),
+                       dilution, f_profile)
+    t_final = burn_relax(k, t_init_kev, n_iter)
     t = torch.clamp(t_final, 0.5, 100.0)
-    p_fus_mw, p_alpha_mw, tau, t_balance = balance(t_final)
+    p_fus_mw, p_alpha_mw, tau, t_balance = balance(k, t_final)
     return BurnPoint(
-        q_fusion=p_fus_mw / torch.clamp(p_aux_mw, min=1e-6),
+        q_fusion=p_fus_mw / torch.clamp(k.p_aux_mw, min=1e-6),
         p_fusion_mw=p_fus_mw,
         p_alpha_mw=p_alpha_mw,
         tau_e_s=tau,

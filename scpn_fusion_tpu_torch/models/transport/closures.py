@@ -148,15 +148,17 @@ def sauter_bootstrap_current(rho, te_kev, ti_kev, ne_19, q, r0, a_minor, b0, z_e
     return torch.where((idx == 0) | (idx == n - 1), 0.0, j)
 
 
+# Bosch-Hale D-T coefficients (NF 32 (1992) 611, Table IV): B_G^2, m_r c^2
+# [keV] and C1-C7; row E (``csrc/burn.cu``) takes the same numbers.
+BOSCH_HALE_DT = {"bg2": 34.3827**2, "mrc2": 1124656.0, "c1": 1.17302e-9,
+                 "c2": 1.51361e-2, "c3": 7.51886e-2, "c4": 4.60643e-3, "c5": 1.35000e-2,
+                 "c6": -1.06750e-4, "c7": 1.36600e-5}
+
+
 def bosch_hale_sigmav(t_i_kev: torch.Tensor) -> torch.Tensor:
     """D-T fusion reactivity <sigma v> [m^3/s] (Bosch & Hale 1992)."""
     t = torch.clamp(t_i_kev, 0.2, 100.0)
-    bg2 = 34.3827**2
-    mrc2 = 1124656.0
-    c1 = 1.17302e-9
-    c2, c3 = 1.51361e-2, 7.51886e-2
-    c4, c5 = 4.60643e-3, 1.35000e-2
-    c6, c7 = -1.06750e-4, 1.36600e-5
+    bg2, mrc2, c1, c2, c3, c4, c5, c6, c7 = BOSCH_HALE_DT.values()
     theta = t / (1.0 - t * (c2 + t * (c4 + t * c6))
                  / (1.0 + t * (c3 + t * (c5 + t * c7))))
     xi = (bg2 / (4.0 * theta)) ** (1.0 / 3.0)

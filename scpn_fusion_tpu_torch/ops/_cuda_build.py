@@ -84,6 +84,10 @@ _SIGNATURES = {
     "scpn_gc_ensemble_f64": [_P, _P],
     "scpn_gc_orbit_f32": [_P, _P],
     "scpn_gc_orbit_f64": [_P, _P],
+    "scpn_burn_relax_f32": [_P, _P],
+    "scpn_burn_relax_f64": [_P, _P],
+    "scpn_quench_run_f32": [_P, _P],
+    "scpn_quench_run_f64": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

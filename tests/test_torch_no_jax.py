@@ -130,3 +130,20 @@ def test_heating_orbit_slice_modules_are_scanned():
         assert f"scpn_fusion_tpu_torch.models.physics.{name}" in mods, name
         assert (ROOT / "scpn_fusion_tpu" / "models" / "physics" / f"{name}.py").is_file(), name
     assert "scpn_fusion_tpu_torch.ops.cuda_orbits" in mods
+
+
+def test_engineering_nuclear_slice_modules_are_scanned():
+    """The engineering, design-scan and nuclear modules and the wrappers of
+    rows E and H are among those both checks cover, and each has its JAX
+    module at the same path."""
+    mods = set(_modules())
+    for sub, names in (("engineering", ("balance_of_plant", "thermal_hydraulics",
+                                        "direct_energy", "hts_quench", "cad_raytrace")),
+                       ("physics", ("design_scan",)),
+                       ("nuclear", ("pwi", "blanket", "temhd", "wall_loading",
+                                    "heating_neutronics"))):
+        for name in names:
+            assert f"scpn_fusion_tpu_torch.models.{sub}.{name}" in mods, name
+            assert (ROOT / "scpn_fusion_tpu" / "models" / sub / f"{name}.py").is_file(), name
+    for name in ("cuda_burn", "cuda_quench"):
+        assert f"scpn_fusion_tpu_torch.ops.{name}" in mods, name

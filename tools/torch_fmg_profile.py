@@ -123,13 +123,24 @@ float32 and float64, profiles the ensemble's plain twin at a tenth of its
 length (2048 particles x 400 of 4000 steps, float64), times row F at full
 length by CUDA events, then profiles the slice's plain loops: the
 lambda-field guiding centre, the Boris E x B drift, the ICRH bundle, a
-drift-wave run, the vapor shield and the stellarator ripple.  Each prints
-what the solves above print.
+drift-wave run, the vapor shield and the stellarator ripple.  With
+``--plant`` it checks rows E (``csrc/burn.cu``) and H (``csrc/quench.cu``)
+``torch.equal`` to their plain twins at short lengths in float32 and
+float64 (the JAX test's 512 designs x 20 iterations, a 300-step transient),
+profiles each plain twin at a tenth of its length (4096 designs x 20 of 200
+iterations, float32; 200 of 2000 steps, float64) and its kernel's path at
+full length (the compact search, the quench screen), times both kernels at
+full length by CUDA events, then profiles the slice's plain loops with
+their row-T launches: the TEMHD transient (600 steps) and flux scan (3
+fluxes x 200 steps), the MCNP-lite estimate (2000 histories), the
+volumetric blanket (24 x 72 x 48), a heating-neutronics candidate and the
+occluded CAD loading of the 10,368-face torus, float64.  Each prints what
+the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin | --ballooning | --disruption | --frc | --orbits]``.
+| --twin | --ballooning | --disruption | --frc | --orbits | --plant]``.
 Exits non-zero without one.
 """
 
@@ -1305,6 +1316,94 @@ def profile_orbits(card: str) -> None:
               f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
 
+def profile_plant(card: str) -> None:
+    """The engineering and nuclear slice: rows E and H checked ``torch.equal``
+    to their plain twins at short lengths, each plain twin profiled at a
+    tenth of its length and its kernel's path at full length, both kernels
+    timed by CUDA events, then the slice's plain loops (see the module's
+    docstring)."""
+    import numpy as np
+    import torch
+    import chip_smoke as smoke
+    from scpn_fusion_tpu_torch.models.engineering import cad_raytrace as cad
+    from scpn_fusion_tpu_torch.models.engineering import hts_quench as hq
+    from scpn_fusion_tpu_torch.models.nuclear import blanket as bk
+    from scpn_fusion_tpu_torch.models.nuclear import heating_neutronics as hn
+    from scpn_fusion_tpu_torch.models.nuclear import temhd as te
+    from scpn_fusion_tpu_torch.models.physics import design_scan as ds
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_burn as cbn
+    from scpn_fusion_tpu_torch.ops import cuda_quench as cq
+
+    dev, f32, f64 = "cuda", torch.float32, torch.float64
+    for dtype in (f32, f64):
+        k = smoke.burn_case("JAX test 512 (seed 1)", dtype, dev)
+        same_e = torch.equal(cbn.burn_relax(k, 8.0, 20), cbn.burn_relax_plain(k, 8.0, 20))
+        values, c, _ = smoke.quench_case(smoke.QUENCH_TIMED, dtype, dev)
+        same_h = all(torch.equal(a, b) for a, b in zip(cq.quench_run(values, c, 300),
+                                                       cq.quench_run_plain(c, 300)))
+        print(f"{dtype}: row E (512 designs x 20 iterations) torch.equal to its plain twin "
+              f"{same_e}; row H (300 steps) {same_h} [{card}]")
+    k = smoke.burn_case(smoke.BURN_TIMED, f32, dev)
+    values, c, n_steps = smoke.quench_case(smoke.QUENCH_TIMED, f64, dev)
+    rows = (("row E, the compact search's 4096 designs f32", 20, "iteration",
+             lambda: cbn.burn_relax_plain(k, 8.0, 20),
+             lambda: cbn.burn_relax(k, 8.0, 200),
+             lambda: ds.compact_reactor_search(device=dev)),
+            ("row H, the default transient f64", 200, "step",
+             lambda: cq.quench_run_plain(c, 200),
+             lambda: cq.quench_run(values, c, n_steps),
+             lambda: hq.evaluate_rebco_quench(dtype=f64, device=dev)))
+    for label, units, unit, plain, kernel, path in rows:
+        out = profile_solve(card, f"{label}, plain twin at a tenth of its length",
+                            lambda run=plain: {"ran": run() is not None}, None)
+        print(f"{label}, plain: {out['launches'] / units:.2f} device launches a {unit}, idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}, {1e3 * out['wall_ms'] / units:.2f} "
+              f"us a {unit} of wall time (profiled) [{card}]")
+        out = profile_solve(card, f"{label}, its path through the kernel",
+                            lambda run=path: {"ran": run() is not None}, None)
+        kernel()
+        cb.reset_launch_counts()
+        ms = sorted(cuda_events_ms(kernel) for _ in range(5))
+        print(f"{label}, kernel at full length: {cb.kernel_launches()} launches in 5 calls, "
+              f"{ms[2]:.4f} ms between CUDA events around the one launch (median of 5; all "
+              f"{[round(m, 4) for m in ms]}) [{card}]")
+
+    vertices, faces = smoke.torus_mesh()
+    (source, power) = smoke.CAD_SOURCE
+    cand = hn.quick_candidate(torch.Generator().manual_seed(11), 0, dtype=f64, device=dev)
+    loops = (
+        ("run_temhd, 600 steps of 0.05 s f64", 600, lambda: te.run_temhd(
+            te.TEMHDParams(), 10.0, dt=0.05, n_steps=600, dtype=f64, device=dev)),
+        ("temhd_flux_scan, 3 fluxes x 200 steps f64", 200, lambda: te.temhd_flux_scan(
+            te.TEMHDParams(), torch.tensor([1.0, 5.0, 20.0], dtype=f64, device=dev), n_steps=200,
+            dtype=f64, device=dev)),
+        ("mcnp_lite_transport_tbr, 2000 histories x 48 rounds f64", 48,
+         lambda: hn.mcnp_lite_transport_tbr(
+             torch.Generator().manual_seed(7), histories=2000, thickness_cm=100.0,
+             li6_enrichment=0.9, be_multiplier_fraction=0.5, reflector_albedo=0.3, dtype=f64,
+             device=dev)),
+        ("volumetric_tbr, 24 x 72 x 48 f64", 1, lambda: bk.volumetric_tbr(
+            bk.BlanketConfig(), dtype=f64, device=dev)),
+        ("refine_candidate_tbr (the volumetric blanket, MCNP-lite at 700) f64", 1,
+         lambda: hn.refine_candidate_tbr(
+            cand, torch.Generator().manual_seed(111), dtype=f64, device=dev)),
+        (f"estimate_surface_loading, {len(faces)} faces with occlusion f64", 1,
+         lambda: cad.estimate_surface_loading(vertices, faces, np.asarray([source]),
+                                              np.asarray([power]), occlusion_cull=True,
+                                              dtype=f64, device=dev)),
+    )
+    for label, steps, run in loops:
+        out = profile_solve(card, label, lambda run=run: {"ran": run() is not None}, None)
+        cb.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        print(f"{label}: {out['launches']} device launches ({out['launches'] / steps:.1f} a step; "
+              f"{cb.kernel_launches()} of the port's kernels, counted), {out['device_ms']:.4f} ms "
+              f"of device time, {out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
+
 def profile_hall_loops(card: str) -> None:
     """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
     the sweep and the bisection) profiled, float64."""
@@ -1438,6 +1537,9 @@ def main() -> int:
     group.add_argument("--orbits", action="store_true",
                        help="row F against its plain twins, then the heating, orbit, divertor "
                             "and stellarator slice's plain loops")
+    group.add_argument("--plant", action="store_true",
+                       help="rows E and H against their plain twins, then the engineering and "
+                            "nuclear slice's plain loops")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1502,6 +1604,9 @@ def main() -> int:
         return 0
     if opts.orbits:
         profile_orbits(card)
+        return 0
+    if opts.plant:
+        profile_plant(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
