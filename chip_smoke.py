@@ -193,12 +193,36 @@ them:
   the heating proxy, MCNP-lite and lane 5 of ``run_mif_frc.py``, and the
   occluded CAD loading of a generated 10,368-face torus, with the JAX tests'
   gates, float64 against the CPU.
+* (zl) the whole-device discharge (``models/wdm.run_discharge``: the CLI's
+  200 steps in float32 and float64, ``tests/test_wdm.py``'s three, row T on
+  every transport step, the collapse time equal to the CPU's), the Monte
+  Carlo UQ at 10,000 and 5000 samples, the PCE fits, Sobol indices and LHS,
+  lane 4 of ``run_physics_closures.py``, the CLI's 65^2 forward channels,
+  tomography (48 chords, RES 16, three methods at 500 iterations), the
+  magnetic probes on (b)'s 129^2 free-boundary psi, the quasi-3D chain at
+  its defaults (the 48 TEMHD columns one row-T launch a two-fluid step)
+  with ``run_quasi3d_contracts.py``'s force-balance lane, and lanes 1-3 of
+  ``run_multi_machine.py`` (its five 65^2 float32 solves kernels 2 and 3
+  once each a Picard iteration, counted), with the JAX tests' and the
+  validations' gates, float64 against the CPU;
+* (zm) row U, the monitored UPDE run (``csrc/phase.cu``,
+  ``ops/cuda_phase.monitor_run`` / ``upde_run``: one CTA, the tick loop,
+  the Lyapunov guard and the recorder inside): the monitor at its
+  ``from_plasma`` defaults (8 x 50 x 1000), the replay certificate's
+  4 x 32 x 500 and ``tests/test_phase.py``'s ``run_upde`` at 3000 steps in
+  both psi modes, each ONE launch, ``torch.equal`` to the plain tick loop in
+  float32 and float64; the Kuramoto runs and the monitor's gates of the JAX
+  tests, float64 against the CPU; lanes 1 and 3 of
+  ``run_replay_certificate.py`` (the combined hash equal across two
+  in-process runs and in a fresh process; lane 2, JAX's committed hash, is
+  not the port's to give).
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
 Fokker-Planck, fluid and SPI lanes, (ze) but its eigen lane, (zg), (zh)'s
-Boris and lambda-field lanes, (zi) but its ballooning lane and (zk) but its
-blanket, TEMHD, lane-7 and candidate lanes run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
+Boris and lambda-field lanes, (zi) but its ballooning lane, (zk) but its
+blanket, TEMHD, lane-7 and candidate lanes, and (zl)'s UQ, diagnostics and
+tomography lanes run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
 
@@ -384,8 +408,8 @@ campaign and tuner for row R, over (r)'s f32 ladder for row L, over
 (u)'s default run for row G, over (x)'s default float32 shot for row D,
 over (z)'s gates for row B, over (zc)'s counted sequences and scans for
 row Q, over (zd)'s counted runs for row S, over (zf)'s runs and gradient
-lanes for row P and its adjoint, over (zh)'s counted calls for row F and
-over (zj)-(zk)'s counted calls for rows E and H,
+lanes for row P and its adjoint, over (zh)'s counted calls for row F,
+over (zj)-(zk)'s counted calls for rows E and H and over (zm)'s for row U,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -444,7 +468,7 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
            "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
            "sandpile_run", "compression_run", "compression_adjoint", "gc_ensemble", "gc_orbit",
-           "burn_relax", "quench_run")
+           "burn_relax", "quench_run", "phase_run")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -486,6 +510,8 @@ SOURCES = {
     "burn_relax": ("csrc/burn.cu", "scpn_fusion_tpu/models/physics/scaling_burn.py:114"),
     # no Pallas kernel: the JAX transient is one lax.scan
     "quench_run": ("csrc/quench.cu", "scpn_fusion_tpu/models/engineering/hts_quench.py:165"),
+    # no Pallas kernel: the JAX run and monitored run are each one lax.scan of upde_tick
+    "phase_run": ("csrc/phase.cu", "scpn_fusion_tpu/models/phase/monitor.py:155"),
 }
 
 
@@ -4633,13 +4659,14 @@ F32_GRADIENT_SPREAD = 4.0
 # two divisions and a pow among them); the adjoint recomputes the step and applies its
 # vector-Jacobian product (~181 more)
 COMPRESSION_OPS, COMPRESSION_DEPTH, ADJOINT_OPS = 78, 18, 259
-# results of (zf) and (zg) that are rounding noise of a cancellation, held absolutely: the
+# results of (zf), (zg) and (zl) that are rounding noise of a cancellation, held absolutely: the
 # dimensionless residuals at 1e-12; the carrier's source residual, (psi' - psi) / dt - source +
 # psi' / tau over max(|source|, |psi' / tau|, 1), whose noise is eps |psi| / (dt scale), ~2e-11
-# at the JAX test's dt = 1e-8, at 1e-10
+# at the JAX test's dt = 1e-8, at 1e-10; the quasi-3D n2 amplitude, an FFT bin the surface
+# leaves empty (~1e-17 of a 0.95 m ring), at 1e-14
 NOISE_KEYS = {"balance_residual": 1e-12, "force_balance_residual": 1e-12,
               "pressure_balance_residual": 1e-12, "flux_derivative_residual": 1e-12,
-              "source_residual": 1e-10}
+              "source_residual": 1e-10, "n2_amp": 1e-14}
 
 
 def compression_work(n: int, item: int):
@@ -6453,6 +6480,827 @@ def nuclear_checks(dev, card: str, counted, by_path: dict, twin: dict) -> tuple[
     return calls["burn_relax"], calls["thomas_solve_batched"]
 
 
+# ── the twenty-first slice: (zl) the whole-device discharge, UQ, the synthetic
+# diagnostics, tomography, the quasi-3D contracts and their validation lanes;
+# (zm) row U, the monitored UPDE run, with the Kuramoto runs, the monitor's
+# gates and the replay certificate's lanes ──
+
+# row U's cases: (label, layers, oscillators a layer, seed, ticks, what): the monitor at the
+# reference's from_plasma defaults (monitor.py:85-112: build_knm_plasma("baseline", 8), 50 an
+# oscillator layer, seed 42) for 1000 ticks, the replay certificate's 4 x 32 x 500
+# (validation/run_replay_certificate.py:77-81) and tests/test_phase.py:97-126's run_upde setup
+# (4 x 32, strong coupling, zeta 0.5, psi 0.5) at 3000 steps in both psi modes
+PHASE_CASES = (("monitor 8 x 50", 8, 50, 42, 1000, "monitor"),
+               ("replay 4 x 32", 4, 32, 42, 500, "replay"),
+               ("run_upde 4 x 32 external", 4, 32, 2, 3000, "external"),
+               ("run_upde 4 x 32 mean_field", 4, 32, 2, 3000, "mean_field"))
+PHASE_TIMED = "monitor 8 x 50"
+# operations of row U that the function needs, a tick: an oscillator's 28 (the order
+# parameter's cos, sin and masks, the Euler step with its three sines and cosines, the wrap,
+# the V term, the tree adds), a (source, target) pair's 15 (gate, weight, the lag's sin and cos,
+# the sums), a layer's 13 (the quotients, R, Psi, the mean field)
+PHASE_OPS = (28, 15, 13)
+ITER_UQ = dict(i_p_ma=15.0, b_t=5.3, p_heat_mw=50.0, n_e_19=10.1, r_major=6.2, aspect=3.1,
+               kappa=1.7)                       # tests/test_uq.py:28
+# tests/test_wdm.py's discharges: (label, config kwargs, steps), TransportParams(nr=32,
+# picard_max_iter=5)
+WDM_TEST_CASES = (("accumulates", dict(dt_s=0.01, p_aux_mw=50.0, core_penetration=1e-2), 40),
+                  ("collapse", dict(dt_s=0.05, p_aux_mw=0.0, core_penetration=50.0,
+                                    collapse_te_kev=0.5), 60),
+                  ("clean", dict(dt_s=0.01, p_aux_mw=50.0, core_penetration=0.0), 40))
+WDM_STEPS = 200                                 # the CLI's wdm mode (cli.py:846)
+TOMO = (16, 4.0, 8.5, -3.0, 3.0, 500)           # tests/test_tomography.py: res, box, iterations
+Q3D_BASE = dict(n_fp=1, r0=2.95, a=0.95, helical_excursion=0.0, mirror_ratio=0.0)
+Q3D_STELLAR = dict(n_fp=4, r0=2.95, a=0.95, helical_excursion=0.057, mirror_ratio=0.04)
+Q3D_THRESHOLDS = {"max_force_balance_rmse_pct": 8.0, "max_force_residual_p95_pct": 12.0}
+JET_TEST_STATS = ({"q95": 4.0, "edge_gradient": 0.02, "bcentr": 2.8},    # test_quasi3d.py:98-100
+                  {"q95": 3.4, "edge_gradient": 0.03, "bcentr": 3.4})
+# validation/run_multi_machine.py:35-50: name, R0, a, Ip, Bt, kappa, ne19, P_loss, tau window
+MACHINES = (("ITER", 6.20, 2.00, 15.0, 5.30, 1.80, 10.0, 100.0, (2.0, 5.0)),
+            ("JET", 2.96, 0.95, 4.0, 3.45, 1.70, 5.0, 20.0, (0.2, 1.2)),
+            ("SPARC", 1.85, 0.57, 8.7, 12.2, 1.97, 30.0, 25.0, (0.3, 1.5)),
+            ("DIII-D", 1.67, 0.67, 1.5, 2.10, 1.80, 6.0, 10.0, (0.05, 0.4)),
+            ("MAST-U", 0.85, 0.65, 1.0, 0.55, 2.45, 3.0, 4.0, (0.01, 0.2)))
+PF_PATTERN = ((0.565, +0.774, -1.0 / 15.0), (1.290, +0.774, 4.0 / 15.0),
+              (1.742, 0.0, 6.0 / 15.0), (1.290, -0.774, 4.0 / 15.0),
+              (0.565, -0.774, -1.0 / 15.0), (1.742, 0.403, 3.0 / 15.0))
+REPLAY_HASHSEED = "12345"                       # run_replay_certificate.py:194
+# the float32 monitor of the JAX test (8 layers x 20, 200 ticks) drifts from its float64 run by
+# ~1e-5 of R and ~2e-4 of lambda (ln of a ratio of V over n dt amplifies V's rounding); the
+# card's float32 run is held to this many times the CPU's float32 distance from float64
+MONITOR_F32_FACTOR = 4.0
+
+
+def phase_case(label: str, dtype, device):
+    """(run through the kernel, plain twin, ticks) of a :data:`PHASE_CASES`
+    case; each run takes the tick count."""
+    import torch
+    from scpn_fusion_tpu_torch.models.phase import knm, monitor as mon
+    from scpn_fusion_tpu_torch.ops import cuda_phase as cp
+    _, n_layers, n_per, seed, n_ticks, what = next(c for c in PHASE_CASES if c[0] == label)
+    if what in ("monitor", "replay"):
+        spec = (knm.build_knm_plasma("baseline", n_layers) if what == "monitor"
+                else knm.KnmSpec(k=0.8 * np.ones((4, 4)) + 0.4 * np.eye(4)))
+        st, ar = mon.init_monitor(spec, n_per=n_per, seed=seed, dtype=dtype, device=device)
+        cfg = mon.MonitorConfig()
+        return (lambda n: mon.run_monitor(st, ar, cfg=cfg, n_ticks=n),
+                lambda n: cp.monitor_run_plain(st, ar, cfg, n), n_ticks)
+    rng = np.random.default_rng(seed)
+    th = torch.as_tensor(rng.uniform(-np.pi, np.pi, (n_layers, n_per)), dtype=dtype,
+                         device=device)
+    om = 0.02 * (torch.as_tensor(knm.plasma_omega(8)[:n_layers], dtype=dtype, device=device)
+                 [:, None].expand(n_layers, n_per) * 0.1)
+    mask = torch.ones(n_layers, n_per, dtype=dtype, device=device)
+    k, al, _ = knm.KnmSpec(k=np.full((n_layers, n_layers), 1.5)).arrays(dtype, device)
+    ze = torch.full((n_layers,), 0.5, dtype=dtype, device=device)
+    kw = dict(dt=0.01, psi_external=0.5, psi_mode=what)
+    return (lambda n: cp.upde_run(th, om, mask, k, al, ze, n_steps=n, **kw),
+            lambda n: cp.upde_run_plain(th, om, mask, k, al, ze, n_steps=n, **kw), n_ticks)
+
+
+def phase_work(label: str, n_ticks: int, item: int):
+    """Row U: (bytes, operations, peak rate) of a :data:`PHASE_CASES` case:
+    the inputs read once (phases, frequencies, mask, K, alpha, zeta, the
+    guard's ring) and the traces written once (the monitor's five value
+    traces, verdicts and counts, its final state; ``run_upde``'s phase trace
+    and four value traces)."""
+    _, n_layers, n, _, _, what = next(c for c in PHASE_CASES if c[0] == label)
+    inputs = item * (3 * n_layers * n + 2 * n_layers * n_layers + n_layers)
+    if what in ("monitor", "replay"):
+        out = n_ticks * (item * (2 * n_layers + 3) + 1 + 4) + item * (n_layers * n + 50) + 8
+        inputs += item * 50 + 8
+    else:
+        out = n_ticks * item * (n_layers * n + 2 * n_layers + 2)
+    osc, pair, layer = PHASE_OPS
+    ops = n_ticks * (osc * n_layers * n + pair * n_layers * n_layers + layer * n_layers)
+    return float(inputs + out), float(ops), F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S
+
+
+def phase_equal(a, b) -> bool:
+    """``torch.equal`` over nested tuples of tensors, on the CPU."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), torch.as_tensor(b).cpu())
+    return all(phase_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_numpy(out):
+    """A run's tensors (nested) as numpy arrays, to cross a pipe."""
+    import torch
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    return [phase_numpy(x) for x in out]
+
+
+def slice21_plain_on_card(conn) -> None:
+    """Row U's plain twin on the card, in a process of its own: every
+    :data:`PHASE_CASES` case at full length in float32 and float64, the timed
+    one (the monitor, float32) between CUDA events after a warm-up, as numpy
+    arrays by (dtype, case)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    dev, out = torch.device("cuda"), {}
+    for dtype in (torch.float32, torch.float64):
+        for label, *_ in PHASE_CASES:
+            phase_case(label, dtype, dev)[1](3)       # a warm-up of every op
+    for dtype in (torch.float32, torch.float64):
+        for label, *_ in PHASE_CASES:
+            _, plain, n_ticks = phase_case(label, dtype, dev)
+            res, ms = events_ms(functools.partial(plain, n_ticks))
+            out[(str(dtype), label)] = phase_numpy(res)
+            out[(str(dtype), label, "ms")] = ms
+    conn.send(out)
+    conn.close()
+
+
+def replay_episodes(device) -> dict:
+    """The replay certificate's four episodes on the port
+    (``validation/run_replay_certificate.py:56-112``): a 65^2 Solov'ev
+    multigrid solve (float64, plain ops), the 4-layer monitor for 500 ticks
+    (float32, as ``init_monitor`` forces; row U on the card), the
+    fault-tolerant shot with two coil losses (float64), 50 Aurora-parity
+    steps (float64); the sha256 of each as float64 bytes."""
+    import hashlib
+    import torch
+    from scpn_fusion_tpu_torch.control.fault_tolerant import (
+        ACTUATOR_LOSS, run_fault_tolerant_shot,
+    )
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.solovev import SolovevParams
+    from scpn_fusion_tpu_torch.models.phase.knm import KnmSpec
+    from scpn_fusion_tpu_torch.models.phase.monitor import init_monitor, run_monitor
+    from scpn_fusion_tpu_torch.models.transport.aurora_parity import radial_transport_step
+    from scpn_fusion_tpu_torch.ops import multigrid as mg
+    from scpn_fusion_tpu_torch.ops.stencil import apply_dirichlet
+
+    def digest(x) -> str:
+        a = np.ascontiguousarray(np.asarray(x.detach().cpu().numpy(), np.float64))
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    f64, hashes = torch.float64, {}
+    params = SolovevParams()
+    grid = Grid.from_bounds(65, 65, 3.0, 9.0, -3.0, 3.0, dtype=f64, device=device)
+    psi_exact = params.psi(grid.RR, grid.ZZ)
+    psi0 = apply_dirichlet(torch.zeros_like(psi_exact), psi_exact)
+    hashes["equilibrium_psi"] = digest(mg.mg_solve(psi0, params.source(grid.RR), grid.R, grid.dR,
+                                                   grid.dZ, n_cycles=20, use_pallas=False))
+    state, arrays = init_monitor(KnmSpec(k=0.8 * np.ones((4, 4)) + 0.4 * np.eye(4)), n_per=32,
+                                 seed=42, device=device)
+    hashes["phase_r_global"] = digest(run_monitor(state, arrays, n_ticks=500)[1].r_global)
+    rng = np.random.default_rng(7)
+    kw = dict(dtype=f64, device=device)
+    shot = run_fault_tolerant_shot(
+        torch.tensor(rng.standard_normal((4, 6)), **kw), torch.tensor([1.0, -0.5, 0.3, 0.8], **kw),
+        fault_times=torch.tensor([40, 70, -1], device=device),
+        fault_kinds=torch.tensor([ACTUATOR_LOSS, ACTUATOR_LOSS, 0], device=device),
+        fault_indices=torch.tensor([1, 4, -1], device=device), n_steps=150)
+    hashes["control_error_norm"] = digest(shot.error_norm)
+    nr, nz = 24, 5
+    r = np.linspace(0.05, 0.6, nr)
+    prof = np.exp(-((r - 0.3) / 0.08) ** 2)
+    out = torch.tensor(np.tile(prof[:, None], (1, nz)) * (1.0 + np.arange(nz)), **kw)
+    d, v = torch.ones((nr, nz), **kw), -2.0 * torch.ones((nr, nz), **kw)
+    for _ in range(50):
+        out = radial_transport_step(out, d, v, torch.tensor(r, **kw), 1e-4)
+    hashes["transport_density"] = digest(out)
+    return hashes
+
+
+def replay_combined(hashes: dict) -> str:
+    import hashlib
+    return hashlib.sha256(json.dumps(hashes, sort_keys=True).encode()).hexdigest()
+
+
+def replay_on_card(conn) -> None:
+    """Lane 3 of the replay certificate: the episodes in a fresh interpreter
+    (started with another ``PYTHONHASHSEED``) on the card; sends the
+    combined hash and the components."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    hashes = replay_episodes(torch.device("cuda"))
+    conn.send((replay_combined(hashes), hashes))
+    conn.close()
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """The process environment with ``values`` set, restored on the way out
+    (a spawned process reads it when it starts)."""
+    import os
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def multi_machine_solves(device, dtype) -> dict:
+    """Lane 1 of ``validation/run_multi_machine.py``: the 65^2 multigrid
+    Picard solve on each :data:`MACHINES` geometry (the PF pattern scaled
+    by R0, the device Ip as the target); on the card in float32 kernels 2 and
+    3 run once each a Picard iteration.  By machine: (psi, converged,
+    iterations, psi span)."""
+    from scpn_fusion_tpu_torch.core.config import (
+        Coil, Dimensions, PhysicsParams, ReactorConfig, SolverParams,
+    )
+    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium
+    out = {}
+    for name, r0, a, ip, *_ in MACHINES:
+        coils = tuple(Coil(r=r0 * pr, z=r0 * pz, current=ip * pc, name=f"PF{i + 1}")
+                      for i, (pr, pz, pc) in enumerate(PF_PATTERN))
+        cfg = ReactorConfig(
+            reactor_name=name, grid_resolution=(65, 65),
+            dimensions=Dimensions(R_min=0.35 * r0, R_max=1.80 * r0, Z_min=-0.70 * r0,
+                                  Z_max=0.70 * r0),
+            coils=coils,
+            physics=PhysicsParams(plasma_current_target=ip, vacuum_permeability=1.0,
+                                  profile_mode="l-mode"),
+            solver=SolverParams(max_iterations=600, convergence_threshold=1e-4,
+                                relaxation_factor=0.1, solver_method="multigrid",
+                                inner_sweeps=1))
+        res = solve_equilibrium(cfg, dtype=dtype, device=device)
+        psi = res.psi.detach().cpu().to(dtype)
+        out[name] = (psi.numpy(), bool(res.converged), int(res.iterations),
+                     float(psi.max() - psi.min()))
+    return out
+
+
+def discharge_lane(lanes, label: str, cfg, dtype, device, n_steps: int, f32: bool = False):
+    """One discharge of ``models/wdm.py`` into ``lanes``: its traces, final
+    state and collapse time."""
+    from scpn_fusion_tpu_torch.models import wdm
+    tr = lanes.run(label, lambda: wdm.run_discharge(cfg, wdm.default_initial_state(
+        cfg, dtype, device), n_steps))
+    lanes.put(label, {k: getattr(tr, k) for k in tr._fields[:-1]}, f32=f32)
+    lanes.put(f"{label} final", tr.final_state, f32=f32)
+    lanes.verdicts[f"{label} collapse"] = wdm.collapse_time_s(tr)
+
+
+def zl_lanes(device, psi_129=None) -> dict:
+    """(zl)'s lanes: the CLI's discharge (``WDMConfig()``, 200 steps) in
+    float64 and ``tests/test_wdm.py``'s three; ``quantify_uncertainty`` at
+    10,000 samples and ``quantify_full_chain`` at 5000, the PCE fits, Sobol
+    indices and LHS at ``tests/test_uq.py``'s sizes, lane 4 of
+    ``run_physics_closures.py``; the CLI's 65^2 forward channels
+    (``cli.py:470-505``, float32 as the CLI's grid); tomography at
+    ``tests/test_tomography.py``'s 48 chords, RES 16, the three methods at
+    500 iterations; the magnetic probes on ``psi_129`` (path (b)'s 129^2
+    free-boundary psi, as float64); the quasi-3D chain at its defaults (720
+    samples, 56 x 48 x 14, the zonal ratio, 48 x 120 two-fluid steps, the TBR
+    calibration) with ``run_quasi3d_contracts.py``'s force-balance lane;
+    lanes 2 and 3 of ``run_multi_machine.py``.  Float64 but where said; the
+    draws from ``torch.Generator``s on the CPU, so every device sees the same."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import free_boundary_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models import wdm
+    from scpn_fusion_tpu_torch.models.diagnostics import forward as fw
+    from scpn_fusion_tpu_torch.models.diagnostics import tomography as tomo
+    from scpn_fusion_tpu_torch.models.physics import quasi3d as q3
+    from scpn_fusion_tpu_torch.models.physics import stellarator as st
+    from scpn_fusion_tpu_torch.models.physics.scaling_burn import ipb98y2_tau_e
+    from scpn_fusion_tpu_torch.models.transport.solver import TransportParams
+    from scpn_fusion_tpu_torch.models.uq import mc, pce
+    lanes, f32, f64 = Lanes(), torch.float32, torch.float64
+    kw = dict(dtype=f64, device=device)
+
+    # the whole-device discharges
+    discharge_lane(lanes, "discharge", wdm.WDMConfig(), f64, device, WDM_STEPS)
+    for label, c_kw, n in WDM_TEST_CASES:
+        cfg = wdm.WDMConfig(transport=TransportParams(nr=32, picard_max_iter=5), **c_kw)
+        discharge_lane(lanes, f"wdm test {label}", cfg, f64, device, n)
+    lanes.put("eos", {"tf": wdm.thomas_fermi_pressure([1e20, 1e30, 1e30], [1e4, 0.0, 1.0], **kw),
+                      "redep": wdm.redeposition_fraction([1.0, 5.0, 20.0], 1e19, **kw)})
+
+    # uncertainty quantification
+    s = mc.PlasmaScenario(**ITER_UQ)
+    lanes.put("uq", lanes.run("quantify_uncertainty 10000", lambda: mc.quantify_uncertainty(
+        s, n_samples=10000, seed=0, **kw)))
+    lanes.put("uq full", lanes.run("quantify_full_chain 5000", lambda: mc.quantify_full_chain(
+        s, n_samples=5000, seed=0, **kw)))
+    lanes.put("uq base 3000", mc.quantify_uncertainty(s, n_samples=3000, seed=1, **kw))
+    lanes.put("uq full 3000", mc.quantify_full_chain(s, n_samples=3000, seed=1, **kw))
+
+    def pce_lanes():
+        g = torch.Generator().manual_seed(0)
+        x2, xt, x3 = (torch.randn(shape, generator=g, dtype=f64).to(device)
+                      for shape in ((400, 2), (50, 2), (500, 3)))
+
+        def f(x):
+            return 2.0 + 0.5 * x[:, 0] + 1.5 * (x[:, 1] ** 2 - 1.0) + 0.3 * x[:, 0] * x[:, 1]
+
+        fit = pce.fit_pce(x2, f(x2)[:, None], order=2)
+        one = pce.fit_pce(x2[:100], 3.0 * x2[:100, :1], order=1)
+        sob = pce.fit_pce(x3, (5.0 * x3[:, 0] + 0.5 * x3[:, 2])[:, None], order=2)
+        return {"predict": pce.predict_pce(fit, xt)[:, 0], "truth": f(xt),
+                "point": pce.predict_pce(one, torch.tensor([1.0, 0.0], **kw)),
+                "sobol": pce.sobol_first_order(sob), "coeff": fit.coefficients,
+                "lhs": pce.latin_hypercube(torch.Generator().manual_seed(0), 100, 3, **kw)}
+
+    lanes.put("pce", lanes.run("PCE", pce_lanes))
+    central = torch.as_tensor(mc.IPB98_CENTRAL, **kw)
+    lanes.put("closures lane 4", {f"tau{p:g}": mc.ipb98_tau_e(mc.PlasmaScenario(
+        i_p_ma=15.0, b_t=5.3, p_heat_mw=p, n_e_19=10.0, r_major=6.2, aspect=3.1, kappa=1.7),
+        central) for p in (50.0, 100.0)})
+
+    # the CLI's forward channels, float32 (cli.py:470-505)
+    def channels():
+        grid = Grid.from_bounds(65, 65, 4.0, 8.4, -2.2, 2.2, dtype=f32, device=device)
+        rho = torch.sqrt(((grid.RR - 6.2) / 2.0) ** 2 + (grid.ZZ / 3.6) ** 2)
+        ne = 1e20 * torch.clamp(1.0 - rho**2, min=0.0)
+        pts = torch.tensor([[6.2, 0.0], [7.0, 0.0]], dtype=f32, device=device)
+        return fw.generate_forward_channels(
+            ne_m3=ne, te_kev=20.0 * torch.clamp(1.0 - rho**2, min=0.0) ** 1.5,
+            neutron_source=1e18 * torch.clamp(1.0 - rho**2, min=0.0) ** 2, grid=grid,
+            chords=torch.tensor([[[6.2, -2.2], [6.2, 2.2]], [[5.0, -2.2], [5.0, 2.2]]], dtype=f32,
+                                device=device), thomson_points=pts, ece_channels=pts,
+            volume_element_m3=grid.dR * grid.dZ * 2 * np.pi * 6.2)
+
+    # the CLI prints the first three; ne^2 of 1e40 m^-6 overflows float32 in the soft X-ray
+    # and bolometer channels, as in the JAX package
+    cli = lanes.run("CLI forward channels 65^2 f32", channels)
+    lanes.put("cli channels", {k: getattr(cli, k) for k in cli._fields[:4]}, f32=True)
+
+    # tomography at tests/test_tomography.py's geometry
+    res, r_min, r_max, z_min, z_max, iters = TOMO
+
+    def tomography():
+        s1, e1 = tomo.fan_chords(13.0, 0.0, n_chords=24, r_target=2.5, z_span=4.5, **kw)
+        r_hits = torch.tensor(np.linspace(4.5, 8.0, 24), **kw)
+        starts = torch.cat([s1, torch.stack([r_hits, torch.full_like(r_hits, 4.0)], 1)])
+        ends = torch.cat([e1, torch.stack([r_hits, torch.full_like(r_hits, -4.0)], 1)])
+        a = tomo.build_geometry_matrix(starts, ends, r_min, r_max, z_min, z_max, res=res,
+                                       n_samples=120)
+        rr, zz = np.meshgrid(np.linspace(r_min, r_max, res), np.linspace(z_min, z_max, res))
+        phantom = torch.tensor(np.exp(-((rr - 6.2) ** 2 + zz**2) / 0.8).reshape(-1), **kw)
+        out = {"a": a, "phantom": phantom}
+        for method in ("nnls", "sart", "ridge"):
+            out[method] = tomo.reconstruct(a, a @ phantom, res=res, lambda_reg=0.01,
+                                           method=method, n_iters=iters)
+        return out
+
+    lanes.put("tomography", lanes.run("tomography", tomography))
+
+    # the magnetic probes on (b)'s 129^2 free-boundary psi
+    if psi_129 is not None:
+        grid = Grid.from_config(free_boundary_config(129), **kw)
+        rng = np.random.default_rng(129)
+        pts = torch.tensor(np.stack([rng.uniform(grid.R_min + 0.5, grid.R_max - 0.5, 24),
+                                     rng.uniform(grid.Z_min + 0.5, grid.Z_max - 0.5, 24)], 1),
+                           **kw)
+        lanes.put("probes", dict(zip(("psi", "b_r", "b_z"), lanes.run(
+            "magnetic probes", lambda: fw.synthetic_magnetic_probes(
+                torch.tensor(psi_129, **kw), grid, pts)))))
+
+    # the quasi-3D chain at its defaults
+    def quasi3d():
+        base, stellar = st.StellaratorConfig(**Q3D_BASE), st.StellaratorConfig(**Q3D_STELLAR)
+        obs = q3.quasi_3d_force_balance(torch.Generator().manual_seed(42), base=base,
+                                        stellar=stellar, samples=720, **kw)
+        mean, p95 = q3.solve_quasi_3d_force_residual(obs.asymmetry_index, obs.n1_amp,
+                                                     obs.n2_amp, **kw)
+        hall = q3.hall_mhd_zonal_ratio(torch.Generator().manual_seed(42 + 911), grid=18,
+                                       steps=36, **kw)
+        ref, _ = q3.jet_solps_reference_profile(list(JET_TEST_STATS), 48)
+        div = q3.build_divertor_profiles(n1_amp=obs.n1_amp, n2_amp=obs.n2_amp,
+                                         z_n1_amp=obs.z_n1_amp, zonal_ratio=hall["zonal_ratio"],
+                                         reference_profile_w_m2=ref, **kw)
+        tbr = q3.calibrate_tbr_with_erosion(
+            mean_heat_flux_w_m2=float(np.mean(div["predicted_profile_w_m2"])),
+            thickness_cm=260.0, asdex_erosion_ref_mm_year=0.25, **kw)
+        return obs, (mean, p95), hall, div, tbr
+
+    obs, (mean, p95), hall, div, tbr = lanes.run("quasi-3D chain", quasi3d)
+    lanes.put("q3d force balance", obs)
+    lanes.put("q3d residual", {"mean": mean, "p95": p95})
+    lanes.put("q3d", {"zonal": hall["zonal_ratio"], "profile": div["predicted_profile_w_m2"],
+                      "gain": div["cooling_gain_pct"], **div["two_fluid_diag"],
+                      **div["divertor_state"]})
+    lanes.put("q3d tbr", {k: v for k, v in tbr.items() if not isinstance(v, bool)})
+    lanes.verdicts["q3d"] = (hall["backend"], tbr["calibration_triggered"])
+
+    # lanes 2 and 3 of run_multi_machine.py
+    def machines():
+        out = {}
+        for name, r0, a, ip, bt, kappa, ne19, ploss, _ in MACHINES:
+            out[f"tau {name}"] = ipb98y2_tau_e(ip, bt, ne19, ploss, r0, kappa, a / r0)
+            grid = Grid.from_bounds(129, 129, r0 - 1.2 * a, r0 + 1.2 * a, -1.2 * a * kappa,
+                                    1.2 * a * kappa, **kw)
+            rho = torch.sqrt(((grid.RR - r0) / a) ** 2 + (grid.ZZ / (a * kappa)) ** 2)
+            ne_map = ne19 * 1e19 * torch.clamp(1.0 - rho**2, min=0.0)
+            te_map = 10.0 * torch.clamp(1.0 - rho**2, min=0.0) ** 1.5
+            chord = torch.tensor([[[r0, -1.2 * a * kappa], [r0, 1.2 * a * kappa]]], **kw)
+            out[f"phase {name}"] = fw.interferometer_phase_shift(ne_map, grid, chord,
+                                                                 samples=513)[0]
+            out[f"thomson {name}"] = fw.thomson_scattering_voltage(
+                ne_map, te_map, grid, torch.tensor([[r0, 0.0]], **kw))[0]
+        return out
+
+    lanes.put("multi-machine", lanes.run("multi-machine lanes 2-3", machines))
+    return lanes.as_dict()
+
+
+def zm_lanes(device) -> dict:
+    """(zm)'s lanes in float64 but where said: ``run_kuramoto`` at
+    ``tests/test_phase.py``'s sizes (256 oscillators; 2000 steps strongly
+    coupled, 1000 weakly, 2000 driven), the 8 x 50 monitor and the
+    strong-coupling ``run_upde`` through row U (one launch each on the
+    card), and the gates of ``tests/test_phase_monitor.py`` (20 oscillators
+    a layer, seed 3, float32 as JAX's ``init_monitor`` forces; its 200-tick
+    run also in float64)."""
+    import io
+    import torch
+    from scpn_fusion_tpu_torch.models.phase import guard, knm, kuramoto, monitor as mon
+    lanes, f64 = Lanes(), torch.float64
+    rng = np.random.default_rng(0)
+    theta0, normal = rng.uniform(-np.pi, np.pi, 256), rng.normal(size=256)
+    for label, th0, omega, k, zeta, mode, n in (
+            ("sync", theta0, 0.1 * normal, 2.0, 0.0, "mean_field", 2000),
+            ("no sync", theta0, 2.0 * normal, 0.05, 0.0, "mean_field", 1000),
+            ("driven", np.linspace(-2.0, 2.0, 64), np.zeros(64), 0.0, 2.0, "external", 2000)):
+        tr = lanes.run(f"kuramoto {label}", lambda: kuramoto.run_kuramoto(
+            th0, omega, dt=0.01, k_coupling=k, zeta=zeta, psi_external=1.0, psi_mode=mode,
+            n_steps=n, dtype=f64, device=device))
+        lanes.put(f"kuramoto {label}", {"r": tr.r, "v": tr.v, "lambda": tr.lambda_exp,
+                                        "v_end": kuramoto.lyapunov_v(tr.theta[-1], 1.0)})
+    for label in ("monitor 8 x 50", "run_upde 4 x 32 external"):
+        run, _, n_ticks = phase_case(label, f64, device)
+        out = lanes.run(label, lambda: run(n_ticks))
+        if label.startswith("monitor"):
+            final, trace = out
+            lanes.put(label, trace)
+            lanes.put(f"{label} final", {"theta": final.theta, "ring": final.guard.v_buffer,
+                                         "seen": final.guard.n_seen,
+                                         "consecutive": final.guard.consecutive})
+        else:
+            lanes.put(label, dict(zip(("theta", "r_layer", "r_global", "v_layer", "v_global"),
+                                      out)))
+
+    def monitor_gates():
+        spec = knm.build_knm_plasma("baseline", 8)
+        st, ar = mon.init_monitor(spec, n_per=20, seed=3, device=device)
+        new, snap = mon.monitor_tick(st, ar)
+        final, trace = mon.run_monitor(st, ar, n_ticks=200)
+        cfg = mon.MonitorConfig(psi_driver=float(np.pi), guard=guard.GuardConfig(
+            window=20, max_violations=1, lambda_threshold=-10.0))
+        _, bad = mon.run_monitor(st, ar, cfg=cfg, n_ticks=100)
+        _, five = mon.run_monitor(st, ar, n_ticks=5)
+        codec, buf = mon.PhaseStreamCodec(token="s3cret"), io.BytesIO()
+        frames = mon.stream_trace(five, codec, buf)
+        first = codec.decode(buf.getvalue().splitlines()[0])
+        last = trace.snapshot(199)
+        st64, ar64 = mon.init_monitor(spec, n_per=20, seed=3, dtype=f64, device=device)
+        ref64 = mon.run_monitor(st64, ar64, n_ticks=200)[1]
+        return {"tick1": int(new.tick), "r_layer1": tuple(snap["r_layer"].shape),
+                "r_global1_in_0_1": 0.0 <= float(snap["r_global"]) <= 1.0,
+                "ticks": trace.n_ticks, "final_tick": int(final.tick),
+                "finite": bool(torch.isfinite(trace.v_global).all()),
+                "last_snapshot": (last["tick"], type(last["guard_approved"]).__name__),
+                "divergence_refused": not bool(bad.guard_approved[-1]), "frames": frames,
+                "first": (first["type"], first["tick"]), "trace": trace, "ref64": ref64}
+
+    gates = lanes.run("monitor gates", monitor_gates)
+    lanes.verdicts["monitor gates"] = {k: v for k, v in gates.items()
+                                       if k not in ("trace", "ref64")}
+    lanes.put("monitor gates", gates["trace"], f32=True)
+    lanes.put("monitor gates", gates["ref64"])
+    return lanes.as_dict()
+
+
+def slice21_on_cpu(conn, psi_129) -> None:
+    """The CPU twins of (zl) and (zm) on two threads: their lanes, and lane 1
+    of ``run_multi_machine.py`` in float32 plain ops."""
+    dev = on_cpu(2)
+    import torch
+    conn.send({"zl": zl_lanes(dev, psi_129), "zm": zm_lanes(dev),
+               "machines": multi_machine_solves(dev, torch.float32)})
+    conn.close()
+
+
+def zl_gates(r: dict, machines: dict) -> dict:
+    """The gates of (zl): ``tests/test_wdm.py``, ``test_uq.py``,
+    ``test_tomography.py``, ``test_quasi3d.py`` and
+    ``test_diagnostics_surrogates.py``'s forward models, lane 4 of
+    ``run_physics_closures.py``, lanes 1-3 of ``run_multi_machine.py`` and
+    the force-balance lane of ``run_quasi3d_contracts.py``."""
+    num, f32r, verdicts = r["num"], r["f32"], r["verdicts"]
+    w_acc = num["wdm test accumulates w_impurity_total"]
+    col = num["wdm test collapse collapsed"]
+    k = int(np.argmax(col))
+    te = num["wdm test collapse te_core_kev"]
+    tau_p = num["uq tau_e_percentiles"]
+    res, *_ = TOMO
+    rr, zz = np.meshgrid(np.linspace(TOMO[1], TOMO[2], res), np.linspace(TOMO[3], TOMO[4], res))
+    truth = np.exp(-((rr - 6.2) ** 2 + zz**2) / 0.8)
+
+    def tomo_ok(method):
+        img = num[f"tomography {method}"]
+        pk_t = np.unravel_index(truth[1:-1, 1:-1].argmax(), (res - 2, res - 2))
+        pk_r = np.unravel_index(img[1:-1, 1:-1].argmax(), (res - 2, res - 2))
+        return (bool(np.all(img >= 0)) and abs(pk_t[0] - pk_r[0]) <= 2
+                and abs(pk_t[1] - pk_r[1]) <= 2
+                and np.corrcoef(truth.reshape(-1), img.reshape(-1))[0, 1] > 0.6)
+
+    taus = {m[0]: float(num[f"multi-machine tau {m[0]}"]) for m in MACHINES}
+    order = ["ITER", "SPARC", "JET", "DIII-D", "MAST-U"]
+    nbar = {}
+    for name, r0, a, ip, bt, kappa, ne19, *_ in MACHINES:
+        z = np.linspace(-1.2 * a * kappa, 1.2 * a * kappa, 4097)
+        length = 2.0 * 1.2 * a * kappa
+        true = float(np.trapezoid(ne19 * 1e19 * np.maximum(1.0 - (z / (a * kappa)) ** 2, 0.0), z)
+                     / length)
+        rec = float(num[f"multi-machine phase {name}"]) / (2.8179403262e-15 * 1.064e-6 * length)
+        nbar[name] = abs(rec - true) / true
+    volts = sorted((m[6], float(num[f"multi-machine thomson {m[0]}"])) for m in MACHINES)
+    ratio = float(num["closures lane 4 tau100"] / num["closures lane 4 tau50"])
+    gates = {
+        "wdm: inventory never decreases, time 0.01 k, redeposition in [0, 0.99]":
+        bool(np.all(np.diff(w_acc) >= -1e-6))
+        and np.allclose(num["wdm test accumulates time_s"], 0.01 * np.arange(1, 41), rtol=1e-5)
+        and bool(np.all((num["wdm test accumulates redeposition_fraction"] >= 0)
+                        & (num["wdm test accumulates redeposition_fraction"] <= 0.99))),
+        "wdm: the collapse latches and freezes Te":
+        bool(col.any()) and bool(np.all(te[k + 1:] == te[k + 1]))
+        and verdicts["wdm test collapse collapse"] is not None,
+        "wdm: no collapse without penetration": verdicts["wdm test clean collapse"] is None
+        and abs(float(num["wdm test clean w_impurity_total"][-1])) <= 1e-8,
+        "wdm: EOS regimes": abs(float(num["eos tf"][0]) / (1e20 * 1e4 * 1.602176634e-19) - 1.0)
+        <= 1e-3 and float(num["eos tf"][2]) > float(num["eos tf"][1])
+        and bool(np.all(np.diff(num["eos redep"]) >= 0)),
+        "uq: ordered percentiles, median inside, sigmas > 0": bool(np.all(np.diff(tau_p) >= 0))
+        and tau_p[0] < float(num["uq tau_e"]) < tau_p[-1] and float(num["uq tau_e_sigma"]) > 0
+        and float(num["uq q_sigma"]) > 0,
+        "uq: the full chain widens tau_E": float(num["uq full 3000 tau_e_sigma"])
+        > float(num["uq base 3000 tau_e_sigma"])
+        and bool(np.all(np.diff(num["uq full 3000 q_bands"]) >= 0)),
+        "pce: the fit recovers the polynomial, 1e-4":
+        float(np.max(np.abs(num["pce predict"] - num["pce truth"]))) <= 1e-4
+        and abs(float(num["pce point"][0]) - 3.0) <= 1e-5,
+        "pce: Sobol finds the dominant input": float(num["pce sobol"][0]) > 0.9
+        and float(num["pce sobol"][1]) < 0.05 and abs(float(num["pce sobol"].sum()) - 1.0) <= 0.05,
+        "pce: LHS stratified": all(len(np.unique(np.floor(num["pce lhs"][:, d] * 100))) == 100
+                                   for d in range(3)),
+        "closures lane 4: tau(2P)/tau(P) = 2^-0.69 +-1%, ITER tau in [2.8, 4.2] s":
+        abs(ratio / 2.0 ** -0.69 - 1.0) < 0.01
+        and 2.8 <= float(num["closures lane 4 tau100"]) <= 4.2,
+        "cli channels finite": all(bool(np.all(np.isfinite(v))) for k_, v in f32r.items()
+                                   if k_.startswith("cli channels")),
+        "tomography: geometry >= 0, >= 40 chords cross": bool(np.all(num["tomography a"] >= 0))
+        and int((num["tomography a"].sum(axis=1) > 0).sum()) >= 40,
+        **{f"tomography {m}: peak within 2 pixels, correlation > 0.6": tomo_ok(m)
+           for m in ("nnls", "sart", "ridge")},
+        "quasi-3D: force balance (contract lane: rmse <= 8 %, p95 <= 12 %)":
+        float(num["q3d force balance force_balance_rmse_pct"])
+        <= Q3D_THRESHOLDS["max_force_balance_rmse_pct"]
+        and float(num["q3d residual p95"]) <= Q3D_THRESHOLDS["max_force_residual_p95_pct"],
+        "quasi-3D: n1 ~ 0.057, asymmetry > 0.01, p95 > mean > 0":
+        abs(float(num["q3d force balance n1_amp"]) / 0.057 - 1.0) <= 0.05
+        and float(num["q3d force balance asymmetry_index"]) > 0.01
+        and 0.0 < float(num["q3d residual mean"]) < float(num["q3d residual p95"]),
+        "quasi-3D: cooling gain in (0.1, 30) %, Te > 2 keV, zonal ratio in (0, 1)":
+        0.1 < float(num["q3d gain"]) < 30.0 and float(num["q3d electron_temp_mean_kev"]) > 2.0
+        and 0.0 < float(num["q3d zonal"]) < 1.0 and verdicts["q3d"][0] == "hall_mhd",
+        "quasi-3D: calibrated TBR <= raw, factor in (0, 1]": float(num["q3d tbr calibrated_tbr"])
+        <= float(num["q3d tbr raw_tbr"]) + 1e-9 and 0.0 < float(num["q3d tbr calibration_factor"])
+        <= 1.0,
+        "multi-machine lane 1: every solve converges, span > 0, < 600 iterations":
+        all(conv and span > 0 and it < 600 for _, conv, it, span in machines.values()),
+        "multi-machine lane 2: tau in its window, ITER > SPARC > JET > DIII-D > MAST-U":
+        all(m[8][0] <= taus[m[0]] <= m[8][1] for m in MACHINES)
+        and all(taus[order[i]] > taus[order[i + 1]] for i in range(4)),
+        "multi-machine lane 3: nbar within 2 %, Thomson monotone in density":
+        all(v < 0.02 for v in nbar.values())
+        and all(b[1] > a_[1] for a_, b in zip(volts, volts[1:])),
+    }
+    if "probes psi" in num:
+        gates["probes finite"] = all(bool(np.all(np.isfinite(num[f"probes {c}"])))
+                                     for c in ("psi", "b_r", "b_z"))
+    return {k_: bool(v) for k_, v in gates.items()}
+
+
+def zm_gates(r: dict) -> dict:
+    """The gates of (zm): ``tests/test_phase.py``'s Kuramoto and UPDE runs
+    and ``tests/test_phase_monitor.py``'s monitor."""
+    num, g = r["num"], r["verdicts"]["monitor gates"]
+    gates = {
+        "kuramoto: sync above critical (r 0.9 at the end, < 0.7 at the start)":
+        float(num["kuramoto sync r"][-1]) > 0.9 and float(num["kuramoto sync r"][0]) < 0.7,
+        "kuramoto: no sync below critical (r < 0.4)": float(num["kuramoto no sync r"][-1]) < 0.4,
+        "kuramoto: the driver entrains (V < 1e-3, lambda < 0)":
+        float(num["kuramoto driven v_end"]) < 1e-3 and float(num["kuramoto driven lambda"]) < 0.0,
+        "upde: strong coupling synchronises (r > 0.9, V < 0.1)":
+        float(num["run_upde 4 x 32 external r_global"][-1]) > 0.9
+        and float(num["run_upde 4 x 32 external v_global"][-1]) < 0.1,
+        "monitor: one tick, 8 layers, 0 <= R <= 1": g["tick1"] == 1 and g["r_layer1"] == (8,)
+        and g["r_global1_in_0_1"],
+        "monitor: 200 ticks recorded, finite V, snapshot 200": g["ticks"] == 200
+        and g["final_tick"] == 200 and g["finite"] and g["last_snapshot"] == (200, "bool"),
+        "monitor: the guard refuses anti-phase driving": g["divergence_refused"],
+        "stream: five frames, the first a snapshot of tick 1": g["frames"] == 5
+        and g["first"] == ("snapshot", 1),
+    }
+    return {k: bool(v) for k, v in gates.items()}
+
+
+def phase_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                 measured_plain: dict, plain_card) -> int:
+    """(zm) row U: every :data:`PHASE_CASES` case ONE launch of
+    ``csrc/phase.cu`` in float32 and float64, ``torch.equal`` to the plain
+    twin on the card (``plain_card``: :func:`slice21_plain_on_card`'s);
+    row U's times against its bound and chain.  Returns its counted
+    launches."""
+    import torch
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_phase as cp
+
+    print(f"(zm) csrc/phase.cu's PTX (nvcc -ptx, sm_90a): {orbit_ptx('phase.cu')} (the kernel's "
+          f"own divisions and roots are .rn; approx forms and FMAs are libdevice's sin, cos, "
+          f"atan2 and log, as in torch's kernels); ptxas: "
+          f"{ptxas_registers(cb.BUILD_LOG.get('phase.cu', ''))}; threads at most "
+          f"{cp.max_threads(torch.float32)} f32, {cp.max_threads(torch.float64)} f64")
+    one = {name: int(name == "phase_run") for name in KERNELS}
+    plain = plain_card()
+    launches = 0
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for label, n_layers, n_per, *_ in PHASE_CASES:
+            kernel, _, n_ticks = phase_case(label, dtype, dev)
+            out, calls, launched = counted(functools.partial(kernel, n_ticks))
+            require(calls == one and launched == {f"scpn_phase_run_{tag}": 1},
+                    f"(zm) row U {label} {tag}: {calls} / {launched}, not one launch")
+            by_path[f"phase_run {label} {tag}"] = calls
+            launches += 1
+            ref = plain[(str(dtype), label)]
+            equal = phase_equal(out, ref)
+            n_pad = cp.pow2(n_per)
+            print(f"(zm) row U {tag} {label} x {n_ticks} ticks: one launch of "
+                  f"{cp.threads_for(n_layers, n_pad, cp.max_threads(dtype))} threads, "
+                  f"{cp.tick_stages(n_layers, n_pad)} "
+                  f"barrier stages a tick; torch.equal to the plain twin {equal} [{card}]")
+            require(equal, f"(zm) row U {tag} {label}: the kernel differs from its plain twin")
+            if label == PHASE_TIMED and dtype == torch.float32:
+                results["phase_run"] = {"max_abs_err": float(np.max(np.abs(
+                    out[1].r_global.cpu().numpy() - np.asarray(ref[1][0]))))}
+    measured_plain["phase_run"] = plain[(str(torch.float32), PHASE_TIMED, "ms")]
+    kernel, plain_fn, n_ticks = phase_case(PHASE_TIMED, torch.float32, dev)
+    timing["phase_run"] = (functools.partial(kernel, n_ticks), functools.partial(plain_fn, n_ticks),
+                           f"the monitor, 8 x 50 x {n_ticks} ticks f32",
+                           phase_work(PHASE_TIMED, n_ticks, 4))
+    for dtype in (torch.float32, torch.float64):
+        item = 4 if dtype == torch.float32 else 8
+        for label, n_layers, n_per, *_ in PHASE_CASES:
+            kernel, _, n_ticks = phase_case(label, dtype, dev)
+            work = phase_work(label, n_ticks, item)
+            ms_k = cuda_ms(functools.partial(kernel, n_ticks))
+            b, by = bound(work)
+            stages = n_ticks * cp.tick_stages(n_layers, cp.pow2(n_per))
+            print(f"time (zm) row U phase_run ({label} x {n_ticks} ticks "
+                  f"{'f32' if item == 4 else 'f64'}): kernel {ms_k:.4f} ms (CUDA events, median of "
+                  f"5), bound {b:.4g} ms ({by}: {work[0] / 1e6:.4g} MB, "
+                  f"{work[1] / 1e6:.4g} Mflop); "
+                  f"{stages} dependent barrier stages, {1e3 * ms_k / stages:.4f} us a stage; plain "
+                  f"{plain[(str(dtype), label, 'ms')]:.1f} ms (once, in the spawned process); "
+                  f"library_ms null (no PyTorch call runs a monitored UPDE) [{card}]")
+    return launches
+
+
+def zl_checks(dev, card: str, counted, by_path: dict, twin: dict, psi_129) -> None:
+    """(zl) on the card: :func:`zl_lanes` (row T on the transport and TEMHD
+    steps, no other kernel), the CLI's discharge in float32, lane 1 of
+    ``run_multi_machine.py`` in float32 (kernels 2 and 3 once each a Picard
+    iteration, counted exactly, against the CPU's plain float32 solves at
+    1e-3 of the span, iterations within one), the gates of :func:`zl_gates`;
+    float64 within 1e-9 of the CPU (``twin``: :func:`slice21_on_cpu`'s), the
+    collapse times and verdicts equal, the float32 channels within 1e-5."""
+    import torch
+    (r, ms), calls, _ = counted(lambda: events_ms(lambda: zl_lanes(dev, psi_129)))
+    allowed = {"thomas_solve_batched"}
+    require(all(set(c) <= allowed for c in r["counts"].values()),
+            f"(zl) lane kernel calls {r['counts']}: only row T expected")
+    q3d = {"thomas_solve_batched": 120 + 1}    # a two-fluid step each, the blanket's group
+    require(r["counts"].get("quasi-3D chain") == q3d,
+            f"(zl) quasi-3D chain: {r['counts'].get('quasi-3D chain')}, expected {q3d}")
+    by_path["zl_lanes"] = calls
+    (lanes32, ms32), calls32, _ = counted(lambda: events_ms(lambda: _discharge_f32(dev)))
+    by_path["discharge f32"] = calls32
+    (solves, ms_mm), calls_mm, launched_mm = counted(
+        lambda: events_ms(lambda: multi_machine_solves(dev, torch.float32)))
+    iters = sum(it for _, _, it, _ in solves.values())
+    require(calls_mm["fused_topology_source"] == calls_mm["fused_coarse_vcycle"] == iters
+            and all(v == 0 for k, v in calls_mm.items()
+                    if k not in ("fused_topology_source", "fused_coarse_vcycle")),
+            f"(zl) multi-machine lane 1: calls {calls_mm} over {iters} Picard iterations, not one "
+            f"source and one V-cycle an iteration")
+    by_path["multi_machine"] = calls_mm
+    cpu = twin["zl"]
+    gates = zl_gates(r, solves)
+    num = r["num"]
+    print(f"(zl) whole-device, UQ, diagnostics, tomography and quasi-3D lanes on the card: gates "
+          f"{gates}; discharge 200 steps f64: Te core "
+          f"{float(num['discharge te_core_kev'][-1])!r} keV, W "
+          f"{float(num['discharge w_impurity_total'][-1])!r}, collapse "
+          f"{r['verdicts']['discharge collapse']} (CPU {cpu['verdicts']['discharge collapse']}); "
+          f"f32: Te core {float(lanes32['f32']['discharge f32 te_core_kev'][-1])!r} keV, collapse "
+          f"{lanes32['verdicts']['discharge f32 collapse']} ({ms32:.1f} ms, row T "
+          f"{calls32['thomas_solve_batched']} launches); UQ tau_E {float(num['uq tau_e'])!r} s, "
+          f"sigma {float(num['uq tau_e_sigma'])!r}; quasi-3D rmse "
+          f"{float(num['q3d force balance force_balance_rmse_pct'])!r} %, p95 "
+          f"{float(num['q3d residual p95'])!r} %, cooling {float(num['q3d gain'])!r} %; row T "
+          f"{calls['thomas_solve_batched']} launches {r['counts']}; {ms:.1f} ms (CUDA events) "
+          f"[{card}]")
+    print(f"(zl) multi-machine lane 1 f32 through kernels 2 and 3: "
+          f"{ {k: v[1:] for k, v in solves.items()} } (converged, iterations, span); "
+          f"{calls_mm['fused_topology_source']} source and {calls_mm['fused_coarse_vcycle']} "
+          f"V-cycle calls = {iters} Picard iterations; launched {launched_mm}; {ms_mm:.1f} ms "
+          f"[{card}]")
+    require(all(gates.values()), "(zl): the port misses a gate of the JAX tests or validations")
+    for name, (psi, conv, it, _) in solves.items():
+        psi_c, conv_c, it_c, _ = twin["machines"][name]
+        dev_psi = span_rel(torch.from_numpy(psi).double(), torch.from_numpy(psi_c).double())
+        require(conv == conv_c and abs(it - it_c) <= 1 and dev_psi <= SLICE_TOL,
+                f"(zl) multi-machine {name}: kernels {conv, it} against CPU plain {conv_c, it_c}, "
+                f"psi {dev_psi:.3e}")
+    require(r["verdicts"] == cpu["verdicts"],
+            "(zl): a verdict or collapse time differs from the CPU's")
+    require(lanes32["verdicts"]["discharge f32 collapse"] == cpu["verdicts"]["discharge collapse"],
+            "(zl): the float32 discharge's collapse differs from the float64 one's")
+    agree_noise(num, cpu["num"], "(zl) lanes", card)
+    worst = max(max_rel(torch_from(r["f32"][k]), torch_from(cpu["f32"][k])) for k in cpu["f32"])
+    print(f"(zl) the CLI's float32 channels against the CPU: max relative deviation {worst:.3e} "
+          f"(limit {SCAN_F32_TOL:.0e}) [{card}]")
+    require(worst <= SCAN_F32_TOL, "(zl): a float32 channel deviates from the CPU")
+
+
+def _discharge_f32(dev) -> dict:
+    """The CLI's discharge (``WDMConfig()``, 200 steps) in float32."""
+    import torch
+    from scpn_fusion_tpu_torch.models import wdm
+    lanes = Lanes()
+    discharge_lane(lanes, "discharge f32", wdm.WDMConfig(), torch.float32, dev, WDM_STEPS,
+                   f32=True)
+    return lanes.as_dict()
+
+
+def zm_checks(dev, card: str, counted, by_path: dict, twin: dict, replay) -> int:
+    """(zm)'s lanes on the card: :func:`zm_lanes` (row U once on the monitor,
+    once on ``run_upde`` and four times in the monitor's gates, no other
+    kernel), :func:`zm_gates`; float64 within 1e-9 of the CPU, the gates'
+    verdicts equal; lanes 1 and 3 of the replay certificate (``replay``:
+    :func:`replay_on_card`'s).  Returns row U's counted launches."""
+    (r, ms), calls, _ = counted(lambda: events_ms(lambda: zm_lanes(dev)))
+    expect = {"kuramoto sync": {}, "kuramoto no sync": {}, "kuramoto driven": {},
+              "monitor 8 x 50": {"phase_run": 1}, "run_upde 4 x 32 external": {"phase_run": 1},
+              "monitor gates": {"phase_run": 4}}
+    require(r["counts"] == expect, f"(zm) lane kernel calls {r['counts']}, expected {expect}")
+    by_path["zm_lanes"] = calls
+    gates = zm_gates(r)
+    cpu = twin["zm"]
+    print(f"(zm) Kuramoto, UPDE and monitor lanes on the card: gates {gates}; sync r "
+          f"{float(r['num']['kuramoto sync r'][-1])!r}, upde r_global "
+          f"{float(r['num']['run_upde 4 x 32 external r_global'][-1])!r}; row U "
+          f"{calls['phase_run']} launches; {ms:.1f} ms (CUDA events) [{card}]")
+    require(all(gates.values()), "(zm): the port misses a gate of the JAX tests")
+    require(r["verdicts"] == cpu["verdicts"], f"(zm): the monitor gates' verdicts "
+            f"{r['verdicts']} differ from the CPU's {cpu['verdicts']}")
+    agree(r["num"], cpu["num"], "(zm) lanes", card)
+    # the float32 monitor's trace is held to the float64 one no further than
+    # MONITOR_F32_FACTOR times the CPU's float32 run is; its verdicts equal the CPU's
+    gap = {}
+    for k in cpu["f32"]:
+        ref = torch_from(cpu["num"][k])
+        gap[k] = (max_rel(torch_from(r["f32"][k]), ref), max_rel(torch_from(cpu["f32"][k]), ref))
+    print(f"(zm) the float32 monitor (row U on the card, its plain twin on the CPU) from the "
+          f"float64 trace, card / CPU: { {k: f'{a:.2e} / {b:.2e}' for k, (a, b) in gap.items()} } "
+          f"[{card}]")
+    require(all(a <= MONITOR_F32_FACTOR * b + 1e-12 for a, b in gap.values())
+            and all(np.array_equal(r["f32"][k], cpu["f32"][k]) for k in cpu["f32"]
+                    if k.endswith(("guard_approved", "guard_violations"))),
+            "(zm): the float32 monitor deviates from the float64 trace more than the CPU's")
+
+    (h1, ms1), calls1, _ = counted(lambda: events_ms(lambda: replay_episodes(dev)))
+    h2 = replay_episodes(dev)
+    fresh_hash, fresh = replay()
+    require(calls1 == {name: int(name == "phase_run") for name in KERNELS},
+            f"(zm) replay episodes: kernel calls {calls1}, expected one launch of row U")
+    by_path["replay"] = calls1
+    comb = replay_combined(h1)
+    lanes = {"double_run_determinism": h1 == h2, "cross_process_replay": fresh_hash == comb}
+    print(f"(zm) replay certificate on the port: combined {comb}; lane 1 (two in-process runs) "
+          f"{lanes['double_run_determinism']}; lane 3 (a fresh process, PYTHONHASHSEED="
+          f"{REPLAY_HASHSEED}) {lanes['cross_process_replay']}; lane 2 not run: it compares with "
+          f"the JAX package's committed hash, which the port's libdevice bits cannot give (not a "
+          f"pass); components {h1}; {ms1:.1f} ms [{card}]")
+    require(all(lanes.values()), f"(zm) replay certificate: {lanes} (fresh process {fresh})")
+    return calls["phase_run"] + calls1["phase_run"]
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.asarray(a, np.float64))
@@ -6473,15 +7321,22 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
-def late_twins(stack: contextlib.ExitStack) -> dict:
-    """Start (zh)-(zi)'s and (zj)-(zk)'s CPU twins and the plain runs of rows
-    F, E and H on the card (~230 s, ~40 s, ~300 s and ~20 s of host time) once
-    the host-bound early paths, (a)-(i), are done:
-    started with the others, they slowed those paths on an 8-core host with
-    one H100 (the whole smoke 899 s, where it had taken 770 s without them)."""
+def late_twins(stack: contextlib.ExitStack, psi_129) -> dict:
+    """Start (zh)-(zi)'s, (zj)-(zk)'s and (zl)-(zm)'s CPU twins (the last on
+    (b)'s 129^2 psi, ``psi_129``), the plain runs of rows F, E, H and U on the
+    card (~230 s, ~40 s, ~300 s and ~20 s of host time) and the replay
+    certificate's fresh process once the host-bound early paths, (a)-(i), are
+    done: started with the others, they slowed those paths on an 8-core host
+    with one H100 (the whole smoke 899 s, where it had taken 770 s without
+    them)."""
     targets = {"slice19_cpu": slice19_on_cpu, "slice19_card": slice19_plain_on_card,
-               "slice20_cpu": slice20_on_cpu, "slice20_card": slice20_plain_on_card}
-    return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+               "slice20_cpu": slice20_on_cpu, "slice20_card": slice20_plain_on_card,
+               "slice21_card": slice21_plain_on_card}
+    twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+    twins["slice21_cpu"] = stack.enter_context(cpu_twin(slice21_on_cpu, psi_129))
+    with environment(PYTHONHASHSEED=REPLAY_HASHSEED):
+        twins["replay"] = stack.enter_context(cpu_twin(replay_on_card))
+    return twins
 
 
 def main() -> int:
@@ -6554,7 +7409,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
                    "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu",
                    "disruption.cu", "sandpile.cu", "compression.cu", "orbits.cu", "burn.cu",
-                   "quench.cu"):
+                   "quench.cu", "phase.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -7091,7 +7946,8 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
-                "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0}
+                "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0,
+                "phase_run": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -7204,7 +8060,8 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
                  "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
                  "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
-                 "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0}
+                 "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0,
+                "phase_run": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -7555,7 +8412,8 @@ def _main(stack: contextlib.ExitStack) -> int:
     fd_check(*adjoint, card)
     phase_done("FD check")
     # (zh)'s twins start here, past the host-bound early paths they would slow
-    twins.update(late_twins(stack))
+    psi_129 = fb_results["fb_129"].psi.detach().cpu().numpy()
+    twins.update(late_twins(stack, psi_129))
 
     # ── the ninth slice: the Thomas kernel against its plain version, then
     # (j) the coupled GS <-> transport solve, (k) the TORAX coarse tier and
@@ -7675,6 +8533,18 @@ def _main(stack: contextlib.ExitStack) -> int:
     burn_calls += zk_burns
     phase_done("nuclear, heating-neutronics and CAD (zk)")
 
+    # ── the twenty-first slice: (zl) the whole-device discharge, UQ, the
+    # synthetic diagnostics, tomography and the quasi-3D contracts with their
+    # validation lanes; (zm) row U, the Kuramoto and monitor lanes and the
+    # replay certificate ──
+    slice21 = twins["slice21_cpu"]()
+    zl_checks(dev, card, counted, by_path, slice21, psi_129)
+    phase_done("discharge, UQ, diagnostics, tomography and quasi-3D (zl)")
+    phase_calls = phase_checks(dev, card, counted, by_path, results, timing, measured_plain,
+                               twins["slice21_card"])
+    phase_calls += zm_checks(dev, card, counted, by_path, slice21, twins["replay"])
+    phase_done("row U, Kuramoto, monitor and replay (zm)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -7692,6 +8562,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["compression_run"], launches["compression_adjoint"] = compression_calls
     launches["gc_ensemble"], launches["gc_orbit"] = orbit_calls
     launches["burn_relax"], launches["quench_run"] = burn_calls, quench_calls
+    launches["phase_run"] = phase_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

@@ -1,4 +1,4 @@
-"""Order statistics without ``torch.quantile``'s size limit.
+"""Order statistics without ``torch.quantile``'s size limit, and JAX's median.
 
 ``torch.quantile`` refuses an input of more than 2^24 elements, and it
 interpolates with ``torch.lerp``, which rounds otherwise than
@@ -44,3 +44,16 @@ def percentile(x: torch.Tensor, q: float | Sequence[float], dim: int | None = No
         res = (v_lo * w_lo + v_hi * w_hi).to(x.dtype)
         out.append(torch.where(has_nan, torch.full_like(res, math.nan), res))
     return out[0] if isinstance(q, (int, float)) else torch.stack(out)
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of all of ``x``: the sorted middle pair's sum times
+    one half (``method="midpoint"``; an odd count's middle value twice,
+    which gives that value), where ``torch.median`` returns the lower of an
+    even count's pair.  A NaN anywhere makes it NaN, as in JAX."""
+    v = torch.sort(x.reshape(-1)).values
+    n = v.shape[0]
+    if n == 0:
+        raise ValueError("median of an empty tensor")
+    res = (v[(n - 1) // 2] + v[n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(), torch.full_like(res, math.nan), res)

@@ -251,3 +251,52 @@ def equilibrium_surrogate(sur, *, device: torch.device | str = "cuda"):
         **{f: t(getattr(sur, f)) for f in ("components", "psi_mean", "x_mean", "x_std",
                                            "coeff_scale")},
         shape=tuple(sur.shape))
+
+
+# ── the phase monitor and the polynomial chaos ──
+
+
+def _fields_of(x) -> Mapping[str, Any]:
+    """A NamedTuple's fields (``_asdict()``), or the mapping itself."""
+    return x._asdict() if hasattr(x, "_asdict") else x
+
+
+def guard_state(fields, *, dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cuda"):
+    """The JAX package's ``GuardState`` (or its fields) as the port's: the
+    ring in ``dtype``, the two counters int32."""
+    from scpn_fusion_tpu_torch.models.phase.guard import GuardState
+
+    f = _fields_of(fields)
+    return GuardState(_as(f["v_buffer"], dtype, device),
+                      *(_as(f[k], torch.int32, device) for k in ("n_seen", "consecutive")))
+
+
+def monitor_state(fields, *, dtype: torch.dtype = torch.float32,
+                  device: torch.device | str = "cuda"):
+    """The JAX package's ``MonitorState`` (or its fields, the guard a
+    ``GuardState`` or its fields) as the port's."""
+    from scpn_fusion_tpu_torch.models.phase.monitor import MonitorState
+
+    f = _fields_of(fields)
+    return MonitorState(theta=_as(f["theta"], dtype, device),
+                        guard=guard_state(f["guard"], dtype=dtype, device=device),
+                        tick=_as(f["tick"], torch.int32, device))
+
+
+def monitor_arrays(arrays: Mapping[str, Any], *, dtype: torch.dtype = torch.float32,
+                   device: torch.device | str = "cuda") -> dict:
+    """The monitor's static arrays (``omega``, ``mask``, ``k_matrix``,
+    ``alpha``, ``zeta``) of ``init_monitor`` as the port's."""
+    return {k: _as(v, dtype, device) for k, v in arrays.items()}
+
+
+def pce_model(model, *, dtype: torch.dtype | None = None,
+              device: torch.device | str = "cuda"):
+    """The JAX package's ``PCEModel`` as the port's: the coefficients a
+    tensor (``dtype`` None keeps theirs), the multi-index as it is."""
+    from scpn_fusion_tpu_torch.models.uq.pce import PCEModel
+
+    f = _fields_of(model)
+    return PCEModel(_as(f["coefficients"], dtype, device),
+                    tuple(tuple(int(a) for a in alpha) for alpha in f["multi_index"]))

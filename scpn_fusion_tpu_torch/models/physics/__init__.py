@@ -14,7 +14,8 @@ adjoint on the card), ``faraday_recovery``, ``hall_mhd_pulsed`` and
 physics: ``orbits``, ``fast_ions`` (row F on the card), ``current_drive``,
 ``rf_heating``, ``drift_wave``, ``divertor_lab`` and ``stellarator``, and
 ``design_scan`` (the design scan and the compact-reactor search, their burn
-relaxations through row E on the card).  The
+relaxations through row E on the card), and ``quasi3d`` (the quasi-3D
+contracts, their TEMHD columns through row T on the card).  The
 names the JAX package exports from those modules are exported here under the
 same names; its other exports come with the modules that define them.
 """
@@ -93,3 +94,16 @@ from scpn_fusion_tpu_torch.models.physics.faraday_recovery import (  # noqa: F40
     integrated_recovery_energy,
     recovery_from_compression,
 )
+
+# ``quasi3d`` imports ``models.nuclear``, whose modules import this package:
+# its names are imported on first use, not with the package.
+_QUASI3D = ("build_divertor_profiles", "calibrate_tbr_with_erosion", "hall_mhd_zonal_ratio",
+            "jet_solps_reference_profile", "quasi_3d_force_balance",
+            "solve_quasi_3d_force_residual", "two_fluid_temhd_coupled_profile")
+
+
+def __getattr__(name: str):
+    if name in _QUASI3D:
+        from scpn_fusion_tpu_torch.models.physics import quasi3d
+        return getattr(quasi3d, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -88,6 +88,8 @@ _SIGNATURES = {
     "scpn_burn_relax_f64": [_P, _P],
     "scpn_quench_run_f32": [_P, _P],
     "scpn_quench_run_f64": [_P, _P],
+    "scpn_phase_run_f32": [_P, _I, _P],
+    "scpn_phase_run_f64": [_P, _I, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()
@@ -171,6 +173,8 @@ def library() -> ctypes.CDLL:
         lib.scpn_cuda_error_string.restype = ctypes.c_char_p
         lib.scpn_source_blocks.argtypes = [ctypes.c_int]
         lib.scpn_source_blocks.restype = ctypes.c_int
+        lib.scpn_phase_max_threads.argtypes = [ctypes.c_int]
+        lib.scpn_phase_max_threads.restype = ctypes.c_int
         lib.scpn_source_resident_blocks.argtypes = []
         lib.scpn_source_resident_blocks.restype = ctypes.c_int
         for name in ("scpn_tiled_ctas_per_sm", "scpn_fine_ctas_per_sm", "scpn_sor_ctas_per_sm"):

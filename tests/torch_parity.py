@@ -95,7 +95,8 @@ def c_struct_fields(source: str, struct: str) -> list[tuple[str, str]]:
     (name, "ptr" | "int" | "double"): what a ctypes argument block must list."""
     body = re.search(r"struct " + struct + r" \{(.*?)\n\};", source, re.S).group(1)
     fields = []
-    for ctype, names in re.findall(r"^\s*(const void\*|void\*|const long long\*|int|double)"
+    for ctype, names in re.findall(r"^\s*(const void\*|void\*|const long long\*|const int\*"
+                                   r"|int\*|unsigned char\*|int|double)"
                                    r"\s+([\w, ]+);", body, re.M):
         fields += [(n.strip(), "ptr" if "*" in ctype else ctype) for n in names.split(",")]
     return fields

@@ -134,13 +134,20 @@ full length by CUDA events, then profiles the slice's plain loops with
 their row-T launches: the TEMHD transient (600 steps) and flux scan (3
 fluxes x 200 steps), the MCNP-lite estimate (2000 histories), the
 volumetric blanket (24 x 72 x 48), a heating-neutronics candidate and the
-occluded CAD loading of the 10,368-face torus, float64.  Each prints what
-the solves above print.
+occluded CAD loading of the 10,368-face torus, float64.  With ``--phase``
+it checks row U (``csrc/phase.cu``) ``torch.equal`` to its plain twin at 300
+ticks in float32 and float64 (the monitor at 8 x 50, the replay
+certificate's monitor at 4 x 32, ``run_upde`` at 4 x 32 in both psi modes),
+profiles the monitor's plain twin at 100 of its ticks and its run through
+row U at 1000, times row U by CUDA events on every case at full length
+(1000, 500 and 3000 ticks), then profiles the whole-device discharge
+(``WDMConfig()``, 20 steps, float32) with its row-T launches.  Each prints
+what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin | --ballooning | --disruption | --frc | --orbits | --plant]``.
+| --twin | --ballooning | --disruption | --frc | --orbits | --plant | --phase]``.
 Exits non-zero without one.
 """
 
@@ -1404,6 +1411,63 @@ def profile_plant(card: str) -> None:
               f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
 
+def profile_phase(card: str) -> None:
+    """The phase, UQ, diagnostics, WDM and quasi-3D slice: row U checked
+    ``torch.equal`` to its plain twin on every case of the smoke's
+    ``PHASE_CASES`` at 300 ticks in float32 and float64, the monitor's plain
+    twin profiled at 100 of its ticks and its run through row U at 1000, row
+    U timed by CUDA events on every case at full length, then the discharge
+    of ``models/wdm.py`` at 20 steps (see the module's docstring)."""
+    import torch
+    import chip_smoke as smoke
+    from scpn_fusion_tpu_torch.models import wdm
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_phase as cp
+
+    dev = "cuda"
+    cb.library()
+    for line in cb.BUILD_LOG.get("phase.cu", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  ptxas phase.cu: {line.strip()}")
+    for dtype in (torch.float32, torch.float64):
+        print(f"{dtype}: row U's block holds at most {cp.max_threads(dtype)} threads")
+        for label, *_ in smoke.PHASE_CASES:
+            kernel, plain, _ = smoke.phase_case(label, dtype, dev)
+            cb.reset_launch_counts()
+            got = kernel(300)
+            calls = dict(cb.CALLS)
+            same = smoke.phase_equal(got, plain(300))
+            print(f"{dtype} {label} x 300 ticks: {calls} launches, torch.equal to its plain twin "
+                  f"{same} [{card}]")
+    label = smoke.PHASE_TIMED
+    kernel, plain, n_ticks = smoke.phase_case(label, torch.float32, dev)
+    out = profile_solve(card, f"{label} f32, plain twin at 100 ticks",
+                        lambda: {"ran": plain(100) is not None}, None)
+    print(f"{label} f32, plain: {out['launches'] / 100:.2f} device launches a tick, idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}, {1e3 * out['wall_ms'] / 100:.2f} us a "
+          f"tick of wall time (profiled) [{card}]")
+    out = profile_solve(card, f"{label} f32, {n_ticks} ticks through row U",
+                        lambda: {"ran": kernel(n_ticks) is not None}, None)
+    for dtype in (torch.float32, torch.float64):
+        for label, *_ in smoke.PHASE_CASES:
+            kernel, _, n = smoke.phase_case(label, dtype, dev)
+            kernel(n)
+            ms = sorted(cuda_events_ms(lambda: kernel(n)) for _ in range(5))
+            print(f"{dtype} {label} x {n} ticks through row U: {ms[2]:.4f} ms between CUDA "
+                  f"events around the call (median of 5; all {[round(m, 4) for m in ms]}) "
+                  f"[{card}]")
+    cfg = wdm.WDMConfig()
+    s0 = wdm.default_initial_state(cfg, torch.float32, dev)
+    out = profile_solve(card, "run_discharge, WDMConfig(), 20 steps f32",
+                        lambda: {"ran": wdm.run_discharge(cfg, s0, 20) is not None}, None)
+    cb.reset_launch_counts()
+    wdm.run_discharge(cfg, s0, 20)
+    torch.cuda.synchronize()
+    print(f"run_discharge 20 steps f32: {out['launches']} device launches "
+          f"({out['launches'] / 20:.1f} a step; {dict(cb.CALLS)} of the port's kernels, counted), "
+          f"{out['device_ms']:.4f} ms of device time, {out['wall_ms']:.3f} ms of wall time "
+          f"(profiled), idle share {1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+
 def profile_hall_loops(card: str) -> None:
     """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
     the sweep and the bisection) profiled, float64."""
@@ -1540,6 +1604,9 @@ def main() -> int:
     group.add_argument("--plant", action="store_true",
                        help="rows E and H against their plain twins, then the engineering and "
                             "nuclear slice's plain loops")
+    group.add_argument("--phase", action="store_true",
+                       help="row U against its plain twin, the monitor plain and through row U, "
+                            "then the whole-device discharge")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1607,6 +1674,9 @@ def main() -> int:
         return 0
     if opts.plant:
         profile_plant(card)
+        return 0
+    if opts.phase:
+        profile_phase(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
