@@ -216,13 +216,35 @@ them:
   ``run_replay_certificate.py`` (the combined hash equal across two
   in-process runs and in a fresh process; lane 2, JAX's committed hash, is
   not the port's to give).
+* (zn) row W, the GENE-like proxy (``csrc/gene_proxy.cu``,
+  ``ops/cuda_proxy.gene_proxy``: one thread a sample, 64 a CTA, the
+  relaxation loop inside): ``run_speed_benchmark``'s 1024 x 20,000 and the
+  JAX test's 64 x 2000 each in ONE launch, ``torch.equal`` to the plain twin
+  in float32 and float64; ``run_speed_benchmark`` at its defaults (speedup >
+  2, RMSE < 5%) and the GyroSwin fit's gates; the committed FNO (64^2, width
+  32, modes 16, 4 layers) on fresh fields with its gate and within 1e-4 of
+  the CPU port, the committed transport closure's gate, the committed 129^2
+  equilibrium surrogate against a fresh 129^2 float32 free-boundary solve
+  (kernels 2 and 3 once each an inner Picard iteration, counted) and lanes
+  1-2 of ``validation/run_surrogate_latency.py``; the trainers at their
+  defaults into a temporary directory, each artifact loaded back
+  (``train_transport_surrogate``, ``train_qlknn``, and in spawned processes
+  ``train_fno_turbulence``, ``train_fno_multi_regime`` and
+  ``train_equilibrium_artifact``, whose 180 65^2 float32 solves run kernels 2
+  and 3 once each an inner Picard iteration, counted); lane 3 of
+  ``validation/run_pulsed_suppression.py``, the gain's gradient, the ESN sine
+  lane on the JAX test's reservoir draw and the drift-wave oracle, with the
+  JAX tests' and validations' gates; the float64 lanes (heat shadow, QLKNN
+  features and targets, multi-regime pairs, the suppression loop and its
+  gradient, the ESN readout) against the CPU twin.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
 Fokker-Planck, fluid and SPI lanes, (ze) but its eigen lane, (zg), (zh)'s
 Boris and lambda-field lanes, (zi) but its ballooning lane, (zk) but its
-blanket, TEMHD, lane-7 and candidate lanes, and (zl)'s UQ, diagnostics and
-tomography lanes run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
+blanket, TEMHD, lane-7 and candidate lanes, (zl)'s UQ, diagnostics and
+tomography lanes, and (zn) but its row-W lanes and its free-boundary solves
+run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
 
@@ -409,7 +431,8 @@ campaign and tuner for row R, over (r)'s f32 ladder for row L, over
 over (z)'s gates for row B, over (zc)'s counted sequences and scans for
 row Q, over (zd)'s counted runs for row S, over (zf)'s runs and gradient
 lanes for row P and its adjoint, over (zh)'s counted calls for row F,
-over (zj)-(zk)'s counted calls for rows E and H and over (zm)'s for row U,
+over (zj)-(zk)'s counted calls for rows E and H, over (zm)'s for row U and
+over (zn)'s for row W,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -468,7 +491,7 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
            "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
            "sandpile_run", "compression_run", "compression_adjoint", "gc_ensemble", "gc_orbit",
-           "burn_relax", "quench_run", "phase_run")
+           "burn_relax", "quench_run", "phase_run", "gene_proxy")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -512,6 +535,8 @@ SOURCES = {
     "quench_run": ("csrc/quench.cu", "scpn_fusion_tpu/models/engineering/hts_quench.py:165"),
     # no Pallas kernel: the JAX run and monitored run are each one lax.scan of upde_tick
     "phase_run": ("csrc/phase.cu", "scpn_fusion_tpu/models/phase/monitor.py:155"),
+    # no Pallas kernel: the JAX proxy is one lax.scan of the closure's relaxation
+    "gene_proxy": ("csrc/gene_proxy.cu", "scpn_fusion_tpu/models/surrogates/gyro_swin.py:112"),
 }
 
 
@@ -7301,6 +7326,618 @@ def zm_checks(dev, card: str, counted, by_path: dict, twin: dict, replay) -> int
     return calls["phase_run"] + calls1["phase_run"]
 
 
+# ── the twenty-second slice: (zn) row W and the GyroSwin benchmark, the
+# committed artifacts, the surrogate trainers and the closed loops ──
+
+# (label, samples, iterations, seed) of row W's cases: run_speed_benchmark's 1024 x 20,000
+# (gyro_swin.py:143-146, seed 7) and the JAX test's 64 x 2000 (test_force_balance_gyroswin.py:121)
+PROXY_CASES = (("benchmark 1024 x 20,000 (seed 7)", 1024, 20_000, 7),
+               ("JAX test 64 x 2000 (seed 3)", 64, 2000, 3))
+PROXY_TIMED = PROXY_CASES[0][0]
+# operations of a step of a sample on row W (csrc/gene_proxy.cu: the factor 3, six feature
+# products, the closure 20, the update 3; a tanh counted as one), and the dependent ones
+# on a sample's chain (two tanh and an IEEE division among them)
+PROXY_OPS, PROXY_DEPTH = 32, 20
+SPEEDUP_GATE, PROXY_RMSE_GATE = 2.0, 5.0        # test_force_balance_gyroswin.py:151-153
+GYRO_FIT_GATES = (7.0, 8.0)                      # :107-117: 8000 fitted, 500 held out (RMSE %)
+TRANSPORT_GATE = 0.0943                          # tests/test_pretrained.py:28
+FNO_GATE, FNO_REFERENCE = 0.25, 0.055            # tests/test_surrogate_artifacts.py:27; docstring
+QLKNN_GATE, MULTI_REGIME_GATE = 0.25, 0.5        # tests/test_qlknn.py:98; test_fno_multi_regime:56
+EQUILIBRIUM_GATE, EQUILIBRIUM_COMMITTED = 0.05, 0.0040   # test_surrogate_artifacts.py:112; artifact
+LATENCY_REF_MS = (1.05, 2.69)                    # run_surrogate_latency.py:37-38: mean, P95
+FNO_CARD_TOL = 1e-4      # the committed FNO on the card against the CPU port (cuFFT, pocketfft)
+
+
+def proxy_case(label: str, dtype, device):
+    """(features, iterations) of a :data:`PROXY_CASES` case."""
+    import torch
+    from scpn_fusion_tpu_torch.models.surrogates import gyro_swin as gs
+    _, n, iterations, seed = next(c for c in PROXY_CASES if c[0] == label)
+    x, _ = gs.generate_synthetic_dataset(seed, n)
+    return torch.from_numpy(x).to(dtype=dtype, device=device), iterations
+
+
+def proxy_work(n: int, iterations: int, item: int):
+    """Row W: (bytes, operations, peak rate): six values read and one written
+    a sample, :data:`PROXY_OPS` a step."""
+    return (float(item * 7 * n), float(PROXY_OPS * n * iterations),
+            F32_FLOP_PER_S if item == 4 else F64_FLOP_PER_S)
+
+
+def slice22_plain_on_card(conn) -> None:
+    """Row W's plain twin on the card, in a process of its own: every
+    :data:`PROXY_CASES` case in float32 and float64 between CUDA events after a
+    warm-up, as numpy arrays by (dtype, case)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from scpn_fusion_tpu_torch.ops import cuda_proxy as cp
+    dev, out = torch.device("cuda"), {}
+    for dtype in (torch.float32, torch.float64):
+        cp.gene_proxy_plain(proxy_case(PROXY_CASES[1][0], dtype, dev)[0], 2)   # a warm-up
+    for dtype in (torch.float32, torch.float64):
+        for label, *_ in PROXY_CASES:
+            x, iterations = proxy_case(label, dtype, dev)
+            chi, ms = events_ms(functools.partial(cp.gene_proxy_plain, x, iterations))
+            out[(str(dtype), label)] = chi.cpu().numpy()
+            out[(str(dtype), label, "ms")] = ms
+    conn.send(out)
+    conn.close()
+
+
+@contextlib.contextmanager
+def inner_iterations(log: list):
+    """Append the Picard iterations of every inner solve of the free-boundary
+    loop to ``log`` (the loop looks its solver up in its own module)."""
+    from scpn_fusion_tpu_torch.models.equilibrium import free_boundary as fb
+    solve = fb.solve_fixed_boundary_impl
+
+    def recorded(*args, **kw):
+        eq = solve(*args, **kw)
+        log.append(int(eq.iterations))
+        return eq
+
+    fb.solve_fixed_boundary_impl = recorded
+    try:
+        yield log
+    finally:
+        fb.solve_fixed_boundary_impl = solve
+
+
+def slice22_equilibrium_on_card(conn) -> None:
+    """``pretrained.train_equilibrium_artifact()`` at its defaults on the card
+    (65^2, 160 + 20 float32 free-boundary solves through kernels 2 and 3), in
+    a process of its own, into a temporary directory, then loaded back:
+    the metrics, the kernel calls and launches, the inner Picard iterations of
+    every solve, the seconds, and the loaded artifact's metrics."""
+    import tempfile
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    cb.library()
+    log = []
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp, inner_iterations(log):
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = tp.train_equilibrium_artifact(out_dir=Path(tmp), device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        calls, launched = dict(cb.CALLS), dict(cb.LAUNCHES)
+        sur, loaded = tp.load_equilibrium_artifact(weights_dir=Path(tmp), device="cuda")
+        psi = sur.predict(sur.x_mean * 1.05).cpu().numpy()
+    conn.send({"metrics": metrics, "calls": calls, "launched": launched, "inner": log,
+               "seconds": seconds, "loaded": loaded, "psi_finite": bool(np.isfinite(psi).all())})
+    conn.close()
+
+
+def slice22_fno_trainers_on_card(conn) -> None:
+    """``pretrained.train_fno_turbulence()`` (384 fields, width 24, modes 12, 3
+    layers, 2500 cosine steps in segments of 1500) and
+    ``train_fno_multi_regime`` (its defaults, seed 3) on the card, in a
+    process of its own (~50 s of host time), the artifact into a temporary
+    directory and loaded back: each one's result, kernel calls and
+    seconds."""
+    import tempfile
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from scpn_fusion_tpu_torch.models.surrogates import fno_multi_regime as fmr
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    dev, out = torch.device("cuda"), {}
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        cb.reset_launch_counts()
+        metrics, ms = events_ms(lambda: tp.train_fno_turbulence(out_dir=Path(tmp), device=dev))
+        calls = dict(cb.CALLS)
+        predict, loaded = tp.load_fno_turbulence(weights_dir=Path(tmp), device=dev)
+        x, _ = fresh_fno_fields(metrics["grid"])
+        with torch.no_grad():
+            finite = bool(torch.isfinite(predict(torch.from_numpy(x).to(dev))).all())
+    out["fno"] = {"metrics": metrics, "loaded": loaded, "finite": finite, "ms": ms,
+                  "calls": calls}
+    cb.reset_launch_counts()
+    ((_, val, idx), ms) = events_ms(
+        lambda: fmr.train_fno_multi_regime(torch.Generator().manual_seed(3), device=dev))
+    out["multi"] = {"val": val, "n": int(idx.numel()), "ms": ms, "calls": dict(cb.CALLS)}
+    conn.send(out)
+    conn.close()
+
+
+def esn_sine_params(device):
+    """The ESN sine lane's reservoir from the JAX test's draw
+    (``bench_config.ESN_SINE_JAX_INIT``), float32."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import ESN_SINE_JAX_INIT
+    from scpn_fusion_tpu_torch.models.surrogates import esn
+    with np.load(ESN_SINE_JAX_INIT) as f:
+        w_in, w = (torch.from_numpy(f[k]).to(device) for k in ("w_in", "w_masked"))
+    return esn._init_esn(w_in, w, torch.zeros_like(w))
+
+
+def sine_inputs(device, dtype=None):
+    """``tests/test_drift_wave_esn.py:90-92``'s two sines, 800 samples."""
+    import torch
+    t = np.linspace(0.0, 40.0, 800)
+    u = torch.from_numpy(np.stack([np.sin(t), np.sin(0.5 * t + 0.3)], axis=1)).to(device)
+    return u if dtype is None else u.to(dtype)
+
+
+def zn_lanes(device) -> dict:
+    """(zn)'s float64 lanes: the heat-shadow fit and its held-out predictions,
+    the QLKNN profile features and analytic targets, the multi-regime pairs
+    (16 x 32^2) on fixed draws, the suppression loop (seed 42, 200 steps) and
+    its gain gradient on fixed draws, the ESN sine harvest and
+    ``train_readout`` (reservoir 300); each lane's kernel calls counted."""
+    import torch
+    from scpn_fusion_tpu_torch.models.surrogates import esn
+    from scpn_fusion_tpu_torch.models.surrogates import fno_multi_regime as fmr
+    from scpn_fusion_tpu_torch.models.surrogates import heat_shadow as hs
+    from scpn_fusion_tpu_torch.models.surrogates import qlknn
+    from scpn_fusion_tpu_torch.models.surrogates import turbulence_suppressor as ts
+    f64 = torch.float64
+    lanes = Lanes()
+
+    def shadow():
+        w = hs.fit_synthetic(seed=42, samples=2048, dtype=f64, device=device)
+        hold = hs.generate_shadow_dataset(99, 512, dtype=f64, device=device)
+        return {"weights": w, "holdout": hs.predict_shadow_fraction(w, hold.features),
+                "flux": hs.predict_divertor_flux(w, 1e7, hold.features)}
+
+    lanes.put("heat shadow", lanes.run("heat shadow", shadow))
+
+    def qlknn_lane():
+        r = torch.linspace(0.2, 2.0, 33, dtype=f64, device=device)
+        te, ti = 3.0 * torch.exp(-r / 0.6), 2.5 * torch.exp(-r / 0.7)
+        q, ne = 1.0 + 2.0 * (r / 2.0) ** 2, 5.0 * (1.0 - (r / 2.2) ** 2)
+        feats = qlknn.qlknn_features_from_profiles(te, ti, ne, q, r, r0=6.2, a=2.0, b0=5.3)
+        u = torch.rand((2048, 10), generator=torch.Generator().manual_seed(2), dtype=f64)
+        scan = torch.as_tensor(qlknn.FEATURE_BOUNDS[:, 0], dtype=f64) + u * torch.as_tensor(
+            np.ptp(qlknn.FEATURE_BOUNDS, axis=1), dtype=f64)
+        return {"features": feats, "targets": qlknn.analytic_targets(scan.to(device))}
+
+    lanes.put("qlknn", lanes.run("qlknn", qlknn_lane))
+
+    def pairs():
+        x, y, idx = fmr.generate_multi_regime_pairs(torch.Generator().manual_seed(1),
+                                                    n_samples=16, grid_size=32, dtype=f64,
+                                                    device=device)
+        return {"x": x, "y": y, "regime": idx}
+
+    lanes.put("multi-regime pairs", lanes.run("multi-regime pairs", pairs))
+
+    def suppression():
+        run = ts.run_suppression_loop(seed=42, n_steps=200, control_on_step=50, dtype=f64,
+                                      device=device)
+        gain = torch.tensor(1.6, dtype=f64, device=device, requires_grad=True)
+        late = ts.run_suppression_loop(seed=3, n_steps=80, control_on_step=20, gain=gain,
+                                       dtype=f64, device=device).mean_energy_last20
+        (grad,) = torch.autograd.grad(late, gain)
+        return {**run._asdict(), "gain gradient": grad}
+
+    lanes.put("suppression", lanes.run("suppression", suppression))
+
+    def readout():
+        params = esn.init_esn(torch.Generator().manual_seed(5), 2, reservoir_size=300,
+                              dtype=f64, device=device)
+        u = sine_inputs(device, f64)
+        states = esn.harvest_states(params, u[:600])
+        return {"states": states, "w_out": esn.train_readout(states, u[1:601], 1e-2).w_out}
+
+    lanes.put("esn readout", lanes.run("esn readout", readout))
+    return lanes.as_dict()
+
+
+def fresh_fno_fields(grid: int):
+    """``tests/test_surrogate_artifacts.py:30-42``'s fresh fields (seed 99):
+    (x as (3, grid, grid, 1) float32, the streamfunction y)."""
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+    rng = np.random.default_rng(99)
+    x = np.stack([tp._gene_like_field(grid, r, rng) for r in ("ITG", "TEM", "ETG")])
+    y = np.stack([tp._periodic_streamfunction(f) for f in x])
+    return x[..., None].astype(np.float32), y
+
+
+def transport_probe() -> np.ndarray:
+    """``tests/test_pretrained.py:34-38``'s 50 local inputs (seed 1)."""
+    g = np.random.default_rng(1)
+    return np.stack([g.uniform(2, 10, 50), g.uniform(2, 10, 50), g.uniform(0, 5, 50),
+                     g.uniform(1, 4, 50), g.uniform(0, 2, 50), g.uniform(0.5, 2, 50),
+                     g.uniform(0.05, 0.8, 50)], axis=1)
+
+
+def slice22_on_cpu(conn) -> None:
+    """The CPU twin of (zn): :func:`zn_lanes` in float64 and the committed FNO
+    and transport artifacts' predictions on the fresh fields and the probe
+    inputs, on two threads."""
+    import torch
+    dev = on_cpu(2)
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+    predict, metrics = tp.load_fno_turbulence(device=dev)
+    x, _ = fresh_fno_fields(int(metrics["grid"]))
+    transport, _ = tp.load_transport_surrogate(device=dev)
+    with torch.no_grad():
+        fno = predict(torch.from_numpy(x)).numpy()
+    conn.send({"zn": zn_lanes(dev), "fno": fno,
+               "transport": transport(torch.from_numpy(transport_probe())).numpy()})
+    conn.close()
+
+
+def proxy_checks(dev, card: str, counted, by_path: dict, results: dict, timing: dict,
+                 measured_plain: dict, plain_card) -> int:
+    """(zn) row W: ``gene_proxy`` on every :data:`PROXY_CASES` case ONE launch
+    of ``csrc/gene_proxy.cu`` in float32 and float64, ``torch.equal`` to the
+    plain twin on the card (``plain_card``: :func:`slice22_plain_on_card`'s);
+    ``run_speed_benchmark`` at its defaults with the JAX test's gates (two
+    launches); the GyroSwin fit's gates; row W's times against its bound and
+    chain.  Returns its counted launches."""
+    import torch
+    from scpn_fusion_tpu_torch.models.surrogates import gyro_swin as gs
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_proxy as cp
+
+    print(f"(zn) csrc/gene_proxy.cu's PTX (nvcc -ptx, sm_90a): {orbit_ptx('gene_proxy.cu')} (the "
+          f"kernel's own divisions are .rn; FMAs are libdevice's tanh, as in torch's kernel); "
+          f"ptxas: {ptxas_registers(cb.BUILD_LOG.get('gene_proxy.cu', ''))}; {cp.THREADS} threads "
+          f"a CTA: {-(-1024 // cp.THREADS)} CTAs for the benchmark's 1024 samples")
+    one = {name: int(name == "gene_proxy") for name in KERNELS}
+    plain = plain_card()
+    launches = 0
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for label, *_ in PROXY_CASES:
+            x, iterations = proxy_case(label, dtype, dev)
+            chi, calls, launched = counted(functools.partial(gs.gene_proxy_predict, x,
+                                                             iterations))
+            require(calls == one and launched == {f"scpn_gene_proxy_{tag}": 1},
+                    f"(zn) row W {label} {tag}: {calls} / {launched}, not one launch")
+            by_path[f"gene_proxy {label} {tag}"] = calls
+            launches += 1
+            ref = torch.from_numpy(plain[(str(dtype), label)])
+            equal = torch.equal(chi.cpu(), ref)
+            print(f"(zn) row W {tag} {label}: one launch, torch.equal to the plain twin {equal}; "
+                  f"chi in [{float(chi.min())!r}, {float(chi.max())!r}] [{card}]")
+            require(equal, f"(zn) row W {tag} {label}: the kernel differs from its plain twin")
+            if label == PROXY_TIMED and dtype == torch.float32:
+                results["gene_proxy"] = {"max_abs_err": float((chi.cpu() - ref).abs().max())}
+
+    bench, calls, _ = counted(lambda: gs.run_speed_benchmark(samples=1024, iterations=20_000,
+                                                             device=dev))
+    require(calls == {name: 2 * v for name, v in one.items()},
+            f"(zn) run_speed_benchmark: kernel calls {calls}, expected two of row W")
+    by_path["speed benchmark"] = calls
+    launches += 2
+    print(f"(zn) run_speed_benchmark(1024, 20,000) on the card: speedup {bench.speedup:.2f} "
+          f"(gate > {SPEEDUP_GATE}), RMSE {bench.rmse_percent:.4f} % (gate < {PROXY_RMSE_GATE}); "
+          f"the proxy {1e6 * bench.gene_proxy_s_per_sample:.4f} us a sample, the surrogate "
+          f"{1e6 * bench.surrogate_s_per_sample:.4f} us a sample [{card}]")
+    require(bench.speedup > SPEEDUP_GATE and bench.rmse_percent < PROXY_RMSE_GATE,
+            "(zn): run_speed_benchmark misses the JAX test's gates")
+
+    (fit, held), calls, _ = counted(lambda: gyro_fit_gates(dev))
+    require(all(v == 0 for v in calls.values()), f"(zn) GyroSwin fit: kernel calls {calls}")
+    print(f"(zn) GyroSwin fit on the card: RMSE {fit:.4f} % on 8000 fitted (gate < "
+          f"{GYRO_FIT_GATES[0]}), {held:.4f} % on 500 held out (gate < {GYRO_FIT_GATES[1]}) "
+          f"[{card}]")
+    require(fit < GYRO_FIT_GATES[0] and held < GYRO_FIT_GATES[1],
+            "(zn): the GyroSwin fit misses the JAX tests' gates")
+
+    measured_plain["gene_proxy"] = plain[(str(torch.float32), PROXY_TIMED, "ms")]
+    x, iterations = proxy_case(PROXY_TIMED, torch.float32, dev)
+    timing["gene_proxy"] = (functools.partial(cp.gene_proxy, x, iterations),
+                            functools.partial(cp.gene_proxy_plain, x, iterations),
+                            "the benchmark's 1024 samples x 20,000 steps f32",
+                            proxy_work(1024, iterations, 4))
+    for dtype in (torch.float32, torch.float64):
+        item = 4 if dtype == torch.float32 else 8
+        for label, n, iterations, _ in PROXY_CASES:
+            x, _ = proxy_case(label, dtype, dev)
+            work = proxy_work(n, iterations, item)
+            ms_k = cuda_ms(functools.partial(cp.gene_proxy, x, iterations))
+            b, by = bound(work)
+            chain = iterations * PROXY_DEPTH
+            print(f"time (zn) row W gene_proxy ({label} {'f32' if item == 4 else 'f64'}): kernel "
+                  f"{ms_k:.4f} ms (CUDA events, median of 5), bound {b:.4g} ms ({by}: "
+                  f"{work[0] / 1e6:.4g} MB, {work[1] / 1e6:.4g} Mflop); the dependent chain "
+                  f"{chain} operations, ~{ladder_chain_ms(chain, 1):.4f} ms at a nominal 4 cycles "
+                  f"each and {SM_CLOCK_HZ / 1e9:.2f} GHz (a count, not a bound: two tanh and an "
+                  f"IEEE division a step on the chain); plain "
+                  f"{plain[(str(dtype), label, 'ms')]:.1f} ms (once, in the spawned process); "
+                  f"library_ms null (no PyTorch call relaxes the proxy) [{card}]")
+    return launches
+
+
+def gyro_fit_gates(device) -> tuple[float, float]:
+    """``tests/test_force_balance_gyroswin.py:107-117``: the RMSE (%) of the
+    GyroSwin fit (8000 samples, seed 0) on its data and on 500 held out."""
+    import torch
+    from scpn_fusion_tpu_torch.models.surrogates import gyro_swin as gs
+    x, y = gs.generate_synthetic_dataset(0, 8000)
+    model = gs.fit_gyro_swin(x, y, ridge=5e-3, device=device)
+    x_t, y_t = gs.generate_synthetic_dataset(99, 500)
+    return (gs.rmse_percent(y, model.predict(torch.from_numpy(x).to(device)).cpu().numpy()),
+            gs.rmse_percent(y_t, model.predict(torch.from_numpy(x_t).to(device)).cpu().numpy()))
+
+
+def artifact_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
+    """(zn) the committed artifacts at their full width on the card: the FNO
+    (64^2, width 32, modes 16, 4 layers) on the fresh fields of
+    ``tests/test_surrogate_artifacts.py:30-42`` with its gate, within
+    :data:`FNO_CARD_TOL` of the CPU port; the transport closure's gate and its
+    predictions within 1e-5 of the CPU's (a float32 MLP); the 129^2
+    equilibrium surrogate against a fresh 129^2 float32 free-boundary solve
+    (rel-L2 < 0.05), kernels 2 and 3 once each an inner Picard iteration,
+    counted; lanes 1-2 of ``validation/run_surrogate_latency.py``."""
+    import torch
+    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import (
+        coilset_from_config, solve_free_boundary,
+    )
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+
+    predict, metrics = tp.load_fno_turbulence(device=dev)
+    x, y = fresh_fno_fields(int(metrics["grid"]))
+    with torch.no_grad():
+        (pred, ms), calls, _ = counted(lambda: events_ms(lambda: predict(
+            torch.from_numpy(x).to(dev)).cpu().numpy()))
+    scale = metrics["y_scale"]
+    err = float(np.linalg.norm(pred[..., 0] - y / scale) / np.linalg.norm(y / scale))
+    dev_cpu = max_rel(torch.from_numpy(pred), torch.from_numpy(twin["fno"]))
+    gate = 2.0 * metrics["test_rel_l2"] + 0.05
+    print(f"(zn) committed FNO (grid {metrics['grid']}, width {metrics['width']}, modes "
+          f"{metrics['modes']}, {metrics['n_layers']} layers): fresh-field rel-L2 {err:.5f} (gate "
+          f"< {gate:.4f}), against the CPU port {dev_cpu:.3e} (limit {FNO_CARD_TOL:.0e}); "
+          f"{ms:.2f} ms for 3 fields [{card}]")
+    require(metrics["test_rel_l2"] < FNO_GATE and err < gate and dev_cpu <= FNO_CARD_TOL,
+            "(zn): the committed FNO misses its gate or deviates from the CPU port")
+    transport, t_metrics = tp.load_transport_surrogate(device=dev)
+    out = transport(torch.from_numpy(transport_probe()).to(dev)).cpu()
+    dev_t = max_rel(out, torch.from_numpy(twin["transport"]))
+    print(f"(zn) committed transport closure: test rel-L2 {t_metrics['test_rel_l2']!r} (gate < "
+          f"{TRANSPORT_GATE}); its 50 probe predictions against the CPU port {dev_t:.3e} (limit "
+          f"{SURROGATE_TOL:.0e}) [{card}]")
+    require(t_metrics["test_rel_l2"] < TRANSPORT_GATE and dev_t <= SURROGATE_TOL
+            and bool((out >= 0.0).all()), "(zn): the transport closure misses its gate")
+
+    sur, e_metrics = tp.load_equilibrium_artifact(device=dev)
+    n = int(e_metrics["grid"])
+    cfg = tp.equilibrium_training_config(n)
+    coils = coilset_from_config(cfg, torch.float32, dev)
+    currents = (coils.currents.cpu().numpy() * np.random.default_rng(555).uniform(0.8, 1.2, 6)
+                ).astype(np.float32)
+    log = []
+
+    def fresh():
+        with inner_iterations(log):
+            return solve_free_boundary(
+                cfg, coils._replace(currents=torch.from_numpy(currents).to(dev)),
+                grid=Grid.from_config(cfg, dtype=torch.float32, device=dev), mu0_green=1.0,
+                dtype=torch.float32, device=dev)
+
+    (res, ms), calls, launched = counted(lambda: events_ms(fresh))
+    inner = sum(log)
+    require(calls["fused_topology_source"] == calls["fused_coarse_vcycle"] == inner > 0
+            and all(v == 0 for k, v in calls.items()
+                    if k not in ("fused_topology_source", "fused_coarse_vcycle")),
+            f"(zn) fresh 129^2 solve: calls {calls} over {inner} inner Picard iterations")
+    by_path["equilibrium fresh 129"] = calls
+    with torch.no_grad():
+        psi = sur.predict(torch.from_numpy(currents).to(dev))
+    rel = float(torch.linalg.norm(psi - res.psi) / torch.clamp(torch.linalg.norm(res.psi),
+                                                               min=1e-30))
+    print(f"(zn) committed equilibrium surrogate ({n}^2) against a fresh {n}^2 float32 "
+          f"free-boundary solve ({res.outer_iterations} outer, inner {log}; "
+          f"{calls['fused_topology_source']} source and {calls['fused_coarse_vcycle']} V-cycle "
+          f"calls, launched {launched}; {ms:.1f} ms): rel-L2 {rel:.5f} (gate < "
+          f"{EQUILIBRIUM_GATE}) [{card}]")
+    require(res.converged and rel < EQUILIBRIUM_GATE,
+            "(zn): the committed equilibrium surrogate misses the fresh-solve gate")
+
+    # lanes 1-2 of run_surrogate_latency.py: the artifact is the 129^2 row, and 200 single
+    # CPU predictions beat the reference's mean and P95; the card's per-call time beside them
+    lane1 = n == 129 and e_metrics["test_rel_l2"] < 0.02
+    sur_cpu, _ = tp.load_equilibrium_artifact(device="cpu")
+    x_cpu = sur_cpu.x_mean * 1.07
+    x_dev = x_cpu.to(dev)
+
+    def single_calls(run, sync):
+        with torch.no_grad():
+            run()
+            sync()
+            times = []
+            for _ in range(200):
+                t0 = time.perf_counter()
+                run()
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.mean(times)), float(np.percentile(times, 95))
+
+    mean_ms, p95_ms = single_calls(lambda: sur_cpu.predict(x_cpu), lambda: None)
+    card_mean, card_p95 = single_calls(lambda: sur.predict(x_dev), torch.cuda.synchronize)
+    print(f"(zn) run_surrogate_latency lane 1: grid {n}, test rel-L2 {e_metrics['test_rel_l2']!r} "
+          f"(gate < 0.02) {lane1}; lane 2: 200 single CPU predictions mean {mean_ms:.4f} ms, P95 "
+          f"{p95_ms:.4f} ms (gates < {LATENCY_REF_MS[0]} / {LATENCY_REF_MS[1]}); the card's "
+          f"single calls (synchronised) mean {card_mean:.4f} ms, P95 {card_p95:.4f} ms [{card}]")
+    require(lane1 and mean_ms < LATENCY_REF_MS[0] and p95_ms < LATENCY_REF_MS[1],
+            "(zn): run_surrogate_latency lanes 1-2 fail on the port")
+
+
+def trainer_checks(dev, card: str, counted, by_path: dict, fno_trainers, equilibrium) -> None:
+    """(zn) the trainers at their defaults on the card, each artifact written
+    into a temporary directory and loaded back through the port's loader:
+    ``train_transport_surrogate()`` (gate < 0.0943) and ``train_qlknn`` (8192
+    samples, 3000 steps; held-out relative RMSE < 0.25) in line;
+    ``train_fno_turbulence()`` (gate < 0.25, printed against the JAX
+    trainer's 0.055) and ``train_fno_multi_regime`` (val rel-L2 < 0.5) in
+    ``fno_trainers`` (:func:`slice22_fno_trainers_on_card`'s process); no
+    kernel on any; ``train_equilibrium_artifact()`` (65^2, 160 + 20 solves)
+    in ``equilibrium`` (:func:`slice22_equilibrium_on_card`'s process):
+    held-out rel-L2 < 0.05, kernels 2 and 3 once each an inner Picard
+    iteration."""
+    import tempfile
+    import torch
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+    from scpn_fusion_tpu_torch.models.surrogates import qlknn
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        out = Path(tmp)
+        (m_t, ms_t), calls_t, _ = counted(lambda: events_ms(
+            lambda: tp.train_transport_surrogate(out_dir=out, device=dev)))
+        predict_t, loaded_t = tp.load_transport_surrogate(weights_dir=out, device=dev)
+        probe_t = predict_t(torch.from_numpy(transport_probe()).to(dev))
+    print(f"(zn) train_transport_surrogate() on the card: test rel-L2 {m_t['test_rel_l2']!r} "
+          f"(gate < {TRANSPORT_GATE}), {ms_t / 1e3:.2f} s; loaded back "
+          f"{loaded_t == m_t} [{card}]")
+    require(m_t["test_rel_l2"] < TRANSPORT_GATE and loaded_t == m_t
+            and bool(torch.isfinite(probe_t).all()), "(zn): the transport trainer misses its gate")
+
+    def qlknn_run():
+        model = qlknn.train_qlknn(torch.Generator().manual_seed(1), device=dev)
+        x_test = qlknn.generate_parameter_scan(torch.Generator().manual_seed(2), 1024, device=dev)
+        y_true, y_pred = qlknn.analytic_targets(x_test), qlknn.predict_fluxes(model, x_test)
+        return float(torch.sqrt(((y_pred - y_true) ** 2).mean())
+                     / torch.clamp(torch.sqrt((y_true**2).mean()), min=1e-9)), bool(
+            (y_pred >= 0.0).all())
+
+    ((q_err, q_pos), ms_q), calls_q, _ = counted(lambda: events_ms(qlknn_run))
+    print(f"(zn) train_qlknn (8192, 3000 steps) on the card: held-out relative RMSE {q_err:.5f} "
+          f"(gate < {QLKNN_GATE}), {ms_q / 1e3:.2f} s [{card}]")
+    require(q_err < QLKNN_GATE and q_pos, "(zn): the QLKNN trainer misses its gate")
+    fno = fno_trainers()
+    m_f, multi = fno["fno"]["metrics"], fno["multi"]
+    print(f"(zn) train_fno_turbulence() on the card (in a spawned process): test rel-L2 "
+          f"{m_f['test_rel_l2']!r} (gate < {FNO_GATE}; the JAX trainer's docstring "
+          f"{FNO_REFERENCE}), {fno['fno']['ms'] / 1e3:.2f} s; loaded back "
+          f"{fno['fno']['loaded'] == m_f}; train_fno_multi_regime (defaults, seed 3): val rel-L2 "
+          f"{multi['val']:.5f} (gate < {MULTI_REGIME_GATE}), {multi['ms'] / 1e3:.2f} s [{card}]")
+    require(m_f["test_rel_l2"] < FNO_GATE and fno["fno"]["loaded"] == m_f and fno["fno"]["finite"],
+            "(zn): the FNO trainer misses its gate")
+    require(multi["val"] < MULTI_REGIME_GATE and multi["n"] == 256,
+            "(zn): the multi-regime trainer misses its gate")
+    for label, calls in (("train_transport_surrogate", calls_t),
+                         ("train_fno_turbulence", fno["fno"]["calls"]), ("train_qlknn", calls_q),
+                         ("train_fno_multi_regime", multi["calls"])):
+        calls = {name: calls.get(name, 0) for name in KERNELS}
+        require(all(v == 0 for v in calls.values()), f"(zn) {label}: kernel calls {calls}")
+        by_path[label] = calls
+
+    eq = equilibrium()
+    inner = sum(eq["inner"])
+    calls = {name: eq["calls"].get(name, 0) for name in KERNELS}
+    print(f"(zn) train_equilibrium_artifact() on the card (65^2, 160 + 20 float32 solves, "
+          f"{inner} inner Picard iterations; in a spawned process): held-out rel-L2 "
+          f"{eq['metrics']['test_rel_l2']!r} (gate < {EQUILIBRIUM_GATE}; the committed 129^2 "
+          f"artifact {EQUILIBRIUM_COMMITTED}); {calls['fused_topology_source']} source and "
+          f"{calls['fused_coarse_vcycle']} V-cycle calls, launched {eq['launched']}; "
+          f"{eq['seconds']:.1f} s; loaded back {eq['loaded'] == eq['metrics']} [{card}]")
+    require(calls["fused_topology_source"] == calls["fused_coarse_vcycle"] == inner > 0
+            and all(v == 0 for k, v in calls.items()
+                    if k not in ("fused_topology_source", "fused_coarse_vcycle"))
+            and eq["launched"] == {"scpn_fused_source": inner, "scpn_fused_vcycle": inner},
+            f"(zn) equilibrium trainer: calls {calls} over {inner} inner Picard iterations")
+    require(eq["metrics"]["test_rel_l2"] < EQUILIBRIUM_GATE and eq["loaded"] == eq["metrics"]
+            and eq["psi_finite"], "(zn): the equilibrium trainer misses its gate")
+    by_path["train_equilibrium_artifact"] = calls
+
+
+def loop_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
+    """(zn) the closed loops on the card: lane 3 of
+    ``validation/run_pulsed_suppression.py`` (controlled against free over 200
+    steps, ratio < 0.5, the replay exactly equal), the gain's gradient by
+    autograd negative (``tests/test_turbulence_suppressor.py:71-79``), the ESN
+    sine horizon > 50 on the JAX test's draw, the drift-wave oracle (32^2, 16
+    probes, reservoir 300: a finite horizon, one-step relative error < 0.5);
+    no kernel; :func:`zn_lanes` in float64 within 1e-9 of the CPU (``twin``:
+    :func:`slice22_on_cpu`'s), no kernel."""
+    import torch
+    from scpn_fusion_tpu_torch.models.physics import drift_wave as dw
+    from scpn_fusion_tpu_torch.models.surrogates import esn
+    from scpn_fusion_tpu_torch.models.surrogates import turbulence_suppressor as ts
+
+    def lane3():
+        ctrl = ts.run_suppression_loop(seed=42, n_steps=200, control_on_step=50, device=dev)
+        free = ts.run_suppression_loop(seed=42, n_steps=200, control_on_step=10_000, device=dev)
+        again = ts.run_suppression_loop(seed=42, n_steps=200, control_on_step=50, device=dev)
+        gain = torch.tensor(1.6, device=dev, requires_grad=True)
+        late = ts.run_suppression_loop(seed=3, n_steps=80, control_on_step=20, gain=gain,
+                                       device=dev).mean_energy_last20
+        (grad,) = torch.autograd.grad(late, gain)
+        return (float(ctrl.mean_energy_last20), float(free.mean_energy_last20),
+                torch.equal(again.mean_energy_last20, ctrl.mean_energy_last20),
+                float(ctrl.suppression.max()), float(grad))
+
+    ((e_ctrl, e_free, replay, peak, grad), ms), calls, _ = counted(lambda: events_ms(lane3))
+    by_path["suppression loops"] = calls
+    print(f"(zn) run_pulsed_suppression lane 3 on the card (f32): controlled "
+          f"{e_ctrl!r} / free {e_free!r} = {e_ctrl / e_free:.4f} (gate < 0.5), replay equal "
+          f"{replay}, peak command {peak:.4f}; d late energy / d gain {grad!r} (< 0); {ms:.1f} ms "
+          f"[{card}]")
+    require(e_ctrl < 0.5 * e_free and replay and peak > 0.1 and np.isfinite(grad) and grad < 0.0,
+            "(zn): the suppression loop misses lane 3's or the gradient's gate")
+
+    def oracles():
+        params = esn_sine_params(dev)
+        u = sine_inputs(dev)
+        readout, x_last = esn.fit_esn(params, u[:600], u[1:601], reg=1e-2)
+        preds = esn.predict_closed_loop(params, readout, x_last, u[600], steps=100)
+        sine_h, _ = esn.trust_horizon(u[601:701].float(), preds)
+        cfg = dw.DriftWaveConfig(n=32)
+        s = dw.initial_state(torch.Generator().manual_seed(7), cfg, device=dev)
+        _, data = dw.simulate_probes(s, cfg, dw.default_probe_indices(cfg.n, 16, device=dev),
+                                     warmup=200, steps=500)
+        p = esn.init_esn(torch.Generator().manual_seed(8), 16, reservoir_size=300, device=dev)
+        r, x = esn.fit_esn(p, data[:400], data[1:401])
+        horizon, mse = esn.trust_horizon(
+            data[401:481], esn.predict_closed_loop(p, r, x, data[400], steps=80))
+        one = esn.harvest_states(p, data[:400]) @ r.w_out.T
+        err = float(torch.linalg.norm(one - data[1:401]) / torch.linalg.norm(data[1:401]))
+        return int(sine_h), int(horizon), bool(torch.isfinite(mse).all()), err
+
+    ((sine_h, horizon, finite, err), ms), calls, _ = counted(lambda: events_ms(oracles))
+    by_path["esn oracles"] = calls
+    print(f"(zn) ESN on the card (f32): sine horizon {sine_h} of 100 (gate > 50; the JAX test's "
+          f"reservoir draw); drift-wave oracle horizon {horizon} of 80, MSE finite {finite}, "
+          f"one-step relative error {err:.4f} (gate < 0.5); {ms:.1f} ms [{card}]")
+    require(sine_h > 50 and 0 <= horizon <= 80 and finite and err < 0.5,
+            "(zn): an ESN oracle misses the JAX tests' gates")
+    for label, c in (("suppression loops", by_path["suppression loops"]),
+                     ("esn oracles", calls)):
+        require(all(v == 0 for v in c.values()), f"(zn) {label}: kernel calls {c}")
+
+    (r, ms), calls, _ = counted(lambda: events_ms(lambda: zn_lanes(dev)))
+    require(all(not c for c in r["counts"].values()) and all(v == 0 for v in calls.values()),
+            f"(zn) lane kernel calls {r['counts']}: none expected")
+    by_path["zn_lanes"] = calls
+    num = r["num"]
+    print(f"(zn) f64 lanes on the card: heat-shadow weights[0] "
+          f"{float(num['heat shadow weights'][0])!r}, suppression mean energy (last 20) "
+          f"{float(num['suppression mean_energy_last20'])!r}, gain gradient "
+          f"{float(num['suppression gain gradient'])!r}; {ms:.1f} ms [{card}]")
+    agree(num, twin["zn"]["num"], "(zn) lanes", card)
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.asarray(a, np.float64))
@@ -7322,16 +7959,19 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
 
 
 def late_twins(stack: contextlib.ExitStack, psi_129) -> dict:
-    """Start (zh)-(zi)'s, (zj)-(zk)'s and (zl)-(zm)'s CPU twins (the last on
-    (b)'s 129^2 psi, ``psi_129``), the plain runs of rows F, E, H and U on the
-    card (~230 s, ~40 s, ~300 s and ~20 s of host time) and the replay
-    certificate's fresh process once the host-bound early paths, (a)-(i), are
-    done: started with the others, they slowed those paths on an 8-core host
-    with one H100 (the whole smoke 899 s, where it had taken 770 s without
-    them)."""
+    """Start (zh)-(zi)'s, (zj)-(zk)'s, (zl)-(zm)'s and (zn)'s CPU twins (the
+    third on (b)'s 129^2 psi, ``psi_129``), the plain runs of rows F, E, H, U
+    and W on the card (~230 s, ~40 s, ~300 s, ~20 s and ~12 s of host time),
+    (zn)'s FNO and equilibrium trainers on the card (~50 s each) and the
+    replay certificate's fresh process once the host-bound early paths,
+    (a)-(i), are done: started with the others, they slowed those paths on an
+    8-core host with one H100 (the whole smoke 899 s, where it had taken 770 s
+    without them)."""
     targets = {"slice19_cpu": slice19_on_cpu, "slice19_card": slice19_plain_on_card,
                "slice20_cpu": slice20_on_cpu, "slice20_card": slice20_plain_on_card,
-               "slice21_card": slice21_plain_on_card}
+               "slice21_card": slice21_plain_on_card, "slice22_card": slice22_plain_on_card,
+               "slice22_cpu": slice22_on_cpu, "slice22_fno": slice22_fno_trainers_on_card,
+               "slice22_equilibrium": slice22_equilibrium_on_card}
     twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
     twins["slice21_cpu"] = stack.enter_context(cpu_twin(slice21_on_cpu, psi_129))
     with environment(PYTHONHASHSEED=REPLAY_HASHSEED):
@@ -7409,7 +8049,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                    "vcycle_fused.cu", "source.cu", "closed_loop.cu", "reduced_shot.cu",
                    "ladder.cu", "gk_rhs.cu", "digital_twin.cu", "ballooning.cu",
                    "disruption.cu", "sandpile.cu", "compression.cu", "orbits.cu", "burn.cu",
-                   "quench.cu", "phase.cu"):
+                   "quench.cu", "phase.cu", "gene_proxy.cu"):
         for line in cb.BUILD_LOG.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}")
@@ -7947,7 +8587,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
                 "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0,
-                "phase_run": 0}
+                "phase_run": 0, "gene_proxy": 0}
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -8061,7 +8701,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                  "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
                  "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
                  "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0,
-                "phase_run": 0}
+                "phase_run": 0, "gene_proxy": 0}
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -8545,6 +9185,20 @@ def _main(stack: contextlib.ExitStack) -> int:
     phase_calls += zm_checks(dev, card, counted, by_path, slice21, twins["replay"])
     phase_done("row U, Kuramoto, monitor and replay (zm)")
 
+    # ── the twenty-second slice: (zn) row W and the GyroSwin benchmark, the
+    # committed artifacts, the surrogate trainers, the suppression loop and the
+    # ESN oracles ──
+    slice22 = twins["slice22_cpu"]()
+    proxy_calls = proxy_checks(dev, card, counted, by_path, results, timing, measured_plain,
+                               twins["slice22_card"])
+    phase_done("row W and the GyroSwin benchmark (zn)")
+    artifact_checks(dev, card, counted, by_path, slice22)
+    phase_done("committed surrogate artifacts (zn)")
+    trainer_checks(dev, card, counted, by_path, twins["slice22_fno"], twins["slice22_equilibrium"])
+    phase_done("surrogate trainers (zn)")
+    loop_checks(dev, card, counted, by_path, slice22)
+    phase_done("suppression loop, ESN oracles and float64 lanes (zn)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -8563,6 +9217,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["gc_ensemble"], launches["gc_orbit"] = orbit_calls
     launches["burn_relax"], launches["quench_run"] = burn_calls, quench_calls
     launches["phase_run"] = phase_calls
+    launches["gene_proxy"] = proxy_calls
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")

@@ -358,3 +358,11 @@ GK_LINEAR_ITG_JAX_F0 = Path(__file__).resolve().parent / "data" / "gk_linear_itg
 # draw -- JAX's own draws miss it at keys 0, 1, 3 and 4 -- so the port's run
 # of that lane starts from the test's draw.
 DRIFT_WAVE_JAX_NOISE = Path(__file__).resolve().parent / "data" / "drift_wave_jax_noise_key2.npy"
+# The ESN sine lane's reservoir as the JAX package draws it
+# (tests/test_drift_wave_esn.py:90-100: esn.init_esn(PRNGKey(5), input_dim=2,
+# reservoir_size=300), float32): ``w_in`` and the masked reservoir ``w *
+# (mask < 0.1)`` before its spectral-radius scaling; a test holds the file to
+# them.  The test's gate (a closed-loop horizon above 50 of 100 steps)
+# depends on the draw -- JAX's own keys 1, 3, 4, 8, 11, 14, 16, 17 and 18
+# miss it -- so the port's run of that lane starts from the test's draw.
+ESN_SINE_JAX_INIT = Path(__file__).resolve().parent / "data" / "esn_sine_jax_init_key5.npz"

@@ -300,3 +300,63 @@ def pce_model(model, *, dtype: torch.dtype | None = None,
     f = _fields_of(model)
     return PCEModel(_as(f["coefficients"], dtype, device),
                     tuple(tuple(int(a) for a in alpha) for alpha in f["multi_index"]))
+
+
+# ── the surrogates ──
+
+
+def fno_params(params, n_layers: int | None = None, *, dtype: torch.dtype | None = None,
+               device: torch.device | str = "cuda"):
+    """The JAX package's ``FNOParams`` (or its ``jax.tree.flatten`` leaf list,
+    with ``n_layers``) as the port's; ``dtype`` None keeps each array's own."""
+    from scpn_fusion_tpu_torch.models.surrogates.fno import fno_from_leaves, fno_leaves
+
+    if n_layers is None:
+        n_layers = len(params.spectral)
+        params = fno_leaves(params)
+    return fno_from_leaves([_as(a, dtype, device) for a in params], n_layers)
+
+
+def esn_params(params, *, dtype: torch.dtype | None = None, device: torch.device | str = "cuda"):
+    """The JAX package's ``ESNParams`` as the port's."""
+    from scpn_fusion_tpu_torch.models.surrogates.esn import ESNParams
+
+    return ESNParams(*(_as(getattr(params, f), dtype, device) for f in ESNParams._fields))
+
+
+def esn_readout(readout, *, dtype: torch.dtype | None = None,
+                device: torch.device | str = "cuda"):
+    """The JAX package's ``ESNReadout`` as the port's."""
+    from scpn_fusion_tpu_torch.models.surrogates.esn import ESNReadout
+
+    return ESNReadout(_as(readout.w_out, dtype, device))
+
+
+def qlknn_model(model, *, dtype: torch.dtype | None = None, device: torch.device | str = "cuda"):
+    """The JAX package's ``QLKNNModel`` (an ``MLPParams`` and the
+    standardisation) as the port's."""
+    from scpn_fusion_tpu_torch.models.surrogates.qlknn import QLKNNModel
+
+    return QLKNNModel(mlp_params(model.params, dtype=dtype, device=device),
+                      *(_as(getattr(model, f), dtype, device) for f in QLKNNModel._fields[1:]))
+
+
+def gyro_swin_surrogate(model, *, dtype: torch.dtype | None = None,
+                        device: torch.device | str = "cuda"):
+    """The JAX package's ``GyroSwinSurrogate`` as the port's."""
+    from scpn_fusion_tpu_torch.models.surrogates.gyro_swin import GyroSwinSurrogate
+
+    return GyroSwinSurrogate(*(_as(getattr(model, f), dtype, device)
+                               for f in GyroSwinSurrogate._fields))
+
+
+def turbulence_state(state, generator: torch.Generator | None = None, *,
+                     device: torch.device | str = "cuda"):
+    """The JAX package's ``TurbulenceState`` (its spectrum and zonal flow,
+    dtypes kept) as the port's, drawing its forcing from ``generator``: a
+    JAX key has no counterpart."""
+    from scpn_fusion_tpu_torch.models.surrogates.turbulence_suppressor import TurbulenceState
+
+    f = _fields_of(state)
+    return TurbulenceState(_as(f["field_k"], None, device), _as(f["zonal_flow"], None, device),
+                           generator)

@@ -90,6 +90,8 @@ _SIGNATURES = {
     "scpn_quench_run_f64": [_P, _P],
     "scpn_phase_run_f32": [_P, _I, _P],
     "scpn_phase_run_f64": [_P, _I, _P],
+    "scpn_gene_proxy_f32": [_P, _P],
+    "scpn_gene_proxy_f64": [_P, _P],
 }
 LAUNCHES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()

@@ -141,13 +141,21 @@ certificate's monitor at 4 x 32, ``run_upde`` at 4 x 32 in both psi modes),
 profiles the monitor's plain twin at 100 of its ticks and its run through
 row U at 1000, times row U by CUDA events on every case at full length
 (1000, 500 and 3000 ticks), then profiles the whole-device discharge
-(``WDMConfig()``, 20 steps, float32) with its row-T launches.  Each prints
+(``WDMConfig()``, 20 steps, float32) with its row-T launches.  With
+``--surrogates`` it checks row W (``csrc/gene_proxy.cu``) ``torch.equal`` to
+its plain twin at 1024 samples x 200 steps in float32 and float64, profiles
+the plain twin at those 200 steps (float32) and times row W at the
+benchmark's full 20,000 by CUDA events, then profiles one training step of
+``train_fno_turbulence``'s FNO (64^2, width 24, modes 12, 3 layers, batch 16)
+and one 65^2 float32 free-boundary solve of ``train_equilibrium_artifact``
+(kernels 2 and 3 counted against its inner Picard iterations).  Each prints
 what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
-| --twin | --ballooning | --disruption | --frc | --orbits | --plant | --phase]``.
+| --twin | --ballooning | --disruption | --frc | --orbits | --plant | --phase
+| --surrogates]``.
 Exits non-zero without one.
 """
 
@@ -1468,6 +1476,89 @@ def profile_phase(card: str) -> None:
           f"{out['device_ms']:.4f} ms of device time, {out['wall_ms']:.3f} ms of wall time "
           f"(profiled), idle share {1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
 
+def profile_surrogates(card: str) -> None:
+    """The surrogates slice: row W checked ``torch.equal`` to its plain twin at
+    1024 x 200 steps in float32 and float64, the plain twin profiled at those
+    200 steps, row W timed by CUDA events at 20,000, then one FNO training
+    step and one 65^2 free-boundary solve of the equilibrium trainer (see the
+    module's docstring)."""
+    import numpy as np
+    import torch
+    import chip_smoke as smoke
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium import free_boundary as fb
+    from scpn_fusion_tpu_torch.models.surrogates import fno
+    from scpn_fusion_tpu_torch.models.surrogates import pretrained as tp
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_proxy as cp
+
+    dev = "cuda"
+    cb.library()
+    for line in cb.BUILD_LOG.get("gene_proxy.cu", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas gene_proxy.cu: {line.strip()}")
+    label = smoke.PROXY_TIMED
+    for dtype in (torch.float32, torch.float64):
+        x, _ = smoke.proxy_case(label, dtype, dev)
+        cb.reset_launch_counts()
+        got = cp.gene_proxy(x, 200)
+        calls = dict(cb.CALLS)
+        print(f"{dtype} row W, 1024 samples x 200 steps: {calls} launches, torch.equal to its "
+              f"plain twin {torch.equal(got, cp.gene_proxy_plain(x, 200))} [{card}]")
+    x, iterations = smoke.proxy_case(label, torch.float32, dev)
+    out = profile_solve(card, "the proxy's plain twin, 1024 x 200 steps f32",
+                        lambda: {"ran": cp.gene_proxy_plain(x, 200) is not None}, None)
+    print(f"the proxy's plain twin f32: {out['launches'] / 200:.2f} device launches a step, idle "
+          f"share {1.0 - out['device_ms'] / out['wall_ms']:.3f}, {1e3 * out['wall_ms'] / 200:.2f} "
+          f"us a step of wall time (profiled) [{card}]")
+    for dtype in (torch.float32, torch.float64):
+        xd, _ = smoke.proxy_case(label, dtype, dev)
+        cp.gene_proxy(xd, iterations)
+        ms = sorted(cuda_events_ms(lambda: cp.gene_proxy(xd, iterations)) for _ in range(5))
+        print(f"{dtype} row W, 1024 x {iterations} steps: {ms[2]:.4f} ms between CUDA events "
+              f"around the one launch (median of 5; all {[round(m, 4) for m in ms]}) [{card}]")
+
+    gen = torch.Generator().manual_seed(0)
+    params = fno.init_fno(gen, width=24, modes=12, n_layers=3, device=dev)
+    g = np.random.default_rng(0)
+    xs = torch.from_numpy(g.standard_normal((64, 64, 64, 1)).astype(np.float32)).to(dev)
+    ys = torch.from_numpy(g.standard_normal((64, 64, 64, 1)).astype(np.float32)).to(dev)
+    idx = torch.randint(0, 64, (1, 16), generator=gen).to(dev)
+    fno._train_fno(params, xs, ys, idx, lr=3e-3, schedule="cosine", total_steps=2500)
+    out = profile_solve(card, "one FNO training step (64^2, width 24, modes 12, 3 layers, "
+                              "batch 16) f32",
+                        lambda: {"ran": fno._train_fno(params, xs, ys, idx, lr=3e-3,
+                                                       schedule="cosine",
+                                                       total_steps=2500) is not None}, None)
+    ms = sorted(cuda_events_ms(lambda: fno._train_fno(params, xs, ys, idx, lr=3e-3,
+                                                      schedule="cosine", total_steps=2500))
+                for _ in range(5))
+    print(f"one FNO training step: {out['launches']} device launches, idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}; {ms[2]:.3f} ms between CUDA events "
+          f"(median of 5, unprofiled) [{card}]")
+
+    cfg = tp.equilibrium_training_config(65)
+    grid = Grid.from_config(cfg, dtype=torch.float32, device=dev)
+    coils = fb.coilset_from_config(cfg, torch.float32, dev)
+
+    def solve():
+        return fb.solve_free_boundary(cfg, coils, grid=grid, mu0_green=1.0,
+                                      dtype=torch.float32, device=dev)
+
+    out = profile_solve(card, "one 65^2 free-boundary solve of the equilibrium trainer f32",
+                        lambda: {"ran": solve() is not None}, None)
+    log = []
+    cb.reset_launch_counts()
+    with smoke.inner_iterations(log):
+        res = solve()
+    torch.cuda.synchronize()
+    ms = sorted(cuda_events_ms(solve) for _ in range(3))
+    print(f"one 65^2 solve: {res.outer_iterations} outer, inner {log} ({sum(log)}); kernel calls "
+          f"{dict(cb.CALLS)}; {out['launches']} device launches, idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}; {ms[1]:.1f} ms between CUDA events "
+          f"(median of 3, unprofiled), ~{180 * ms[1] / 1e3:.0f} s for the trainer's 180 [{card}]")
+
+
 def profile_hall_loops(card: str) -> None:
     """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
     the sweep and the bisection) profiled, float64."""
@@ -1607,6 +1698,10 @@ def main() -> int:
     group.add_argument("--phase", action="store_true",
                        help="row U against its plain twin, the monitor plain and through row U, "
                             "then the whole-device discharge")
+    group.add_argument("--surrogates", action="store_true",
+                       help="row W against its plain twin, the proxy plain and through row W, "
+                            "then an FNO training step and a 65^2 solve of the equilibrium "
+                            "trainer")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1677,6 +1772,9 @@ def main() -> int:
         return 0
     if opts.phase:
         profile_phase(card)
+        return 0
+    if opts.surrogates:
+        profile_surrogates(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
