@@ -237,14 +237,34 @@ them:
   JAX tests' and validations' gates; the float64 lanes (heat shadow, QLKNN
   features and targets, multi-regime pairs, the suppression loop and its
   gradient, the ESN readout) against the CPU twin.
+* (zo) the batched equilibrium ensembles of ``parallel/ensemble.py``: the
+  batched kernels 2 and 3 (``cuda_source.fused_topology_source_batched``,
+  three launches for a batch, and ``cuda_mg.fused_coarse_vcycle_batched``,
+  one launch of B clusters) ``torch.equal`` to their unbatched launches
+  element by element at 33^2, 129^2 and 257^2 with B = 1, 16 and 256 and a
+  straggler element, and within 1e-5 of their plain twins; lanes 1-4 of
+  ``validation/run_batched_amortisation.py`` at 129^2 (the f32 ensembles of
+  B = 1, 16, 64 and 256 and the mixed ensembles of B = 16 and 64, one call of
+  each batched kernel an iteration) at the validation's gates, but lane 3's
+  warm < cold, which does not apply to a port that compiles nothing (its
+  first-call cost is printed); the straggler freeze in f32 against
+  standalone solves; the 16-batch over ``Mesh((cuda:0,) * 4)``, its chunks
+  in lockstep, against the whole batch; the mixed B = 16 batch against its
+  CPU twin;
+* (zp) the sharded solves of ``parallel/`` on ``Mesh((cuda:0,) * n)`` for
+  n = 1, 2, 4, 8 (virtual shards of the one card: the exchanges' arithmetic
+  and the launch structure, not an interconnect), in float64 in a spawned
+  process: ``validation/run_sharded_gs.py`` lanes 1, 2 and 4 and
+  ``validation/run_sharded_convergence.py`` lanes 1, 2, 4, 5 and 6 at their
+  sizes (513^2, 256^2, 129^2) and gates.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
 Fokker-Planck, fluid and SPI lanes, (ze) but its eigen lane, (zg), (zh)'s
 Boris and lambda-field lanes, (zi) but its ballooning lane, (zk) but its
 blanket, TEMHD, lane-7 and candidate lanes, (zl)'s UQ, diagnostics and
-tomography lanes, and (zn) but its row-W lanes and its free-boundary solves
-run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
+tomography lanes, (zn) but its row-W lanes and its free-boundary solves, and
+(zp) run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
 
@@ -293,7 +313,8 @@ Phases:
    within one, psi within 1e-3, one kernel-3 launch an iteration) and (f)
    (converged in at most 8 iterations, psi within 1e-3 of Picard, no
    kernel);
-10. runs (g), then (h) and (i), then (g)'s 12 finite-difference solves
+10. runs (g) and then (g)'s 12 finite-difference solves, and (h), each in a
+   spawned process beside (i)-(l), and (i) in line
    (counters likewise: no kernel; each path's wall time between CUDA
    events): (g) the gradient within 3.244e-6 of FD and lane 2's loss lower;
    (h) converged, iterations within one of the CPU run, psi and NRMSE within
@@ -400,12 +421,13 @@ Phases:
    their predecessors, and as 50 calls back to back; ``sor_sweeps`` at each
    route's shape), the cascades and solves with kernels, with their
    predecessors and with plain ops (CUDA
-   events, one warm-up, median of 5; 2 for the plain 2049^2 cascade), and
+   events, one warm-up, median of 5; 2 for the plain cascades and the
+   plain ``anderson`` and rectangular solves), and
    computes each kernel's bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, whichever is larger, at the timed shape); and times paths
    (a), (b), (c), (e) with kernels and with plain ops in turns, (d) with
    kernels, and (f) in turns with the Picard float64 solve (CUDA events, one
-   warm-up, median of 5), (c) beside the original reference's 13.0 ms; the
+   warm-up, median of 2), (c) beside the original reference's 13.0 ms; the
    Thomas kernel at (1, 50) float64 also beside ``torch.linalg.solve`` of the
    dense system, its bound with float64 operations over 34 TFLOP/s, and at
    the other transport shapes beside its plain loop; (m)'s shot (kernels,
@@ -415,10 +437,11 @@ Phases:
 
 Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
 and exits non-zero.  Right after the build it starts, each in a spawned
-process, the CPU twins of (k), (o), (v) and (z)-(zg) and the host-bound card-side
-runs of (k)'s plain Thomas loop, (o)'s optimiser and tracking shot and (zf)'s
-plain references (after (i), those of (zh)-(zi) and (zh)'s plain twins and
-lanes), so
+process, the CPU twins of (k), (o), (v), (z)-(zg) and (zo) and the host-bound
+card-side runs of (k)'s plain Thomas loop, (o)'s optimiser and tracking shot and
+(zf)'s plain references (before (i), (g) with its FD check and (h) with its CPU
+twin; after (l), those of (zh)-(zi) and (zh)'s plain twins and lanes, (zp) and
+(zo)'s lane 3), so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
@@ -431,8 +454,8 @@ campaign and tuner for row R, over (r)'s f32 ladder for row L, over
 over (z)'s gates for row B, over (zc)'s counted sequences and scans for
 row Q, over (zd)'s counted runs for row S, over (zf)'s runs and gradient
 lanes for row P and its adjoint, over (zh)'s counted calls for row F,
-over (zj)-(zk)'s counted calls for rows E and H, over (zm)'s for row U and
-over (zn)'s for row W,
+over (zj)-(zk)'s counted calls for rows E and H, over (zm)'s for row U,
+over (zn)'s for row W and over (zo)'s lanes for the batched kernels 2 and 3,
 and ``launches_by_path`` holding each kernel's wrapper calls on every path
 (zero on (g)-(i), (q), (s), (t), (v) and (x)'s sessions, row R's one on (o)
 and (y), row N's three on (r) and one a shot and a campaign on (w));
@@ -465,6 +488,9 @@ SOR_SWEEPS, SOR_OMEGA = 50, 1.9   # the ``anderson`` path's inner SOR sweeps
 MIXED_FB_TOL = 1e-5  # mixed vs plain f64 free boundary (run_free_boundary_forward.py:208)
 NEWTON_MAX_ITERS = 8  # Newton's iterations at 129^2 (tests/test_newton.py's bar)
 REFERENCE_FB_FP64_MS = 13.0  # the original reference's warm 129^2 FP64 forward on an H100
+# repeats of the times phase's paths whose plain side takes a second or more:
+# a median of 2, in turns, keeps the smoke inside its time on slower hosts
+SLOW_REPS = 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # (rows, columns, pre, posts) at which the fine legs are checked: the cascades'
@@ -491,7 +517,8 @@ KERNELS = ("sor_sweeps", "fused_topology_source", "fine_presmooth_restrict",
            "tiled_prolong_smooth", "thomas_solve_batched", "closed_loop", "reduced_shot",
            "ladder", "gk_rhs", "twin_shot", "newcomb_min_xi", "disruption_sequence",
            "sandpile_run", "compression_run", "compression_adjoint", "gc_ensemble", "gc_orbit",
-           "burn_relax", "quench_run", "phase_run", "gene_proxy")
+           "burn_relax", "quench_run", "phase_run", "gene_proxy", "fused_topology_source_batched",
+           "fused_coarse_vcycle_batched")
 SOURCES = {
     "sor_sweeps": ("csrc/sor_band.cu", "scpn_fusion_tpu/ops/pallas_stencil.py:67"),
     "fused_topology_source": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
@@ -537,6 +564,9 @@ SOURCES = {
     "phase_run": ("csrc/phase.cu", "scpn_fusion_tpu/models/phase/monitor.py:155"),
     # no Pallas kernel: the JAX proxy is one lax.scan of the closure's relaxation
     "gene_proxy": ("csrc/gene_proxy.cu", "scpn_fusion_tpu/models/surrogates/gyro_swin.py:112"),
+    # the batched launches of kernels 2 and 3: JAX's vmap over the same pallas_calls
+    "fused_topology_source_batched": ("csrc/source.cu", "scpn_fusion_tpu/ops/pallas_source.py:59"),
+    "fused_coarse_vcycle_batched": ("csrc/vcycle_fused.cu", "scpn_fusion_tpu/ops/pallas_mg.py:52"),
 }
 
 
@@ -861,22 +891,58 @@ def recon_on_cpu(conn) -> None:
     conn.close()
 
 
-def recon_lane(dev, card: str, counted, by_path: dict) -> None:
+def adjoint_on_card(conn, card: str) -> None:
+    """(g) in a spawned process beside (i)-(l) (host-bound plain f64 ops,
+    130-190 s with its FD check): :func:`adjoint_lane`, then :func:`fd_check`, each
+    printing its numbers and failing on its gate; sends the lane's port
+    kernel calls by path."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+
+    def counted(run):
+        cb.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {name: cb.CALLS[name] for name in KERNELS}, dict(cb.LAUNCHES)
+
+    by_path = {}
+    adjoint = adjoint_lane(torch.device("cuda"), card, counted, by_path)
+    fd_check(*adjoint, card)
+    sys.stdout.flush()
+    conn.send(by_path)
+    conn.close()
+
+
+def recon_on_card(conn) -> None:
+    """(h) on the card in a spawned process beside (i)-(l) (host-bound plain
+    f64 ops, ~120 s): the reconstruction and the refit, each
+    timed between CUDA events, with the port's kernel calls of each."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    dev, case, out = torch.device("cuda"), recon_case(), []
+    for run in (lambda: rc.reconstruct(case, device=dev, **RECON_KW),
+                lambda: rc.refit_profiles(case, device=dev)):
+        cb.reset_launch_counts()
+        res, ms = events_ms(run)
+        out.append((res, ms, {name: cb.CALLS[name] for name in KERNELS}))
+    conn.send(out)
+    conn.close()
+
+
+def recon_lane(card: str, by_path: dict, card_twin, cpu_twin) -> None:
     """(h) the real-shot reconstruction of the SPARC L-mode file in
     ``fuzz/seeds/geqdsk``, float64, the validation's settings
     (run_real_shot_accuracy.py:94-97), against the same call on the CPU;
-    then ``refit_profiles`` with its defaults, also against the CPU (the CPU
-    twins in a process of their own while the card runs)."""
-    from scpn_fusion_tpu_torch.models.equilibrium import reconstruction as rc
-
+    then ``refit_profiles`` with its defaults, also against the CPU (the card
+    runs in :func:`recon_on_card`, the CPU twins in :func:`recon_on_cpu`,
+    both spawned processes started before (i))."""
     case = recon_case()
     kw = RECON_KW
-    with cpu_twin(recon_on_cpu) as twin:
-        (out, ms), calls, _ = counted(lambda: events_ms(lambda: rc.reconstruct(
-            case, device=dev, **kw)))
-        (fit, ms_fit), calls_fit, _ = counted(lambda: events_ms(lambda: rc.refit_profiles(
-            case, device=dev)))
-        out_cpu, fit_cpu = twin()
+    (out, ms, calls), (fit, ms_fit, calls_fit) = card_twin()
+    out_cpu, fit_cpu = cpu_twin()
     span = float(case.psi.max() - case.psi.min())
     dev_psi = float(np.max(np.abs(out["psi_fit"] - out_cpu["psi_fit"]))) / span
     print(f"(h) SPARC g-file 129x129 f64 reconstruction (subcell 4, Anderson(8)): "
@@ -7938,6 +8004,599 @@ def loop_checks(dev, card: str, counted, by_path: dict, twin: dict) -> None:
     agree(num, twin["zn"]["num"], "(zn) lanes", card)
 
 
+# ── the twenty-third slice: (zo) the batched equilibrium ensembles through the
+# batched kernels 2 and 3, (zp) the Z-slab and 2D-tile sharded solves on one
+# card's virtual shards (parallel/) ──
+
+ENSEMBLE_SHAPES = (33, 129, 257)          # the batched kernels' check levels
+ENSEMBLE_CHECK_BATCHES = (1, 16, 256)
+ENSEMBLE_TIMED = (129, 16)                # the kernels line's shape: 129^2, B = 16
+PARITY_GATE = 5e-3          # run_batched_amortisation.py lane 1 (the fixed-point scale, f32)
+AMORTISATION_GATE = 0.5     # lane 2: per solve at B >= 16 below half the B = 1 cost
+MIXED_PARITY_GATE = 1e-5    # lane 4: element parity of the mixed batch
+REFERENCE_BATCHED_FP64_MS = 13.0   # lane 4: the reference's FP64 H100 batched row (BASELINE.md:17)
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_GATE = 1e-10          # run_sharded_gs.py lanes 1, 2, 4 (f64)
+SHARDED_GATE = 1e-8         # run_sharded_convergence.py lanes 1 and 6
+TILED_GATE = 1e-5           # run_sharded_convergence.py lane 5
+FMG_GATE = 1e-3             # run_sharded_convergence.py lane 4
+SHARDED_GS_SIZE, SHARDED_GS_SWEEPS = 256, 200
+TILINGS = ((1, 8), (2, 4), (4, 2))
+
+
+def card_mesh(device, n: int, axes=("z",), sizes=None):
+    """``n`` virtual shards of one device: the sharded programs' arithmetic
+    and launch structure on one card (no interconnect)."""
+    from scpn_fusion_tpu_torch.parallel.mesh import Mesh
+    return Mesh.of([device] * n, axes, sizes)
+
+
+def ensemble_case(key, dtype, device):
+    """The validation's currents and targets for ``key`` of
+    ``bench_config.amortisation_draws``, as tensors."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import amortisation_draws
+    cur, tgt = amortisation_draws()[key]
+    return (torch.from_numpy(cur).to(dtype=dtype, device=device),
+            torch.from_numpy(tgt).to(dtype=dtype, device=device))
+
+
+def mixed_batch(device, key=("mixed", 16)):
+    """Lane 4's batched mixed solve of the ``key`` draws on ``device``: (psi,
+    converged, iterations, gs_residual_best)."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import amortisation_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch_mixed
+    cfg = amortisation_config(129)
+    grid = Grid.from_config(cfg, dtype=torch.float64, device=device)
+    cur, tgt = ensemble_case(key, torch.float64, device)
+    return solve_equilibrium_batch_mixed(cfg, grid, cur, tgt)
+
+
+def ensemble_mixed_on_cpu(conn) -> None:
+    """(zo)'s CPU twin: lane 4's B = 16 mixed batch on the CPU (plain ops)."""
+    dev = on_cpu(4)
+    t0 = time.perf_counter()
+    out = mixed_batch(dev)
+    conn.send({"psi": out.psi.numpy(), "converged": out.converged.numpy(),
+               "iterations": out.iterations.numpy(), "s": time.perf_counter() - t0})
+    conn.close()
+
+
+def ensemble_cold_on_card(conn) -> None:
+    """(zo) lane 3 in a fresh process: the first B = 256 ensemble call of a
+    process (the CUDA context, the kernel library's load, the first
+    launches and allocations: the port's counterpart of JAX's trace and
+    compile of the batch program) and then three warm calls, host clock."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.bench_config import amortisation_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
+
+    def solve():
+        cfg = amortisation_config(129)
+        grid = Grid.from_config(cfg, dtype=torch.float32, device="cuda")
+        cur, tgt = ensemble_case(256, torch.float32, "cuda")
+        out = solve_equilibrium_batch(cfg, grid, cur, tgt)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    out = solve()
+    cold = 1e3 * (time.perf_counter() - t0)
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve()
+        warm.append(1e3 * (time.perf_counter() - t0))
+    conn.send({"cold_ms": cold, "warm_ms": warm, "converged": bool(out.converged.all())})
+    conn.close()
+
+
+def ensemble_work(n: int, b: int, kind: str) -> tuple[float, float]:
+    """B times the unbatched call's bytes and flops at n x n."""
+    if kind == "source":
+        return b * 4.0 * (3 * n * n + n), b * 28.0 * n * n
+    nbytes, flops = vcycle_work(n, 3, 3, 5, 50)
+    return b * nbytes, b * flops
+
+
+def batched_kernel_checks(dev, card: str, results: dict, timing: dict,
+                          measured_plain: dict) -> None:
+    """(zo) the batched kernels 2 and 3 against their unbatched launches
+    element by element (``torch.equal``) at 33^2, 129^2 and 257^2 with B = 1,
+    16 and 256, the last element a straggler (another amplitude and, for the
+    source, its own target current); against their plain twins at 129^2, B =
+    16 (the plain twins timed once there, a loop of B plain calls); the
+    clusters the device holds; the times at B = 16 / 64 / 256 beside B
+    unbatched launches."""
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_source
+
+    rng = np.random.default_rng(SEED + 23)
+    vals = 0.3 + rng.random(8)
+    p_c = ProfileCoeffs(*torch.tensor(vals[:4], dtype=torch.float32, device=dev).unbind())
+    ff_c = ProfileCoeffs(*torch.tensor(vals[4:], dtype=torch.float32, device=dev).unbind())
+    for n in ENSEMBLE_SHAPES:
+        g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+        mask = (g.ZZ < g.Z_min * 0.5).to(torch.float32).contiguous()
+        vc_kw = dict(pre_smooth=3, post_smooth=3, min_grid=5, coarse_sweeps=50)
+        plan = cuda_mg.vcycle_plan_struct(n, 5, float(g.dR), float(g.dZ), 1.0, 3, 3, 50)
+        clusters = cb.library().scpn_fused_vcycle_clusters(ctypes.addressof(plan))
+        require(clusters >= 1, f"(zo) no cluster of the {n}^2 V-cycle fits the device")
+        for b in ENSEMBLE_CHECK_BATCHES:
+            amp = torch.ones(b, 1, 1, device=dev)
+            amp[-1] = 1e3      # the straggler element
+            psi = torch.tensor(rng.standard_normal((b, n, n)), dtype=torch.float32,
+                               device=dev) * amp
+            src = torch.tensor(rng.standard_normal((b, n, n)), dtype=torch.float32,
+                               device=dev) * amp
+            i_t = torch.full((b,), 15.0, device=dev)
+            i_t[-1] = 2.0
+            params = cuda_source.pack_source_params_batched(p_c, ff_c, i_t, like=psi)
+            cb.reset_launch_counts()
+            out_v = cuda_mg.fused_coarse_vcycle_batched(psi, src, g.R, g.dR, g.dZ, 1.0, **vc_kw)
+            launched_v = dict(cb.LAUNCHES)
+            cb.reset_launch_counts()
+            out_s, sc = cuda_source.fused_topology_source_batched(
+                psi, g.R, mask, params, d_r=g.dR, d_z=g.dZ, mu0=1.0, h_mode=b == 16,
+                with_scalars=True)
+            launched_s = dict(cb.LAUNCHES)
+            require(launched_v == {"scpn_fused_vcycle_batched": 1}
+                    and launched_s == {"scpn_fused_source_batched": 3},
+                    f"(zo) batched launches at {n}^2 B={b}: {launched_v}, {launched_s}")
+            equal_v = equal_s = sites = True
+            for e in range(b):
+                ref_v = cuda_mg.fused_coarse_vcycle(psi[e], src[e], g.R, g.dR, g.dZ, 1.0, **vc_kw)
+                ref_s, ref_sc = cuda_source.fused_topology_source(
+                    psi[e], g.R, mask, p_c, ff_c, i_t[e], d_r=g.dR, d_z=g.dZ, mu0=1.0,
+                    h_mode=b == 16, with_scalars=True)
+                equal_v &= torch.equal(out_v[e], ref_v)
+                equal_s &= torch.equal(out_s[e], ref_s)
+                sites &= int(sc.x_index[e]) == int(ref_sc.x_index)
+            torch.cuda.synchronize()
+            print(f"(zo) batched kernels at {n}^2, B = {b} ({'H' if b == 16 else 'L'}-mode "
+                  f"source, the last element x1e3 with I_target 2): V-cycle one launch of {b} "
+                  f"cluster(s) of {plan.n_cta} CTA(s), the device holds {clusters} at once "
+                  f"({-(-b // clusters)} wave(s)), torch.equal to the unbatched launches "
+                  f"{equal_v}; source three launches, torch.equal {equal_s}, X-point sites "
+                  f"equal {sites}")
+            require(equal_v and equal_s and sites,
+                    f"(zo) a batched kernel differs from its unbatched launch at {n}^2 B={b}")
+
+    n, b = ENSEMBLE_TIMED
+    g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=torch.float32, device=dev)
+    mask = (g.ZZ < g.Z_min * 0.5).to(torch.float32).contiguous()
+    cases = {}
+    for bb in (16, 64, 256):
+        psi = torch.tensor(rng.standard_normal((bb, n, n)), dtype=torch.float32, device=dev)
+        src = torch.tensor(rng.standard_normal((bb, n, n)), dtype=torch.float32, device=dev)
+        i_t = torch.tensor(14.0 + rng.random(bb), dtype=torch.float32, device=dev)
+        cases[bb] = (psi, src, cuda_source.pack_source_params_batched(p_c, ff_c, i_t, like=psi))
+    psi, src, params = cases[b]
+    vc = functools.partial(cuda_mg.fused_coarse_vcycle_batched, psi, src, g.R, g.dR, g.dZ, 1.0)
+    vc_plain = functools.partial(cuda_mg.fused_coarse_vcycle_batched_plain, psi, src, g.R,
+                                 g.dR, g.dZ, 1.0)
+    skw = dict(d_r=g.dR, d_z=g.dZ, mu0=1.0, h_mode=False)
+    so = functools.partial(cuda_source.fused_topology_source_batched, psi, g.R, mask, params,
+                           **skw)
+    so_plain = functools.partial(cuda_source.fused_topology_source_batched_plain, psi, g.R,
+                                 mask, params, **skw)
+    for name, fk, fp in (("fused_coarse_vcycle_batched", vc, vc_plain),
+                         ("fused_topology_source_batched", so, so_plain)):
+        out_k = fk()
+        out_p, measured_plain[name] = events_ms(fp)
+        err = span_rel(out_k, out_p)
+        print(f"check {name} {n}^2 B={b}: span-rel {err:.3e} of its plain twin (limit "
+              f"{SPAN_TOL:.0e})")
+        require(err <= SPAN_TOL, f"(zo) {name} differs from its plain twin: {err:.3e}")
+        results[name] = {"max_abs_err": float((out_k - out_p).abs().max())}
+    timing["fused_coarse_vcycle_batched"] = (vc, vc_plain, f"{n}^2 B={b} (3,3)",
+                                             ensemble_work(n, b, "vcycle"))
+    timing["fused_topology_source_batched"] = (so, so_plain, f"{n}^2 B={b} L-mode",
+                                               ensemble_work(n, b, "source"))
+    for bb, (psi, src, params) in cases.items():
+        def one_by_one(psi=psi, src=src):
+            for e in range(psi.shape[0]):
+                cuda_mg.fused_coarse_vcycle(psi[e], src[e], g.R, g.dR, g.dZ, 1.0)
+
+        def src_one_by_one(psi=psi, params=params):
+            for e in range(psi.shape[0]):
+                cuda_source.fused_topology_source(psi[e], g.R, mask, p_c, ff_c,
+                                                  params.i_targets[e], **skw)
+
+        t_v, t_v1 = cuda_ms_pair(functools.partial(cuda_mg.fused_coarse_vcycle_batched, psi,
+                                                   src, g.R, g.dR, g.dZ, 1.0), one_by_one)
+        t_s, t_s1 = cuda_ms_pair(functools.partial(cuda_source.fused_topology_source_batched,
+                                                   psi, g.R, mask, params, **skw),
+                                 src_one_by_one)
+        bv, _ = bound(ensemble_work(n, bb, "vcycle"))
+        bs, _ = bound(ensemble_work(n, bb, "source"))
+        print(f"time (zo) batched kernel 3 at {n}^2 (3,3), B = {bb}: {t_v:.4f} ms a launch, "
+              f"{bb} unbatched launches {t_v1:.4f} ms (in turns), bound {bv:.4g} ms (bytes); "
+              f"batched kernel 2 {t_s:.4f} ms (three launches), {bb} unbatched {t_s1:.4f} ms, "
+              f"bound {bs:.4g} ms (bytes) [{card}]")
+
+
+def host_ms(run) -> tuple:
+    """(result, wall ms) of ``run()`` on the host clock, ending in a
+    synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu, cold_card) -> dict:
+    """(zo) lanes 1-4 of ``validation/run_batched_amortisation.py`` on the
+    card through the batched kernels 2 and 3, at the validation's gates, with
+    times at B = 1 / 16 / 64 / 256 and kernel launches an iteration; the
+    straggler freeze in float32 against standalone solves at the fixed-point
+    scale; the 16-batch over a 4-shard mesh of the one card against the
+    whole batch; the mixed B = 16 batch against its CPU twin (``mixed_cpu``);
+    lane 3, not applicable (the port compiles nothing), printed with the
+    first call of a fresh process (``cold_card``: :func:`ensemble_cold_on_card`).
+    Returns the batched kernels' counted calls, by kernel."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import AMORTISATION_BATCHES, amortisation_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
+
+    f32 = torch.float32
+    cfg = amortisation_config(129)
+    grid = Grid.from_config(cfg, dtype=f32, device=dev)
+    batched = ("fused_topology_source_batched", "fused_coarse_vcycle_batched")
+
+    def solve(key, sl=slice(None), mesh=None):
+        cur, tgt = ensemble_case(key, f32, dev)
+        return solve_equilibrium_batch(cfg, grid, cur[sl], tgt[sl], mesh=mesh)
+
+    def batched_only(calls, tag, iterations):
+        require(calls["fused_topology_source_batched"] == calls["fused_coarse_vcycle_batched"]
+                == iterations > 0 and all(v == 0 for k, v in calls.items() if k not in batched),
+                f"(zo) {tag}: kernel calls {calls}, expected one of each batched kernel an "
+                f"iteration ({iterations})")
+
+    total = dict.fromkeys(batched, 0)
+
+    def add(calls):
+        for name in batched:
+            total[name] += calls[name]
+    # lane 1: element 3 of the 16-batch against the batch of one
+    (out, calls, launched), one = counted(lambda: solve("parity")), solve("parity", slice(3, 4))
+    loop = int(out.iterations.max())
+    batched_only(calls, "lane 1", loop)
+    add(calls)
+    by_path["ensemble lane 1 B=16"] = calls
+    dev1 = span_rel(out.psi[3], one.psi[0])
+    conv = bool(out.converged.all()) and bool(one.converged[0])
+    print(f"(zo) lane 1 batched_element_parity (B = 16, 129^2 f32): element 3 "
+          f"{int(out.iterations[3])} iterations in the batch, {int(one.iterations[0])} alone, "
+          f"span-rel {dev1:.3e} (gate {PARITY_GATE}), all converged {conv}; iterations "
+          f"{out.iterations.tolist()} [{card}]")
+    require(conv and dev1 < PARITY_GATE, "(zo) lane 1 misses its gate")
+
+    # lanes 2 and 3: per-solve time at each B, cold and warm at B = 256
+    per_solve, cold = {}, None
+    for b in AMORTISATION_BATCHES:
+        (res, calls, launched), ms_cold = host_ms(lambda: counted(lambda: solve(b)))
+        loop = int(res.iterations.max())
+        batched_only(calls, f"lane 2 B={b}", loop)
+        add(calls)
+        by_path[f"ensemble lane 2 B={b}"] = calls
+        warm = [host_ms(lambda: solve(b))[1] for _ in range(3)]
+        per_solve[b] = min(warm) / b
+        cold = ms_cold if b == 256 else cold
+        print(f"(zo) lane 2 B = {b}: {loop} iterations, all converged "
+              f"{bool(res.converged.all())}, {sum(launched.values()) / loop:.2f} kernel "
+              f"launches an iteration ({launched}); cold {ms_cold:.3f} ms, warm "
+              f"{', '.join(f'{w:.3f}' for w in warm)} ms: {per_solve[b]:.4f} ms a solve "
+              f"[{card}]")
+        require(bool(res.converged.all()), f"(zo) lane 2: the B = {b} batch did not converge")
+    ratios = {b: per_solve[b] / per_solve[1] for b in AMORTISATION_BATCHES[1:]}
+    print(f"(zo) lane 2 batched_amortisation: per solve / B = 1 "
+          f"{', '.join(f'B={b} {r:.4f}' for b, r in ratios.items())} (gate < "
+          f"{AMORTISATION_GATE}) [{card}]")
+    require(all(r < AMORTISATION_GATE for r in ratios.values()), "(zo) lane 2 misses its gate")
+    fresh = cold_card()
+    print(f"(zo) lane 3 warm_cold: not applicable, the port compiles nothing; the first B = 256 "
+          f"call of a fresh process {fresh['cold_ms']:.3f} ms (the CUDA context, the library's "
+          f"load, the first launches), then {', '.join(f'{w:.3f}' for w in fresh['warm_ms'])} "
+          f"ms; in this process the first B = 256 call {cold:.3f} ms, warm "
+          f"{per_solve[256] * 256:.3f} ms [{card}]")
+    require(fresh["converged"], "(zo) lane 3: the fresh process's B = 256 batch did not converge")
+
+    # the straggler freeze: [base, base] at I_target 15 and 2
+    base = torch.tensor([c.current for c in cfg.coils], dtype=f32, device=dev)
+    cur, tgt = torch.stack([base, base]), torch.tensor([15.0, 2.0], dtype=f32, device=dev)
+    (out, calls, _) = counted(lambda: solve_equilibrium_batch(cfg, grid, cur, tgt))
+    batched_only(calls, "straggler", int(out.iterations.max()))
+    add(calls)
+    by_path["ensemble straggler"] = calls
+    its = out.iterations.tolist()
+    require(bool(out.converged.all()) and its[0] != its[1],
+            f"(zo) straggler: converged {out.converged.tolist()}, iterations {its}")
+    for e in range(2):
+        alone = solve_equilibrium_batch(cfg, grid, cur[e:e + 1], tgt[e:e + 1])
+        d = span_rel(out.psi[e], alone.psi[0])
+        print(f"(zo) straggler freeze f32: element {e} (I_target {float(tgt[e])}) "
+              f"{its[e]} iterations in the batch, {int(alone.iterations[0])} alone, span-rel "
+              f"{d:.3e} (gate {PARITY_GATE}), torch.equal {torch.equal(out.psi[e], alone.psi[0])}"
+              f" [{card}]")
+        require(d < PARITY_GATE, "(zo) a frozen element drifted from its standalone solve")
+
+    # the 16-batch over a 4-shard mesh on the one card: four chunks stepped in lockstep
+    from scpn_fusion_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh.of((dev,) * 4, "batch")
+    whole, ms_whole = host_ms(lambda: solve("parity"))
+    (sharded, calls, _), ms_mesh = host_ms(lambda: counted(lambda: solve("parity", mesh=mesh)))
+    require(calls["fused_topology_source_batched"] == calls["fused_coarse_vcycle_batched"] > 0
+            and all(v == 0 for k, v in calls.items() if k not in batched),
+            f"(zo) mesh: kernel calls {calls}")
+    add(calls)
+    by_path["ensemble mesh 4 B=16"] = calls
+    worst = max(span_rel(sharded.psi[e], whole.psi[e]) for e in range(16))
+    print(f"(zo) the 16-batch over Mesh((cuda:0,) * 4), chunks in lockstep: worst element span-rel "
+          f"{worst:.3e} of the whole batch (gate {PARITY_GATE}), iterations equal "
+          f"{torch.equal(sharded.iterations, whole.iterations)}, {calls['fused_coarse_vcycle_batched']}"
+          f" batched V-cycle launches for {int(sharded.iterations.max())} iterations; "
+          f"{ms_mesh:.3f} ms against {ms_whole:.3f} ms for the whole batch (one card, host clock) "
+          f"[{card}]")
+    require(bool(sharded.converged.all()) and worst < PARITY_GATE,
+            "(zo) the batch over a mesh differs from the whole batch")
+
+    # lane 4: the mixed batch at B = 16 and 64, the f32 V-cycles through the batched kernel 3
+    per_solve_mx, psi16 = {}, None
+    for b in (16, 64):
+        key = ("mixed", b)
+        (res, calls, launched), ms_cold = host_ms(lambda: counted(lambda: mixed_batch(dev, key)))
+        require(calls["fused_coarse_vcycle_batched"] > 0
+                and all(v == 0 for k, v in calls.items() if k != "fused_coarse_vcycle_batched"),
+                f"(zo) lane 4 B={b}: kernel calls {calls}")
+        add(calls)
+        by_path[f"ensemble lane 4 mixed B={b}"] = calls
+        warm = [host_ms(lambda: mixed_batch(dev, key))[1] for _ in range(3)]
+        per_solve_mx[b] = min(warm) / b
+        loop = int(res.iterations.max())
+        print(f"(zo) lane 4 mixed B = {b}: {loop} iterations, all converged "
+              f"{bool(res.converged.all())}, {calls['fused_coarse_vcycle_batched'] / loop:.2f} "
+              f"batched V-cycle launches an iteration; cold {ms_cold:.3f} ms, warm "
+              f"{', '.join(f'{w:.3f}' for w in warm)} ms: {per_solve_mx[b]:.4f} ms a solve "
+              f"(reference FP64 H100 batched row {REFERENCE_BATCHED_FP64_MS} ms) [{card}]")
+        require(bool(res.converged.all()), f"(zo) lane 4: the mixed B = {b} batch did not converge")
+        if b == 16:
+            psi16, res16 = res.psi, res
+    cur16, tgt16 = ensemble_case(("mixed", 16), torch.float64, dev)
+    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch_mixed
+    alone = solve_equilibrium_batch_mixed(cfg, Grid.from_config(cfg, dtype=torch.float64,
+                                                                  device=dev),
+                                          cur16[3:4], tgt16[3:4])
+    dev4 = span_rel(psi16[3], alone.psi[0])
+    print(f"(zo) lane 4 batched_mixed_amortisation: element 3 span-rel {dev4:.3e} of its solve "
+          f"alone (gate {MIXED_PARITY_GATE}); per solve at B = 64 {per_solve_mx[64]:.4f} ms "
+          f"(gate <= {REFERENCE_BATCHED_FP64_MS}) [{card}]")
+    require(dev4 < MIXED_PARITY_GATE and bool(alone.converged[0]),
+            "(zo) lane 4 misses its element parity")
+    require(per_solve_mx[64] <= REFERENCE_BATCHED_FP64_MS,
+            f"(zo) lane 4: {per_solve_mx[64]:.4f} ms a solve at B = 64 misses the reference's "
+            f"{REFERENCE_BATCHED_FP64_MS} ms")
+
+    twin = mixed_cpu()
+    ref = torch.from_numpy(twin["psi"])
+    worst = max(span_rel(psi16[e].cpu(), ref[e]) for e in range(16))
+    print(f"(zo) mixed B = 16 against the CPU twin (plain f32 V-cycles, {twin['s']:.1f} s): worst "
+          f"element span-rel {worst:.3e} (gate {MIXED_PARITY_GATE}); iterations card "
+          f"{res16.iterations.tolist()}, CPU {twin['iterations'].tolist()}; converged "
+          f"{bool(twin['converged'].all())} [{card}]")
+    require(worst < MIXED_PARITY_GATE and bool(twin["converged"].all()),
+            "(zo) the mixed batch differs from its CPU twin")
+    return total
+
+
+def sharded_lanes(device, n: int = 513, n_gs: int = SHARDED_GS_SIZE,
+                  sweeps: int = SHARDED_GS_SWEEPS, n_fb: int = 129) -> dict:
+    """``validation/run_sharded_gs.py`` lanes 1, 2 and 4 and
+    ``validation/run_sharded_convergence.py`` lanes 1, 2, 4, 5 and 6 on
+    ``device`` with :func:`card_mesh`'s virtual shards (the validations' sizes
+    by default), float64: each lane's measured numbers and its seconds."""
+    import dataclasses
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import sharded_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium
+    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import solve_free_boundary
+    from scpn_fusion_tpu_torch.ops.stencil import gs_operator, gs_residual, sor_sweeps
+    from scpn_fusion_tpu_torch.parallel.halo import sharded_sor_solve
+    from scpn_fusion_tpu_torch.parallel.halo2d import optimal_process_grid, sharded_sor_solve_2d
+    from scpn_fusion_tpu_torch.parallel.sharded_fb import solve_free_boundary_sharded
+    from scpn_fusion_tpu_torch.parallel.sharded_mg import sharded_mg_solve
+    from scpn_fusion_tpu_torch.parallel.sharded_mg2d import solve_equilibrium_sharded_2d
+    from scpn_fusion_tpu_torch.parallel.sharded_solve import (
+        solve_equilibrium_sharded, solve_equilibrium_sharded_fmg,
+    )
+
+    f64 = torch.float64
+    out, t = {}, time.perf_counter()
+
+    def sync_s():
+        nonlocal t
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        s, t = now - t, now
+        return s
+
+    def dev_of(a, b) -> float:
+        return float((a - b).abs().max()) / float(b.max() - b.min())
+
+    # run_sharded_gs.py: 200 sweeps on 256 x 256 at omega 1.7
+    g = Grid.from_bounds(n_gs, n_gs, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=device)
+    exact = torch.exp(-((g.RR - 6.0) ** 2 + g.ZZ**2) / 3.0)
+    src = gs_operator(exact, g.R, g.dR, g.dZ)
+    psi0 = exact + torch.tensor(0.05 * np.random.default_rng(7).standard_normal(g.shape),
+                                dtype=f64, device=device)
+    span = float(exact.max() - exact.min())
+    fields, ms = {}, {}
+    for k in SHARD_COUNTS:
+        sync_s()
+        fields[k], _ = sharded_sor_solve(psi0, src, g.R, 1.7, mesh=card_mesh(device, k),
+                                         axis="z", d_r=g.dR, d_z=g.dZ, n_sweeps=sweeps,
+                                         nz_total=g.NZ)
+        ms[k] = 1e3 * sync_s() / sweeps
+    out["gs lane 1"] = {"max_dev": max(float((fields[k] - fields[1]).abs().max()) / span
+                                       for k in SHARD_COUNTS[1:]),
+                        "err_vs_exact": float((fields[8] - exact).abs().max()) / span,
+                        "ms_per_sweep": ms}
+    pz, pr = optimal_process_grid(8)
+    t2d, _ = sharded_sor_solve_2d(psi0, src, g.R, 1.7,
+                                  mesh=card_mesh(device, 8, ("tz", "tr"), (pz, pr)), d_r=g.dR,
+                                  d_z=g.dZ, n_sweeps=sweeps, nz_total=g.NZ, nr_total=g.NR)
+    out["gs lane 2"] = {"dev": float((t2d - fields[1]).abs().max()) / span, "grid": (pz, pr),
+                        "s": sync_s()}
+    plain = sor_sweeps(psi0, src, g.R, g.dR, g.dZ, 1.7, sweeps)
+    out["gs lane 4"] = {"dev": float((plain - fields[1]).abs().max()) / span,
+                        "ms_per_sweep_plain": 1e3 * sync_s() / sweeps}
+
+    # run_sharded_convergence.py at n x n
+    cfg = sharded_config(n)
+    ref = solve_equilibrium(cfg, dtype=f64, device=device)
+    out["ref"] = {"converged": bool(ref.converged), "iterations": int(ref.iterations),
+                  "s": sync_s()}
+    lane1 = {}
+    for k in SHARD_COUNTS:
+        res = solve_equilibrium_sharded(cfg, card_mesh(device, k), dtype=f64)
+        lane1[k] = {"converged": bool(res.converged), "iterations": int(res.iterations),
+                    "dev": dev_of(res.psi, ref.psi), "s": sync_s()}
+    out["conv lane 1"] = lane1
+
+    gm = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=device)
+    exact = torch.exp(-((gm.RR - 6.0) ** 2 + gm.ZZ**2) / 3.0)
+    src = gs_operator(exact, gm.R, gm.dR, gm.dZ)
+    noise = 0.05 * np.random.default_rng(11).standard_normal(gm.shape)
+    noise[0, :] = noise[-1, :] = 0.0
+    noise[:, 0] = noise[:, -1] = 0.0
+    psi0 = exact + torch.tensor(noise, dtype=f64, device=device)
+    psi_f, res_rms, k = sharded_mg_solve(psi0, src, gm.R, mesh=card_mesh(device, 8), axis="z",
+                                         d_r=gm.dR, d_z=gm.dZ, tol=1e-9, max_cycles=80)
+    r = gs_residual(psi_f, src, gm.R, gm.dR, gm.dZ)
+    out["conv lane 2"] = {"res": float(res_rms), "cycles": int(k),
+                          "recomputed": float(torch.sqrt((r * r).sum()
+                                                         / ((gm.NZ - 2) * (gm.NR - 2)))),
+                          "err": dev_of(psi_f, exact), "s": sync_s()}
+
+    res, info = solve_equilibrium_sharded_fmg(cfg, card_mesh(device, 8), min_coarse=129,
+                                              dtype=f64)
+    out["conv lane 4"] = {"ladder": info, "dev": dev_of(res.psi, ref.psi), "s": sync_s()}
+
+    lane5 = {}
+    for shape in TILINGS:
+        res = solve_equilibrium_sharded_2d(cfg, card_mesh(device, 8, ("tz", "tr"), shape),
+                                           dtype=f64)
+        lane5[f"{shape[0]}x{shape[1]}"] = {"converged": bool(res.converged),
+                                          "iterations": int(res.iterations),
+                                          "dev": dev_of(res.psi, ref.psi), "s": sync_s()}
+    out["conv lane 5"] = lane5
+
+    cfg_fb = dataclasses.replace(cfg, grid_resolution=(n_fb, n_fb))
+    kw = dict(max_outer_iter=12, tol=1e-5, mu0_green=1.0, dtype=f64)
+    fb_ref = solve_free_boundary(cfg_fb, device=device, **kw)
+    lane6 = {"ref": {"converged": bool(fb_ref.converged),
+                     "outer_iterations": int(fb_ref.outer_iterations), "s": sync_s()}}
+    for k in SHARD_COUNTS:
+        fb = solve_free_boundary_sharded(cfg_fb, mesh=card_mesh(device, k), **kw)
+        lane6[k] = {"converged": bool(fb.converged), "outer_iterations": int(fb.outer_iterations),
+                    "dev": dev_of(fb.psi, fb_ref.psi), "s": sync_s()}
+    out["conv lane 6"] = lane6
+    return out
+
+
+def sharded_on_card(conn) -> None:
+    """(zp) in a spawned process: :func:`sharded_lanes` on the card, no kernel."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    t0 = time.perf_counter()
+    out = sharded_lanes(torch.device("cuda"))
+    out["launches"] = sum(cb.LAUNCHES.values())
+    out["s"] = time.perf_counter() - t0
+    conn.send(out)
+    conn.close()
+
+
+def sharded_gates(r: dict) -> dict:
+    """The validations' gates of (zp)'s lanes, by lane: pass or fail."""
+    l1, l6 = r["conv lane 1"], r["conv lane 6"]
+    ref_it = r["ref"]["iterations"]
+    l5 = r["conv lane 5"]
+    l2 = r["conv lane 2"]
+    return {
+        "run_sharded_gs lane 1": r["gs lane 1"]["max_dev"] < SHARD_GATE,
+        "run_sharded_gs lane 2": r["gs lane 2"]["dev"] < SHARD_GATE,
+        "run_sharded_gs lane 4": r["gs lane 4"]["dev"] < SHARD_GATE,
+        "lane 1 sharded_headline_convergence": r["ref"]["converged"] and all(
+            v["converged"] and v["iterations"] == ref_it and v["dev"] < SHARDED_GATE
+            for v in l1.values()),
+        "lane 2 sharded_linear_residual_gate": l2["res"] < 1e-9 and l2["cycles"] < 80
+        and abs(l2["recomputed"] - l2["res"]) <= 1e-4 * max(l2["recomputed"], 1e-30),
+        "lane 4 sharded_fmg_cascade": all(lv["converged"] for lv in r["conv lane 4"]["ladder"])
+        and r["conv lane 4"]["dev"] < FMG_GATE
+        and r["conv lane 4"]["ladder"][-1]["iterations"] <= ref_it,
+        "lane 5 tile2d_grid_invariant_convergence": all(v["converged"] for v in l5.values())
+        and len({v["iterations"] for v in l5.values()}) == 1
+        and max(v["dev"] for v in l5.values()) < TILED_GATE,
+        "lane 6 sharded_free_boundary_forward": l6["ref"]["converged"] and all(
+            l6[k]["converged"] and l6[k]["outer_iterations"] == l6["ref"]["outer_iterations"]
+            and l6[k]["dev"] < SHARDED_GATE for k in SHARD_COUNTS),
+    }
+
+
+def sharded_checks(card: str, twin) -> None:
+    """(zp): the sharded lanes' numbers from :func:`sharded_on_card` against
+    the validations' f64 gates; no kernel may launch on them."""
+    r = twin()
+    print(f"(zp) the sharded lanes on Mesh((cuda:0,) * n) (virtual shards of one card: the "
+          f"exchanges' arithmetic and the launch structure, no interconnect), f64, in a "
+          f"spawned process: {r['s']:.1f} s, {r['launches']} kernel launches [{card}]")
+    l1 = r["gs lane 1"]
+    print(f"(zp) run_sharded_gs lane 1: {SHARDED_GS_SIZE}^2, {SHARDED_GS_SWEEPS} sweeps, max "
+          f"span-rel {l1['max_dev']:.3e} from 1 shard over 2/4/8 (gate {SHARD_GATE}), "
+          f"{l1['err_vs_exact']:.3e} from the manufactured solution; ms a sweep "
+          f"{', '.join(f'{k}: {v:.4f}' for k, v in l1['ms_per_sweep'].items())}; lane 2 "
+          f"{r['gs lane 2']['grid']} tiles span-rel {r['gs lane 2']['dev']:.3e}; lane 4 the plain "
+          f"sweep span-rel {r['gs lane 4']['dev']:.3e}, {r['gs lane 4']['ms_per_sweep_plain']:.4f} "
+          f"ms a sweep [{card}]")
+    print(f"(zp) run_sharded_convergence lane 1 (513^2 f64): single {r['ref']['iterations']} "
+          f"iterations ({r['ref']['s']:.2f} s); "
+          + "; ".join(f"{k} shards {v['iterations']} iterations, span-rel {v['dev']:.3e}, "
+                      f"{v['s']:.2f} s" for k, v in r["conv lane 1"].items())
+          + f" (gate {SHARDED_GATE}) [{card}]")
+    l2 = r["conv lane 2"]
+    print(f"(zp) lane 2: {l2['cycles']} V-cycles on 8 shards to residual {l2['res']:.3e} "
+          f"(recomputed {l2['recomputed']:.3e}), {l2['err']:.3e} from the manufactured "
+          f"solution, {l2['s']:.2f} s; lane 4 FMG {r['conv lane 4']['ladder']}, span-rel "
+          f"{r['conv lane 4']['dev']:.3e} (gate {FMG_GATE}), {r['conv lane 4']['s']:.2f} s [{card}]")
+    print("(zp) lane 5 tilings: " + "; ".join(
+        f"{k} {v['iterations']} iterations, span-rel {v['dev']:.3e}, {v['s']:.2f} s"
+        for k, v in r["conv lane 5"].items()) + f" (gate {TILED_GATE}) [{card}]")
+    l6 = r["conv lane 6"]
+    print(f"(zp) lane 6 free boundary 129^2: single {l6['ref']['outer_iterations']} outer "
+          f"({l6['ref']['s']:.2f} s); " + "; ".join(
+              f"{k} shards {l6[k]['outer_iterations']} outer, span-rel {l6[k]['dev']:.3e}, "
+              f"{l6[k]['s']:.2f} s" for k in SHARD_COUNTS) + f" (gate {SHARDED_GATE}) [{card}]")
+    gates = sharded_gates(r)
+    print(f"(zp) gates: {gates}")
+    require(r["launches"] == 0, f"(zp): {r['launches']} kernel launches on the sharded lanes")
+    require(all(gates.values()), f"(zp) gates missed: {[k for k, v in gates.items() if not v]}")
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.asarray(a, np.float64))
@@ -7945,7 +8604,7 @@ def torch_from(a):
 
 def early_twins(stack: contextlib.ExitStack) -> dict:
     """Start, right after the build, the processes whose results later
-    paths wait for: the CPU twins of (k), (o), (v) and (z)-(zg), and the host-bound
+    paths wait for: the CPU twins of (k), (o), (v), (z)-(zg) and (zo), and the host-bound
     card-side runs of (k)'s plain Thomas loop, (o)'s :data:`CARD_LANES` and (zf)'s plain
     references,
     each in a spawned process that drives the card beside this one (the card
@@ -7954,7 +8613,7 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
                "torax_cpu": torax_on_cpu, "control_cpu": control_lanes_on_cpu,
                "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu,
                "slice17_cpu": slice17_on_cpu, "slice18_cpu": slice18_on_cpu,
-               "slice18_card": slice18_plain_on_card}
+               "slice18_card": slice18_plain_on_card, "ensemble_cpu": ensemble_mixed_on_cpu}
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
@@ -7963,15 +8622,17 @@ def late_twins(stack: contextlib.ExitStack, psi_129) -> dict:
     third on (b)'s 129^2 psi, ``psi_129``), the plain runs of rows F, E, H, U
     and W on the card (~230 s, ~40 s, ~300 s, ~20 s and ~12 s of host time),
     (zn)'s FNO and equilibrium trainers on the card (~50 s each) and the
-    replay certificate's fresh process once the host-bound early paths,
-    (a)-(i), are done: started with the others, they slowed those paths on an
+    replay certificate's fresh process, (zp)'s sharded lanes and (zo)'s
+    lane 3 in a fresh process once the host-bound early paths,
+    (a)-(l), are done: started with the others, they slowed those paths on an
     8-core host with one H100 (the whole smoke 899 s, where it had taken 770 s
     without them)."""
     targets = {"slice19_cpu": slice19_on_cpu, "slice19_card": slice19_plain_on_card,
                "slice20_cpu": slice20_on_cpu, "slice20_card": slice20_plain_on_card,
                "slice21_card": slice21_plain_on_card, "slice22_card": slice22_plain_on_card,
                "slice22_cpu": slice22_on_cpu, "slice22_fno": slice22_fno_trainers_on_card,
-               "slice22_equilibrium": slice22_equilibrium_on_card}
+               "slice22_equilibrium": slice22_equilibrium_on_card,
+               "sharded_card": sharded_on_card, "ensemble_cold": ensemble_cold_on_card}
     twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
     twins["slice21_cpu"] = stack.enter_context(cpu_twin(slice21_on_cpu, psi_129))
     with environment(PYTHONHASHSEED=REPLAY_HASHSEED):
@@ -8579,15 +9240,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     # iterations take the fine legs.
     picard = sum(d["iterations"] for d in info_k)
     fine = info_k[-1]["iterations"]
-    expected = {"sor_sweeps": 0, "fused_topology_source": picard,
-                "fine_presmooth_restrict": fine, "fine_prolong_smooth": fine,
-                "fused_coarse_vcycle": picard, "tiled_presmooth_restrict": 0,
-                "tiled_prolong_smooth": 0, "thomas_solve_batched": 0, "closed_loop": 0,
-                "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
-                "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
-                "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
-                "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0,
-                "phase_run": 0, "gene_proxy": 0}
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(fused_topology_source=picard, fine_presmooth_restrict=fine,
+                    fine_prolong_smooth=fine, fused_coarse_vcycle=picard)
     if launches_513 != expected:
         raise AssertionError(f"wrapper calls {launches_513} != expected {expected}")
     if not (cb.LAUNCHES["scpn_fused_vcycle"] == cb.LAUNCHES["scpn_fused_source"] == picard):
@@ -8691,17 +9346,13 @@ def _main(stack: contextlib.ExitStack) -> int:
     it = {d["n"]: d["iterations"] for d in info2_k}
     f32_its = it[129] + it[257] + it[513] + it[1025]
     vcycles = f32_its + 2 * it[2049]
-    expected2 = {"sor_sweeps": 0, "fused_topology_source": f32_its,
-                 "fine_presmooth_restrict": it[513] + it[1025] + 2 * it[2049],
-                 "fine_prolong_smooth": it[513] + it[1025] + 2 * it[2049],
-                 "fused_coarse_vcycle": vcycles,
-                 "tiled_presmooth_restrict": it[1025] + 4 * it[2049],
-                 "tiled_prolong_smooth": it[1025] + 4 * it[2049], "thomas_solve_batched": 0,
-                 "closed_loop": 0, "reduced_shot": 0, "ladder": 0, "gk_rhs": 0,
-                 "twin_shot": 0, "newcomb_min_xi": 0, "disruption_sequence": 0,
-                 "sandpile_run": 0, "compression_run": 0, "compression_adjoint": 0,
-                 "gc_ensemble": 0, "gc_orbit": 0, "burn_relax": 0, "quench_run": 0,
-                "phase_run": 0, "gene_proxy": 0}
+    expected2 = dict.fromkeys(KERNELS, 0)
+    expected2.update(fused_topology_source=f32_its,
+                     fine_presmooth_restrict=it[513] + it[1025] + 2 * it[2049],
+                     fine_prolong_smooth=it[513] + it[1025] + 2 * it[2049],
+                     fused_coarse_vcycle=vcycles,
+                     tiled_presmooth_restrict=it[1025] + 4 * it[2049],
+                     tiled_prolong_smooth=it[1025] + 4 * it[2049])
     if launches != expected2:
         raise AssertionError(f"wrapper calls {launches} != expected {expected2}")
     if (cb.LAUNCHES["scpn_fused_vcycle"], cb.LAUNCHES["scpn_fused_source"]) != (vcycles, f32_its):
@@ -9042,31 +9693,33 @@ def _main(stack: contextlib.ExitStack) -> int:
     # ── the eighth slice: (g) the adjoint lane, (h) the real-shot reconstruction and
     # its profile refit, (i) the small lanes, each on plain ops; (g)'s FD
     # check last ──
-    adjoint = adjoint_lane(dev, card, counted, by_path)
-    phase_done("adjoint lane")
-    recon_lane(dev, card, counted, by_path)
-    phase_done("real-shot reconstruction")
-    small_lanes(dev, card, counted, by_path, fmg_513, cfg_k, fb_results["fb_129"],
-                free_boundary_config(129), FREE_BOUNDARY_MU0_GREEN)
-    phase_done("small lanes")
-    fd_check(*adjoint, card)
-    phase_done("FD check")
+    # (g) with its FD check and (h) run on the card in spawned processes beside
+    # (i)-(l) (in line they took 130-190 s and ~120 s of host time)
+    with cpu_twin(adjoint_on_card, card) as adjoint_card, \
+            cpu_twin(recon_on_card) as recon_card, cpu_twin(recon_on_cpu) as recon_cpu:
+        small_lanes(dev, card, counted, by_path, fmg_513, cfg_k, fb_results["fb_129"],
+                    free_boundary_config(129), FREE_BOUNDARY_MU0_GREEN)
+        phase_done("small lanes")
+
+        # ── the ninth slice: the Thomas kernel against its plain version, then
+        # (j) the coupled GS <-> transport solve, (k) the TORAX coarse tier and
+        # (l) the small transport lanes ──
+        library = {}    # name -> one PyTorch call of the same function, timed beside the kernel
+        thomas_checks(dev, rng, results, timing, library, extra_times)
+        phase_done("Thomas kernel checks")
+        coupled_calls = coupled_lane(dev, card, counted, by_path)
+        phase_done("coupled GS <-> transport")
+        torax_lane(dev, card, counted, by_path, twins["torax_plain"], twins["torax_cpu"])
+        phase_done("TORAX coarse tier")
+        transport_lanes(dev, card, counted, by_path)
+        phase_done("transport lanes")
+        recon_lane(card, by_path, recon_card, recon_cpu)
+        phase_done("real-shot reconstruction (h), spawned")
+        by_path.update(adjoint_card())
+        phase_done("adjoint lane and FD check (g), spawned")
     # (zh)'s twins start here, past the host-bound early paths they would slow
     psi_129 = fb_results["fb_129"].psi.detach().cpu().numpy()
     twins.update(late_twins(stack, psi_129))
-
-    # ── the ninth slice: the Thomas kernel against its plain version, then
-    # (j) the coupled GS <-> transport solve, (k) the TORAX coarse tier and
-    # (l) the small transport lanes ──
-    library = {}    # name -> one PyTorch call of the same function, timed beside the kernel
-    thomas_checks(dev, rng, results, timing, library, extra_times)
-    phase_done("Thomas kernel checks")
-    coupled_calls = coupled_lane(dev, card, counted, by_path)
-    phase_done("coupled GS <-> transport")
-    torax_lane(dev, card, counted, by_path, twins["torax_plain"], twins["torax_cpu"])
-    phase_done("TORAX coarse tier")
-    transport_lanes(dev, card, counted, by_path)
-    phase_done("transport lanes")
 
     # ── the tenth slice: (m) the flight simulator's full lane (kernels 2-5 on
     # every tick), (n) the SCPN closed loop (one launch of csrc/closed_loop.cu
@@ -9199,6 +9852,16 @@ def _main(stack: contextlib.ExitStack) -> int:
     loop_checks(dev, card, counted, by_path, slice22)
     phase_done("suppression loop, ESN oracles and float64 lanes (zn)")
 
+    # ── the twenty-third slice: (zo) the ensembles through the batched kernels 2
+    # and 3, (zp) the sharded solves on one card's virtual shards ──
+    batched_kernel_checks(dev, card, results, timing, measured_plain)
+    phase_done("batched kernels 2 and 3 (zo)")
+    ensemble_calls = ensemble_checks(dev, card, counted, by_path, twins["ensemble_cpu"],
+                                     twins["ensemble_cold"])
+    phase_done("ensemble lanes 1-4 and the straggler (zo)")
+    sharded_checks(card, twins["sharded_card"])
+    phase_done("sharded solves on virtual shards (zp)")
+
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
     launches["sor_sweeps"] = launches_rect["sor_sweeps"]
@@ -9218,6 +9881,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     launches["burn_relax"], launches["quench_run"] = burn_calls, quench_calls
     launches["phase_run"] = phase_calls
     launches["gene_proxy"] = proxy_calls
+    launches.update(ensemble_calls)
     missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on a path: {missing}")
@@ -9289,9 +9953,10 @@ def _main(stack: contextlib.ExitStack) -> int:
         solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
 
     fmg_k, fmg_s = cuda_ms_pair(fmg_run, under(staged_kernels, fmg_run))
-    fmg_p = cuda_ms(lambda: solve_equilibrium_fmg(cfg_p, dtype=torch.float32, **fmg))
+    fmg_p = cuda_ms(lambda: solve_equilibrium_fmg(cfg_p, dtype=torch.float32, **fmg),
+                    reps=SLOW_REPS)
     print(f"time FMG 129->257->513 f32: kernels {fmg_k:.3f} ms, with the staged kernels "
-          f"{fmg_s:.3f} ms (in turns), plain {fmg_p:.3f} ms [{card}]")
+          f"{fmg_s:.3f} ms (in turns), plain {fmg_p:.3f} ms (median of {SLOW_REPS}) [{card}]")
     mix_k, mix_s = cuda_ms_pair(mixed_run, under(staged_kernels, mixed_run))
     mix_p = cuda_ms(lambda: solve_equilibrium_mixed_fmg(cfg2_p, min_coarse=129,
                                                         use_pallas=False, device=dev), reps=2)
@@ -9325,24 +9990,25 @@ def _main(stack: contextlib.ExitStack) -> int:
     for tag, label in (("fb_257", "free boundary 257^2 f32"), ("fb_129", "free boundary 129^2 f32"),
                        ("fb_mixed_129", "free boundary 129^2 f64")):
         fn_k, fn_p = fb_runs[tag]
-        t_k, t_p = cuda_ms_pair(fn_k, fn_p)
+        t_k, t_p = cuda_ms_pair(fn_k, fn_p, reps=SLOW_REPS)
         if tag == "fb_mixed_129":
             print(f"time {label}: mixed with kernels {t_k:.3f} ms, plain f64 {t_p:.3f} ms (in "
-                  f"turns, median of 5); yardstick: the original reference's warm 129^2 FP64 "
-                  f"free-boundary forward on an H100, {REFERENCE_FB_FP64_MS} ms (BASELINE.md:13) "
-                  f"[{card}]")
+                  f"turns, median of {SLOW_REPS}); yardstick: the original reference's warm "
+                  f"129^2 FP64 free-boundary forward on an H100, {REFERENCE_FB_FP64_MS} ms "
+                  f"(BASELINE.md:13) [{card}]")
         else:
             print(f"time {label}: kernels {t_k:.3f} ms, plain {t_p:.3f} ms (in turns, median of "
-                  f"5) [{card}]")
+                  f"{SLOW_REPS}) [{card}]")
     print(f"time free boundary 129^2 f32 optimize_shape + wall: kernels "
-          f"{cuda_ms(shape_run):.3f} ms (median of 5) [{card}]")
-    t_k, t_p = cuda_ms_pair(*eq_runs)
+          f"{cuda_ms(shape_run, reps=SLOW_REPS):.3f} ms (median of {SLOW_REPS}) [{card}]")
+    t_k, t_p = cuda_ms_pair(*eq_runs, reps=SLOW_REPS)
     print(f"time SPARC g-file 129x129 f32 reconstruction: kernels {t_k:.3f} ms, plain "
-          f"{t_p:.3f} ms (in turns, median of 5) [{card}]")
+          f"{t_p:.3f} ms (in turns, median of {SLOW_REPS}) [{card}]")
     t_n, t_pic = cuda_ms_pair(lambda: solve_equilibrium_newton(nk_cfg, dtype=f64, device=dev),
-                              lambda: solve_equilibrium(nk_cfg, dtype=f64, device=dev))
+                              lambda: solve_equilibrium(nk_cfg, dtype=f64, device=dev),
+                              reps=SLOW_REPS)
     print(f"time Newton-Krylov 129^2 f64 (plain ops): {t_n:.3f} ms, the Picard f64 solve "
-          f"{t_pic:.3f} ms (in turns, median of 5) [{card}]")
+          f"{t_pic:.3f} ms (in turns, median of {SLOW_REPS}) [{card}]")
     phase_done("times")
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (every phase, the build included)")

@@ -117,6 +117,58 @@ def rect_config(grid: tuple[int, int] = RECT_GRID, *, use_pallas: bool = True) -
     return config_from_dict(rect_config_dict(grid, use_pallas=use_pallas))
 
 
+# ── the ensembles and sharded solves of parallel/ ──
+
+AMORTISATION_SOLVER: dict[str, Any] = {
+    "max_iterations": 200, "convergence_threshold": 1e-4, "relaxation_factor": 1.0,
+    "solver_method": "anderson_mg", "anderson_depth": 4, "inner_sweeps": 1}
+AMORTISATION_SEED = 5
+AMORTISATION_BATCHES = (1, 16, 64, 256)
+
+
+def amortisation_config(n: int = 129, *, use_pallas: bool = True) -> ReactorConfig:
+    """The ensemble lane's configuration (``validation/run_batched_amortisation.py``
+    ``_make_cfg``): the ITER-like machine at ``n`` x ``n``, ``anderson_mg``,
+    depth 4, relaxation 1.0, (3,3) smoothing, at most 200 iterations."""
+    return config_from_dict(config_dict(n, **AMORTISATION_SOLVER, use_pallas=use_pallas))
+
+
+def amortisation_draws(n_coils: int = 6) -> dict:
+    """The validation's ensemble inputs, drawn in its order from one
+    ``default_rng(AMORTISATION_SEED)``: the coil currents of element b are
+    the machine's times ``1 + 0.05 x`` in float32 (x standard normal), every
+    target current 15.  Keys: ``"parity"`` (lane 1's 16), each B of
+    :data:`AMORTISATION_BATCHES` (lanes 2-3), ``("mixed", 16)`` and
+    ``("mixed", 64)`` (lane 4); values (currents (B, n_coils), targets (B,))
+    as float32 numpy arrays."""
+    rng = np.random.default_rng(AMORTISATION_SEED)
+    base = np.asarray([c["current"] for c in ITER_LIKE["coils"]], np.float32)
+
+    def draw(b):
+        pert = np.float32(1.0) + np.float32(0.05) * rng.standard_normal((b, n_coils)).astype(
+            np.float32)
+        return base[None, :] * pert, np.full((b,), 15.0, np.float32)
+
+    out = {"parity": draw(16)}
+    for b in AMORTISATION_BATCHES:
+        out[b] = draw(b)
+    for b in (16, 64):
+        out[("mixed", b)] = draw(b)
+    return out
+
+
+SHARDED_SOLVER: dict[str, Any] = {
+    "max_iterations": 600, "convergence_threshold": 1e-4, "relaxation_factor": 0.8,
+    "solver_method": "anderson_mg", "anderson_depth": 4, "inner_sweeps": 1}
+
+
+def sharded_config(n: int = 513) -> ReactorConfig:
+    """``validation/run_sharded_convergence.py``'s headline configuration:
+    the ITER-like machine at ``n`` x ``n``, ``anderson_mg``, depth 4,
+    relaxation 0.8, at most 600 iterations."""
+    return config_from_dict(config_dict(n, **SHARDED_SOLVER))
+
+
 # ── transport (1.5D stepper, the GS <-> transport coupling, the small lanes) ──
 #
 # TORAX_COARSE is the coarse tier of ``validation/run_torax_parity.py:37-39,

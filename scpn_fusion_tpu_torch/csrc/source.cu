@@ -40,6 +40,20 @@
 // source_ipsum_kernel, source_apply_kernel; entry scpn_fused_source_staged)
 // stay below as the reference that the one-launch kernel must equal bit for
 // bit: same partials, combined in the same order.
+//
+// Batched (entry scpn_fused_source_batched; the ensemble of
+// parallel/ensemble.py, the counterpart of vmap over pallas_call): B grids
+// of one shape, each with its own I_target, as the same three kernels on a
+// (blocks, B) grid.  blockIdx.y is the element: it offsets psi, src, the
+// partials, the readout and the parameters, and nothing else changes, so an
+// element's partials are the unbatched call's, combined in the same order,
+// and element b equals the unbatched launch on element b bit for bit.  Why
+// three launches and not one: the cooperative kernel needs every block of
+// the grid resident, and B elements need B times the blocks (4352 at 129^2
+// and B = 256, where the device holds 264); a cluster a element would cap an
+// element at 8 (16) blocks of its own and change its block partition, and so
+// its sums.  The staged kernels need no grid-wide barrier: the launch
+// boundaries are the element's barriers.
 
 #include <climits>
 
@@ -150,7 +164,10 @@ __device__ __forceinline__ float j_raw(float psi, float r, float axis, float psi
     pp = ((pn >= 0.0f) && (pn < 1.0f)) ? 1.0f - pn : 0.0f;
     ff = pp;
   }
-  return 0.5f * (r * pp) + 0.5f * (ff / (mu0 * r));
+  // Each rounding spelled out, so that no kernel folds either product into
+  // an FMA: the fused, staged and batched launches agree bit for bit.
+  return __fadd_rn(__fmul_rn(0.5f, __fmul_rn(r, pp)),
+                   __fmul_rn(0.5f, __fdiv_rn(ff, __fmul_rn(mu0, r))));
 }
 
 __global__ void source_reduce_kernel(const float* __restrict__ psi,
@@ -158,6 +175,10 @@ __global__ void source_reduce_kernel(const float* __restrict__ psi,
                                      float d_z, float* __restrict__ part,
                                      int* __restrict__ part_idx) {
   const int n = nz * nr;
+  const size_t e = blockIdx.y;   // the element of a batched call
+  psi += e * n;
+  part += e * 3 * gridDim.x;
+  part_idx += e * gridDim.x;
   Red v{-INFINITY, INFINITY, INFINITY, INT_MAX};
   for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
     const float x = psi[k];
@@ -202,9 +223,17 @@ __device__ void finish_topology(const float* __restrict__ psi, const float* part
 __global__ void source_ipsum_kernel(const float* __restrict__ psi, const float* __restrict__ r,
                                     const float* __restrict__ part,
                                     const int* __restrict__ part_idx, int n_part, int nz, int nr,
-                                    const float* __restrict__ par, float mu0, int h_mode,
-                                    float* __restrict__ scal, int* __restrict__ x_out,
-                                    float* __restrict__ ip_part) {
+                                    const float* __restrict__ par, int par_stride, float mu0,
+                                    int h_mode, float* __restrict__ scal,
+                                    int* __restrict__ x_out, float* __restrict__ ip_part) {
+  const size_t e = blockIdx.y;   // the element of a batched call
+  psi += e * nz * nr;
+  part += e * 3 * n_part;
+  part_idx += e * n_part;
+  par += e * par_stride;
+  scal += e * 3;
+  x_out += e;
+  ip_part += e * n_part;
   float axis, psi_b;
   int x_idx;
   finish_topology(psi, part, part_idx, n_part, axis, psi_b, x_idx);
@@ -224,9 +253,15 @@ __global__ void source_ipsum_kernel(const float* __restrict__ psi, const float* 
 
 __global__ void source_apply_kernel(const float* __restrict__ psi, const float* __restrict__ r,
                                     const float* __restrict__ ip_part, int n_part, int nz, int nr,
-                                    const float* __restrict__ par, float mu0, int h_mode,
-                                    float d_r, float d_z, float* __restrict__ scal,
+                                    const float* __restrict__ par, int par_stride, float mu0,
+                                    int h_mode, float d_r, float d_z, float* __restrict__ scal,
                                     float* __restrict__ src) {
+  const size_t e = blockIdx.y;   // the element of a batched call
+  psi += e * nz * nr;
+  ip_part += e * n_part;
+  par += e * par_stride;
+  scal += e * 3;
+  src += e * nz * nr;
   float acc = 0.0f;
   for (int b = threadIdx.x; b < n_part; b += blockDim.x) acc += ip_part[b];
   const float i_current = block_sum(acc) * d_r * d_z;
@@ -373,29 +408,58 @@ extern "C" int scpn_fused_source(const void* psi, const void* r, const void* mas
   return err != cudaSuccess ? static_cast<int>(err) : static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// The three kernels on a (blocks, n_batch) grid; element e reads its
+// parameters at par + e * par_stride.
+int launch_staged(const void* psi, const void* r, const void* mask, const void* par,
+                  int par_stride, int nz, int nr, int n_batch, float d_r, float d_z, float mu0,
+                  int h_mode, void* part, void* part_idx, void* ip_part, void* scal, void* x_out,
+                  void* src, void* stream) {
+  const int nb = n_blocks(nz * nr);
+  const dim3 grid(nb, n_batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  source_reduce_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(psi), static_cast<const float*>(mask), nz, nr, d_r, d_z,
+      static_cast<float*>(part), static_cast<int*>(part_idx));
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  source_ipsum_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(psi), static_cast<const float*>(r),
+      static_cast<const float*>(part), static_cast<const int*>(part_idx), nb, nz, nr,
+      static_cast<const float*>(par), par_stride, mu0, h_mode, static_cast<float*>(scal),
+      static_cast<int*>(x_out), static_cast<float*>(ip_part));
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  source_apply_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(psi), static_cast<const float*>(r),
+      static_cast<const float*>(ip_part), nb, nz, nr, static_cast<const float*>(par),
+      par_stride, mu0, h_mode, d_r, d_z, static_cast<float*>(scal), static_cast<float*>(src));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // The same function as three launches (arguments as scpn_fused_source).
 extern "C" int scpn_fused_source_staged(const void* psi, const void* r, const void* mask,
                                         const void* par, int nz, int nr, float d_r, float d_z,
                                         float mu0, int h_mode, void* part, void* part_idx,
                                         void* ip_part, void* scal, void* x_out, void* src,
                                         void* stream) {
-  const int nb = n_blocks(nz * nr);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  source_reduce_kernel<<<nb, kThreads, 0, st>>>(
-      static_cast<const float*>(psi), static_cast<const float*>(mask), nz, nr, d_r, d_z,
-      static_cast<float*>(part), static_cast<int*>(part_idx));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  source_ipsum_kernel<<<nb, kThreads, 0, st>>>(
-      static_cast<const float*>(psi), static_cast<const float*>(r),
-      static_cast<const float*>(part), static_cast<const int*>(part_idx), nb, nz, nr,
-      static_cast<const float*>(par), mu0, h_mode, static_cast<float*>(scal),
-      static_cast<int*>(x_out), static_cast<float*>(ip_part));
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  source_apply_kernel<<<nb, kThreads, 0, st>>>(
-      static_cast<const float*>(psi), static_cast<const float*>(r),
-      static_cast<const float*>(ip_part), nb, nz, nr, static_cast<const float*>(par), mu0,
-      h_mode, d_r, d_z, static_cast<float*>(scal), static_cast<float*>(src));
-  return static_cast<int>(cudaGetLastError());
+  return launch_staged(psi, r, mask, par, 0, nz, nr, 1, d_r, d_z, mu0, h_mode, part, part_idx,
+                       ip_part, scal, x_out, src, stream);
+}
+
+// n_batch grids of one shape in three launches: psi and src (n_batch, nz, nr),
+// par (n_batch, par_stride) with the layout of scpn_fused_source's par, r and
+// mask shared.  Workspace: part[3*B*nb], part_idx[B*nb], ip_part[B*nb],
+// scal[3*B], x_out[B], with nb = scpn_source_blocks(nz*nr), element-major.
+extern "C" int scpn_fused_source_batched(const void* psi, const void* r, const void* mask,
+                                         const void* par, int par_stride, int nz, int nr,
+                                         int n_batch, float d_r, float d_z, float mu0,
+                                         int h_mode, void* part, void* part_idx, void* ip_part,
+                                         void* scal, void* x_out, void* src, void* stream) {
+  if (n_batch < 1 || n_batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return launch_staged(psi, r, mask, par, par_stride, nz, nr, n_batch, d_r, d_z, mu0, h_mode,
+                       part, part_idx, ip_part, scal, x_out, src, stream);
 }

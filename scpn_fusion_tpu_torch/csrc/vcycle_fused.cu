@@ -44,6 +44,15 @@
 // about 2 us: its stride-2 accesses are two-way bank conflicts, and the 9
 // shared-memory accesses of an update, not the arithmetic, fill the time.
 //
+// Batched (entry scpn_fused_vcycle_batched; the ensemble of
+// parallel/ensemble.py, the counterpart of vmap over pallas_call): B
+// clusters in one grid of (n_cta, B) blocks, cluster c the V-cycle of
+// element c = blockIdx.y.  The element only offsets the entry level's psi,
+// rhs and output; every other instruction is the unbatched launch's, so
+// element b equals the unbatched launch on element b bit for bit.  The
+// device holds scpn_fused_vcycle_clusters() clusters at once; the rest run
+// in waves.
+//
 // Same numbers as the staged launches (rb_sweep.cu + transfer.cu): levels
 // are compact, parity is (i + j) & 1 on the level's own indices, the
 // Dirichlet ring is never written, the coarse defect ring and the coarse
@@ -310,6 +319,11 @@ __global__ void __launch_bounds__(kThreads) fused_vcycle_kernel(
     const float* __restrict__ psi, const float* __restrict__ src, const float* __restrict__ r,
     int r_stride, const __grid_constant__ Plan pl, float* __restrict__ out) {
   extern __shared__ float sm[];
+  const size_t element = blockIdx.y;   // 0 for an unbatched launch
+  const size_t field = static_cast<size_t>(pl.n[0]) * pl.n[0];
+  psi += element * field;
+  src += element * field;
+  out += element * field;
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
   const int t = threadIdx.x;
@@ -360,9 +374,10 @@ __global__ void __launch_bounds__(kThreads) fused_vcycle_kernel(
   for (int k = t; k < top_count; k += kThreads) out[top.lo * top.n + k] = sm[top.p + k];
 }
 
-cudaLaunchConfig_t launch_config(const Plan& pl, cudaLaunchAttribute* attr, cudaStream_t st) {
+cudaLaunchConfig_t launch_config(const Plan& pl, cudaLaunchAttribute* attr, cudaStream_t st,
+                                 int n_batch = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.n_cta);
+  cfg.gridDim = dim3(pl.n_cta, n_batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = pl.smem_bytes;
   cfg.stream = st;
@@ -401,11 +416,10 @@ extern "C" int scpn_fused_vcycle_clusters(const void* plan) {
   return err != 0 ? -err : clusters;
 }
 
-// One V-cycle from the entry level of the plan: one launch of one cluster of
-// plan.n_cta CTAs.  psi, src and out are the entry level's (n, n) fields, r
-// its R row with stride r_stride.
-extern "C" int scpn_fused_vcycle(const void* psi, const void* src, const void* r, int r_stride,
-                                 const void* plan, void* out, void* stream) {
+namespace {
+
+int launch_vcycle(const void* psi, const void* src, const void* r, int r_stride,
+                  const void* plan, void* out, int n_batch, void* stream) {
   const Plan& pl = *static_cast<const Plan*>(plan);
   // The occupancy query once per shape: a cluster that fits nowhere is an
   // error here, not a reason to take another route.
@@ -418,9 +432,29 @@ extern "C" int scpn_fused_vcycle(const void* psi, const void* src, const void* r
     checked_cta = pl.n_cta;
   }
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(pl, &attr, static_cast<cudaStream_t>(stream));
+  const cudaLaunchConfig_t cfg =
+      launch_config(pl, &attr, static_cast<cudaStream_t>(stream), n_batch);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, fused_vcycle_kernel, static_cast<const float*>(psi), static_cast<const float*>(src),
       static_cast<const float*>(r), r_stride, pl, static_cast<float*>(out));
   return err != cudaSuccess ? static_cast<int>(err) : static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One V-cycle from the entry level of the plan: one launch of one cluster of
+// plan.n_cta CTAs.  psi, src and out are the entry level's (n, n) fields, r
+// its R row with stride r_stride.
+extern "C" int scpn_fused_vcycle(const void* psi, const void* src, const void* r, int r_stride,
+                                 const void* plan, void* out, void* stream) {
+  return launch_vcycle(psi, src, r, r_stride, plan, out, 1, stream);
+}
+
+// n_batch V-cycles of one plan in one launch of n_batch clusters: psi, src
+// and out are (n_batch, n, n), r is shared.
+extern "C" int scpn_fused_vcycle_batched(const void* psi, const void* src, const void* r,
+                                         int r_stride, const void* plan, int n_batch, void* out,
+                                         void* stream) {
+  if (n_batch < 1 || n_batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return launch_vcycle(psi, src, r, r_stride, plan, out, n_batch, stream);
 }

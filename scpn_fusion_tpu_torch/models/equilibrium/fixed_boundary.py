@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -72,45 +72,130 @@ class EquilibriumResult(NamedTuple):
 def _anderson_mix(psi_buf: torch.Tensor, f_buf: torch.Tensor, n_valid: int,
                   gram_in_f32: bool = False) -> torch.Tensor:
     """Tikhonov-regularised, norm-clipped type-II Anderson mixing over the
-    (m, NZ, NR) history buffers, newest last; ``n_valid`` newest rows are
-    filled.  Same algebra as the JAX ``_anderson_mix``.  The Gram matrix is
-    built row by row from elementwise products (no matmul, so no TF32 on the
-    card, and no (m-1) x (m-1) x NZ x NR product: ~300 MB at 2049^2 in f64).
+    (m, NZ, NR) history buffers, newest last, or over (B, m, NZ, NR) buffers
+    of a batch with one shared ``n_valid`` (the ensemble's batched solve);
+    the ``n_valid`` newest rows are filled.  Same algebra as the JAX
+    ``_anderson_mix``.  The Gram matrix is built row by row from elementwise
+    products (no matmul, so no TF32 on the card, and no (m-1) x (m-1) x NZ x
+    NR product: ~300 MB at 2049^2 in f64), the solves batched.
     ``gram_in_f32`` (the mixed-precision path): the Gram build and the solve
     run in float32, the mix itself in the buffers' dtype."""
-    m = psi_buf.shape[0]
+    if psi_buf.dim() == 3:
+        return _anderson_mix(psi_buf[None], f_buf[None], n_valid, gram_in_f32)[0]
+    b, m = psi_buf.shape[:2]
     dev, dt = f_buf.device, f_buf.dtype
     idx = torch.arange(m, device=dev)
     valid = idx >= (m - n_valid)
-    f_masked = torch.where(valid[:, None, None], f_buf, torch.zeros_like(f_buf))
+    f_masked = torch.where(valid[None, :, None, None], f_buf, torch.zeros_like(f_buf))
 
-    d_f = f_masked[1:] - f_masked[:-1]
+    d_f = f_masked[:, 1:] - f_masked[:, :-1]
     pair_valid = idx[:-1] >= (m - n_valid)
-    d_f = torch.where(pair_valid[:, None, None], d_f, torch.zeros_like(d_f))
+    d_f = torch.where(pair_valid[None, :, None, None], d_f, torch.zeros_like(d_f))
 
     cdt = torch.float32 if gram_in_f32 else dt
     d_f_c = d_f.to(cdt)
-    rhs = f_masked[-1].to(cdt)
+    rhs = f_masked[:, -1].to(cdt)
     k = m - 1
-    gram = torch.stack([(d_f_c * d_f_c[a]).sum((-2, -1)) for a in range(k)])
-    scale = torch.trace(gram) / k
-    gram = gram + (1e-10 + 1e-8 * scale) * torch.eye(k, dtype=cdt, device=dev)
-    proj = (d_f_c * rhs).sum((-2, -1))
+    gram = torch.stack([(d_f_c * d_f_c[:, a:a + 1]).sum((-2, -1)) for a in range(k)], 1)
+    scale = gram.diagonal(dim1=-2, dim2=-1).sum(-1) / k
+    gram = gram + (1e-10 + 1e-8 * scale)[:, None, None] * torch.eye(k, dtype=cdt, device=dev)
+    proj = (d_f_c * rhs[:, None]).sum((-2, -1))
     gamma = torch.linalg.solve_ex(gram, proj)[0].to(dt)
-    g_norm = torch.linalg.vector_norm(gamma)
+    g_norm = torch.linalg.vector_norm(gamma, dim=-1, keepdim=True)
     gamma = gamma * torch.clamp(10.0 / torch.clamp(g_norm, min=1e-30), max=1.0)
 
-    alpha = torch.zeros(m, dtype=dt, device=dev)
-    alpha[:-1] += gamma
-    alpha[1:] -= gamma
-    alpha[-1] += 1.0
-    alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
-    alpha_sum = alpha.sum()
+    alpha = torch.zeros((b, m), dtype=dt, device=dev)
+    alpha[:, :-1] += gamma
+    alpha[:, 1:] -= gamma
+    alpha[:, -1] += 1.0
+    alpha = torch.where(valid[None], alpha, torch.zeros_like(alpha))
+    alpha_sum = alpha.sum(-1, keepdim=True)
     safe = alpha_sum.abs() >= 1e-12
     alpha = torch.where(safe, alpha / torch.where(safe, alpha_sum, torch.ones_like(alpha_sum)),
                         torch.zeros_like(alpha))
-    mixed = (alpha[:, None, None] * psi_buf).sum(0)
-    return torch.where(safe, mixed, psi_buf[-1])
+    mixed = (alpha[:, :, None, None] * psi_buf).sum(1)
+    return torch.where(safe[:, :, None], mixed, psi_buf[:, -1])
+
+
+def _seed_psi(grid: Grid, psi_bc: torch.Tensor, i_target: torch.Tensor,
+              mu0: float) -> torch.Tensor:
+    """The seed plasma of one solve: the normalised Gaussian J at the target
+    current, then 50 Jacobi sweeps from ``psi_bc``."""
+    rr, zz = grid.RR, grid.ZZ
+    r_center = 0.5 * (grid.R_min + grid.R_max)
+    j_seed = torch.exp(-((rr - r_center) ** 2 + zz**2) / 2.0)
+    i_seed = j_seed.sum() * grid.dR * grid.dZ
+    j_seed = j_seed * (i_target / torch.clamp(i_seed, min=1e-30))
+    return jacobi_sweeps(psi_bc, -mu0 * rr * j_seed, grid.R, grid.dR, grid.dZ, 50)
+
+
+def _plain_source(psi: torch.Tensor, i_target: torch.Tensor, grid: Grid, p_coeffs: ProfileCoeffs,
+                  ff_coeffs: ProfileCoeffs, mu0: float, h_mode: bool) -> torch.Tensor:
+    """The Picard source ``-mu0 R J_phi`` of one psi in plain ops."""
+    rr = grid.RR
+    topo = analyze_topology(psi, grid.ZZ, grid.dR, grid.dZ, grid.Z_min)
+    j_phi = plasma_current_density(psi, topo.psi_axis, topo.psi_boundary, rr, h_mode=h_mode,
+                                   p_coeffs=p_coeffs, ff_coeffs=ff_coeffs, mu0=mu0,
+                                   i_target=i_target, d_r=grid.dR, d_z=grid.dZ)
+    return -mu0 * rr * j_phi
+
+
+def _elliptic(psi: torch.Tensor, source: torch.Tensor, r_1d: torch.Tensor, d_r: float,
+              d_z: float, *, solver_method: str, inner_sweeps: int, omega: float,
+              use_pallas: bool, mg_pre_smooth: int = 3, mg_post_smooth: int = 3,
+              mg_min_grid: int = 5) -> torch.Tensor:
+    """The Picard elliptic step of one psi, before its Dirichlet ring:
+    ``inner_sweeps`` Jacobi or SOR sweeps, or one V-cycle."""
+    if solver_method == "jacobi":
+        for _ in range(inner_sweeps):
+            psi = jacobi_step(psi, source, r_1d, d_r, d_z)
+        return psi
+    if solver_method in ("multigrid", "anderson_mg"):
+        return _vcycle_impl(psi, source, r_1d, d_r, d_z, 1.0, mg_pre_smooth, mg_post_smooth,
+                            mg_min_grid, 50, use_pallas)
+    if use_pallas:  # "sor" | "anderson": one launch for up to 4 sweeps at any size
+        # and for more up to ~129^2; 2 n staged launches beyond (cuda_stencil.sor_sweeps)
+        from scpn_fusion_tpu_torch.ops.cuda_stencil import sor_sweeps
+        return sor_sweeps(psi, source, r_1d, d_r, d_z, omega, inner_sweeps)
+    for _ in range(inner_sweeps):
+        psi = sor_step(psi, source, r_1d, d_r, d_z, omega)
+    return psi
+
+
+class _Picard(NamedTuple):
+    """One Picard iteration, for one psi (NZ, NR) or for a batch (B, NZ, NR)
+    with (B, m, NZ, NR) history buffers: the loop of a single solve and the
+    ensemble's batched loop (``parallel/ensemble.py``) both step with it and
+    differ only in how they keep their carry."""
+
+    source: Callable        # psi -> the Picard source
+    elliptic: Callable      # (psi, source) -> psi, before the Dirichlet ring
+    gs_rms: Callable        # (psi, source) -> the GS-residual RMS
+    psi_bc: torch.Tensor
+    alpha_relax: float
+    use_anderson: bool
+    anderson_gram_f32: bool
+    use_gs_criterion: bool
+
+    def step(self, psi: torch.Tensor, psi_buf: torch.Tensor, f_buf: torch.Tensor,
+             n_valid: int, k: int):
+        """Iteration ``k`` from ``psi``: source -> elliptic step -> update
+        norm -> under-relaxation, the Anderson history and its every-third-step
+        mix.  Returns ``(psi_next, diff, gs_res or None, psi_buf, f_buf,
+        n_valid)``; ``diff`` and ``gs_res`` have psi's leading shape."""
+        source = self.source(psi)
+        psi_new = apply_dirichlet(self.elliptic(psi, source), self.psi_bc)
+        diff = (psi_new - psi).abs().mean((-2, -1))
+        psi_next = (1.0 - self.alpha_relax) * psi + self.alpha_relax * psi_new
+        if self.use_anderson:
+            psi_buf = torch.cat([psi_buf[..., 1:, :, :], psi_next.unsqueeze(-3)], -3)
+            f_buf = torch.cat([f_buf[..., 1:, :, :], (psi_new - psi).unsqueeze(-3)], -3)
+            n_valid = min(n_valid + 1, psi_buf.shape[-3])
+            if n_valid >= 3 and k % 3 == 0:
+                psi_next = apply_dirichlet(
+                    _anderson_mix(psi_buf, f_buf, n_valid, self.anderson_gram_f32), self.psi_bc)
+        gs_res = self.gs_rms(psi_next, source) if self.use_gs_criterion else None
+        return psi_next, diff, gs_res, psi_buf, f_buf, n_valid
 
 
 def solve_fixed_boundary_impl(
@@ -146,59 +231,38 @@ def solve_fixed_boundary_impl(
     step (the mixed-precision defect correction); ``anderson_gram_f32``
     builds the Anderson Gram matrix in float32."""
     r_1d = grid.R
-    rr = r_1d[None, :].expand(grid.NZ, grid.NR)
-    zz = grid.Z[:, None].expand(grid.NZ, grid.NR)
+    rr, zz = grid.RR, grid.ZZ
     d_r, d_z = grid.dR, grid.dZ
     dtype, device = psi0.dtype, psi0.device
 
     use_anderson = solver_method in ("anderson", "anderson_mg")
     m_hist = anderson_m if use_anderson else 1
 
-    if skip_seed:
-        psi = psi0
-    else:
-        r_center = 0.5 * (grid.R_min + grid.R_max)
-        j_seed = torch.exp(-((rr - r_center) ** 2 + zz**2) / 2.0)
-        i_seed = j_seed.sum() * d_r * d_z
-        j_seed = j_seed * (i_target / torch.clamp(i_seed, min=1e-30))
-        psi = jacobi_sweeps(psi0, -mu0 * rr * j_seed, r_1d, d_r, d_z, 50)
+    psi = psi0 if skip_seed else _seed_psi(grid, psi0, i_target, mu0)
 
-    def elliptic_step(psi_in: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
-        if elliptic_fn is not None:
-            out = elliptic_fn(psi_in, source)
-        elif solver_method == "jacobi":
-            out = psi_in
-            for _ in range(inner_sweeps):
-                out = jacobi_step(out, source, r_1d, d_r, d_z)
-        elif solver_method in ("multigrid", "anderson_mg"):
-            out = _vcycle_impl(psi_in, source, r_1d, d_r, d_z, 1.0, mg_pre_smooth,
-                               mg_post_smooth, mg_min_grid, 50, use_pallas)
-        elif use_pallas:  # "sor" | "anderson": one launch for up to 4 sweeps at any size
-            # and for more up to ~129^2; 2 n staged launches beyond (cuda_stencil.sor_sweeps)
-            from scpn_fusion_tpu_torch.ops.cuda_stencil import sor_sweeps
-            out = sor_sweeps(psi_in, source, r_1d, d_r, d_z, omega, inner_sweeps)
-        else:
-            out = psi_in
-            for _ in range(inner_sweeps):
-                out = sor_step(out, source, r_1d, d_r, d_z, omega)
-        return apply_dirichlet(out, psi_bc)
+    if elliptic_fn is None:
+        def elliptic_fn(psi_in: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+            return _elliptic(psi_in, source, r_1d, d_r, d_z, solver_method=solver_method,
+                             inner_sweeps=inner_sweeps, omega=omega, use_pallas=use_pallas,
+                             mg_pre_smooth=mg_pre_smooth, mg_post_smooth=mg_post_smooth,
+                             mg_min_grid=mg_min_grid)
 
-    divertor_mask = (zz < (grid.Z_min * 0.5)).to(dtype).contiguous()
     if use_pallas:
         # what the source kernel needs of the solve's constants, packed once
         from scpn_fusion_tpu_torch.ops import cuda_source
+        divertor_mask = (zz < (grid.Z_min * 0.5)).to(dtype).contiguous()
         source_params = cuda_source.pack_source_params(p_coeffs, ff_coeffs, i_target, like=psi0)
 
-    def picard_source(psi_k: torch.Tensor) -> torch.Tensor:
-        if use_pallas:
+        def picard_source(psi_k: torch.Tensor) -> torch.Tensor:
             return cuda_source.fused_topology_source(psi_k, r_1d, divertor_mask, source_params,
                                                      d_r=d_r, d_z=d_z, mu0=mu0, h_mode=h_mode)
-        topo = analyze_topology(psi_k, zz, d_r, d_z, grid.Z_min)
-        j_phi = plasma_current_density(psi_k, topo.psi_axis, topo.psi_boundary, rr,
-                                       h_mode=h_mode, p_coeffs=p_coeffs, ff_coeffs=ff_coeffs,
-                                       mu0=mu0, i_target=i_target, d_r=d_r, d_z=d_z)
-        return -mu0 * rr * j_phi
+    else:
+        def picard_source(psi_k: torch.Tensor) -> torch.Tensor:
+            return _plain_source(psi_k, i_target, grid, p_coeffs, ff_coeffs, mu0, h_mode)
 
+    picard = _Picard(picard_source, elliptic_fn,
+                     lambda p, s: gs_residual_rms(p, s, r_1d, d_r, d_z), psi_bc, alpha_relax,
+                     use_anderson, anderson_gram_f32, use_gs_criterion)
     psi_buf = torch.zeros((m_hist,) + tuple(psi.shape), dtype=dtype, device=device)
     f_buf = torch.zeros_like(psi_buf)
     n_valid = 0
@@ -213,33 +277,14 @@ def solve_fixed_boundary_impl(
     nan = torch.full((), math.nan, dtype=dtype, device=device)
 
     while k < max_iter and not converged and math.isfinite(diff):
-        source = picard_source(psi)
-        psi_new = elliptic_step(psi, source)
-        diff_t = (psi_new - psi).abs().mean()
-        psi_relaxed = (1.0 - alpha_relax) * psi + alpha_relax * psi_new
-
-        if use_anderson:
-            psi_buf = torch.cat([psi_buf[1:], psi_relaxed[None]])
-            f_buf = torch.cat([f_buf[1:], (psi_new - psi)[None]])
-            n_valid = min(n_valid + 1, m_hist)
-            if n_valid >= 3 and k % 3 == 0:
-                psi_next = apply_dirichlet(
-                    _anderson_mix(psi_buf, f_buf, n_valid, anderson_gram_f32), psi_bc)
-            else:
-                psi_next = psi_relaxed
-        else:
-            psi_next = psi_relaxed
-
-        if use_gs_criterion:
-            gs_res = gs_residual_rms(psi_next, source, r_1d, d_r, d_z)
-            gs_best = torch.minimum(gs_res, gs_best)
-        else:
-            gs_res = nan
-
+        psi_next, diff_t, gs_res, psi_buf, f_buf, n_valid = picard.step(psi, psi_buf, f_buf,
+                                                                         n_valid, k)
         # The one host synchronisation of the iteration.
         if use_gs_criterion:
+            gs_best = torch.minimum(gs_res, gs_best)
             diff, gs_val = torch.stack([diff_t, gs_res]).tolist()
         else:
+            gs_res = nan
             diff, gs_val = diff_t.item(), math.nan
         if diff < best_diff:
             best_diff, best_psi = diff, psi_next

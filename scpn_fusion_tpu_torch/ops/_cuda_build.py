@@ -13,7 +13,7 @@ path.
 
 Launch counts: :data:`LAUNCHES` holds, per C entry, the ``__global__``
 launches it made (raised in :func:`launch`; only the staged source entry
-makes three a call), and :data:`CALLS` holds, per public kernel wrapper, the calls of that
+and the batched source entry make three a call), and :data:`CALLS` holds, per public kernel wrapper, the calls of that
 wrapper that launched on the device (raised by the wrapper itself).
 """
 
@@ -49,7 +49,10 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P],
     "scpn_fused_source_staged": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                                  _P, _P, _P, _P, _P, _P, _P],
+    "scpn_fused_source_batched": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
+                                  _P, _P, _P, _P, _P, _P, _P],
     "scpn_fused_vcycle": [_P, _P, _P, _I, _P, _P, _P],
+    "scpn_fused_vcycle_batched": [_P, _P, _P, _I, _P, _I, _P, _P],
     "scpn_fine_pre": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _P, _P, _P],
     "scpn_fine_post": [_P, _P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P, _P],
     "scpn_tiled_pre": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _P, _P, _P],

@@ -21,6 +21,12 @@ Each fine leg is one launch, and so is the fused V-cycle:
   per dependent stage: three and five at (1, 2) smoothing): the reference the
   one-launch legs must equal bit for bit and the earlier time measured beside
   them.  No solver path calls them.
+* ``fused_coarse_vcycle_batched`` = the same V-cycle on every element of a
+  (B, n, n) batch in one launch of B clusters (entry
+  ``scpn_fused_vcycle_batched``), element b equal bit for bit to
+  ``fused_coarse_vcycle`` on element b; its plain twin
+  ``fused_coarse_vcycle_batched_plain`` is the loop of the plain version
+  over the batch.
 * ``fused_coarse_vcycle`` = one launch of ``csrc/vcycle_fused.cu``: every
   level from the entry (at most 257^2) down to ``min_grid`` stays in the
   shared memory of one 8-CTA thread-block cluster for the whole cycle, laid
@@ -408,4 +414,42 @@ def fused_coarse_vcycle(psi: torch.Tensor, source: torch.Tensor, r_1d: torch.Ten
     cb.launch("scpn_fused_vcycle", psi.data_ptr(), source.data_ptr(), r_1d.data_ptr(),
               r_1d.stride(0), ctypes.addressof(plan), out.data_ptr())
     cb.CALLS["fused_coarse_vcycle"] += 1
+    return out
+
+
+def fused_coarse_vcycle_batched_plain(psi, source, r_1d, d_r, d_z, omega, *, pre_smooth=3,
+                                      post_smooth=3, min_grid=5, coarse_sweeps=50):
+    """Plain version of :func:`fused_coarse_vcycle_batched`: the plain
+    V-cycle of each element, stacked."""
+    return torch.stack([
+        fused_coarse_vcycle_plain(p, s, r_1d, d_r, d_z, omega, pre_smooth=pre_smooth,
+                                  post_smooth=post_smooth, min_grid=min_grid,
+                                  coarse_sweeps=coarse_sweeps)
+        for p, s in zip(psi, source)])
+
+
+def fused_coarse_vcycle_batched(psi: torch.Tensor, source: torch.Tensor, r_1d: torch.Tensor,
+                                d_r: float, d_z: float, omega: float, *, pre_smooth: int = 3,
+                                post_smooth: int = 3, min_grid: int = 5,
+                                coarse_sweeps: int = 50) -> torch.Tensor:
+    """One V-cycle on each (n, n) element of the (B, n, n) batch ``psi``
+    with right-hand sides ``source`` and the shared R row ``r_1d``.  On CUDA
+    tensors (n a 2^k+1 up to 257) it is one launch of B clusters and one
+    allocation, the output's; element b equals :func:`fused_coarse_vcycle`
+    on element b bit for bit."""
+    if not psi.is_cuda:
+        return fused_coarse_vcycle_batched_plain(
+            psi, source, r_1d, d_r, d_z, omega, pre_smooth=pre_smooth,
+            post_smooth=post_smooth, min_grid=min_grid, coarse_sweeps=coarse_sweeps)
+    if psi.dim() != 3 or source.shape != psi.shape or psi.shape[1] != psi.shape[2]:
+        raise ValueError(f"fused_coarse_vcycle_batched: needs (B, n, n) fields; got "
+                         f"{tuple(psi.shape)} and {tuple(source.shape)}")
+    check_level("fused_coarse_vcycle_batched", psi[0], source[0], r_1d)
+    cb.check_f32_cuda("fused_coarse_vcycle_batched", psi=psi, source=source)
+    plan = vcycle_plan_struct(psi.shape[1], int(min_grid), float(d_r), float(d_z), float(omega),
+                              int(pre_smooth), int(post_smooth), int(coarse_sweeps))
+    out = torch.empty_like(psi)
+    cb.launch("scpn_fused_vcycle_batched", psi.data_ptr(), source.data_ptr(), r_1d.data_ptr(),
+              r_1d.stride(0), ctypes.addressof(plan), psi.shape[0], out.data_ptr())
+    cb.CALLS["fused_coarse_vcycle_batched"] += 1
     return out

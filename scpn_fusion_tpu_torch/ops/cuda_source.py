@@ -16,6 +16,15 @@ and the kernel's scratch is one workspace cached per device and size, so a
 call allocates only its output.  The workspace is shared by every call on
 the device: calls must be ordered on one stream, as a solve's are.
 
+Batches (the ensembles of ``parallel/ensemble.py``):
+:func:`fused_topology_source_batched` computes the source of every element
+of a (B, nz, nr) batch, each with its own target current
+(:func:`pack_source_params_batched`), in three launches of the staged
+kernels on a (blocks, B) grid (entry ``scpn_fused_source_batched``):
+element b equals :func:`fused_topology_source` on element b bit for bit.
+Its plain twin, :func:`fused_topology_source_batched_plain`, is the loop of
+the plain version over the batch.
+
 Sizes: the port runs the kernel at every float32 size, where the JAX solver
 takes its fused source only while psi, mask and source fit 12 MB of VMEM
 (513^2) and XLA ops above.  Nothing on the card needs that gate: the kernel
@@ -191,3 +200,95 @@ def fused_topology_source(psi: torch.Tensor, r_1d: torch.Tensor, divertor_mask: 
                          divertor_mask, params, d_r, d_z, mu0, h_mode, with_scalars)
     cb.CALLS["fused_topology_source"] += 1
     return out
+
+
+class BatchedSourceParams(NamedTuple):
+    """The parameters of a batch, packed once (:func:`pack_source_params_batched`)."""
+
+    packed: torch.Tensor     # (B, 9): the shared coefficients, then each element's I_target
+    p_coeffs: ProfileCoeffs
+    ff_coeffs: ProfileCoeffs
+    i_targets: torch.Tensor  # (B,)
+
+
+def pack_source_params_batched(p_coeffs: ProfileCoeffs, ff_coeffs: ProfileCoeffs,
+                               i_targets: torch.Tensor, *,
+                               like: torch.Tensor) -> BatchedSourceParams:
+    """Pack the shared profile coefficients and the per-element target
+    currents ``i_targets`` (B,) in the dtype and on the device of ``like``,
+    one row of :func:`pack_source_params`'s layout an element."""
+    coeffs = torch.stack([_scalar(v, like) for v in (*p_coeffs, *ff_coeffs)])
+    i_t = i_targets.to(dtype=like.dtype, device=like.device).reshape(-1)
+    packed = torch.cat([coeffs.expand(i_t.shape[0], 8), i_t[:, None]], 1).contiguous()
+    return BatchedSourceParams(packed, p_coeffs, ff_coeffs, packed[:, 8])
+
+
+def fused_topology_source_batched_plain(psi, r_1d, divertor_mask, params: BatchedSourceParams,
+                                        *, d_r, d_z, mu0, h_mode, with_scalars=False):
+    """Plain version of :func:`fused_topology_source_batched`: the plain
+    version on each element, stacked."""
+    outs = [fused_topology_source_plain(p, r_1d, divertor_mask, params.p_coeffs,
+                                        params.ff_coeffs, i_t, d_r=d_r, d_z=d_z, mu0=mu0,
+                                        h_mode=h_mode, with_scalars=True)
+            for p, i_t in zip(psi, params.i_targets)]
+    src = torch.stack([o[0] for o in outs])
+    if with_scalars:
+        return src, SourceScalars(*(torch.stack([o[1][f] for o in outs]) for f in range(4)))
+    return src
+
+
+_BATCH_WORKSPACES: dict[tuple[int, int, int], tuple[torch.Tensor, ...]] = {}
+
+
+def _batch_workspace(device: torch.device, n_blocks: int,
+                     n_batch: int) -> tuple[torch.Tensor, ...]:
+    """The batched kernels' scratch, element-major, cached per device, block
+    count and batch size (the layout of :func:`_workspace` for ``n_batch``
+    elements)."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), n_blocks,
+           n_batch)
+    views = _BATCH_WORKSPACES.get(key)
+    if views is None:
+        nb, b = n_blocks, n_batch
+        buf = torch.empty(5 * nb * b + 4 * b, dtype=torch.float32, device=device)
+        ints = buf.view(torch.int32)
+        views = _BATCH_WORKSPACES[key] = (
+            buf[:3 * nb * b], ints[3 * nb * b:4 * nb * b], buf[4 * nb * b:5 * nb * b],
+            buf[5 * nb * b:5 * nb * b + 3 * b], ints[5 * nb * b + 3 * b:])
+    return views
+
+
+def fused_topology_source_batched(psi: torch.Tensor, r_1d: torch.Tensor,
+                                  divertor_mask: torch.Tensor, params: BatchedSourceParams, *,
+                                  d_r: float, d_z: float, mu0: float, h_mode: bool,
+                                  with_scalars: bool = False):
+    """GS source of every element of the (B, nz, nr) batch ``psi``, element
+    b with target current ``params.i_targets[b]``; ``r_1d`` and
+    ``divertor_mask`` are shared.  On CUDA tensors: three launches and one
+    allocation, the output's.  With ``with_scalars`` also returns a
+    :class:`SourceScalars` readout of (B,) tensors (fresh tensors)."""
+    if not psi.is_cuda:
+        return fused_topology_source_batched_plain(psi, r_1d, divertor_mask, params, d_r=d_r,
+                                                   d_z=d_z, mu0=mu0, h_mode=h_mode,
+                                                   with_scalars=with_scalars)
+    cb.check_f32_cuda("fused_topology_source_batched", psi=psi, r_1d=r_1d,
+                      divertor_mask=divertor_mask, params=params.packed)
+    if (psi.dim() != 3 or params.packed.shape != (psi.shape[0], 9)
+            or divertor_mask.shape != psi.shape[1:] or r_1d.shape != (psi.shape[2],)):
+        raise ValueError(f"fused_topology_source_batched: psi {tuple(psi.shape)}, params "
+                         f"{tuple(params.packed.shape)}, divertor_mask "
+                         f"{tuple(divertor_mask.shape)} and r_1d {tuple(r_1d.shape)} do not "
+                         f"make a batch")
+    n_batch, nz, nr = psi.shape
+    part, part_idx, ip_part, scal, x_idx = _batch_workspace(
+        psi.device, cb.source_blocks(nz * nr), n_batch)
+    src = torch.empty_like(psi)
+    cb.launch("scpn_fused_source_batched", psi.data_ptr(), r_1d.data_ptr(),
+              divertor_mask.data_ptr(), params.packed.data_ptr(), 9, nz, nr, n_batch, d_r, d_z,
+              mu0, int(h_mode), part.data_ptr(), part_idx.data_ptr(), ip_part.data_ptr(),
+              scal.data_ptr(), x_idx.data_ptr(), src.data_ptr(), kernels=3)
+    cb.CALLS["fused_topology_source_batched"] += 1
+    if with_scalars:
+        s = scal.view(n_batch, 3).clone()
+        return src, SourceScalars(s[:, 0], s[:, 1], x_idx.long(), s[:, 2])
+    return src

@@ -71,12 +71,13 @@ def gs_residual_rms(psi: torch.Tensor, source: torch.Tensor, r_1d: torch.Tensor,
 
 
 def apply_dirichlet(psi: torch.Tensor, psi_bc: torch.Tensor) -> torch.Tensor:
-    """``psi`` with the boundary ring of ``psi_bc`` (a new tensor)."""
+    """``psi`` with the boundary ring of ``psi_bc`` (a new tensor); leading
+    batch axes are carried."""
     out = psi.clone()
-    out[0, :] = psi_bc[0, :]
-    out[-1, :] = psi_bc[-1, :]
-    out[:, 0] = psi_bc[:, 0]
-    out[:, -1] = psi_bc[:, -1]
+    out[..., 0, :] = psi_bc[..., 0, :]
+    out[..., -1, :] = psi_bc[..., -1, :]
+    out[..., :, 0] = psi_bc[..., :, 0]
+    out[..., :, -1] = psi_bc[..., :, -1]
     return out
 
 

@@ -148,14 +148,18 @@ the plain twin at those 200 steps (float32) and times row W at the
 benchmark's full 20,000 by CUDA events, then profiles one training step of
 ``train_fno_turbulence``'s FNO (64^2, width 24, modes 12, 3 layers, batch 16)
 and one 65^2 float32 free-boundary solve of ``train_equilibrium_artifact``
-(kernels 2 and 3 counted against its inner Picard iterations).  Each prints
-what the solves above print.
+(kernels 2 and 3 counted against its inner Picard iterations).  With
+``--ensemble`` it profiles the B = 1 and B = 256 ensembles of
+``validation/run_batched_amortisation.py`` (129^2 float32) through the
+batched kernels 2 and 3, each as one solve, with the device launches and the
+port's kernel launches an iteration, then the mixed B = 64 ensemble.  Each
+prints what the solves above print.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
 | --twin | --ballooning | --disruption | --frc | --orbits | --plant | --phase
-| --surrogates]``.
+| --surrogates | --ensemble]``.
 Exits non-zero without one.
 """
 
@@ -1559,6 +1563,51 @@ def profile_surrogates(card: str) -> None:
           f"(median of 3, unprofiled), ~{180 * ms[1] / 1e3:.0f} s for the trainer's 180 [{card}]")
 
 
+def profile_ensemble(card: str) -> None:
+    """The ensembles of ``parallel/ensemble.py``: the B = 1 and B = 256
+    batches of ``validation/run_batched_amortisation.py`` (129^2 f32,
+    ``bench_config.amortisation_draws``) through the batched kernels 2 and 3,
+    each profiled as one solve: device time by kernel, idle share, device
+    launches and the port's kernel launches an iteration; then the mixed B =
+    64 batch (f64, its f32 V-cycles through the batched kernel 3)."""
+    import torch
+    import chip_smoke as smoke
+    from scpn_fusion_tpu_torch.bench_config import amortisation_config
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
+
+    dev = "cuda"
+    cb.library()
+    cfg = amortisation_config(129)
+    grid = Grid.from_config(cfg, dtype=torch.float32, device=dev)
+    for b in (1, 256):
+        cur, tgt = smoke.ensemble_case(b, torch.float32, dev)
+
+        def solve(cur=cur, tgt=tgt):
+            res = solve_equilibrium_batch(cfg, grid, cur, tgt)
+            return {"iterations": int(res.iterations.max()),
+                    "converged": bool(res.converged.all())}
+
+        out = profile_solve(card, f"ensemble B = {b}, 129^2 f32", solve, None)
+        cb.reset_launch_counts()
+        info = solve()
+        torch.cuda.synchronize()
+        loop = info["iterations"]
+        print(f"ensemble B = {b}: {loop} iterations; {out['launches'] / loop:.1f} device launches "
+              f"an iteration ({out['port_launches'] / loop:.2f} of the port's kernels; wrapper "
+              f"calls {dict(cb.CALLS)}, C-entry launches {dict(cb.LAUNCHES)}), "
+              f"{out['wall_ms'] / loop:.3f} ms an iteration, {out['wall_ms'] / b:.4f} ms a "
+              f"solve (profiled); idle share {1.0 - out['device_ms'] / out['wall_ms']:.3f} "
+              f"[{card}]")
+    out = profile_solve(card, "mixed ensemble B = 64, 129^2 f64 with f32 V-cycles",
+                        lambda: {"iterations": int(smoke.mixed_batch(dev, ("mixed", 64))
+                                                   .iterations.max())}, None)
+    print(f"mixed ensemble B = 64: {out['launches']} device launches, idle share "
+          f"{1.0 - out['device_ms'] / out['wall_ms']:.3f}, {out['wall_ms'] / 64:.4f} ms a solve "
+          f"(profiled) [{card}]")
+
+
 def profile_hall_loops(card: str) -> None:
     """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
     the sweep and the bisection) profiled, float64."""
@@ -1702,6 +1751,9 @@ def main() -> int:
                        help="row W against its plain twin, the proxy plain and through row W, "
                             "then an FNO training step and a 65^2 solve of the equilibrium "
                             "trainer")
+    group.add_argument("--ensemble", action="store_true",
+                       help="the B = 1 and B = 256 ensembles through the batched kernels 2 "
+                            "and 3, then the mixed B = 64 ensemble")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1775,6 +1827,9 @@ def main() -> int:
         return 0
     if opts.surrogates:
         profile_surrogates(card)
+        return 0
+    if opts.ensemble:
+        profile_ensemble(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
