@@ -256,7 +256,24 @@ them:
   and the launch structure, not an interconnect), in float64 in a spawned
   process: ``validation/run_sharded_gs.py`` lanes 1, 2 and 4 and
   ``validation/run_sharded_convergence.py`` lanes 1, 2, 4, 5 and 6 at their
-  sizes (513^2, 256^2, 129^2) and gates.
+  sizes (513^2, 256^2, 129^2) and gates;
+* (zq) ``parallel/gk_shard.py`` on virtual shards of the card, in a spawned
+  process with (zr): lane 7 of
+  ``run_sharded_convergence.py`` at its full spec (2x32x32x16x16x8 c128, 50
+  steps, seed 5) on a (sx, sy, v) = (2, 2, 2) mesh, row G launched on every
+  shard (exactly 8 x 4 x 50), against the monolithic card run of (u)'s 32^3 configuration (state
+  1e-12, trace 1e-9, memory factor 8.0), after the pencil bracket is held
+  to ``exb_bracket``; ``run_gk_scenario.py`` lanes 1 (the 8-shard velocity
+  mesh, c64, phi_rms 1e-5) and 3 (the ITER-like shot's gates); the (sy, v)
+  = (2, 4) mesh and the (data, v) = (2, 4) ensemble of 4 members in f64
+  against their monolithic runs (1e-10, 1e-9); ms a step sharded and
+  monolithic in turns;
+* (zr) the carried-over host lanes: ``run_implementation_parity.py`` lanes
+  1-3 (the port's C++ copy built with g++, ``npref`` and the plain f64
+  ``sor_step`` on the card; kernel 1 in f32 in one launch), lanes 1-3 of
+  ``run_error_audit.py`` on the port, a GKState checkpoint written from the
+  card and loaded on the CPU, and the lanes' reports written by the port's
+  ``write_report`` into a temporary directory, their checksums read back.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
@@ -264,7 +281,7 @@ Fokker-Planck, fluid and SPI lanes, (ze) but its eigen lane, (zg), (zh)'s
 Boris and lambda-field lanes, (zi) but its ballooning lane, (zk) but its
 blanket, TEMHD, lane-7 and candidate lanes, (zl)'s UQ, diagnostics and
 tomography lanes, (zn) but its row-W lanes and its free-boundary solves, and
-(zp) run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
+(zp), (zq)'s lane 3 and (zr)'s error audit run plain PyTorch ops, as the JAX package runs them without its Pallas kernels; the
 script checks that no kernel launched on them.  On (l) only the Thomas kernel may
 launch, and it must on every lane that solves a tridiagonal system.
 
@@ -440,8 +457,8 @@ and exits non-zero.  Right after the build it starts, each in a spawned
 process, the CPU twins of (k), (o), (v), (z)-(zg) and (zo) and the host-bound
 card-side runs of (k)'s plain Thomas loop, (o)'s optimiser and tracking shot and
 (zf)'s plain references (before (i), (g) with its FD check and (h) with its CPU
-twin; after (l), those of (zh)-(zi) and (zh)'s plain twins and lanes, (zp) and
-(zo)'s lane 3), so
+twin; after (l), those of (zh)-(zi) and (zh)'s plain twins and lanes, (zp),
+(zq)-(zr) and (zo)'s lane 3), so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
@@ -8597,6 +8614,512 @@ def sharded_checks(card: str, twin) -> None:
     require(all(gates.values()), f"(zp) gates missed: {[k for k, v in gates.items() if not v]}")
 
 
+# ── the twenty-fourth slice: (zq) parallel/gk_shard on one card's virtual
+# shards, (zr) the carried-over host lanes ──
+GK_SHARD_MESH = (2, 2, 2)      # run_sharded_convergence.py lane 7: (sx, sy, v)
+GK_SHARD_STATE_GATE = 1e-12    # lane 7 (:356-368): the state, of max |f|
+GK_SHARD_TRACE_GATE = 1e-9     # lane 7: each trace field, of its max |value|
+GK_SHARD_TEST_GATE = 1e-10     # tests/test_gk_spatial_shard.py: f of max |f| (the other meshes)
+GK_INVARIANCE_GATE = 1e-5      # run_gk_scenario.py lane 1: phi_rms, relative
+GK_SCENARIO_1 = dict(n_kx=8, n_ky=8, n_theta=8, n_vpar=8, n_mu=8, n_steps=10, save_interval=5,
+                     dtype="complex64")                   # run_gk_scenario.py:62-64, seed 7
+GK_SHARD_SMALL = dict(n_kx=8, n_ky=8, n_theta=8, n_vpar=6, n_mu=8, n_steps=6, save_interval=3,
+                      nonlinear=True, collisions=True, dtype="complex128")   # the JAX test's
+GK_ENSEMBLE_SEEDS = (3, 11, 17, 29)
+GK_SHARD_TIMED_STEPS = 5
+PARITY_SPAN_GATE, PARITY_PAIR_GATE, PARITY_F32_GATE = 1e-13, 1e-8, 1e-5   # :116-175
+PARITY_CONVERGED, PARITY_F32_SWEEPS = 4000, 400
+
+
+def trace_dev(mono, sharded) -> float:
+    """run_sharded_convergence.py lane 7's trace deviation: the largest of
+    max |a - b| / max |a| over the trace fields but the times."""
+    return max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-300)
+               for a, b in zip(mono[1:], sharded[1:]))
+
+
+def phi_tiles(phi, shape):
+    """Monolithic phi as each shard of an (sx, sy, v) mesh holds it."""
+    return [t.contiguous() for xb in phi.chunk(shape[0], 0) for yb in xb.chunk(shape[1], 1)
+            for t in [yb] * shape[2]]
+
+
+def gk_shard_checks(dev, card: str, counted, by_path: dict, spec32) -> tuple:
+    """(zq) ``parallel/gk_shard`` on :func:`card_mesh`'s virtual shards of the
+    card (the collectives' arithmetic and the launch structure, not an
+    interconnect): lane 7 of ``run_sharded_convergence.py`` at its full spec
+    (32x32x16x16x8, 2 species, c128, 50 steps, seed 5) on the (2, 2, 2) mesh
+    against the monolithic card run ``spec32`` (final f, trace of the
+    configuration of (u)'s 32^3 run), row G launched on every
+    shard (exactly 8 x 4 x 50); ``run_gk_scenario.py`` lanes 1 and 3 (lane 2
+    is (u)'s linear ITG lane); the (sy, v) = (2, 4) mesh and the (data, v) =
+    (2, 4) ensemble of 4 members, f64 at the JAX test's size, against their
+    monolithic runs.  Returns (row G's launches on lane 7, lane 7's final
+    state as a GKState, the lanes' LaneResults)."""
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import GK_SPEC_32, GK_SPEC_32_SEED
+    from scpn_fusion_tpu_torch.control.scenario import FluxBudget, standard_shot_schedule
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.models.physics.integrated_scenario import run_shot
+    from scpn_fusion_tpu_torch.parallel import gk_shard as gs
+    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
+
+    lanes = []
+    cfg = nl.NonlinearGKConfig(**GK_SPEC_32)
+    mesh = card_mesh(dev, 8, ("sx", "sy", "v"), GK_SHARD_MESH)
+    f_mono, tr_mono = spec32
+    # before any drift is looked for: the pencil bracket on lane 7's initial state
+    g = nl.build_grids(cfg, device=dev)
+    st0 = nl.init_state(cfg, g, seed=GK_SPEC_32_SEED)
+    layout = gs._Layout.of(mesh)
+    run = gs._ShardedRun(cfg, g, layout)
+    phi0 = nl.field_solve(cfg, g, st0.f)
+    act = [f[:1] for f in gs._shard_f(st0.f, layout)]
+    bracket = gs.ShardedGKState(tuple(run.bracket(phi_tiles(phi0, GK_SHARD_MESH), act)),
+                                st0.time, layout).f
+    ref_bracket = nl.exb_bracket(g, phi0, st0.f[:1])
+    br_equal, br_dev = torch.equal(bracket, ref_bracket), max_rel(bracket, ref_bracket)
+    del run, bracket, ref_bracket, act
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ((fin, tr), ms), calls, launched = counted(lambda: events_ms(
+        lambda: gs.run_nonlinear_gk_spatial_sharded_3d(cfg, mesh, seed=GK_SPEC_32_SEED)))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    dev_f, dev_t = max_rel(fin.f, f_mono), trace_dev(tr_mono, tr)
+    mem = gs.per_device_state_bytes(fin)
+    n_launch = 8 * 4 * cfg.n_steps
+    print(f"(zq) lane 7 gk_shard_memory (run_sharded_convergence.py:323-383) on "
+          f"Mesh((cuda:0,) * 8, (sx, sy, v) = {GK_SHARD_MESH}), virtual shards of one card (the "
+          f"collectives' arithmetic and the launch structure, no interconnect): 2x32x32x16x16x8 "
+          f"c128, 50 steps, {ms:.1f} ms (CUDA events); state {dev_f:.3e} of max |f| (gate "
+          f"{GK_SHARD_STATE_GATE}), trace {dev_t:.3e} (gate {GK_SHARD_TRACE_GATE}) from the "
+          f"monolithic card run; memory {mem} (gate: reduction factor 8.0); row G launches "
+          f"{launched} (want {n_launch}); peak memory {peak:.1f} MiB; pencil bracket on the "
+          f"initial state torch.equal to exb_bracket: {br_equal} ({br_dev:.3e}) [{card}]")
+    require(br_dev <= GK_SHARD_STATE_GATE, "(zq): the pencil bracket differs from exb_bracket")
+    require(calls == {name: n_launch * (name == "gk_rhs") for name in KERNELS}
+            and launched == {"scpn_gk_stage_c128": n_launch},
+            f"(zq) lane 7: {calls} / {launched}, not one row-G launch a shard a stage")
+    ok7 = dev_f < GK_SHARD_STATE_GATE and dev_t < GK_SHARD_TRACE_GATE \
+        and mem["reduction_factor"] == 8.0
+    lanes.append(LaneResult(
+        name="gk_shard_memory", status="pass" if ok7 else "fail",
+        metrics={"shape": "S2 x 32kx x 32ky x 16th x 16vpar x 8mu, 50 steps",
+                 "mesh": "(sx, sy, v) = (2, 2, 2), virtual shards of one card",
+                 "state_rel_dev_tile_vs_monolithic": dev_f, "trace_rel_dev_max": dev_t,
+                 "monolithic_state_bytes": mem["monolithic_bytes"],
+                 "bytes_per_device": mem["bytes_per_device"],
+                 "memory_reduction_factor": mem["reduction_factor"],
+                 "row_g_launches": calls["gk_rhs"]},
+        thresholds={"state_rel_dev_tile_vs_monolithic": GK_SHARD_STATE_GATE,
+                    "trace_rel_dev_max": GK_SHARD_TRACE_GATE, "memory_reduction_factor": 8.0},
+        notes="the port's sharded GK run against its monolithic run on the card"))
+    by_path["gk_shard_lane7"] = calls
+
+    # ms a step: the sharded step and the monolithic one, in turns
+    spec, gram_inv = nl.stage_spec(cfg, g), nl._gram_inv(cfg, g, f_mono.dtype)
+    run = gs._ShardedRun(cfg, g, fin.layout)
+    mono0 = nl.GKState(f_mono, fin.time)
+
+    def steps_sharded():
+        fs, t = list(fin.shards), fin.time
+        for _ in range(GK_SHARD_TIMED_STEPS):
+            fs, t = run.step(fs, t)
+
+    def steps_mono():
+        st = mono0
+        for _ in range(GK_SHARD_TIMED_STEPS):
+            st = nl._rk4_step(cfg, g, spec, st, gram_inv)
+
+    t_s, t_m = cuda_ms_pair(steps_sharded, steps_mono, reps=3)
+    print(f"time (zq) lane 7 a step: 8 shards {t_s / GK_SHARD_TIMED_STEPS:.4f} ms, monolithic "
+          f"{t_m / GK_SHARD_TIMED_STEPS:.4f} ms (CUDA events around {GK_SHARD_TIMED_STEPS} "
+          f"steps, median of 3, in turns) [{card}]")
+    final7 = nl.GKState(fin.f, fin.time)
+    del run, fin
+
+    # run_gk_scenario.py lane 1: the 8-shard velocity mesh, c64
+    cfg1 = nl.NonlinearGKConfig(**GK_SCENARIO_1)
+    (_, t_ref), _, _ = counted(lambda: nl.run_nonlinear_gk(cfg1, seed=7, device=dev))
+    (_, t_sh), calls1, launched1 = counted(
+        lambda: gs.run_nonlinear_gk_sharded(cfg1, card_mesh(dev, 8, ("v",)), seed=7))
+    dev1 = float((t_sh.phi_rms - t_ref.phi_rms).abs().max()) \
+        / max(float(t_ref.phi_rms.abs().max()), 1e-30)
+    n1 = 8 * 4 * cfg1.n_steps
+    print(f"(zq) run_gk_scenario.py lane 1 gk_shard_invariance: 8x8x8x8x8 c64, 10 steps, seed 7 "
+          f"on Mesh((cuda:0,) * 8, v): phi_rms relative deviation {dev1:.3e} (gate "
+          f"{GK_INVARIANCE_GATE}); row G launches {launched1} (want {n1}) [{card}]")
+    require(calls1["gk_rhs"] == n1 and launched1 == {"scpn_gk_stage_c64": n1},
+            f"(zq) lane 1: {launched1}")
+    lanes.append(LaneResult(
+        name="gk_shard_invariance", status="pass" if dev1 < GK_INVARIANCE_GATE else "fail",
+        metrics={"rel_deviation": dev1, "n_devices": 8},
+        thresholds={"rel_deviation_max": GK_INVARIANCE_GATE},
+        notes="velocity-space sharding vs single device, virtual shards of one card"))
+    by_path["gk_scenario_lane1"] = calls1
+    print("(zq) run_gk_scenario.py lane 2 gk_linear_growth: (u)'s linear ITG lane, above")
+
+    # run_gk_scenario.py lane 3: the ITER-like shot with the lane's own schedule
+    sched = standard_shot_schedule(ip_flat_ma=15.0, ramp_s=60.0, flattop_s=300.0,
+                                   ne_flat_19=10.0, p_aux_flat_mw=50.0)
+    (_, report), calls3, _ = counted(lambda: run_shot(
+        sched, FluxBudget(phi_cs_vs=280.0, l_plasma_uh=7.0, r0_m=6.2), device=dev))
+    ok3 = (bool(report.reached_burn) and not bool(report.flux_exhausted)
+           and not bool(report.greenwald_violated))
+    print(f"(zq) run_gk_scenario.py lane 3 iter_shot_q: q_flattop {float(report.q_flattop)!r}, "
+          f"P_fus peak {float(report.p_fusion_peak_mw)!r} MW, H-mode "
+          f"{float(report.h_mode_duration_s)!r} s; burn reached {bool(report.reached_burn)}, "
+          f"flux exhausted {bool(report.flux_exhausted)}, Greenwald violated "
+          f"{bool(report.greenwald_violated)} [{card}]")
+    require(sum(calls3.values()) == 0, f"(zq) lane 3 launched {calls3}")
+    lanes.append(LaneResult(
+        name="iter_shot_q", status="pass" if ok3 else "fail",
+        metrics={"q_flattop": float(report.q_flattop),
+                 "p_fusion_peak_mw": float(report.p_fusion_peak_mw),
+                 "h_mode_duration_s": float(report.h_mode_duration_s)},
+        thresholds={"q_flattop_min": 5.0},
+        notes="staged density H-mode access, Ejima flux budget"))
+
+    # the other mesh kinds, f64 at the JAX test's size, against their monolithic runs
+    small = nl.NonlinearGKConfig(**GK_SHARD_SMALL)
+    mono_s, tr_s = nl.run_nonlinear_gk(small, seed=5, device=dev)
+    (fin2, tr2), calls2, _ = counted(lambda: gs.run_nonlinear_gk_spatial_sharded(
+        small, card_mesh(dev, 8, ("sy", "v"), (2, 4)), seed=5))
+    dev2, dev2_t = max_rel(fin2.f, mono_s.f), trace_dev(tr_s, tr2)
+    ((ens, tr_e), ms_e), calls_e, _ = counted(lambda: events_ms(lambda: gs.run_gk_ensemble_sharded(
+        small, card_mesh(dev, 8, ("data", "v"), (2, 4)), np.array(GK_ENSEMBLE_SEEDS))))
+    g_s = nl.build_grids(small, device=dev)
+    base = nl.init_state(small, g_s, seed=0).f
+    dev_e = dev_e_t = 0.0
+    for m, seed in enumerate(GK_ENSEMBLE_SEEDS):
+        f_m = base + 1e-6 * gs.member_noise(seed, base.shape).to(dev, base.dtype)
+        mono_m, tr_m = nl.run_nonlinear_gk(
+            small, state=nl.GKState(f_m, torch.zeros((), dtype=torch.float64, device=dev)),
+            device=dev)
+        dev_e = max(dev_e, max_rel(ens.f[m], mono_m.f))
+        dev_e_t = max(dev_e_t, trace_dev(tr_m, [t[m] for t in tr_e]))
+    n2, n_e = 8 * 4 * small.n_steps, len(GK_ENSEMBLE_SEEDS) * 4 * 4 * small.n_steps
+    print(f"(zq) (sy, v) = (2, 4), 2x8x8x8x6x8 c128, 6 steps: f {dev2:.3e}, trace {dev2_t:.3e}; "
+          f"ensemble (data, v) = (2, 4), 4 members (seeds {GK_ENSEMBLE_SEEDS}), {ms_e:.1f} ms: "
+          f"f {dev_e:.3e}, trace {dev_e_t:.3e} of each member's monolithic card run (gates "
+          f"{GK_SHARD_TEST_GATE}, {GK_SHARD_TRACE_GATE}); row G launches {calls2['gk_rhs']} / "
+          f"{calls_e['gk_rhs']} (want {n2} / {n_e}) [{card}]")
+    require(max(dev2, dev_e) < GK_SHARD_TEST_GATE and max(dev2_t, dev_e_t) < GK_SHARD_TRACE_GATE,
+            "(zq): a sharded run deviates from its monolithic run")
+    require(calls2["gk_rhs"] == n2 and calls_e["gk_rhs"] == n_e,
+            f"(zq): {calls2['gk_rhs']} / {calls_e['gk_rhs']} row G launches")
+    by_path["gk_shard_sy_v"], by_path["gk_shard_ensemble"] = calls2, calls_e
+    require(all(lane.status == "pass" for lane in lanes),
+            f"(zq) lanes failed: {[lane.name for lane in lanes if lane.status != 'pass']}")
+    return calls["gk_rhs"], final7, lanes
+
+
+def parity_problem(n: int = 65):
+    """``run_implementation_parity.py``'s manufactured problem and its
+    perturbed start: (r_1d, d_r, d_z, psi_exact, source, psi0)."""
+    from scpn_fusion_tpu_torch.utils import npref
+    r_1d = np.linspace(2.0, 10.0, n)
+    z_1d = np.linspace(-4.0, 4.0, n)
+    d_r, d_z = float(r_1d[1] - r_1d[0]), float(z_1d[1] - z_1d[0])
+    rr, zz = np.meshgrid(r_1d, z_1d)
+    exact = np.exp(-((rr - 6.0) ** 2 + zz**2) / 3.0)
+    source = npref.gs_operator_np(exact, r_1d, d_r, d_z)
+    psi0 = exact + 0.1 * np.random.default_rng(42).standard_normal(exact.shape)
+    psi0[0, :], psi0[-1, :] = exact[0, :], exact[-1, :]
+    psi0[:, 0], psi0[:, -1] = exact[:, 0], exact[:, -1]
+    return r_1d, d_r, d_z, exact, source, psi0
+
+
+def implementation_parity_lanes(dev, card: str, counted, by_path: dict) -> list:
+    """``run_implementation_parity.py`` lanes 1-3 on the port: the C++ copy
+    (built with g++ on this host), the port's ``npref`` and the port's plain
+    float64 ``sor_step`` on the card; lane 3 kernel 1 (``sor_sweeps``, f32,
+    one launch) against ``npref`` at the same sweep count."""
+    import torch
+    from scpn_fusion_tpu_torch.native import runtime as native_rt
+    from scpn_fusion_tpu_torch.ops import cuda_stencil
+    from scpn_fusion_tpu_torch.ops.stencil import sor_step
+    from scpn_fusion_tpu_torch.utils import npref
+    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
+
+    r_1d, d_r, d_z, exact, source, psi0 = parity_problem()
+    span = float(exact.max() - exact.min())
+    require(native_rt.is_available(), "(zr): the native C++ runtime did not build with g++")
+
+    def native_sweeps(n, omega=1.6):
+        solver = native_rt.NativeGSSolver(r_1d, d_r, d_z, nz=psi0.shape[0])
+        solver.set_state(psi0, source)
+        solver.set_boundary(exact)
+        solver.sweeps(n, omega=omega)
+        return solver.psi
+
+    def numpy_sweeps(out, n, omega=1.6):
+        for _ in range(n):
+            out = npref.sor_step_np(out, source, r_1d, d_r, d_z, omega)
+        return out
+
+    def card_sweeps(n, omega=1.6):
+        f64 = torch.float64
+        out = torch.tensor(psi0, dtype=f64, device=dev)
+        s, r = torch.tensor(source, dtype=f64, device=dev), torch.tensor(r_1d, dtype=f64,
+                                                                          device=dev)
+        for _ in range(n):
+            out = sor_step(out, s, r, d_r, d_z, omega)
+        return out.cpu().numpy()
+
+    lanes = []
+    one_np = numpy_sweeps(psi0.copy(), 1)
+    devs = {"numpy_vs_port_card_f64_span_rel": float(np.max(np.abs(one_np - card_sweeps(1)))) / span,
+            "numpy_vs_cpp_span_rel": float(np.max(np.abs(one_np - native_sweeps(1)))) / span}
+    ok1 = all(v < PARITY_SPAN_GATE for v in devs.values())
+    lanes.append(LaneResult(name="sweep_trajectory_parity", status="pass" if ok1 else "fail",
+                            metrics=devs, thresholds={"span_rel": PARITY_SPAN_GATE},
+                            notes="one red-black SOR sweep from the identical state"))
+    np_f32 = numpy_sweeps(psi0.copy(), PARITY_F32_SWEEPS)
+    sols = {"numpy": numpy_sweeps(np_f32, PARITY_CONVERGED - PARITY_F32_SWEEPS),
+            "port_card_f64": card_sweeps(PARITY_CONVERGED), "cpp": native_sweeps(PARITY_CONVERGED)}
+    errs = {k: float(np.max(np.abs(v - exact))) / span for k, v in sols.items()}
+    keys = sorted(sols)
+    pair = {f"{a}_vs_{b}": float(np.max(np.abs(sols[a] - sols[b]))) / span
+            for i, a in enumerate(keys) for b in keys[i + 1:]}
+    best = min(errs.values())
+    ok2 = all(d < PARITY_PAIR_GATE for d in pair.values()) \
+        and all(e <= 1.5 * best + 1e-12 for e in errs.values())
+    lanes.append(LaneResult(
+        name="converged_cross_implementation", status="pass" if ok2 else "fail",
+        metrics={**{f"err_vs_exact_{k}": v for k, v in errs.items()},
+                 **{f"dev_{k}": v for k, v in pair.items()}, "implementations": keys},
+        thresholds={"pairwise_span_rel": PARITY_PAIR_GATE,
+                    "err_vs_exact": "<= 1.5x best implementation"},
+        notes=f"{PARITY_CONVERGED} SOR sweeps to the discrete fixed point"))
+    f32 = torch.float32
+    out, calls, launched = counted(lambda: cuda_stencil.sor_sweeps(
+        torch.tensor(psi0, dtype=f32, device=dev), torch.tensor(source, dtype=f32, device=dev),
+        torch.tensor(r_1d, dtype=f32, device=dev), d_r, d_z, 1.6, PARITY_F32_SWEEPS))
+    dev3 = float(np.max(np.abs(out.cpu().numpy().astype(np.float64) - np_f32))) / span
+    ok3 = dev3 < PARITY_F32_GATE
+    lanes.append(LaneResult(
+        name="tpu_f32_parity", status="pass" if ok3 else "fail",
+        metrics={"span_rel_dev_vs_numpy_f64": dev3, "n_sweeps": PARITY_F32_SWEEPS,
+                 "kernel_launches": sum(launched.values())},
+        thresholds={"span_rel_dev_vs_numpy_f64": PARITY_F32_GATE},
+        notes="kernel 1 (csrc/sor_band.cu, one launch) on the card vs the f64 NumPy twin"))
+    print(f"(zr) run_implementation_parity.py lane 1: {devs} (gate {PARITY_SPAN_GATE}); lane 2 "
+          f"({PARITY_CONVERGED} sweeps): errors {errs}, pairwise {pair} (gate {PARITY_PAIR_GATE}, "
+          f"each within 1.5x of the best); lane 3: kernel 1 f32, {PARITY_F32_SWEEPS} sweeps, "
+          f"span-rel {dev3:.3e} from npref (gate {PARITY_F32_GATE}), wrapper calls "
+          f"{ {k: v for k, v in calls.items() if v} }, launches {launched} [{card}]")
+    require(calls == {name: int(name == "sor_sweeps") for name in KERNELS}
+            and sum(launched.values()) == 1, f"(zr) lane 3: {calls} / {launched}")
+    by_path["implementation_parity"] = calls
+    return lanes
+
+
+def error_audit_lanes(dev, tmp: Path) -> list:
+    """``run_error_audit.py`` lanes 1-3 on the port (its probes, the
+    checkpoint's corrupt-payload and dtype-mismatch ones on card tensors)."""
+    import torch
+    from scpn_fusion_tpu_torch.control.vessel_rzip import required_feedback_gain
+    from scpn_fusion_tpu_torch.core.config import load_config
+    from scpn_fusion_tpu_torch.io import read_geqdsk
+    from scpn_fusion_tpu_torch.models.physics.divertor_lab import flow_velocity_scan
+    from scpn_fusion_tpu_torch.models.transport.aurora_parity import (
+        AuroraParityCase, derive_effective_source_closure, radial_transport_budget_diagnostic,
+    )
+    from scpn_fusion_tpu_torch.scpn.safety_interlocks import (
+        SafetyInterlockRuntime, build_safety_net, evaluate_transition_enablement,
+        safety_tokens_from_state,
+    )
+    from scpn_fusion_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
+
+    def probe(fn):
+        try:
+            fn()
+        except Exception as exc:           # noqa: BLE001 -- the lane asks that each raises
+            return True, type(exc).__name__
+        return False, "no exception"
+
+    def case(nr=8, nz=3, nt=3, bad_radius=False):
+        radius = np.array([0.2, 0.1] + [0.3 + 0.1 * i for i in range(nr - 2)]) \
+            if bad_radius else np.linspace(0.05, 0.6, nr)
+        return AuroraParityCase(
+            element="Ne", charge_states=np.arange(nz, dtype=float), radius_m=radius,
+            time_s=np.linspace(0.0, 0.1, nt), major_radius_m=1.65,
+            ne_t_r=np.full((nt, nr), 3e19), diffusion_m2_s_r_z=np.ones((nr, nz)),
+            convection_m_s_r_z=np.zeros((nr, nz)),
+            ionisation_m3_s_t_r_z=np.full((nt, nr, nz), 1e-15),
+            recombination_m3_s_t_r_z=np.full((nt, nr, nz), 5e-16))
+
+    good = case()
+    bad_cfg = tmp / "bad.json"
+    bad_cfg.write_text(json.dumps({"dimensions": {"R_min": -1.0, "R_max": 9.0,
+                                                  "Z_min": -3.0, "Z_max": 3.0}}))
+    nondict_cfg = tmp / "nondict.json"
+    nondict_cfg.write_text("[1, 2, 3]")
+    trunc_g = tmp / "trunc.geqdsk"
+    trunc_g.write_text("SCPN  17-Aug-26       3  65  65\n 1.0 2.0\n")
+    ckpt = tmp / "ok.ckpt"
+    state = {"psi": torch.ones((4, 4), dtype=torch.float64, device=dev)}
+    save_checkpoint(ckpt, state, metadata={"note": "audit"})
+    corrupt = tmp / "corrupt.ckpt"
+    blob = bytearray(Path(str(ckpt) + ".npz").read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    Path(str(corrupt) + ".npz").write_bytes(bytes(blob))
+    Path(str(corrupt) + ".json").write_text(Path(str(ckpt) + ".json").read_text())
+    net = build_safety_net()
+    probes = [
+        ("config_negative_rmin", lambda: load_config(bad_cfg)),
+        ("config_top_level_not_object", lambda: load_config(nondict_cfg)),
+        ("config_size_cap", lambda: load_config(bad_cfg, max_bytes=4)),
+        ("geqdsk_truncated", lambda: read_geqdsk(trunc_g)),
+        ("checkpoint_corrupt_payload", lambda: load_checkpoint(corrupt, state)),
+        ("checkpoint_dtype_mismatch", lambda: load_checkpoint(
+            ckpt, {"psi": torch.ones((4, 4), dtype=torch.float32, device=dev)})),
+        ("aurora_nonincreasing_radius", lambda: case(bad_radius=True)),
+        ("aurora_nan_density", lambda: radial_transport_budget_diagnostic(
+            good, np.full((8, 3), np.nan), 1e-4, device=dev)),
+        ("aurora_negative_dt", lambda: radial_transport_budget_diagnostic(
+            good, np.ones((8, 3)), -1.0, device=dev)),
+        ("aurora_closure_wrong_shape", lambda: derive_effective_source_closure(
+            good, np.ones((2, 8, 3)), device=dev)),
+        ("vessel_gain_negative_gamma", lambda: required_feedback_gain(-1.0, 0.1, 1e-3)),
+        ("vessel_gain_nan_tau", lambda: required_feedback_gain(10.0, float("nan"), 1e-3)),
+        ("interlock_wrong_marking_shape",
+         lambda: evaluate_transition_enablement(net._compiled, np.zeros(3))),
+    ]
+    rows = []
+    for name, fn in probes:
+        raised, detail = probe(fn)
+        rows.append({"probe": name, "raised": raised, "exception": detail})
+    n_ok = sum(r["raised"] for r in rows)
+    lanes = [LaneResult(name="api_input_validation",
+                        status="pass" if n_ok == len(probes) else "fail",
+                        metrics={"probes": rows, "raised": n_ok, "total": len(probes)},
+                        thresholds={"raised": len(probes)},
+                        notes="every malformed-input probe must raise; silent returns fail")]
+
+    rng = np.random.default_rng(42)
+    flows, expansions = rng.uniform(0.0005, 0.05, 64), rng.uniform(9.0, 16.0, 64)
+    detected = []
+    for flow, exp_f in zip(flows, expansions):
+        st = flow_velocity_scan(np.array([flow]), 80.0, 2.1, 2.5, expansion_factor=float(exp_f),
+                                dtype=torch.float64, device=dev)
+        detected.append(not bool(st.is_stable[0]) or float(st.q_surface[0]) > 45.0e6
+                        or float(st.t_surface_c[0]) > 1400.0)
+    detect_rate = float(np.mean(detected))
+    rt = SafetyInterlockRuntime()
+    nominal = {"T_e": 10.0, "n_e": 5.0, "beta_N": 1.5, "I_p": 10.0, "dZ_dt": 0.0}
+    allowed_nominal = rt.update_from_state(nominal)
+    allowed_fault = rt.update_from_state(dict(nominal, T_e=40.0))
+    blocks = allowed_nominal.get("heat_ramp", False) and not allowed_fault.get("heat_ramp", True)
+    lanes.append(LaneResult(
+        name="overheat_fault_injection", status="pass" if detect_rate == 1.0 and blocks else "fail",
+        metrics={"n_episodes": 64, "detect_rate": detect_rate,
+                 "nominal_heat_allowed": bool(allowed_nominal.get("heat_ramp", False)),
+                 "fault_heat_blocked": bool(not allowed_fault.get("heat_ramp", True))},
+        thresholds={"detect_rate": 1.0},
+        notes="stagnant-flow fault window must always be detected; the interlock blocks heating"))
+
+    tokens = safety_tokens_from_state({"T_e": float("nan")})
+    no_spurious = all(v == 0.0 for v in tokens.values())
+    crashed, allowed = False, {}
+    try:
+        allowed = SafetyInterlockRuntime().update_from_state({"T_e": float("nan"),
+                                                              "dZ_dt": float("inf")})
+    except Exception:                          # noqa: BLE001 -- the lane records a crash
+        crashed = True
+    lanes.append(LaneResult(
+        name="nan_semantics_parity",
+        status="pass" if (no_spurious and not crashed and bool(allowed)) else "fail",
+        metrics={"nan_tokens_all_zero": no_spurious, "runtime_crashed": crashed,
+                 "n_actions_evaluated": len(allowed)},
+        thresholds={}, notes="non-finite channels map to defaults (no spurious trip, no crash)"))
+    return lanes
+
+
+def carried_lanes_checks(dev, card: str, counted, by_path: dict, gk_final, gk_lanes) -> None:
+    """(zr) the carried-over lanes: ``run_implementation_parity.py`` 1-3,
+    ``run_error_audit.py`` 1-3, a GKState checkpoint written from the card
+    (lane 7's final state) and loaded on the CPU, equal; every lane's report
+    (and (zq)'s ``gk_lanes``) written with the port's ``write_report`` into a
+    temporary directory and its checksum read back."""
+    import hashlib
+    import tempfile
+
+    import torch
+    from scpn_fusion_tpu_torch.models.gyrokinetics.nonlinear import GKState
+    from scpn_fusion_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from scpn_fusion_tpu_torch.utils.evidence import write_report
+
+    t0 = time.perf_counter()
+    parity = implementation_parity_lanes(dev, card, counted, by_path)
+    t_parity = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="smoke_zr_") as tmp:
+        tmp = Path(tmp)
+        (audit, audit_calls, _) = counted(lambda: error_audit_lanes(dev, tmp))
+        by_path["error_audit"] = audit_calls
+        save_checkpoint(tmp / "gk.ckpt", gk_final, metadata={"lane": "gk_shard_memory"})
+        example = GKState(torch.zeros(gk_final.f.shape, dtype=gk_final.f.dtype),
+                          torch.zeros((), dtype=gk_final.time.dtype))
+        loaded, meta = load_checkpoint(tmp / "gk.ckpt", example)
+        ck_equal = (loaded.f.device.type == "cpu" and torch.equal(loaded.f, gk_final.f.cpu())
+                    and torch.equal(loaded.time, gk_final.time.cpu()))
+        print(f"(zr) GKState checkpoint of lane 7's final state ({gk_final.f.numel() * 16} bytes "
+              f"of f) written from the card, loaded on the CPU: equal {ck_equal}, metadata "
+              f"{meta} [{card}]")
+        require(ck_equal, "(zr): the GK checkpoint did not load back equal on the CPU")
+        reports = {}
+        for name, lanes in (("implementation_parity", parity), ("error_audit", audit),
+                            ("gk_scenario_and_shard", gk_lanes)):
+            path = write_report(name, lanes, out_dir=tmp)
+            payload = json.loads(path.read_text())
+            sha = payload.pop("payload_sha256")
+            again = hashlib.sha256(json.dumps(payload, sort_keys=True, default=str)
+                                   .encode()).hexdigest()
+            reports[name] = (payload["overall_status"], sha[:16], sha == again)
+            for lane in lanes:
+                print(f"(zr) {name} / {lane.name}: {lane.status} {lane.metrics}")
+    print(f"(zr) reports (status, sha256[:16], checksum read back): {reports}; parity lanes "
+          f"{t_parity:.1f} s [{card}]")
+    require(all(status == "pass" and ok for status, _, ok in reports.values()),
+            f"(zr): reports {reports}")
+    require(sum(audit_calls.values()) == 0, f"(zr): the error audit launched {audit_calls}")
+
+
+def slice24_on_card(conn, card: str) -> None:
+    """(zq) and (zr) in a spawned process on the card, started in
+    :func:`late_twins` (host-bound Python beside (m)-(zp)): the monolithic
+    32^3 run as (u) runs it, :func:`gk_shard_checks` against it, then
+    :func:`carried_lanes_checks`; each prints its numbers and fails on its
+    gates; sends the port kernel calls by path and each phase's seconds."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.bench_config import GK_SPEC_32, GK_SPEC_32_SEED
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+
+    def counted(run):
+        cb.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {name: cb.CALLS[name] for name in KERNELS}, dict(cb.LAUNCHES)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = nl.NonlinearGKConfig(**GK_SPEC_32)
+    g = nl.build_grids(cfg, device=dev)
+    final, trace = nl._run(cfg, g, nl.init_state(cfg, g, seed=GK_SPEC_32_SEED))
+    by_path = {}
+    _, gk_final, lanes = gk_shard_checks(dev, card, counted, by_path, (final.f, trace))
+    t1 = time.perf_counter()
+    carried_lanes_checks(dev, card, counted, by_path, gk_final, lanes)
+    sys.stdout.flush()
+    conn.send({"by_path": by_path, "zq_s": t1 - t0, "zr_s": time.perf_counter() - t1})
+    conn.close()
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.asarray(a, np.float64))
@@ -8617,13 +9140,13 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
     return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
 
 
-def late_twins(stack: contextlib.ExitStack, psi_129) -> dict:
+def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
     """Start (zh)-(zi)'s, (zj)-(zk)'s, (zl)-(zm)'s and (zn)'s CPU twins (the
     third on (b)'s 129^2 psi, ``psi_129``), the plain runs of rows F, E, H, U
     and W on the card (~230 s, ~40 s, ~300 s, ~20 s and ~12 s of host time),
     (zn)'s FNO and equilibrium trainers on the card (~50 s each) and the
-    replay certificate's fresh process, (zp)'s sharded lanes and (zo)'s
-    lane 3 in a fresh process once the host-bound early paths,
+    replay certificate's fresh process, (zp)'s sharded lanes, (zq)-(zr) on
+    the card (~20 s) and (zo)'s lane 3 in a fresh process once the host-bound early paths,
     (a)-(l), are done: started with the others, they slowed those paths on an
     8-core host with one H100 (the whole smoke 899 s, where it had taken 770 s
     without them)."""
@@ -8635,6 +9158,7 @@ def late_twins(stack: contextlib.ExitStack, psi_129) -> dict:
                "sharded_card": sharded_on_card, "ensemble_cold": ensemble_cold_on_card}
     twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
     twins["slice21_cpu"] = stack.enter_context(cpu_twin(slice21_on_cpu, psi_129))
+    twins["slice24_card"] = stack.enter_context(cpu_twin(slice24_on_card, card))
     with environment(PYTHONHASHSEED=REPLAY_HASHSEED):
         twins["replay"] = stack.enter_context(cpu_twin(replay_on_card))
     return twins
@@ -9719,7 +10243,7 @@ def _main(stack: contextlib.ExitStack) -> int:
         phase_done("adjoint lane and FD check (g), spawned")
     # (zh)'s twins start here, past the host-bound early paths they would slow
     psi_129 = fb_results["fb_129"].psi.detach().cpu().numpy()
-    twins.update(late_twins(stack, psi_129))
+    twins.update(late_twins(stack, psi_129, card))
 
     # ── the tenth slice: (m) the flight simulator's full lane (kernels 2-5 on
     # every tick), (n) the SCPN closed loop (one launch of csrc/closed_loop.cu
@@ -9861,6 +10385,14 @@ def _main(stack: contextlib.ExitStack) -> int:
     phase_done("ensemble lanes 1-4 and the straggler (zo)")
     sharded_checks(card, twins["sharded_card"])
     phase_done("sharded solves on virtual shards (zp)")
+
+    # ── the twenty-fourth slice: (zq) the sharded 5-D GK runs through row G on
+    # every shard, (zr) the carried-over host lanes, in a spawned process ──
+    slice24 = twins["slice24_card"]()
+    by_path.update(slice24["by_path"])
+    print(f"(zq) and (zr) on the card in a spawned process (started after (l)): "
+          f"{slice24['zq_s']:.1f} s and {slice24['zr_s']:.1f} s [{card}]")
+    phase_done("sharded GK (zq) and carried-over lanes (zr), spawned")
 
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward

@@ -213,11 +213,20 @@ def field_solve(cfg: NonlinearGKConfig, g: GKGrids,
                 f: torch.Tensor) -> torch.Tensor:
     """Quasineutrality phi(kx, ky, theta) (reference
     ``_gk_nonlinear_operators.py:21-46``)."""
-    n_ion = velocity_moment(f[0], 1.0, g)
+    n_elec = velocity_moment(f[1], 1.0, g) if cfg.kinetic_electrons else None
+    phi = phi_of_moments(cfg, g, velocity_moment(f[0], 1.0, g), n_elec)
+    phi[0, 0, :] = 0.0
+    return phi
+
+
+def phi_of_moments(cfg: NonlinearGKConfig, g: GKGrids, n_ion: torch.Tensor,
+                   n_elec: torch.Tensor | None) -> torch.Tensor:
+    """:func:`field_solve` from the density moments, the (kx, ky) = (0, 0)
+    mode not yet zeroed (``parallel/gk_shard`` zeroes it on the shard that
+    holds it)."""
     b_i = 0.5 * g.kperp2 * g.rho_ratio_i ** 2
     gamma0_i = 1.0 / (1.0 + b_i)
     if cfg.kinetic_electrons:
-        n_elec = velocity_moment(f[1], 1.0, g)
         b_e = 0.5 * g.kperp2 * g.rho_ratio_e ** 2
         gamma0_e = 1.0 / (1.0 + b_e)
         denom = torch.clamp((1.0 - gamma0_i) + (1.0 - gamma0_e), min=1e-10)
@@ -226,10 +235,9 @@ def field_solve(cfg: NonlinearGKConfig, g: GKGrids,
     else:
         # Adiabatic electrons with zonal-flow correction: the Boltzmann
         # response does not act on the flux-surface-averaged (ky=0) modes.
-        ky_nonzero = (torch.abs(g.ky)[None, :] > 1e-10).to(f.real.dtype)
+        ky_nonzero = (torch.abs(g.ky)[None, :] > 1e-10).to(n_ion.real.dtype)
         denom = torch.clamp((1.0 - gamma0_i) + ky_nonzero, min=1e-10)
         phi = gamma0_i[:, :, None] * n_ion / denom[:, :, None]
-    phi[0, 0, :] = 0.0
     return phi
 
 
@@ -237,24 +245,35 @@ def ampere_solve(cfg: NonlinearGKConfig, g: GKGrids,
                  f: torch.Tensor) -> torch.Tensor:
     """A_par from parallel current (electromagnetic mode)."""
     vpar_w = g.vpar[:, None]
-    j_par = velocity_moment(f[0], vpar_w, g)
-    if cfg.kinetic_electrons:
-        j_par = j_par - g.vth_ratio_e * velocity_moment(f[1], vpar_w, g)
-    a_par = cfg.beta_e * j_par / torch.clamp(g.kperp2[:, :, None], min=1e-10)
+    j_elec = velocity_moment(f[1], vpar_w, g) if cfg.kinetic_electrons else None
+    a_par = a_par_of_current(cfg, g, velocity_moment(f[0], vpar_w, g), j_elec)
     a_par[0, 0, :] = 0.0
     return a_par
+
+
+def a_par_of_current(cfg: NonlinearGKConfig, g: GKGrids, j_ion: torch.Tensor,
+                     j_elec: torch.Tensor | None) -> torch.Tensor:
+    """:func:`ampere_solve` from the current moments, (0, 0) not zeroed."""
+    j_par = j_ion if j_elec is None else j_ion - g.vth_ratio_e * j_elec
+    return cfg.beta_e * j_par / torch.clamp(g.kperp2[:, :, None], min=1e-10)
 
 
 def bpar_solve(cfg: NonlinearGKConfig, g: GKGrids,
                f: torch.Tensor) -> torch.Tensor:
     """B_par from perpendicular pressure balance (electromagnetic mode)."""
     mu_w = g.mu[None, :]
-    p_perp = velocity_moment(f[0], mu_w, g)
-    if cfg.kinetic_electrons:
-        p_perp = p_perp + velocity_moment(f[1], mu_w, g)
-    b_par = -cfg.beta_e * p_perp / (1.0 + g.kperp2[:, :, None])
+    p_elec = velocity_moment(f[1], mu_w, g) if cfg.kinetic_electrons else None
+    b_par = b_par_of_pressure(cfg, g, velocity_moment(f[0], mu_w, g), p_elec)
     b_par[0, 0, :] = 0.0
     return b_par
+
+
+def b_par_of_pressure(cfg: NonlinearGKConfig, g: GKGrids, p_ion: torch.Tensor,
+                      p_elec: torch.Tensor | None) -> torch.Tensor:
+    """:func:`bpar_solve` from the perpendicular pressure moments, (0, 0) not
+    zeroed."""
+    p_perp = p_ion if p_elec is None else p_ion + p_elec
+    return -cfg.beta_e * p_perp / (1.0 + g.kperp2[:, :, None])
 
 
 # ---------------------------------------------------------------------------
@@ -336,12 +355,8 @@ def conservative_gram_inverse(g: GKGrids, dtype: torch.dtype) -> torch.Tensor:
     """The inverse of the (n, p_par, E) Gram matrix against the Maxwellian
     (3 x 3, complex ``dtype``): :func:`collide_conservative`'s projection,
     the same on every call."""
-    fm = g.maxwellian[None, None, None, :, :].to(dtype)
-    vpar5 = g.vpar[None, None, None, :, None].to(dtype)
-    energy5 = g.energy[None, None, None, :, :].to(dtype)
-    ones = torch.ones_like(energy5)
+    basis, fm = _conservative_basis(g, dtype)
     dv = g.d_vpar * g.d_mu
-    basis = (ones, vpar5, energy5)
     gram = torch.stack([torch.stack([torch.sum(torch.real(a * b * fm)) * dv for b in basis])
                         for a in basis]).to(g.d_vpar.dtype)
     # inv_ex: no check of the result, so no host read inside a time loop
@@ -361,6 +376,23 @@ def collide_conservative(cfg: NonlinearGKConfig, g: GKGrids,
     dims are a batch of species.  ``gram_inv``: the run's
     :func:`conservative_gram_inverse`, made here when not given.
     """
+    cf, sums = conservative_sums(cfg, g, f_s)
+    return conservative_finish(g, cf, sums, gram_inv)
+
+
+def _conservative_basis(g: GKGrids, dtype: torch.dtype):
+    """(1, vpar, E) and the Maxwellian, broadcast against one species' f."""
+    fm = g.maxwellian[None, None, None, :, :].to(dtype)
+    vpar5 = g.vpar[None, None, None, :, None].to(dtype)
+    energy5 = g.energy[None, None, None, :, :].to(dtype)
+    return (torch.ones_like(energy5), vpar5, energy5), fm
+
+
+def conservative_sums(cfg: NonlinearGKConfig, g: GKGrids, f_s: torch.Tensor):
+    """The first half of :func:`collide_conservative`: (the diffusion term
+    cf, its sums against (1, vpar, E) over (vpar, mu), stacked), the sums
+    not yet scaled by dv (``parallel/gk_shard`` adds the mu shards' sums
+    first)."""
     nu = cfg.nu_collision
     d2f = (torch.roll(f_s, -1, dims=-2) - 2.0 * f_s
            + torch.roll(f_s, 1, dims=-2)) / g.d_vpar ** 2
@@ -373,18 +405,18 @@ def collide_conservative(cfg: NonlinearGKConfig, g: GKGrids,
     nu_v = nu * torch.clamp(1.0 / torch.clamp(v2, min=0.1) ** 1.5, max=10.0)
     pitch = 2.0 * mu_v / torch.clamp(v2, min=0.01)
     cf = nu_v * pitch * d2f
+    basis, _ = _conservative_basis(g, f_s.dtype)
+    return cf, torch.stack([torch.sum(cf * b, dim=(-2, -1)) for b in basis], dim=0)
 
-    fm = g.maxwellian[None, None, None, :, :].to(f_s.dtype)
-    vpar5 = g.vpar[None, None, None, :, None].to(f_s.dtype)
-    energy5 = g.energy[None, None, None, :, :].to(f_s.dtype)
-    ones = torch.ones_like(energy5)
-    dv = g.d_vpar * g.d_mu
 
-    basis = (ones, vpar5, energy5)
-    moments = torch.stack(
-        [torch.sum(cf * b, dim=(-2, -1)) * dv for b in basis], dim=0)
+def conservative_finish(g: GKGrids, cf: torch.Tensor, sums: torch.Tensor,
+                        gram_inv: torch.Tensor | None = None) -> torch.Tensor:
+    """The second half of :func:`collide_conservative`: cf less its
+    projection on (1, vpar, E) against the Maxwellian."""
+    (ones, vpar5, energy5), fm = _conservative_basis(g, cf.dtype)
+    moments = sums * (g.d_vpar * g.d_mu)
     if gram_inv is None:
-        gram_inv = conservative_gram_inverse(g, f_s.dtype)
+        gram_inv = conservative_gram_inverse(g, cf.dtype)
     coeffs = torch.tensordot(gram_inv, moments, dims=([1], [0]))
     corr = (coeffs[0][..., None, None] * ones
             + coeffs[1][..., None, None] * vpar5
@@ -475,9 +507,14 @@ def stage_terms(cfg: NonlinearGKConfig, g: GKGrids, f: torch.Tensor, phi: torch.
 def cfl_dt(cfg: NonlinearGKConfig, g: GKGrids, phi: torch.Tensor) -> torch.Tensor:
     """Adaptive CFL dt, a 0-d tensor on phi's device (reference
     ``_gk_nonlinear_time.py:95``)."""
+    return cfl_dt_of_max(cfg, g, torch.max(torch.abs(phi)))
+
+
+def cfl_dt_of_max(cfg: NonlinearGKConfig, g: GKGrids, phi_abs_max: torch.Tensor) -> torch.Tensor:
+    """:func:`cfl_dt` from max |phi| (a 0-d real tensor), on its device."""
     if not cfg.cfl_adapt:
-        return torch.full((), cfg.dt, dtype=phi.real.dtype, device=phi.device)
-    phi_max = torch.max(torch.abs(phi)) + 1e-30
+        return torch.full((), cfg.dt, dtype=phi_abs_max.dtype, device=phi_abs_max.device)
+    phi_max = phi_abs_max + 1e-30
     kmax = torch.maximum(torch.max(torch.abs(g.kx)), torch.max(torch.abs(g.ky)))
     vmax = torch.clamp(torch.max(torch.abs(g.vpar)), min=1.0)
     v_scale = g.vth_ratio_e if (cfg.kinetic_electrons) else 1.0
@@ -520,18 +557,21 @@ def heat_flux(cfg: NonlinearGKConfig, g: GKGrids, f: torch.Tensor,
               phi: torch.Tensor):
     """Gyro-Bohm heat fluxes Q_i, Q_e (reference
     ``_gk_nonlinear_time.py:114-150``)."""
-    energy_w = g.energy
-    ky_col = g.ky[None, :, None]
-    ky_mask = (g.ky > 1e-10).to(phi.real.dtype)[None, :, None]
-
     def one(f_s):
-        pressure = velocity_moment(f_s, energy_w, g)
-        flux_k = 1j * ky_col * torch.conj(phi) * pressure
-        return torch.sum(torch.real(flux_k) * ky_mask)
+        return flux_of_pressure(g, phi, velocity_moment(f_s, g.energy, g))
 
     q_i = one(f[0])
     q_e = one(f[1]) if cfg.kinetic_electrons else 0.5 * q_i
     return q_i, q_e
+
+
+def flux_of_pressure(g: GKGrids, phi: torch.Tensor, pressure: torch.Tensor) -> torch.Tensor:
+    """A species' heat flux from its energy moment: the sum over the modes of
+    ``g`` (on a (kx, ky) tile of ``parallel/gk_shard``, the tile's share)."""
+    ky_col = g.ky[None, :, None]
+    ky_mask = (g.ky > 1e-10).to(phi.real.dtype)[None, :, None]
+    flux_k = 1j * ky_col * torch.conj(phi) * pressure
+    return torch.sum(torch.real(flux_k) * ky_mask)
 
 
 def diagnostics(cfg: NonlinearGKConfig, g: GKGrids, state: GKState):

@@ -308,10 +308,12 @@ def launch_args(stage: int, f0, fin, acc, terms: StageTerms, dt, spec: GKStageSp
     return args, (nxt, acc_out)
 
 
-# (spec, f's shape, f's dtype, argument template) of the configuration that
-# check_spec last took: a run checks its configuration once, then each stage
-# only its own tensors
-_CHECKED: list = [None, None, None, None]
+# (id(spec), f's shape, f's dtype) -> (spec, argument template) of each
+# configuration that check_spec took: a run checks each configuration once
+# (a sharded run has one a shard), then each stage only its own tensors; the
+# spec is kept beside its id, so a reused id is not taken for it
+_CHECKED: dict = {}
+_CHECKED_MAX = 64
 
 
 def gk_stage(stage: int, f0: torch.Tensor, fin: torch.Tensor, acc: torch.Tensor | None,
@@ -321,11 +323,15 @@ def gk_stage(stage: int, f0: torch.Tensor, fin: torch.Tensor, acc: torch.Tensor 
     accumulator is updated in place on the card from stage 1 on."""
     if not f0.is_cuda:
         return gk_stage_plain(stage, f0, fin, acc, terms, dt, spec)
-    if _CHECKED[0] is not spec or _CHECKED[1] != f0.shape or _CHECKED[2] != f0.dtype:
+    key = (id(spec), tuple(f0.shape), f0.dtype)
+    entry = _CHECKED.get(key)
+    if entry is None or entry[0] is not spec:
         check_spec(spec, f0.shape, f0.dtype)
-        _CHECKED[:] = [spec, f0.shape, f0.dtype, args_template(spec, f0.shape)]
+        if len(_CHECKED) >= _CHECKED_MAX:
+            _CHECKED.clear()
+        entry = _CHECKED[key] = (spec, args_template(spec, f0.shape))
     check_inputs(stage, f0, fin, acc, terms, dt, spec)
-    args, out = launch_args(stage, f0, fin, acc, terms, dt, spec, _CHECKED[3])
+    args, out = launch_args(stage, f0, fin, acc, terms, dt, spec, entry[1])
     cb.launch(_ENTRIES[f0.dtype], ctypes.addressof(args))
     cb.CALLS["gk_rhs"] += 1
     return out

@@ -15,8 +15,12 @@ those signatures:
   ``ppermute`` is a neighbour's edge row ``.to(dst_device)`` (zeros where
   there is no neighbour), ``psum`` a sum of the per-shard partials taken in
   shard order on the first shard's device and handed back to every shard
-  (:func:`psum`), ``all_gather(tiled=True)`` a ``torch.cat`` on the
-  receiving shard's device (:func:`gather_rows`, :func:`gather_tiles`).
+  (:func:`psum`; :func:`pmax` the same with a maximum),
+  ``all_gather(tiled=True)`` a ``torch.cat`` on the receiving shard's device
+  (:func:`gather_rows`, :func:`gather_tiles`, :func:`all_gather`), and
+  ``all_to_all`` each shard's blocks sent to the shards they belong to and
+  concatenated there in shard order (:func:`all_to_all`, the transpose of a
+  pencil FFT).
 
 ``torch.distributed`` is not used: its one-process-a-rank model would change
 every JAX signature (each rank would hold its shard, not the global array),
@@ -139,3 +143,32 @@ def psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     for p in parts[1:]:
         total = total + p.to(home)
     return [total.to(p.device) for p in parts]
+
+
+def pmax(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``lax.pmax`` of per-shard values: the elementwise maximum taken in
+    shard order on the first part's device, handed back to every shard's
+    device."""
+    home = parts[0].device
+    top = parts[0]
+    for p in parts[1:]:
+        top = torch.maximum(top, p.to(home))
+    return [top.to(p.device) for p in parts]
+
+
+def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+    """``lax.all_gather(tiled=True)`` along ``dim``: every shard receives the
+    parts concatenated in shard order, on its own device."""
+    return [torch.cat([p.to(q.device) for p in parts], dim) for q in parts]
+
+
+def all_to_all(parts: list[torch.Tensor], split_dim: int,
+               concat_dim: int) -> list[torch.Tensor]:
+    """``lax.all_to_all``: each part is cut into ``len(parts)`` blocks along
+    ``split_dim`` (``torch.tensor_split``: sizes may differ by one); shard r
+    receives block r of every part, concatenated in shard order along
+    ``concat_dim`` on its own device."""
+    n = len(parts)
+    blocks = [p.tensor_split(n, split_dim) for p in parts]
+    return [torch.cat([b[r].to(q.device) for b in blocks], concat_dim)
+            for r, q in enumerate(parts)]

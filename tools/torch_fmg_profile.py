@@ -153,13 +153,21 @@ and one 65^2 float32 free-boundary solve of ``train_equilibrium_artifact``
 ``validation/run_batched_amortisation.py`` (129^2 float32) through the
 batched kernels 2 and 3, each as one solve, with the device launches and the
 port's kernel launches an iteration, then the mixed B = 64 ensemble.  Each
-prints what the solves above print.
+prints what the solves above print.  With ``--gk-shard`` it profiles one RK4
+step of ``validation/run_sharded_convergence.py`` lane 7 (the 32^3 complex128
+spec) sharded over a (sx, sy, v) = (2, 2, 2) mesh of 8 virtual shards of the
+card (``parallel/gk_shard.py``, row G on every shard) against the monolithic
+step: device launches, idle share, row G's device µs a shard and a stage
+(CUDA events around one launch on every shard), and what the collectives
+move (calls and the bytes that would cross between shards, by collective;
+the copy kernels they leave on the one card); then the device µs of one call
+of each batched kernel (rows 2b and 3b at 129^2, B = 16) by CUDA events.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
 | --twin | --ballooning | --disruption | --frc | --orbits | --plant | --phase
-| --surrogates | --ensemble]``.
+| --surrogates | --ensemble | --gk-shard]``.
 Exits non-zero without one.
 """
 
@@ -1608,6 +1616,179 @@ def profile_ensemble(card: str) -> None:
           f"(profiled) [{card}]")
 
 
+def collective_ledger(gs) -> tuple[dict, list]:
+    """Counters of ``parallel/gk_shard``'s collectives by name: calls and the
+    bytes that would cross between shards on a mesh of several cards (psum /
+    pmax: every part but the first to it and the total back; all_gather:
+    every receiver's parts from the others; all_to_all: every block that
+    leaves its shard).  Returns (the ledger, a function that puts the
+    collectives back)."""
+    ledger = {name: {"calls": 0, "bytes": 0} for name in ("psum", "pmax", "all_gather",
+                                                          "all_to_all")}
+    saved = {name: getattr(gs, name) for name in ledger}
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def moved(name, parts, *args):
+        n = len(parts)
+        if name in ("psum", "pmax"):
+            return 2 * sum(nbytes(p) for p in parts[1:])
+        if name == "all_gather":
+            return (n - 1) * sum(nbytes(p) for p in parts)
+        return sum(nbytes(p) - nbytes(p.tensor_split(n, args[0])[r]) for r, p in enumerate(parts))
+
+    def wrap(name):
+        def counted(parts, *args):
+            ledger[name]["calls"] += 1
+            ledger[name]["bytes"] += moved(name, parts, *args)
+            return saved[name](parts, *args)
+        return counted
+
+    for name in ledger:
+        setattr(gs, name, wrap(name))
+    return ledger, lambda: [setattr(gs, k, v) for k, v in saved.items()]
+
+
+def profile_gk_shard(card: str) -> None:
+    """One RK4 step of lane 7 (``bench_config.GK_SPEC_32``, 2x32x32x16x16x8
+    c128) from the state after 3 steps, monolithic and on the (2, 2, 2) mesh
+    of 8 virtual shards of the card, each profiled: device launches, idle
+    share, the port's kernels; row G's device µs a shard and a stage by CUDA
+    events (one launch on each shard, median of 5); the collectives' calls
+    and bytes in one step; ms a step of each (CUDA events around 5 steps,
+    median of 3, in turns)."""
+    import statistics
+
+    import torch
+    from scpn_fusion_tpu_torch.bench_config import GK_SPEC_32, GK_SPEC_32_SEED
+    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_gk
+    from scpn_fusion_tpu_torch.parallel import gk_shard as gs
+    from scpn_fusion_tpu_torch.parallel.mesh import Mesh
+
+    cfg = nl.NonlinearGKConfig(**GK_SPEC_32)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh.of([dev] * 8, ("sx", "sy", "v"), (2, 2, 2))
+    g = nl.build_grids(cfg, device=dev)
+    spec, gram_inv = nl.stage_spec(cfg, g), nl._gram_inv(cfg, g, nl._dtypes(cfg)[0])
+    state = nl.init_state(cfg, g, seed=GK_SPEC_32_SEED)
+    for _ in range(3):
+        state = nl._rk4_step(cfg, g, spec, state, gram_inv)
+    sharded = gs.shard_state_spatial_3d(state, mesh)
+    run = gs._ShardedRun(cfg, g, sharded.layout)
+
+    def mono_step():
+        return nl._rk4_step(cfg, g, spec, state, gram_inv)
+
+    def shard_step():
+        return run.step(list(sharded.shards), sharded.time)
+
+    outs = {"monolithic": profile_solve(
+                card, "lane 7, one RK4 step, monolithic",
+                lambda: {"max |f|": float(mono_step().f.abs().max())}, None),
+            "8 shards": profile_solve(
+                card, "lane 7, one RK4 step, (2, 2, 2) virtual shards",
+                lambda: {"max |f|": max(float(f.abs().max()) for f in shard_step()[0])},
+                "torch_gk_shard_trace.json")}
+    for name, out in outs.items():
+        print(f"lane 7 {name}: {out['launches']} device launches a step ({out['port_launches']} "
+              f"of the port's kernels, {out['port_ms']:.4f} ms), {out['device_ms']:.4f} ms of "
+              f"device time, {out['wall_ms']:.3f} ms of wall time (profiled), idle share "
+              f"{1.0 - out['device_ms'] / out['wall_ms']:.3f} [{card}]")
+    cb.reset_launch_counts()
+    ledger, restore = collective_ledger(gs)
+    try:
+        shard_step()
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    print(f"lane 7, 8 shards, one step: row G wrapper calls {cb.CALLS['gk_rhs']}, launches "
+          f"{dict(cb.LAUNCHES)}; collectives (calls, bytes between shards): "
+          + ", ".join(f"{k} {v['calls']} / {v['bytes'] / 1e6:.3f} MB" for k, v in ledger.items())
+          + f" [{card}]")
+
+    # row G alone: stage 2 on every shard's inputs, and the monolithic stage
+    fs = list(sharded.shards)
+    phis = run.field(fs)
+    dt = run.dt(phis)
+    terms = run.terms(fs, phis)
+    accs = [cuda_gk.gk_stage(0, f, f, None, t, dt, sp)[1]
+            for f, t, sp in zip(fs, terms, run.specs)]
+    m_terms = nl.stage_terms(cfg, g, state.f, nl.field_solve(cfg, g, state.f), gram_inv)
+    m_acc = cuda_gk.gk_stage(0, state.f, state.f, None, m_terms, dt, spec)[1]
+
+    def shard_launches():
+        for f, t, a, sp in zip(fs, terms, accs, run.specs):
+            cuda_gk.gk_stage(1, f, f, a, t, dt, sp)
+
+    def mono_launch():
+        cuda_gk.gk_stage(1, state.f, state.f, m_acc, m_terms, dt, spec)
+
+    shard_launches()
+    mono_launch()
+    us_s = statistics.median(cuda_events_ms(shard_launches) for _ in range(5)) * 1e3
+    us_m = statistics.median(cuda_events_ms(mono_launch) for _ in range(5)) * 1e3
+    print(f"lane 7 row G, stage 2: 8 shard launches {us_s:.1f} µs ({us_s / 8:.1f} µs a shard), "
+          f"the monolithic launch {us_m:.1f} µs (CUDA events, median of 5) [{card}]")
+
+    def steps(fn):
+        def go():
+            for _ in range(5):
+                fn()
+        return go
+
+    times = {"monolithic": [], "8 shards": []}
+    for _ in range(3):
+        for name, fn in (("monolithic", steps(mono_step)), ("8 shards", steps(shard_step))):
+            times[name].append(cuda_events_ms(fn) / 5)
+    print("lane 7 ms a step: " + ", ".join(
+        f"{k} {statistics.median(v):.4f} (all {[round(t, 4) for t in v]})"
+        for k, v in times.items()) + f" (CUDA events around 5 steps, median of 3, in turns) "
+        f"[{card}]")
+    batched_rows_events(card)
+
+
+def batched_rows_events(card: str) -> None:
+    """Device µs of one call of each batched entry of kernels 2 and 3 (rows
+    2b, 3b) at the kernels line's shape, 129^2 and B = 16, L-mode source and
+    (3,3) V-cycle: CUDA events around one call after a warm-up, median of 5."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from scpn_fusion_tpu_torch.core.grid import Grid
+    from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_source
+
+    dev, f32, n, b = "cuda", torch.float32, 129, 16
+    rng = np.random.default_rng(23)
+    vals = 0.3 + rng.random(8)
+    p_c = ProfileCoeffs(*torch.tensor(vals[:4], dtype=f32, device=dev).unbind())
+    ff_c = ProfileCoeffs(*torch.tensor(vals[4:], dtype=f32, device=dev).unbind())
+    g = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=f32, device=dev)
+    mask = (g.ZZ < g.Z_min * 0.5).to(f32).contiguous()
+    psi = torch.tensor(rng.standard_normal((b, n, n)), dtype=f32, device=dev)
+    src = torch.tensor(rng.standard_normal((b, n, n)), dtype=f32, device=dev)
+    i_t = torch.tensor(14.0 + rng.random(b), dtype=f32, device=dev)
+    params = cuda_source.pack_source_params_batched(p_c, ff_c, i_t, like=psi)
+    calls = {
+        "2b fused_topology_source_batched (3 launches)": lambda: cuda_source.
+        fused_topology_source_batched(psi, g.R, mask, params, d_r=g.dR, d_z=g.dZ, mu0=1.0,
+                                      h_mode=False),
+        "3b fused_coarse_vcycle_batched (1 launch)": lambda: cuda_mg.fused_coarse_vcycle_batched(
+            psi, src, g.R, g.dR, g.dZ, 1.0),
+    }
+    for name, fn in calls.items():
+        fn()
+        cb.reset_launch_counts()
+        us = statistics.median(cuda_events_ms(fn) for _ in range(5)) * 1e3
+        print(f"row {name} at {n}^2, B = {b}: {us:.1f} µs a call (CUDA events around one call, "
+              f"median of 5; C-entry launches {dict(cb.LAUNCHES)} over the 5) [{card}]")
+
+
 def profile_hall_loops(card: str) -> None:
     """The FRC and pulsed slice's plain loops (the carrier, a sandbox run,
     the sweep and the bisection) profiled, float64."""
@@ -1754,6 +1935,9 @@ def main() -> int:
     group.add_argument("--ensemble", action="store_true",
                        help="the B = 1 and B = 256 ensembles through the batched kernels 2 "
                             "and 3, then the mixed B = 64 ensemble")
+    group.add_argument("--gk-shard", action="store_true",
+                       help="one step of the sharded 32^3 GK run (lane 7) on 8 virtual shards "
+                            "against the monolithic step")
     parser.add_argument("--tiles", default="",
                         help="with --tiled or --fine: other tile shapes to time, as "
                              "ROWSxCOLS,...")
@@ -1830,6 +2014,9 @@ def main() -> int:
         return 0
     if opts.ensemble:
         profile_ensemble(card)
+        return 0
+    if opts.gk_shard:
+        profile_gk_shard(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
