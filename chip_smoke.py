@@ -273,7 +273,22 @@ them:
   ``sor_step`` on the card; kernel 1 in f32 in one launch), lanes 1-3 of
   ``run_error_audit.py`` on the port, a GKState checkpoint written from the
   card and loaded on the CPU, and the lanes' reports written by the port's
-  ``write_report`` into a temporary directory, their checksums read back.
+  ``write_report`` into a temporary directory, their checksums read back;
+* (zs) the CLI and ``ui/``, in a spawned process on the card: the ``kernel``
+  mode (``cli.main(["kernel", <513^2 bench configuration>, "--output", ...])``)
+  through kernels 2-5 at 513^2, its wrappers' counts equal to a direct
+  ``solve_equilibrium`` call's, its npz psi ``torch.equal`` to that call's,
+  1e-3 span-rel from the plain float32 solve (counts within one); the live
+  server (``LiveSolveWorker`` + ``make_server(port=0)`` over HTTP) for
+  three converged ticks and more at its 65^2 default and at 513^2, the
+  security headers on every response, the worker stopped and joined; the
+  ``live-dashboard`` mode in a child process ended by SIGINT; the
+  ``dashboard`` mode in a temporary directory and ``generate_dashboard``'s
+  513^2 snapshot; every other mode once (the exit code the JAX CLI's rule
+  gives, the JAX mode's JSON keys); ``validate --all`` (the port's eight
+  campaigns in float64 on the card, every lane's status the committed JAX
+  report's, ``gk_eigenvalue_perf``'s 0.3 s a k_y gate included) and
+  ``stellarator-replay``.
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
@@ -458,7 +473,7 @@ process, the CPU twins of (k), (o), (v), (z)-(zg) and (zo) and the host-bound
 card-side runs of (k)'s plain Thomas loop, (o)'s optimiser and tracking shot and
 (zf)'s plain references (before (i), (g) with its FD check and (h) with its CPU
 twin; after (l), those of (zh)-(zi) and (zh)'s plain twins and lanes, (zp),
-(zq)-(zr) and (zo)'s lane 3), so
+(zq)-(zr), (zs) and (zo)'s lane 3), so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
@@ -9120,6 +9135,400 @@ def slice24_on_card(conn, card: str) -> None:
     conn.close()
 
 
+# ── the twenty-fifth slice: (zs) the CLI and ui/ on the card ──
+
+# The JAX CLI's JSON keys of each mode (``scpn_fusion_tpu/cli.py``; nested
+# objects flattened with dots), written here because the card host has no
+# jax: the port's mode must print the same keys.
+CLI_KEYS = {
+    "kernel": "converged gs_residual iterations reactor residual",
+    "free-boundary": "coil_currents converged final_diff outer_iterations",
+    "geqdsk": "converged file grid iterations span_rel_rmse span_rel_rmse_core",
+    "transport": "he_ash_peak steps te_core_kev ti_core_kev z_eff",
+    "flight-sim": "disruption_fraction r_err_final r_err_p95 ticks z_err_final z_err_p95",
+    "realtime": "controller_actions diagnostics.disrupted_any diagnostics.n_distinct "
+                "diagnostics.n_seen diagnostics.r_err_rms_window final_r_err_m final_z_err_m "
+                "open_loop_r_err_m stale_action_reads ticks wall_s",
+    "burn": "P_fusion_MW Q T_keV converged tau_E_s",
+    "tglf": "chi_e_m2_s chi_i_m2_s d_e_m2_s dominant_mode gamma_max_cs_a",
+    "stress": "disruption_rate n_shots r_err_p95_m r_err_p99_m",
+    "design-scan": "best.a_m best.b0_t best.ip_ma best.p_net_mw best.q_fusion best.r_m "
+                   "n_feasible_q10",
+    "disruption": "halo_peak_ma i_re_final_ma mitigated structural_screen.failures "
+                  "structural_screen.halo_force_mn structural_screen.passed "
+                  "structural_screen.tau_cq_ms tau_cq_ms",
+    "startup": "breakdown_ok burn_through_ok ionization_fraction prefill_pa succeeded",
+    "gk": "n_saves phi_rms_final q_ion_final_gb zonal_rms_final",
+    "divertor": "lambda_q_mm lithium_surface_C q_target_MW_m2 temhd_stable tungsten_melted "
+                "tungsten_surface_C",
+    "breeding": "li6_enrichment tbr thickness_cm",
+    "optimizer": "best.B0_T best.Ip_MA best.P_fusion_MW best.Q best.R0_m best.a_m n_feasible",
+    "heating": "absorbed_fraction peak_MW_per_bin peak_rho",
+    "wdm": "collapse_time_s collapsed final_te_core_keV final_w_total_1e19 steps",
+    "safety": "fpr n_shots recall",
+    "sawtooth": "rho_mix rho_q1 t_core_after_keV t_core_before_keV triggered",
+    "diagnostics": "interferometer_rad neutron_rate_hz thomson_v",
+    "optimal": "feasible final_loss ip_ma iterations ne_1e19 p_aux_mw q_flattop",
+    "learning": "final_core_temp final_external_shear final_flow max_external_shear "
+                "mean_core_temp mean_flow mean_turbulence q_table_max_abs q_table_mean "
+                "total_reward",
+    "digital-twin": "max_danger_fraction max_island_width steps t_core_final",
+    "control-room": "estimator_rmse final_z max_abs_z mean_abs_z mean_bottom_action "
+                    "mean_top_action measurement_rmse",
+    "sandpile": "final_mean_slope fraction_quiet max_avalanche mean_avalanche total_flux_out",
+    "nuclear": "material peak_erosion_mm_year t_at_peak_ev threshold_t_ev",
+    "geometry": "final_residual initial_residual iterations w7x_eps_eff_s0p5",
+    "neuro-control": "final_abs_err_r final_abs_err_z final_r final_z mean_abs_err_r "
+                     "mean_abs_err_z mean_spike_rate safety_interlock_trips "
+                     "safety_position_allow_rate",
+    "neural": "artifact forward_finite n_train output_shape seed sha256 test_rel_l2",
+}
+
+
+def cli_exit_rule(mode: str, out: dict) -> int:
+    """The exit code the JAX CLI's rule gives for ``mode``'s JSON ``out``."""
+    if mode in ("kernel", "free-boundary", "geqdsk"):
+        return 0 if out["converged"] else 1
+    if mode == "flight-sim":
+        return 0 if out["disruption_fraction"] == 0.0 else 1
+    if mode == "realtime":
+        return 0 if (out["final_r_err_m"] < 0.5 * out["open_loop_r_err_m"]
+                     and not out["diagnostics"].get("disrupted_any", True)) else 1
+    if mode == "stress":
+        return 0 if out["disruption_rate"] == 0.0 else 1
+    if mode == "design-scan":
+        return 0 if out["n_feasible_q10"] > 0 else 1
+    if mode == "optimizer":
+        return 0 if out["n_feasible"] > 0 else 1
+    if mode == "startup":
+        return 0 if out["succeeded"] else 1
+    if mode == "safety":
+        return 0 if out["recall"] >= 0.9 else 1
+    return 0
+
+
+def flat_keys(d: dict, prefix: str = "") -> set:
+    out = set()
+    for k, v in d.items():
+        out |= flat_keys(v, f"{prefix}{k}.") if isinstance(v, dict) else {prefix + k}
+    return out
+
+
+def cli_call(argv: list, parse: bool = True) -> tuple[int, dict | str, float]:
+    """(exit code, the JSON object it printed (with ``parse``, else the whole
+    stdout), wall seconds) of one call of the port's CLI in this process,
+    its stdout captured."""
+    import io
+    from scpn_fusion_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue().strip()
+    if not parse:
+        return rc, text, wall
+    try:
+        return rc, json.loads(text), wall
+    except ValueError:
+        return rc, json.loads(text.splitlines()[-1]), wall
+
+
+ZS_SPARC = "fuzz/seeds/geqdsk/sparc_lmode_hv.geqdsk"
+# (zs)'s mode calls: the JAX test's arguments (tests/test_cli_utils.py), else
+# the parser's defaults where the smoke already runs that path at that size
+ZS_MODES = (
+    ["free-boundary", "{cfg33}"], ["geqdsk", ZS_SPARC], ["transport"],
+    ["flight-sim", "--hz", "1000", "--duration", "0.2"], ["realtime"],
+    ["burn", "--ne19", "10", "--p-aux", "50"], ["tglf"], ["stress"], ["design-scan"],
+    ["disruption"], ["startup"], ["gk"], ["divertor"], ["breeding", "--thickness", "80",
+                                                         "--li6", "0.9"],
+    ["optimizer", "--samples", "1024"], ["heating"], ["wdm"], ["safety"],
+    ["sawtooth", "--q0", "0.9"], ["diagnostics", "--n", "33"], ["optimal", "--iters", "3"],
+    ["learning", "--steps", "120"], ["digital-twin", "--steps", "30"],
+    ["control-room", "--steps", "40", "--n", "16"], ["sandpile", "--steps", "200", "--n", "32"],
+    ["nuclear", "--n", "20"], ["geometry", "--iters", "3"], ["neuro-control", "--steps", "40"],
+    ["neural"],
+)
+# the JAX CLI test's 33^2 configuration (tests/test_cli_utils.py)
+CLI_TEST_CFG = {
+    "reactor_name": "cli-test", "grid_resolution": [33, 33],
+    "dimensions": {"R_min": 2.0, "R_max": 10.0, "Z_min": -4.0, "Z_max": 4.0},
+    "physics": {"plasma_current_target": 15.0, "vacuum_permeability": 1.0},
+    "coils": [{"r": 8.0, "z": 4.8, "current": 4.0}, {"r": 10.8, "z": 0.0, "current": 6.0},
+              {"r": 8.0, "z": -4.8, "current": 4.0}],
+    "solver": {"max_iterations": 200, "convergence_threshold": 1e-4, "relaxation_factor": 0.1,
+               "solver_method": "multigrid"},
+}
+LIVE_TICKS = 3          # (zs): at least this many converged ticks a configuration
+LIVE_PERIOD_S = 0.25    # the worker's wait between ticks in (zs)
+MAIN_PATH_KERNELS = ("fused_topology_source", "fine_presmooth_restrict", "fine_prolong_smooth",
+                     "fused_coarse_vcycle")
+
+
+def http_get(port: int, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.headers, r.read()
+
+
+def live_server_lane(cfg, label: str, card: str) -> float:
+    """(zs) the live server on the card: ``LiveSolveWorker`` (on CUDA,
+    float32) behind ``make_server(port=0)``; polls its status until
+    :data:`LIVE_TICKS` ticks were seen, each converged, fetches its three
+    endpoints (security headers on each), stops and joins the worker;
+    returns the wall ms a tick (the worker's period taken off)."""
+    import threading
+
+    from scpn_fusion_tpu_torch.ui import live_server
+
+    worker = live_server.LiveSolveWorker(cfg, period_s=LIVE_PERIOD_S, device="cuda")
+    srv = live_server.make_server(worker, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    seen = {}
+    try:
+        worker.start()
+        deadline = time.time() + 300
+        while len(seen) < LIVE_TICKS + 1 and time.time() < deadline \
+                and worker.error is None:
+            snap = json.loads(http_get(port, "/api/status")[2])
+            if snap["solver"] and snap["tick"] not in seen:
+                seen[snap["tick"]] = (snap["solver"]["converged"], time.perf_counter(),
+                                      snap["solver"]["iterations"], snap["solver"]["grid"])
+            time.sleep(0.01)
+        for path, ctype in (("/", "text/html"), ("/api/status", "application/json"),
+                            ("/api/psi.svg", "image/svg+xml")):
+            status, headers, body = http_get(port, path)
+            require(status == 200 and headers.get("Content-Type") == ctype and body,
+                    f"(zs) live server {label}: {path} {status}")
+            for name, value in live_server.SECURITY_HEADERS:
+                require(headers.get(name) == value, f"(zs) live server {label}: {path} {name}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        worker.stop()
+        worker.join(timeout=300)
+    require(worker.error is None, f"(zs) live server {label}: the worker failed: {worker.error!r}")
+    require(not worker.is_alive(), f"(zs) live server {label}: the worker did not end")
+    ticks = sorted(seen)
+    require(ticks == list(range(len(ticks))) and len(ticks) > LIVE_TICKS,
+            f"(zs) live server {label}: ticks seen {ticks}")
+    require(all(seen[t][0] for t in ticks), f"(zs) live server {label}: not converged {seen}")
+    times = [seen[t][1] for t in ticks]
+    ms = (times[-1] - times[0]) / (len(ticks) - 1) * 1e3 - LIVE_PERIOD_S * 1e3
+    print(f"(zs) live server {label} {seen[0][3]}: ticks 0-{ticks[-1]} converged, Picard "
+          f"iterations {[seen[t][2] for t in ticks]}, {ms:.1f} ms a tick (wall, the "
+          f"{LIVE_PERIOD_S * 1e3:.0f} ms period taken off); security headers on every "
+          f"response; worker stopped and joined [{card}]")
+    return ms
+
+
+def live_dashboard_mode(card: str) -> None:
+    """(zs) the ``live-dashboard`` mode itself: ``python -m
+    scpn_fusion_tpu_torch.cli live-dashboard --port 0`` in a child process,
+    until its status shows a converged tick; SIGINT ends it (the mode stops
+    and joins its worker) with exit code 0."""
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "scpn_fusion_tpu_torch.cli", "live-dashboard", "--port",
+         "0", "--period", str(LIVE_PERIOD_S)], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        head, m = [], None
+        while m is None:
+            line = proc.stdout.readline()
+            require(line != "", f"(zs) live-dashboard ended before serving: {''.join(head)}")
+            head.append(line)
+            m = re.search(r"http://127\.0\.0\.1:(\d+)/", line)
+        port = int(m.group(1))
+        deadline = time.time() + 300
+        snap = {}
+        while time.time() < deadline:
+            snap = json.loads(http_get(port, "/api/status")[2])
+            if snap["solver"]:
+                break
+            time.sleep(0.05)
+        require(snap.get("solver", {}).get("converged") is True,
+                f"(zs) live-dashboard mode: {snap}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=300)
+        rest = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(rc == 0, f"(zs) live-dashboard mode ended with {rc}: {rest[-2000:]}")
+    print(f"(zs) live-dashboard mode (a child process): tick {snap['tick']} converged on "
+          f"{snap['solver']['grid']}, SIGINT -> exit 0 [{card}]")
+
+
+def slice25_on_card(conn, card: str) -> None:
+    """(zs) the CLI and ``ui/`` on the card, in a spawned process started in
+    :func:`late_twins`: the ``kernel`` mode at 513^2 through kernels 2-5 against
+    a direct ``solve_equilibrium`` call (counts equal, psi ``torch.equal``) and
+    the plain float32 solve, the live server at 65^2 and 513^2, the dashboards,
+    every other mode once, ``validate --all`` in float64 and
+    ``stellarator-replay``; sends the kernel calls by path and the seconds."""
+    import os
+    import tempfile
+
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.bench_config import BENCH_SOLVER, config_dict
+    from scpn_fusion_tpu_torch.core.config import config_from_dict, load_config
+    from scpn_fusion_tpu_torch.models.equilibrium import solve_equilibrium
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.ui.dashboard import generate_dashboard
+    from scpn_fusion_tpu_torch.validation import CAMPAIGNS, REPORTS_DIR
+
+    def counted(run):
+        cb.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {name: cb.CALLS[name] for name in KERNELS}
+
+    os.chdir(ROOT)                        # the modes' relative paths are the checkout's
+    t0 = time.perf_counter()
+    by_path, secs = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="zs_"))
+    cfg513 = tmp / "bench_513.json"
+    cfg513.write_text(json.dumps(config_dict(513, **BENCH_SOLVER)))
+    cfg33 = tmp / "cli_test_33.json"
+    cfg33.write_text(json.dumps(CLI_TEST_CFG))
+
+    # ── the kernel mode at 513^2, the main path ──
+    npz = tmp / "kernel_513.npz"
+    cb.library()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def kernel_mode():
+        start.record()
+        out = cli_call(["kernel", str(cfg513), "--output", str(npz)])
+        end.record()
+        return out
+
+    (rc, out, wall), calls = counted(kernel_mode)
+    event_ms = start.elapsed_time(end)
+    # the same call again: the first of a process pays its first launches
+    (rc_w, out_w, wall_w), calls_w = counted(kernel_mode)
+    event_ms_w = start.elapsed_time(end)
+    require(rc_w == 0 and out_w == out and calls_w == calls,
+            f"(zs) kernel mode, second call: rc {rc_w}, {out_w}, {calls_w}")
+    require(rc == 0 and out["converged"] is True and set(out) == set(CLI_KEYS["kernel"].split()),
+            f"(zs) kernel mode: rc {rc}, {out}")
+    cfg_k = load_config(cfg513)
+    direct, calls_direct = counted(lambda: solve_equilibrium(cfg_k, dtype=torch.float32,
+                                                             device="cuda"))
+    psi_cli = torch.from_numpy(np.load(npz)["psi"])
+    require(torch.equal(psi_cli, direct.psi.cpu()),
+            "(zs) kernel mode: the npz psi is not the direct solve's")
+    require(calls == calls_direct, f"(zs) kernel mode counts {calls} != direct {calls_direct}")
+    require(all(calls[name] > 0 for name in MAIN_PATH_KERNELS),
+            f"(zs) kernel mode: kernels 2-5 not all launched: {calls}")
+    cfg_p = config_from_dict(config_dict(513, **BENCH_SOLVER, use_pallas=False))
+    plain, calls_plain = counted(lambda: solve_equilibrium(cfg_p, dtype=torch.float32,
+                                                           device="cuda"))
+    require(sum(calls_plain.values()) == 0, f"(zs) the plain solve launched {calls_plain}")
+    dev_plain = span_rel(direct.psi, plain.psi)
+    n_it, n_plain = int(direct.iterations), int(plain.iterations)
+    require(dev_plain <= SLICE_TOL and abs(n_it - n_plain) <= 1,
+            f"(zs) kernel mode vs plain f32: {dev_plain:.3e}, iterations {n_it} / {n_plain}")
+    by_path["zs_kernel_mode"] = calls
+    per_it = {name: calls[name] / n_it for name in MAIN_PATH_KERNELS}
+    print(f"(zs) kernel mode 513^2 f32 (cli.main): converged in {out['iterations']} Picard "
+          f"iterations, the process's first call {wall * 1e3:.1f} ms wall, {event_ms:.3f} ms by "
+          f"CUDA events, the second {wall_w * 1e3:.1f} ms wall, {event_ms_w:.3f} ms, kernel "
+          f"calls {({k: v for k, v in calls.items() if v})} ({per_it} a Picard iteration), "
+          f"equal to the direct solve_equilibrium call's; npz psi torch.equal to it; "
+          f"{dev_plain:.3e} span-rel from the plain f32 solve ({n_plain} iterations) [{card}]")
+    t1 = time.perf_counter()
+    secs["kernel"] = t1 - t0
+
+    # ── the live server at 65^2 (its default) and at 513^2, and the mode ──
+    live_ms = {"65": live_server_lane(None, "65^2 default", card),
+               "513": live_server_lane(cfg_k, "513^2 bench", card)}
+    live_dashboard_mode(card)
+    t2 = time.perf_counter()
+    secs["live"] = t2 - t1
+
+    # ── the dashboards: the mode in a temporary directory, the 513^2 snapshot ──
+    dash = tmp / "dashboard"
+    dash.mkdir()
+    os.chdir(dash)
+    try:
+        rc, _, _ = cli_call(["dashboard"], parse=False)
+    finally:
+        os.chdir(ROOT)
+    files = sorted(p.name for p in dash.iterdir())
+    require(rc == 0 and files == ["DASHBOARD.html", "DASHBOARD.md", "studio_manifest.json"],
+            f"(zs) dashboard mode: rc {rc}, {files}")
+    md = generate_dashboard(tmp / "snapshot.md", config_path=str(cfg513)).read_text()
+    require("- converged: True in " in md and "- grid: 513 x 513" in md,
+            "(zs) generate_dashboard's 513^2 snapshot did not converge")
+    print(f"(zs) dashboard mode wrote {files} into its working directory; "
+          f"generate_dashboard's 513^2 snapshot converged [{card}]")
+    t3 = time.perf_counter()
+    secs["dashboard"] = t3 - t2
+
+    # ── every other mode once ──
+    mode_s = {}
+    for argv in ZS_MODES:
+        argv = [a.format(cfg33=cfg33) for a in argv]
+        t = time.perf_counter()
+        rc, out, _ = cli_call(argv)
+        mode_s[argv[0]] = time.perf_counter() - t
+        rule = cli_exit_rule(argv[0], out)
+        keys = set(CLI_KEYS[argv[0]].split())
+        require(rc == rule and flat_keys(out) == keys,
+                f"(zs) mode {argv}: rc {rc} (the JAX rule gives {rule}), keys "
+                f"{sorted(flat_keys(out) ^ keys)} differ")
+    print("(zs) every other mode once (rc by the JAX CLI's rule, the JAX keys): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in mode_s.items()) + f" [{card}]")
+    t4 = time.perf_counter()
+    secs["modes"] = t4 - t3
+
+    # ── validate --all: the port's eight campaigns in float64 on the card ──
+    rc, _, _ = cli_call(["validate", "--all"], parse=False)
+    statuses = {}
+    for name in sorted(CAMPAIGNS):
+        ours = json.loads((REPORTS_DIR / f"{name}.json").read_text())
+        ref = json.loads((ROOT / "validation" / "reports" / f"{name}.json").read_text())
+        st = [(lane["name"], lane["status"]) for lane in ours["lanes"]]
+        for lane in ours["lanes"]:
+            if lane["status"] != "pass":
+                print(f"(zs) {name} / {lane['name']}: {lane['status']} {lane['metrics']} "
+                      f"(thresholds {lane['thresholds']})")
+        statuses[name] = (ours["overall_status"],
+                          st == [(lane["name"], lane["status"]) for lane in ref["lanes"]])
+        if name == "gk_eigenvalue_perf":
+            gk = ours["lanes"][0]["metrics"]
+        if name == "precision_budget":
+            pb = {lane["name"]: lane["metrics"] for lane in ours["lanes"]}
+    require(rc == 0 and all(s == ("pass", True) for s in statuses.values()),
+            f"(zs) validate --all exited {rc}; (status, lanes as the committed JAX "
+            f"report's) {statuses}")
+    statuses = {name: s[0] for name, s in statuses.items()}
+    require((REPORTS_DIR / "RESULTS.md").exists(), "(zs) validate wrote no RESULTS.md")
+    t5 = time.perf_counter()
+    secs["validate"] = t5 - t4
+    print(f"(zs) validate --all: {statuses}, every lane's status the committed JAX report's; "
+          f"gk_eigenvalue_perf {gk['per_ky_solve_s']} s a k_y (gate 0.3); precision_budget "
+          f"lane 1 (kernels 2, 3 at 129^2) f32 deviation "
+          f"{pb['fixed_boundary_f32_penalty']['span_rel_deviation_f32_vs_f64']:.3e}, iterations "
+          f"{pb['fixed_boundary_f32_penalty']['iterations_f32']}, lane 3 mixed 513^2 GS "
+          f"residual {pb['mixed_precision_513_residual_gated']['gs_residual_rms']:.3e}; "
+          f"{secs['validate']:.1f} s [{card}]")
+    rc, _, _ = cli_call(["stellarator-replay"], parse=False)
+    require(rc == 0, f"(zs) stellarator-replay exited {rc}")
+    secs["stellarator_replay"] = time.perf_counter() - t5
+    sys.stdout.flush()
+    conn.send({"by_path": by_path, "secs": secs, "live_ms": live_ms,
+               "kernel": {"iterations": n_it, "wall_ms": (wall * 1e3, wall_w * 1e3),
+                          "event_ms": (event_ms, event_ms_w), "calls": calls}})
+    conn.close()
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.asarray(a, np.float64))
@@ -9146,7 +9555,7 @@ def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
     and W on the card (~230 s, ~40 s, ~300 s, ~20 s and ~12 s of host time),
     (zn)'s FNO and equilibrium trainers on the card (~50 s each) and the
     replay certificate's fresh process, (zp)'s sharded lanes, (zq)-(zr) on
-    the card (~20 s) and (zo)'s lane 3 in a fresh process once the host-bound early paths,
+    the card (~20 s), (zs) on the card and (zo)'s lane 3 in a fresh process once the host-bound early paths,
     (a)-(l), are done: started with the others, they slowed those paths on an
     8-core host with one H100 (the whole smoke 899 s, where it had taken 770 s
     without them)."""
@@ -9159,6 +9568,7 @@ def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
     twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
     twins["slice21_cpu"] = stack.enter_context(cpu_twin(slice21_on_cpu, psi_129))
     twins["slice24_card"] = stack.enter_context(cpu_twin(slice24_on_card, card))
+    twins["slice25_card"] = stack.enter_context(cpu_twin(slice25_on_card, card))
     with environment(PYTHONHASHSEED=REPLAY_HASHSEED):
         twins["replay"] = stack.enter_context(cpu_twin(replay_on_card))
     return twins
@@ -10393,6 +10803,17 @@ def _main(stack: contextlib.ExitStack) -> int:
     print(f"(zq) and (zr) on the card in a spawned process (started after (l)): "
           f"{slice24['zq_s']:.1f} s and {slice24['zr_s']:.1f} s [{card}]")
     phase_done("sharded GK (zq) and carried-over lanes (zr), spawned")
+
+    # ── the twenty-fifth slice: (zs) the CLI and ui/ on the card, in a
+    # spawned process (the kernel mode's 513^2 solve through kernels 2-5) ──
+    t_wait = time.perf_counter()
+    slice25 = twins["slice25_card"]()
+    waited = time.perf_counter() - t_wait
+    by_path.update(slice25["by_path"])
+    print(f"(zs) the CLI and ui/ on the card in a spawned process (started after (l)): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in slice25["secs"].items())
+          + f"; the main line waited {waited:.2f} s for it [{card}]")
+    phase_done("the CLI and ui/ (zs), spawned")
 
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward

@@ -106,3 +106,100 @@ def ctypes_fields(args_type) -> list[tuple[str, str]]:
     """A ctypes ``Structure``'s fields as :func:`c_struct_fields` lists them."""
     kinds = {"c_void_p": "ptr", "c_int": "int", "c_double": "double"}
     return [(name, kinds[t.__name__]) for name, t in args_type._fields_]
+
+
+def cli_run(main, argv, capsys) -> tuple[int, dict]:
+    """(exit code, the JSON object of the last stdout line; a mode that
+    prints indented JSON prints it whole) of one CLI call."""
+    import json
+    capsys.readouterr()
+    rc = main(argv)
+    out = capsys.readouterr().out.strip()
+    try:
+        return rc, json.loads(out)
+    except ValueError:
+        return rc, json.loads(out.splitlines()[-1])
+
+
+def flat_json(d: dict, prefix: str = "") -> dict:
+    """A nested JSON object flattened to dotted keys."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_json(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def json_mismatches(ours: dict, ref: dict, tol: float) -> dict:
+    """The entries of two CLI JSON objects that differ: keys in one only,
+    strings and booleans unequal, numbers (and lists of numbers) further
+    apart than ``tol`` relative to ``ref``'s largest magnitude."""
+    a, b = flat_json(ours), flat_json(ref)
+    bad = {k: "missing" for k in set(a) ^ set(b)}
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        numeric = isinstance(y, (int, float, list)) and not isinstance(y, bool) and \
+            not (isinstance(y, list) and y and not isinstance(y[0], (int, float)))
+        if numeric and y is not None and x is not None and (not isinstance(y, list) or y):
+            xa, ya = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+            err = float(np.max(np.abs(xa - ya)) / max(np.max(np.abs(ya)), 1e-300))
+            if xa.shape != ya.shape or not err <= tol:
+                bad[k] = (x, y)
+        elif x != y:
+            bad[k] = (x, y)
+    return bad
+
+
+def report_mismatches(ours: dict, ref: dict, rules: dict | None = None) -> dict:
+    """The differences of a port campaign report from the JAX package's
+    committed one: the lanes' names and statuses, the metrics' keys, and
+    every metric's value, equal within 1e-9 relative unless ``rules`` names
+    another rule for ``(lane, metric)``:
+
+    * ``("rel", tol)`` / ``("abs", tol)``: within ``tol`` relative to the
+      reference's largest magnitude / absolutely;
+    * ``("below", limit)``: both values at or below ``limit`` (the lane's
+      own threshold, for rounding-noise metrics);
+    * ``("timing", None)``: a time, reported, not compared.
+    """
+    rules = rules or {}
+    bad = {}
+    lanes_o = {lane["name"]: lane for lane in ours["lanes"]}
+    lanes_r = {lane["name"]: lane for lane in ref["lanes"]}
+    if list(lanes_o) != list(lanes_r):
+        return {"lanes": (list(lanes_o), list(lanes_r))}
+    if ours["overall_status"] != ref["overall_status"]:
+        bad["overall_status"] = (ours["overall_status"], ref["overall_status"])
+    for name, lo in lanes_o.items():
+        lr = lanes_r[name]
+        for key in ("status", "thresholds"):
+            if lo[key] != lr[key]:
+                bad[(name, key)] = (lo[key], lr[key])
+        mo, mr = lo["metrics"], lr["metrics"]
+        if set(mo) != set(mr):
+            bad[(name, "metrics")] = sorted(set(mo) ^ set(mr))
+            continue
+        for key, y in mr.items():
+            x = mo[key]
+            kind, tol = rules.get((name, key), ("rel", 1e-9))
+            if kind == "timing":
+                continue
+            if isinstance(y, (bool, str)) or y is None or (
+                    isinstance(y, list) and y and isinstance(y[0], str)):
+                ok = x == y
+            else:
+                xa, ya = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+                if xa.shape != ya.shape:
+                    ok = False
+                elif kind == "below":
+                    ok = bool(np.all(xa <= tol) and np.all(ya <= tol))
+                elif kind == "abs":
+                    ok = bool(np.all(np.abs(xa - ya) <= tol))
+                else:
+                    scale = max(float(np.max(np.abs(ya))) if ya.size else 0.0, 1e-300)
+                    ok = bool(np.all(np.abs(xa - ya) <= tol * scale))
+            if not ok:
+                bad[(name, key)] = (x, y)
+    return bad

@@ -162,12 +162,16 @@ step: device launches, idle share, row G's device µs a shard and a stage
 move (calls and the bytes that would cross between shards, by collective;
 the copy kernels they leave on the one card); then the device µs of one call
 of each batched kernel (rows 2b and 3b at 129^2, B = 16) by CUDA events.
+With ``--cli`` it profiles the CLI's ``kernel`` mode on the bench
+configuration at 513^2 (the direct solve through kernels 2-5 and the npz of
+host copies) and one tick of the live server at its 65^2 default and at
+513^2, and times each by CUDA events.
 
 Run from the repository root on a machine with a CUDA device:
 ``python3 tools/torch_fmg_profile.py [--mixed | --kernels | --tiled | --fine | --sor | --rect
 | --free-boundary | --eqdsk | --adjoint | --recon | --transport | --learned | --gk
 | --twin | --ballooning | --disruption | --frc | --orbits | --plant | --phase
-| --surrogates | --ensemble | --gk-shard]``.
+| --surrogates | --ensemble | --gk-shard | --cli]``.
 Exits non-zero without one.
 """
 
@@ -606,6 +610,62 @@ def profile_solve(card: str, label: str, solve, trace: str | None) -> dict:
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
     return {"wall_ms": wall_ms, "device_ms": dev_us / 1e3, "launches": len(events),
             "port_launches": port_launches, "port_ms": port_us / 1e3}
+
+
+def profile_cli(card: str) -> None:
+    """The CLI's ``kernel`` mode on the bench configuration at 513^2
+    (``cli.main(["kernel", <json>, "--output", <npz>])``: load, the direct
+    513^2 solve through kernels 2-5, the npz of host copies) and one tick of
+    the live server at its 65^2 default and at 513^2 (a cold
+    ``solve_equilibrium`` and the host copy of psi), each warmed up once,
+    then profiled; CUDA events around an unprofiled call, median of 5."""
+    import contextlib
+    import io
+    import json
+    import statistics
+    import tempfile
+
+    import torch
+
+    from scpn_fusion_tpu_torch import cli
+    from scpn_fusion_tpu_torch.bench_config import BENCH_SOLVER, config_dict
+    from scpn_fusion_tpu_torch.core.config import load_config
+    from scpn_fusion_tpu_torch.models.equilibrium import solve_equilibrium
+    from scpn_fusion_tpu_torch.ui.live_server import LiveSolveWorker
+
+    tmp = Path(tempfile.mkdtemp(prefix="cli_profile_"))
+    cfg_path = tmp / "bench_513.json"
+    cfg_path.write_text(json.dumps(config_dict(513, **BENCH_SOLVER)))
+
+    def kernel_mode():
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli.main(["kernel", str(cfg_path), "--output", str(tmp / "psi.npz")])
+        return json.loads(out.getvalue())
+
+    def tick(cfg):
+        def run():
+            res = solve_equilibrium(cfg, i_target=15.0, device="cuda")
+            psi = res.psi.detach().cpu().numpy()
+            return {"shape": psi.shape, "iterations": int(res.iterations),
+                    "converged": bool(res.converged)}
+        return run
+
+    cases = (("kernel mode 513^2", kernel_mode),
+             ("live tick 65^2", tick(LiveSolveWorker()._default_cfg())),
+             ("live tick 513^2", tick(load_config(cfg_path))))
+    for label, run in cases:
+        profile_solve(card, label, run, None)
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        print(f"{label}: {statistics.median(times):.3f} ms by CUDA events (median of 5, "
+              f"unprofiled) [{card}]")
 
 
 def profile_free_boundary(card: str) -> None:
@@ -1935,6 +1995,9 @@ def main() -> int:
     group.add_argument("--ensemble", action="store_true",
                        help="the B = 1 and B = 256 ensembles through the batched kernels 2 "
                             "and 3, then the mixed B = 64 ensemble")
+    group.add_argument("--cli", action="store_true",
+                       help="the CLI's kernel mode at 513^2 and one live-server tick at 65^2 "
+                            "and 513^2")
     group.add_argument("--gk-shard", action="store_true",
                        help="one step of the sharded 32^3 GK run (lane 7) on 8 virtual shards "
                             "against the monolithic step")
@@ -2017,6 +2080,9 @@ def main() -> int:
         return 0
     if opts.gk_shard:
         profile_gk_shard(card)
+        return 0
+    if opts.cli:
+        profile_cli(card)
         return 0
     from scpn_fusion_tpu_torch.bench_config import bench_config, rect_config
     from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
