@@ -81,9 +81,6 @@ class LithiumShieldResult(NamedTuple):
     iterations: torch.Tensor
 
 
-_BISECTION_STEPS = 64   # halves a bracket of ~1e4 C past float64's resolution
-
-
 def lithium_vapor_shield(q_target, *, relaxation=0.7, tol=0.1, max_iter: int = 200,
                          a_li: float = 10.0, b_li: float = 8000.0, k_eff: float = 150.0,
                          d_m: float = 0.005, t_back_c: float = 300.0, dtype=None,
@@ -93,17 +90,7 @@ def lithium_vapor_shield(q_target, *, relaxation=0.7, tol=0.1, max_iter: int = 2
     f_rad = 0.98 (1 - exp(-P/10)); the surface temperature solves the
     shielded conduction balance by under-relaxed Picard (step clipped to
     +-1200 C), one host read an iteration.  ``dtype``: the working float
-    (the tensor's own for a tensor, else float32).
-
-    Above ~4e7 W/m^2 the under-relaxed map is unstable at its fixed point
-    (its slope there falls below -1: -3.96 at 1.16e8 W/m^2), so the Picard
-    iterate settles on a cycle or wanders with the rounding and its last
-    value solves nothing (the JAX package returns it).  When the loop ends
-    unconverged, the fixed point is found by bisection instead: the balance
-    residual ``shield(T) - T`` falls monotonically in T (the radiated
-    fraction rises with T), positive at the coolant temperature and not
-    positive at ``shield`` of it.  Where the Picard loop converges, nothing
-    changes.  ``iterations`` stays the Picard count."""
+    (the tensor's own for a tensor, else float32)."""
     q_target, a_li, b_li, k_eff, t_k0, ten = as_tensors(
         q_target, a_li, b_li, k_eff, 273.15, 10.0, dtype=dtype, device=device)
 
@@ -125,15 +112,6 @@ def lithium_vapor_shield(q_target, *, relaxation=0.7, tol=0.1, max_iter: int = 2
         t = t + step * delta
         res = float(res_t)
         k += 1
-    if res > tol:
-        lo = torch.full_like(q_target, t_back_c)
-        hi = shield(lo)[0]
-        for _ in range(_BISECTION_STEPS):
-            mid = 0.5 * (lo + hi)
-            above = shield(mid)[0] > mid
-            lo = torch.where(above, mid, lo)
-            hi = torch.where(above, hi, mid)
-        t = 0.5 * (lo + hi)
     _, q_surf, f_rad = shield(t)
     return LithiumShieldResult(t, q_surf, f_rad,
                                torch.tensor(k, dtype=torch.int32, device=q_target.device))

@@ -269,13 +269,16 @@ def serve_live_dashboard(*, host: str = "127.0.0.1", port: int = 8750,
                          cfg=None, period_s: float = 0.5,
                          device: torch.device | str = "cuda",
                          dtype: torch.dtype = torch.float32) -> None:
-    """Blocking entry point (the CLI `live-dashboard` mode)."""
+    """Blocking entry point (the CLI `live-dashboard` mode).  The server
+    binds before the worker starts, so a port already taken raises with no
+    worker running; once started, the worker is stopped and joined on the
+    way out."""
     worker = LiveSolveWorker(cfg, period_s=period_s, device=device,
                              dtype=dtype)
-    worker.start()
     srv = make_server(worker, host=host, port=port)
     print(f"live dashboard: http://{host}:{srv.server_address[1]}/")
     try:
+        worker.start()
         srv.serve_forever()
     except KeyboardInterrupt:  # pragma: no cover
         pass

@@ -18,22 +18,14 @@ from pathlib import Path
 
 REPORTS_DIR = Path(__file__).resolve().parents[2] / "validation" / "reports_torch"
 
-# campaign name (the ``validate --campaign`` value) -> module of this package
-CAMPAIGNS = {
-    "gk_eigenvalue_perf": "run_gk_eigenvalue_perf",
-    "ida_stability": "run_ida_stability",
-    "mesh_convergence": "run_mesh_convergence",
-    "neg_triangularity": "run_neg_triangularity",
-    "precision_budget": "run_precision_budget",
-    "scpn_replay": "run_scpn_replay",
-    "stellarator_lane": "run_stellarator_lane",
-    "transport_conservation": "run_transport_conservation",
-}
+# the ``validate --campaign`` values; campaign ``name`` is module ``run_<name>``
+CAMPAIGNS = ("gk_eigenvalue_perf", "ida_stability", "mesh_convergence",
+             "neg_triangularity", "precision_budget", "scpn_replay",
+             "stellarator_lane", "transport_conservation")
 
 
 def campaign_module(name: str):
     """The module of campaign ``name``, or None if the port has none."""
-    module = CAMPAIGNS.get(name)
-    if module is None:
+    if name not in CAMPAIGNS:
         return None
-    return importlib.import_module(f"{__name__}.{module}")
+    return importlib.import_module(f"{__name__}.run_{name}")

@@ -12,9 +12,15 @@ test's temporary directory.
 import json
 from pathlib import Path
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
+from scpn_fusion_tpu.models.physics import divertor_lab as jd
+from scpn_fusion_tpu_torch.models.physics import divertor_lab as td
 from scpn_fusion_tpu_torch.validation import CAMPAIGNS, campaign_module, collect_results
+from scpn_fusion_tpu_torch.validation.run_neg_triangularity import NTScenario
 from tests.torch_parity import report_mismatches
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -46,16 +52,6 @@ RULES = {
         ("richardson_extrapolation", "gain"): ("rel", 1e-3),
         ("richardson_extrapolation", "order_used"): ("abs", 1e-5),
     },
-    "neg_triangularity": {
-        # the lithium vapor shield's Picard map does not converge at this
-        # load (1.16e8 W/m^2): JAX's report holds its 200th iterate, which
-        # wanders with the rounding (687 C; off the balance), the port the
-        # balance's solution (658.7 C, index 0.313; ROADMAP Queue 3), so
-        # the lane's own thresholds hold these
-        ("divertor_contract", "t_surface_c"): ("below", 2000.0),
-        ("divertor_contract", "q_surface_mw_m2"): ("below", 45.0),
-        ("divertor_contract", "stability_index"): ("below", 1.0),
-    },
     "gk_eigenvalue_perf": {
         ("gk_eigenvalue_per_solve", "per_ky_solve_s"): ("timing", None),
         ("gk_eigenvalue_per_solve", "full_10ky_spectrum_s"): ("timing", None),
@@ -68,6 +64,33 @@ HERE = ("ida_stability", "mesh_convergence", "neg_triangularity", "scpn_replay",
         "gk_eigenvalue_perf", "stellarator_lane")
 
 
+def divertor_rules() -> dict:
+    """``neg_triangularity``'s divertor lane at 1.16e8 W/m^2: the lithium
+    vapor shield's under-relaxed Picard map is unstable at its fixed point
+    there, and both packages return its 200th iterate.  That iterate
+    follows the last-bit rounding of ``exp`` (XLA's CPU ``exp`` and
+    torch's round differently for about one argument in seven on this
+    map), so the committed 687.4 C cannot be met by the port.  The lane's
+    shield fields are held to a direct call of the port's
+    ``temhd_liquid_metal_state`` at the lane's inputs, and both packages'
+    shields to their 200 iterations."""
+    sc = NTScenario()
+    b_pol = 4e-7 * np.pi * sc.plasma_current_ma * 1e6 / (
+        2.0 * np.pi * sc.minor_radius_m * np.sqrt((1.0 + sc.elongation_kappa**2) / 2.0))
+    args = (sc.liquid_metal_flow_m_s, sc.p_sol_mw, sc.major_radius_m, b_pol)
+    state = td.temhd_liquid_metal_state(*args, expansion_factor=sc.divertor_expansion_factor,
+                                        dtype=torch.float64, device="cpu")
+    load = jd.divertor_heat_load(*args[1:], expansion_factor=sc.divertor_expansion_factor)
+    assert int(jd.lithium_vapor_shield(jnp.float64(load.q_target)).iterations) == 200
+    ours = td.lithium_vapor_shield(torch.tensor(float(load.q_target), dtype=torch.float64),
+                                   device="cpu")
+    assert int(ours.iterations) == 200
+    return {("divertor_contract", "t_surface_c"): ("equal", float(state.t_surface_c)),
+            ("divertor_contract", "q_surface_mw_m2"): ("equal", float(state.q_surface) / 1e6),
+            ("divertor_contract", "stability_index"): ("equal",
+                                                       float(state.stability_index))}
+
+
 @pytest.mark.parametrize("name", HERE)
 def test_campaign_matches_the_committed_report(name, tmp_path):
     assert campaign_module(name).main(device="cpu", out_dir=tmp_path) == 0
@@ -75,7 +98,10 @@ def test_campaign_matches_the_committed_report(name, tmp_path):
     ref = json.loads((COMMITTED / f"{name}.json").read_text())
     assert ours["schema"] == ref["schema"] == f"scpn-fusion-tpu.{name}.v1"
     assert ours["overall_status"] == "pass"
-    assert report_mismatches(ours, ref, RULES.get(name)) == {}
+    rules = dict(RULES.get(name, {}))
+    if name == "neg_triangularity":
+        rules.update(divertor_rules())
+    assert report_mismatches(ours, ref, rules) == {}
 
 
 def test_registry_and_collect_results(tmp_path):

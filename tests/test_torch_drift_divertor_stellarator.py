@@ -9,9 +9,7 @@ operators equal, and 50 steps at 32^2 (and ``simulate_probes`` 20 + 30)
 within 1e-5 (a few float32 roundings of the spectrum's scale, grown over
 the run); ``default_probe_indices`` truncates as JAX's.  The divertor and
 stellarator functions in float64 within 1e-9 of JAX's (most equal), the
-vapor shield's Picard count equal; where its Picard map does not converge
-(above ~4e7 W/m^2) the port's shield solves the balance and JAX's last
-iterate does not.  The gates of ``test_drift_wave_esn.py``
+vapor shield's Picard count equal.  The gates of ``test_drift_wave_esn.py``
 (its drift-wave half, the drive test at 64^2), ``test_divertor_lab.py``
 and the stellarator cases of ``test_equilibrium_3d.py`` hold for the port.
 """
@@ -203,61 +201,15 @@ def test_divertor_gates():
     np.testing.assert_allclose(float(idx[1]), float(one.stability_index), rtol=1e-6)
 
 
-def balance_residual(q_target, t_surface_c) -> float:
-    """|shield(T) - T| / T of the vapor shield's conduction balance at the
-    module's defaults (Alcock pressure, f_rad = 0.98 (1 - exp(-P/10)))."""
-    q, t = np.asarray(q_target, np.float64), np.asarray(t_surface_c, np.float64)
-    p_sat = 10.0 ** (10.0 - 8000.0 / (t + 273.15))
-    t_new = 300.0 + q * (1.0 - 0.98 * (1.0 - np.exp(-p_sat / 10.0))) * 0.005 / 150.0
-    return float(np.max(np.abs(t_new - t) / t))
-
-
-@pytest.mark.parametrize("p_sol", [80.0, 50.0, 20.0])
-def test_lithium_shield_unconverged_loads_solve_the_balance(p_sol):
-    """Above ~4e7 W/m^2 the under-relaxed Picard map is unstable at its
-    fixed point: its 200th iterate (JAX's answer) sits on a cycle or
-    wanders, off the balance.  The port then solves the balance by
-    bisection; at 1.9e9 W/m^2 (p_sol 80) the map converges and nothing
-    changes."""
-    load = jd.divertor_heat_load(p_sol, 2.1, 2.5, expansion_factor=15.0)
-    ref = jd.lithium_vapor_shield(load.q_target)
-    for dtype, tol in ((F64, 1e-12), (torch.float32, 1e-5)):
-        ours = td.lithium_vapor_shield(torch.tensor(float(load.q_target), dtype=dtype))
-        assert int(ours.iterations) == int(ref.iterations) and ours.t_surface_c.dtype == dtype
-        if int(ref.iterations) < 200:
-            assert dtype != F64 or close(ours.t_surface_c, ref.t_surface_c)
-        else:
-            assert balance_residual(load.q_target, ref.t_surface_c) > 1e-3
-            assert balance_residual(load.q_target, ours.t_surface_c) <= tol
-            t = float(ours.t_surface_c)
-            assert float(ours.q_surface) == pytest.approx((t - 300.0) * 150.0 / 0.005,
-                                                          rel=tol * 10)
-
-
 def test_divertor_scan_and_monoblock_match_jax():
-    """The scans against JAX's: equal where the shield's Picard map
-    converges (p_sol 80); at p_sol 20 (4.8e8 W/m^2, where it does not) the
-    flow-dependent fields equal and the shield's fields on the balance
-    (``test_lithium_shield_unconverged_loads_solve_the_balance``)."""
     v = [0.5, 2.0, 8.0, 20.0]
     for p_sol in (80.0, 20.0):
         ref = jd.flow_velocity_scan(jnp.asarray(v), p_sol, 2.1, 2.5)
         ours = td.flow_velocity_scan(torch.tensor(v, dtype=F64), p_sol, 2.1, 2.5)
-        on_balance = p_sol == 20.0
-        for name, a, b in zip(ours._fields, ours, ref):
+        for a, b in zip(ours, ref):
             assert a.shape == (4,)
-            if on_balance and name in ("t_surface_c", "q_surface", "shielding_fraction",
-                                       "evaporation_kg_m2_s", "stability_index", "is_stable"):
-                continue
             assert (np.array_equal(a.numpy(), np.asarray(b)) if a.dtype == torch.bool
-                    else close(a, b)), (p_sol, name)
-        if on_balance:
-            q = float(jd.divertor_heat_load(p_sol, 2.1, 2.5, expansion_factor=15.0).q_target)
-            assert balance_residual(q, ours.t_surface_c.numpy()) <= 1e-12
-            evap = td.evaporation_rate(ours.t_surface_c, torch.tensor(v, dtype=F64))
-            assert close(ours.evaporation_kg_m2_s, evap, 0.0)
-            assert close(ours.stability_index, ours.q_surface / 45.0e6
-                         + ours.pressure_loss_pa / 8.0e5 + evap / 1.0e-3)
+                    else close(a, b))
     for a, b in zip(td.tungsten_monoblock(1.9e9, **CPU), jd.tungsten_monoblock(1.9e9)):
         assert float(a) == float(b)
     for a, b in zip(td.mhd_pressure_loss(torch.tensor(v, dtype=F64), 2.5),

@@ -104,19 +104,9 @@ def test_divertor_profiles_and_solps_match_jax():
     assert np.array_equal(ours["reference_profile_w_m2"], ref["reference_profile_w_m2"])
     assert abs(ours["cooling_gain_pct"] - ref["cooling_gain_pct"]) <= 1e-12 * abs(
         ref["cooling_gain_pct"])
-    # the base state's load (2.2e8 W/m^2) is past where the vapor shield's
-    # Picard map converges: JAX's state is its 200th iterate, the port's the
-    # balance's solution (tests/test_torch_drift_divertor_stellarator.py)
-    on_balance = ("stability_index", "surface_temperature_c", "surface_heat_flux_w_m2")
     for group in ("two_fluid_diag", "divertor_state"):
         for key, v in ref[group].items():
-            if group == "divertor_state" and key in on_balance:
-                continue
             assert abs(ours[group][key] - v) <= 1e-12 * abs(v), key
-    state = ours["divertor_state"]
-    assert state["surface_temperature_c"] == pytest.approx(
-        300.0 + state["surface_heat_flux_w_m2"] * 0.005 / 150.0, rel=1e-12)
-    assert 0.0 < state["stability_index"] < 1.0
     assert 0.1 < ours["cooling_gain_pct"] < 30.0
     assert ours["two_fluid_diag"]["electron_temp_mean_kev"] > 2.0
     with pytest.raises(ValueError):

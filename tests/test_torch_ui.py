@@ -8,6 +8,7 @@ stopped and joined before each test ends.
 
 import functools
 import json
+import socket
 import threading
 import time
 import urllib.error
@@ -21,8 +22,10 @@ import torch
 import scpn_fusion_tpu.models.equilibrium as jax_eq
 from scpn_fusion_tpu.ui import dashboard as jax_dashboard
 from scpn_fusion_tpu.ui import live_server as jax_live
+from scpn_fusion_tpu.utils import telemetry as jax_telemetry
 from scpn_fusion_tpu_torch.cli import main
 from scpn_fusion_tpu_torch.ui import dashboard, live_server
+from scpn_fusion_tpu_torch.utils import telemetry
 from tests.torch_parity import span_rel
 
 HEADINGS = {   # the port's heading -> JAX's (the lines that differ besides the timestamp)
@@ -57,7 +60,11 @@ def _repo(tmp_path):
 
 
 def test_dashboard_equals_jax_but_timestamp_and_headings(tmp_path, monkeypatch):
+    """Each package's fallback telemetry is its process's: whatever earlier
+    tests in this process recorded, both dashboards are given one count."""
     repo = _repo(tmp_path)
+    for registry in (jax_telemetry.TELEMETRY, telemetry.TELEMETRY):
+        monkeypatch.setattr(registry, "counts", lambda: {"demo.fallback": 2})
     ours = dashboard.generate_dashboard(
         tmp_path / "ours.md", repo_root=repo, config_path=str(repo / "cfg.json"),
         device="cpu", dtype=torch.float64).read_text().splitlines()
@@ -71,6 +78,7 @@ def test_dashboard_equals_jax_but_timestamp_and_headings(tmp_path, monkeypatch):
     differ = [(a, b) for a, b in zip(ours, ref) if a != b and not a.startswith("_Generated ")]
     assert differ == list(HEADINGS.items())
     assert "| demo | pass | 1/2 pass |" in ours
+    assert "| demo.fallback | 2 |" in ours
     assert any(line.startswith("- converged: True in ") for line in ours)
 
 
@@ -152,3 +160,15 @@ def test_worker_without_the_card_fails_and_ends():
     worker.join(timeout=60)
     assert not worker.is_alive()
     assert isinstance(worker.error, (RuntimeError, AssertionError))
+
+
+def test_serve_on_a_taken_port_raises_with_no_worker_running():
+    """The bind fails before the worker starts: nothing is left launching
+    solves after the error."""
+    with socket.socket() as blocker:
+        blocker.bind(("127.0.0.1", 0))
+        blocker.listen(1)
+        with pytest.raises(OSError):
+            live_server.serve_live_dashboard(port=blocker.getsockname()[1],
+                                             device="cpu", dtype=torch.float64)
+    assert not any(isinstance(t, live_server.LiveSolveWorker) for t in threading.enumerate())

@@ -162,7 +162,8 @@ def report_mismatches(ours: dict, ref: dict, rules: dict | None = None) -> dict:
       reference's largest magnitude / absolutely;
     * ``("below", limit)``: both values at or below ``limit`` (the lane's
       own threshold, for rounding-noise metrics);
-    * ``("timing", None)``: a time, reported, not compared.
+    * ``("timing", None)``: a time, reported, not compared;
+    * ``("equal", value)``: equal to ``value`` (not to the reference's).
     """
     rules = rules or {}
     bad = {}
@@ -185,6 +186,10 @@ def report_mismatches(ours: dict, ref: dict, rules: dict | None = None) -> dict:
             x = mo[key]
             kind, tol = rules.get((name, key), ("rel", 1e-9))
             if kind == "timing":
+                continue
+            if kind == "equal":
+                if x != tol:
+                    bad[(name, key)] = (x, tol)
                 continue
             if isinstance(y, (bool, str)) or y is None or (
                     isinstance(y, list) and y and isinstance(y[0], str)):

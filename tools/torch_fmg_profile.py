@@ -633,39 +633,40 @@ def profile_cli(card: str) -> None:
     from scpn_fusion_tpu_torch.models.equilibrium import solve_equilibrium
     from scpn_fusion_tpu_torch.ui.live_server import LiveSolveWorker
 
-    tmp = Path(tempfile.mkdtemp(prefix="cli_profile_"))
-    cfg_path = tmp / "bench_513.json"
-    cfg_path.write_text(json.dumps(config_dict(513, **BENCH_SOLVER)))
+    with tempfile.TemporaryDirectory(prefix="cli_profile_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        cfg_path = tmp / "bench_513.json"
+        cfg_path.write_text(json.dumps(config_dict(513, **BENCH_SOLVER)))
 
-    def kernel_mode():
-        with contextlib.redirect_stdout(io.StringIO()) as out:
-            cli.main(["kernel", str(cfg_path), "--output", str(tmp / "psi.npz")])
-        return json.loads(out.getvalue())
+        def kernel_mode():
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                cli.main(["kernel", str(cfg_path), "--output", str(tmp / "psi.npz")])
+            return json.loads(out.getvalue())
 
-    def tick(cfg):
-        def run():
-            res = solve_equilibrium(cfg, i_target=15.0, device="cuda")
-            psi = res.psi.detach().cpu().numpy()
-            return {"shape": psi.shape, "iterations": int(res.iterations),
-                    "converged": bool(res.converged)}
-        return run
+        def tick(cfg):
+            def run():
+                res = solve_equilibrium(cfg, i_target=15.0, device="cuda")
+                psi = res.psi.detach().cpu().numpy()
+                return {"shape": psi.shape, "iterations": int(res.iterations),
+                        "converged": bool(res.converged)}
+            return run
 
-    cases = (("kernel mode 513^2", kernel_mode),
-             ("live tick 65^2", tick(LiveSolveWorker()._default_cfg())),
-             ("live tick 513^2", tick(load_config(cfg_path))))
-    for label, run in cases:
-        profile_solve(card, label, run, None)
-        times = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            run()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        print(f"{label}: {statistics.median(times):.3f} ms by CUDA events (median of 5, "
-              f"unprofiled) [{card}]")
+        cases = (("kernel mode 513^2", kernel_mode),
+                 ("live tick 65^2", tick(LiveSolveWorker()._default_cfg())),
+                 ("live tick 513^2", tick(load_config(cfg_path))))
+        for label, run in cases:
+            profile_solve(card, label, run, None)
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            print(f"{label}: {statistics.median(times):.3f} ms by CUDA events (median of 5, "
+                  f"unprofiled) [{card}]")
 
 
 def profile_free_boundary(card: str) -> None:
