@@ -9,8 +9,12 @@ them:
   bench configuration (kernels 2-5);
 * the resolution scale-out: the FMG cascade 129^2 -> ... -> 1025^2 in f32
   ending in the mixed-precision, GS-residual-gated 2049^2 solve (f64 master
-  iterate, f32 V-cycle defect correction), which runs kernels 2-7, the tiled
-  1025^2+ legs (kernels 6 and 7) included;
+  iterate, f32 V-cycle defect correction), the cascade of the
+  ``resolution_scaling`` campaign, which runs kernels 2-7, the tiled 1025^2+
+  legs (kernels 6 and 7) included; (5b) the campaign itself, in a spawned process: 513^2,
+  1025^2 against the f64 NumPy FMG twin, the mixed 2049^2 and 4097^2
+  cascades (f64 GS residual < 3e-5; their time, iterations and peak device
+  memory printed) and the per-point scaling;
 * the ``anderson`` solver method (inner SOR sweeps, no multigrid) on the same
   machine at 129^2: 50 sweeps of kernel 1, ``sor_sweeps``, an iteration;
 * the rectangular solve: the DIII-D-like machine on the tall 257 x 129 grid
@@ -19,8 +23,8 @@ them:
   smooths through ``sor_sweeps`` and every iteration runs the source kernel
   on the 257 x 129 grid: kernels 1 and 2;
 * the free-boundary forward of the ITER-like machine
-  (``bench_config.free_boundary_config``; coil flux on the ring <-> inner
-  Picard solve): (a) 257^2 and (b) 129^2 in float32, kernels 2 and 3 once
+  (``validation/run_free_boundary_forward.forward_solve``; coil flux on the
+  ring <-> inner Picard solve): (a) 257^2 and (b) 129^2 in float32, kernels 2 and 3 once
   each an inner Picard iteration; (c) 129^2 in float64 plain against the
   mixed solve, whose float32 V-cycles take kernel 3; (d) 129^2 float32 with
   the coil currents re-fitted to isoflux points every outer iteration and
@@ -29,11 +33,11 @@ them:
   ``fuzz/seeds/geqdsk`` on its 129 x 129 grid: kernel 3 once an iteration;
 * (f) the Newton-Krylov solve at 129^2 in float64 (plain ops only) against
   the Picard float64 solve;
-* (g) the adjoint lane of ``validation/run_adjoint_fd.py`` at 65^2 in
-  float64: the IFT coil gradient (``fixed_point_ift``, 300 forward steps and
-  300 adjoint iterations of one plain V-cycle a step) of ``mean(psi^2)``,
-  checked against central differences on the card (gate 3.244e-6), and
-  lane 2, one normalised descent step of the axis-flux tracking loss;
+* (g) the ``adjoint_fd`` campaign at 65^2 in float64: the IFT coil gradient
+  (``fixed_point_ift``, 300 forward steps and 300 adjoint iterations of one
+  plain V-cycle a step) of ``mean(psi^2)``, checked against central
+  differences on the card (gate 3.244e-6), and lane 2, one normalised
+  descent step of the axis-flux tracking loss;
 * (h) the real-shot reconstruction of the same SPARC file in float64
   (``reconstruction.reconstruct``, subcell 4, Anderson(8), as
   ``validation/run_real_shot_accuracy.py:94-97``) against the same call on
@@ -201,10 +205,11 @@ them:
   tomography (48 chords, RES 16, three methods at 500 iterations), the
   magnetic probes on (b)'s 129^2 free-boundary psi, the quasi-3D chain at
   its defaults (the 48 TEMHD columns one row-T launch a two-fluid step)
-  with ``run_quasi3d_contracts.py``'s force-balance lane, and lanes 1-3 of
-  ``run_multi_machine.py`` (its five 65^2 float32 solves kernels 2 and 3
-  once each a Picard iteration, counted), with the JAX tests' and the
-  validations' gates, float64 against the CPU;
+  with ``run_quasi3d_contracts.py``'s force-balance lane, with the JAX
+  tests' and the validations' gates, float64 against the CPU; the
+  ``multi_machine`` campaign's lane 1 five 65^2 solves in float32 (kernels
+  2 and 3 once each a Picard iteration, counted) against the CPU's plain
+  float32 solves (the campaign runs in (zs));
 * (zm) row U, the monitored UPDE run (``csrc/phase.cu``,
   ``ops/cuda_phase.monitor_run`` / ``upde_run``: one CTA, the tick loop,
   the Lyapunov guard and the recorder inside): the monitor at its
@@ -242,38 +247,34 @@ them:
   three launches for a batch, and ``cuda_mg.fused_coarse_vcycle_batched``,
   one launch of B clusters) ``torch.equal`` to their unbatched launches
   element by element at 33^2, 129^2 and 257^2 with B = 1, 16 and 256 and a
-  straggler element, and within 1e-5 of their plain twins; lanes 1-4 of
-  ``validation/run_batched_amortisation.py`` at 129^2 (the f32 ensembles of
-  B = 1, 16, 64 and 256 and the mixed ensembles of B = 16 and 64, one call of
-  each batched kernel an iteration) at the validation's gates, but lane 3's
-  warm < cold, which does not apply to a port that compiles nothing (its
-  first-call cost is printed); the straggler freeze in f32 against
+  straggler element, and within 1e-5 of their plain twins; the
+  ``batched_amortisation`` campaign at 129^2 (the f32 ensembles of B = 1, 16,
+  64 and 256 and the mixed ensembles of B = 16 and 64, one call of each
+  batched kernel an iteration; lane 3's cold call the first B = 256 call of
+  a fresh process) at the validation's gates; the straggler freeze in f32 against
   standalone solves; the 16-batch over ``Mesh((cuda:0,) * 4)``, its chunks
   in lockstep, against the whole batch; the mixed B = 16 batch against its
   CPU twin;
-* (zp) the sharded solves of ``parallel/`` on ``Mesh((cuda:0,) * n)`` for
-  n = 1, 2, 4, 8 (virtual shards of the one card: the exchanges' arithmetic
-  and the launch structure, not an interconnect), in float64 in a spawned
-  process: ``validation/run_sharded_gs.py`` lanes 1, 2 and 4 and
-  ``validation/run_sharded_convergence.py`` lanes 1, 2, 4, 5 and 6 at their
-  sizes (513^2, 256^2, 129^2) and gates;
-* (zq) ``parallel/gk_shard.py`` on virtual shards of the card, in a spawned
-  process with (zr): lane 7 of
-  ``run_sharded_convergence.py`` at its full spec (2x32x32x16x16x8 c128, 50
-  steps, seed 5) on a (sx, sy, v) = (2, 2, 2) mesh, row G launched on every
-  shard (exactly 8 x 4 x 50), against the monolithic card run of (u)'s 32^3 configuration (state
-  1e-12, trace 1e-9, memory factor 8.0), after the pencil bracket is held
-  to ``exb_bracket``; ``run_gk_scenario.py`` lanes 1 (the 8-shard velocity
+* (zp) the ``sharded_gs`` campaign on ``Mesh((cuda:0,) * n)`` for n = 1, 2,
+  4, 8 (virtual shards of the one card: the exchanges' arithmetic and the
+  launch structure, not an interconnect), in float64 in a spawned process;
+* (zq) the ``sharded_convergence`` campaign on virtual shards of the card,
+  in a spawned process with (zr): lanes 1-6 (513^2, 129^2) in float64, no
+  kernel, and lane 7 at its full spec (2x32x32x16x16x8 c128, 50 steps, seed
+  5) on a (sx, sy, v) = (2, 2, 2) mesh, row G launched on every shard
+  (exactly 8 x 4 x 50) and on its monolithic run (4 x 50) (state 1e-12,
+  trace 1e-9, memory factor 8.0), after the pencil bracket is held to
+  ``exb_bracket``; ``run_gk_scenario.py`` lanes 1 (the 8-shard velocity
   mesh, c64, phi_rms 1e-5) and 3 (the ITER-like shot's gates); the (sy, v)
   = (2, 4) mesh and the (data, v) = (2, 4) ensemble of 4 members in f64
   against their monolithic runs (1e-10, 1e-9); ms a step sharded and
   monolithic in turns;
-* (zr) the carried-over host lanes: ``run_implementation_parity.py`` lanes
-  1-3 (the port's C++ copy built with g++, ``npref`` and the plain f64
-  ``sor_step`` on the card; kernel 1 in f32 in one launch), lanes 1-3 of
-  ``run_error_audit.py`` on the port, a GKState checkpoint written from the
-  card and loaded on the CPU, and the lanes' reports written by the port's
-  ``write_report`` into a temporary directory, their checksums read back;
+* (zr) the carried-over host lanes: the ``implementation_parity`` campaign
+  (the port's C++ copy built with g++, ``npref`` and the plain f64
+  ``sor_step`` on the card; kernel 1 in f32 in one launch) and
+  ``error_audit``, a GKState checkpoint written from the card and loaded on
+  the CPU, and (zq)'s lanes' report written by the port's ``write_report``
+  into a temporary directory, its checksum read back;
 * (zs) the CLI and ``ui/``, in a spawned process on the card: the ``kernel``
   mode (``cli.main(["kernel", <513^2 bench configuration>, "--output", ...])``)
   through kernels 2-5 at 513^2, its wrappers' counts equal to a direct
@@ -285,10 +286,30 @@ them:
   ``live-dashboard`` mode in a child process ended by SIGINT; the
   ``dashboard`` mode in a temporary directory and ``generate_dashboard``'s
   513^2 snapshot; every other mode once (the exit code the JAX CLI's rule
-  gives, the JAX mode's JSON keys); ``validate --all`` (the port's eight
-  campaigns in float64 on the card, every lane's status the committed JAX
-  report's, ``gk_eigenvalue_perf``'s 0.3 s a k_y gate included) and
+  gives, the JAX mode's JSON keys); ``validate --campaign <name>`` for each
+  campaign no earlier phase runs (``equilibrium_parity`` and ``io_roundtrip``
+  through kernels 2 and 3, ``multi_machine`` in float64, and the eight older ones,
+  ``gk_eigenvalue_perf``'s 0.3 s a k_y gate included) and
   ``stellarator-replay``.
+
+Every one of the port's 20 campaigns runs once: the phases that hold a
+campaign's kernel gates call its module (:data:`PHASE_CAMPAIGNS`: (5b)
+``resolution_scaling``, with the 4097^2 mixed solve, through kernels 2-7,
+and (8b) ``free_boundary_forward`` through kernels 2 and 3, in a spawned
+process started with (g); (g) ``adjoint_fd``; (zo)
+``batched_amortisation``; (zp) ``sharded_gs``; (zq) ``sharded_convergence``;
+(zr) ``implementation_parity`` and ``error_audit``), (zs) the others, and
+after (zs) every report's lanes are held to the committed JAX report's
+(:func:`campaign_check`: the statuses equal but :data:`VALIDATE_STANDING`'s,
+printed with their numbers beside their gates, and the lanes blocked for
+want of the reference's data).  The twentieth, ``tracking_acceptance``
+((o)'s; 132 closed-loop ticks of seven f64 plant solves each, host-bound
+launches: 463-629 s in each of four processes on an H100), is the smoke's
+second command, ``python3 chip_smoke.py tracking``: its shots in four
+spawned processes, its lanes built by its module, its status the committed
+report's, the same result lines.  In line it took the smoke past 1200 s
+(1266.5 s on an H100 with the shots in four processes beside the main
+line, every host-bound phase slowed by them).
 
 Paths (g)-(i), (o) other than its reduced shot, (q), (s), (t), (v), (x)'s
 sessions, report and mission, (za) but its fused lane, (zb), (zc)'s
@@ -467,13 +488,14 @@ Phases:
    loop (once), and row R's stress launch (median of 5) beside its plain
    loop (once, on (p)'s check);
 
-Run from the repository root: ``python3 chip_smoke.py``.  Any failure raises
-and exits non-zero.  Right after the build it starts, each in a spawned
+Run from the repository root: ``python3 chip_smoke.py``, then ``python3
+chip_smoke.py tracking``.  Any failure raises and exits non-zero.  Right
+after the build it starts, each in a spawned
 process, the CPU twins of (k), (o), (v), (z)-(zg) and (zo) and the host-bound
 card-side runs of (k)'s plain Thomas loop, (o)'s optimiser and tracking shot and
 (zf)'s plain references (before (i), (g) with its FD check and (h) with its CPU
 twin; after (l), those of (zh)-(zi) and (zh)'s plain twins and lanes, (zp),
-(zq)-(zr), (zs) and (zo)'s lane 3), so
+(zq)-(zr) and (zs)), so
 that they overlap the earlier paths; every process is joined, or ended, on
 the way out.  The last line is the JSON result; the line before it is
 the card's name and power limit; the one before that lists the kernels, with
@@ -738,12 +760,6 @@ def bound(work: tuple) -> tuple[float, str]:
 # and the rest of models/equilibrium/ (plain PyTorch ops on the card, as the
 # JAX package runs these paths without its kernels) ──
 
-ADJ_COIL_R = (3.5, 8.0, 10.8, 8.0, 3.5, 10.8)    # validation/run_adjoint_fd.py:48-62
-ADJ_COIL_Z = (4.8, 4.8, 0.0, -4.8, -4.8, 2.5)
-ADJ_CURRENTS = (-1.0, 4.0, 6.0, 4.0, -1.0, 3.0)
-ADJ_P_COEFFS = (1.0, 0.4, 0.08, 0.02)
-ADJ_STEPS = 300          # n_fwd = n_bwd
-ADJ_TOL = 3.244e-6       # run_adjoint_fd.py:28, the reference's own gate
 NRMSE_GATE = 0.05        # run_real_shot_accuracy.py:57 (the reference's SPARC EFIT files)
 LANE_TOL = 1e-9          # each lane on the card against the same call on the CPU
 # (l)'s surrogate lane: its float32 MLP sums in another order on each device;
@@ -810,100 +826,6 @@ def on_cpu(threads: int = 4):
     return torch.device("cpu")
 
 
-def adjoint_lane(dev, card: str, counted, by_path: dict) -> tuple:
-    """(g) the 65^2 float64 adjoint lane: the IFT coil gradient of
-    ``mean(psi^2) * 1e12`` and lane 2 (one normalised descent step of the
-    axis-flux tracking loss lowers it).  Returns what the FD check, which
-    runs last, needs: the currents, a batched loss, the gradient and the
-    loss at the currents."""
-    import torch
-    from scpn_fusion_tpu_torch.core.grid import Grid
-    from scpn_fusion_tpu_torch.models.equilibrium import differentiable as dm
-
-    f64 = torch.float64
-    grid = Grid.from_bounds(65, 65, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=dev)
-    model = dm.build_predictive_model(grid, ADJ_COIL_R, ADJ_COIL_Z, relax=0.5, use_vcycle=True)
-    c0 = torch.tensor(ADJ_CURRENTS, dtype=f64, device=dev)
-    theta0 = dm.PredictiveTheta(c0, torch.tensor(ADJ_P_COEFFS, dtype=f64, device=dev),
-                                torch.tensor(15.0, dtype=f64, device=dev))
-
-    def solve(c):
-        return dm.solve_predictive_diff(model, theta0._replace(coil_currents=c),
-                                        n_fwd=ADJ_STEPS, n_bwd=ADJ_STEPS)
-
-    def gradients():
-        """One forward solve, two IFT backward passes: the energy gradient
-        and lane 2's tracking-loss gradient (target: axis flux x 1.02)."""
-        c = c0.clone().requires_grad_(True)
-        psi = solve(c)
-        (g_energy,) = torch.autograd.grad((psi * psi).mean() * 1e12, c, retain_graph=True)
-        axis = dm.soft_axis_flux(psi)
-        target = axis.detach() * 1.02
-        loss0 = (axis - target) ** 2
-        (g_track,) = torch.autograd.grad(loss0, c)
-        return psi.detach(), g_energy, target, loss0.detach(), g_track
-
-    (grads, ms_grad), calls, launched = counted(lambda: events_ms(gradients))
-    psi, g_adj, target, loss0, g_track = grads
-    require(tuple(psi.shape) == (65, 65) and bool(torch.isfinite(psi).all())
-            and bool(torch.isfinite(g_adj).all()) and bool(g_adj.abs().max() > 0),
-            "adjoint lane: psi or the IFT gradient is not finite and nonzero")
-    c1 = c0 - 0.05 * g_track / torch.clamp(torch.linalg.vector_norm(g_track), min=1e-30)
-    with torch.no_grad():
-        loss1, ms_fwd = events_ms(lambda: (dm.soft_axis_flux(solve(c1)) - target) ** 2)
-    print(f"(g) adjoint lane 65^2 f64 ({ADJ_STEPS} forward steps, {ADJ_STEPS} adjoint "
-          f"iterations, one plain V-cycle a step): IFT gradient of mean(psi^2)*1e12 "
-          f"{g_adj.tolist()}; wall {ms_grad:.3f} ms for the forward solve and both backward "
-          f"passes, {ms_fwd:.3f} ms a forward solve (CUDA events); lane 2 tracking loss "
-          f"{float(loss0)!r} -> {float(loss1)!r} after one normalised step; port-kernel calls "
-          f"{sum(calls.values())}, __global__ launches {sum(launched.values())} [{card}]")
-    require(float(loss1) < float(loss0), "adjoint lane 2: the descent step did not lower the "
-                                         "tracking loss")
-    require(sum(calls.values()) == 0, "adjoint lane: a kernel ran on a plain-ops path")
-    by_path["adjoint_65"] = calls
-
-    step = functools.partial(dm._predictive_step, model)
-
-    def energies(cs):
-        """mean(psi^2) * 1e12 for a batch of current vectors: the forward of
-        ``solve_predictive_diff`` (vacuum start, ADJ_STEPS Picard steps),
-        ``torch.func.vmap``ped over the batch."""
-        def one(c):
-            th = theta0._replace(coil_currents=c)
-            out = dm.vacuum_psi_from_table(model.coil_table, c)
-            for _ in range(ADJ_STEPS):
-                out = step(th, out)
-            return (out * out).mean() * 1e12
-        with torch.no_grad():
-            return torch.func.vmap(one)(cs)
-
-    return c0, energies, g_adj, float((psi * psi).mean() * 1e12)
-
-
-def fd_check(c0, energies, g_adj, energy0: float, card: str) -> None:
-    """(g), last: the IFT gradient against central differences on the card,
-    step 3e-4 max(|I|, 1) a coil (run_adjoint_fd.py:73-84); the 12 perturbed
-    forward solves run as one vmapped batch, itself held to the gradient
-    run's own forward at the unperturbed currents."""
-    import torch
-    n = c0.shape[0]
-    h = torch.tensor([3e-4 * max(abs(float(v)), 1.0) for v in c0], dtype=c0.dtype,
-                     device=c0.device)
-    shifts = torch.diag(h)
-    batch = torch.cat([c0 + shifts, c0 - shifts, c0[None]])
-    e, ms = events_ms(lambda: energies(batch))
-    g_fd = ((e[:n] - e[n:2 * n]) / (2.0 * h)).cpu()
-    dev_e0 = abs(float(e[-1]) - energy0) / abs(energy0)
-    dev_rel = float(((g_adj.cpu() - g_fd).abs() / g_fd.abs().max()).max())
-    print(f"(g) FD check: central differences {g_fd.tolist()}; max relative component "
-          f"deviation of the IFT gradient {dev_rel:.3e} (limit {ADJ_TOL:.3e}); {2 * n} "
-          f"perturbed forward solves and the unperturbed one as one vmapped batch in "
-          f"{ms:.3f} ms (CUDA events), its unperturbed energy {dev_e0:.3e} from the gradient "
-          f"run's [{card}]")
-    require(dev_e0 <= LANE_TOL, "FD check: the batched forward is not the solve's forward")
-    require(dev_rel <= ADJ_TOL, "adjoint lane: the IFT gradient deviates from central FD")
-
-
 RECON_KW = dict(subcell=4, anderson_m=8, max_iter=200)   # run_real_shot_accuracy.py:94-97
 
 
@@ -924,25 +846,98 @@ def recon_on_cpu(conn) -> None:
 
 
 def adjoint_on_card(conn, card: str) -> None:
-    """(g) in a spawned process beside (i)-(l) (host-bound plain f64 ops,
-    130-190 s with its FD check): :func:`adjoint_lane`, then :func:`fd_check`, each
-    printing its numbers and failing on its gate; sends the lane's port
-    kernel calls by path."""
+    """(g) in a spawned process beside (i)-(l) (host-bound plain f64 ops):
+    the ``adjoint_fd`` campaign (the IFT coil gradient of the 65^2 forward
+    against central differences at the reference's 3.244e-6, and the descent
+    step), its status the committed report's, no kernel on its path; sends
+    the port kernel calls by path."""
     import torch
     sys.path.insert(0, str(ROOT))
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR, run_adjoint_fd
 
-    def counted(run):
-        cb.reset_launch_counts()
-        out = run()
-        torch.cuda.synchronize()
-        return out, {name: cb.CALLS[name] for name in KERNELS}, dict(cb.LAUNCHES)
-
-    by_path = {}
-    adjoint = adjoint_lane(torch.device("cuda"), card, counted, by_path)
-    fd_check(*adjoint, card)
+    cb.reset_launch_counts()
+    rc, ms = events_ms(lambda: run_adjoint_fd.main(device="cuda"))
+    calls = {name: cb.CALLS[name] for name in KERNELS}
+    campaign_check("adjoint_fd", rc, card, "(g)")
+    lanes = json.loads((REPORTS_DIR / "adjoint_fd.json").read_text())["lanes"]
+    print(f"(g) adjoint_fd on the card, 65^2 f64: IFT gradient against central FD max "
+          f"relative component deviation {lanes[0]['metrics']['max_rel_component_dev']:.3e} "
+          f"(gate {run_adjoint_fd.REF_TOL}), descent {lanes[1]['metrics']}; {ms:.1f} ms "
+          f"(CUDA events), port-kernel calls {sum(calls.values())} [{card}]")
+    require(sum(calls.values()) == 0, "adjoint lane: a kernel ran on a plain-ops path")
     sys.stdout.flush()
-    conn.send(by_path)
+    conn.send({"adjoint_65": calls})
+    conn.close()
+
+
+def equilibrium_campaigns_on_card(conn, card: str) -> None:
+    """(5b) and (8b) in a spawned process on the card, started with (g) and
+    (h): the ``resolution_scaling`` campaign (anchor_513 through kernels 2-5,
+    capability_1025 through kernels 2-7 against the f64 NumPy FMG twin on the
+    host, the mixed 2049^2 and 4097^2 cascades, on_scaling) and the
+    ``free_boundary_forward`` campaign (the 129^2 forward in f32 through
+    kernels 2 and 3, in f64, mixed through kernel 3, the 257^2 forward, cold
+    against warm, its cold call in a fresh process and not counted here),
+    each its status the committed report's; prints the 4097^2 solve's time,
+    iterations, GS residual and peak memory; sends the kernel calls of
+    each."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR
+    from scpn_fusion_tpu_torch.validation import run_free_boundary_forward as fbf
+    from scpn_fusion_tpu_torch.validation import run_resolution_scaling as rs
+
+    dev = torch.device("cuda")
+    out = {}
+    cb.reset_launch_counts()
+    rc, ms_rs = events_ms(lambda: rs.main(device=dev))
+    calls_rs = {name: cb.CALLS[name] for name in KERNELS}
+    campaign_check("resolution_scaling", rc, card, "(5b)")
+    rep_rs = json.loads((REPORTS_DIR / "resolution_scaling.json").read_text())
+    lanes_rs = {lane["name"]: lane for lane in rep_rs["lanes"]}
+    m4097 = lanes_rs["capability_4097_mixed"]["metrics"]
+    peaks = rep_rs["extra"]["peak_device_bytes"]
+    print(f"(5b) resolution_scaling: {ms_rs / 1e3:.1f} s (CUDA events); kernel calls "
+          f"{ {k: v for k, v in calls_rs.items() if v} }; ms a solve "
+          + ", ".join(f"{k} {v['metrics']['device_per_solve_ms']}" for k, v in lanes_rs.items()
+                      if "device_per_solve_ms" in v["metrics"])
+          + f", on_scaling {lanes_rs['on_scaling']['metrics']}; peak device memory above the "
+          f"allocated " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in peaks.items())
+          + f"; the 1025^2 NumPy twin {rep_rs['extra']['numpy_twin_1025_ms'] / 1e3:.1f} s "
+          f"[{card}]")
+    print(f"(5b) capability_4097_mixed: {m4097.get('device_per_solve_ms')} ms a solve (slope of "
+          f"k = 1, 2 chained cascades; walls {rep_rs['extra'].get('wall_ms_4097_mixed_k1_k2')} "
+          f"ms), fine iterations {m4097.get('fine_iterations')}, f64 GS residual "
+          f"{m4097.get('gs_residual_best_f64')!r} (gate {GS_TOL}), peak "
+          f"{peaks.get('4097_mixed', 0) / 1e9:.3f} GB [{card}]")
+    require(lanes_rs["capability_4097_mixed"]["status"] == "pass"
+            and m4097["gs_residual_best_f64"] < GS_TOL,
+            "(5b) the 4097^2 mixed solve did not converge under its f64 GS residual gate")
+    require(all(calls_rs[name] > 0 for name in KERNELS[1:7])
+            and all(calls_rs[name] == 0 for name in KERNELS if name not in KERNELS[1:7]),
+            f"(5b) resolution_scaling: kernels 2-7 not all launched, or others: {calls_rs}")
+    out["resolution_scaling"] = calls_rs
+
+    cb.reset_launch_counts()
+    rc, ms_fbf = events_ms(lambda: fbf.main(device=dev))
+    calls_fbf = {name: cb.CALLS[name] for name in KERNELS}
+    campaign_check("free_boundary_forward", rc, card, "(8b)")
+    for lane in json.loads((REPORTS_DIR / "free_boundary_forward.json").read_text())["lanes"]:
+        print(f"(8b) free_boundary_forward / {lane['name']}: {lane['status']} {lane['metrics']} "
+              f"(gates {lane['thresholds']}) [{card}]")
+    print(f"(8b) free_boundary_forward: {ms_fbf / 1e3:.1f} s (CUDA events); kernel calls "
+          f"{ {k: v for k, v in calls_fbf.items() if v} } [{card}]")
+    require(calls_fbf["fused_topology_source"] > 0
+            and calls_fbf["fused_coarse_vcycle"] > calls_fbf["fused_topology_source"]
+            and sum(calls_fbf.values()) == calls_fbf["fused_topology_source"]
+            + calls_fbf["fused_coarse_vcycle"],
+            f"(8b) free_boundary_forward: expected kernels 2 and 3 only (3 more, the mixed "
+            f"lane's): {calls_fbf}")
+    out["free_boundary_forward"] = calls_fbf
+    sys.stdout.flush()
+    conn.send({"by_path": out, "s": (ms_rs + ms_fbf) / 1e3})
     conn.close()
 
 
@@ -1903,6 +1898,57 @@ def control_lanes_on_card(conn) -> None:
                           {name: cb.CALLS[name] for name in KERNELS})
     conn.send(out)
     conn.close()
+
+
+# (o)'s tracking_acceptance shots (indices into its module's SHOTS, 132
+# ticks in all) in four spawned processes of 26-38 ticks each
+TRACKING_BINS = ((6, 1, 10), (7, 2), (8, 3, 0), (9, 4, 5))
+
+
+def tracking_shots_on_card(conn, card: str, indices: tuple) -> None:
+    """Some of (o)'s ``tracking_acceptance`` shots on the card (each tick
+    seven free-boundary plant solves in f64 plain ops, host-bound): sends
+    {index: the trace as numpy arrays}, the machine's currents, the seconds
+    and the kernel calls (none may launch)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.validation import run_tracking_acceptance as ta
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = ta.setup(torch.device("cuda"))
+    traces = {i: tuple(t.detach().cpu().numpy() for t in ta.run_shot(ta.SHOTS[i], m))
+              for i in indices}
+    torch.cuda.synchronize()
+    conn.send({"traces": traces, "currents": m["coils"].currents.cpu().numpy(),
+               "s": time.perf_counter() - t0,
+               "calls": {name: cb.CALLS[name] for name in KERNELS}})
+    conn.close()
+
+
+def tracking_campaign(card: str, twins: list) -> dict:
+    """(o)'s ``tracking_acceptance`` campaign from the shots of
+    :func:`tracking_shots_on_card`'s processes (``twins``), its lanes built
+    by its module's ``finish``, its status the committed report's; returns
+    the kernel calls on its shots."""
+    from scpn_fusion_tpu_torch.control.free_boundary_tracking import TrackingTrace
+    from scpn_fusion_tpu_torch.validation import run_tracking_acceptance as ta
+    traces, calls, secs = {}, dict.fromkeys(KERNELS, 0), []
+    for twin in twins:
+        r = twin()
+        traces.update({i: TrackingTrace(*arrays) for i, arrays in r["traces"].items()})
+        currents = r["currents"]
+        secs.append(r["s"])
+        for name, v in r["calls"].items():
+            calls[name] += v
+    require(sorted(traces) == list(range(len(ta.SHOTS))), f"(o) tracking shots {sorted(traces)}")
+    rc = ta.finish([traces[i] for i in range(len(ta.SHOTS))], currents)
+    campaign_check("tracking_acceptance", rc, card, "(o)")
+    print(f"(o) tracking_acceptance: {len(ta.SHOTS)} shots, {sum(n for _, n in ta.SHOTS)} ticks "
+          f"in {len(twins)} spawned processes on the card ({', '.join(f'{v:.1f}' for v in secs)} "
+          f"s) [{card}]")
+    require(sum(calls.values()) == 0, f"(o) tracking_acceptance (f64 plain ops) launched {calls}")
+    return calls
 
 
 def control_lanes_on_cpu(conn) -> None:
@@ -6638,15 +6684,6 @@ Q3D_STELLAR = dict(n_fp=4, r0=2.95, a=0.95, helical_excursion=0.057, mirror_rati
 Q3D_THRESHOLDS = {"max_force_balance_rmse_pct": 8.0, "max_force_residual_p95_pct": 12.0}
 JET_TEST_STATS = ({"q95": 4.0, "edge_gradient": 0.02, "bcentr": 2.8},    # test_quasi3d.py:98-100
                   {"q95": 3.4, "edge_gradient": 0.03, "bcentr": 3.4})
-# validation/run_multi_machine.py:35-50: name, R0, a, Ip, Bt, kappa, ne19, P_loss, tau window
-MACHINES = (("ITER", 6.20, 2.00, 15.0, 5.30, 1.80, 10.0, 100.0, (2.0, 5.0)),
-            ("JET", 2.96, 0.95, 4.0, 3.45, 1.70, 5.0, 20.0, (0.2, 1.2)),
-            ("SPARC", 1.85, 0.57, 8.7, 12.2, 1.97, 30.0, 25.0, (0.3, 1.5)),
-            ("DIII-D", 1.67, 0.67, 1.5, 2.10, 1.80, 6.0, 10.0, (0.05, 0.4)),
-            ("MAST-U", 0.85, 0.65, 1.0, 0.55, 2.45, 3.0, 4.0, (0.01, 0.2)))
-PF_PATTERN = ((0.565, +0.774, -1.0 / 15.0), (1.290, +0.774, 4.0 / 15.0),
-              (1.742, 0.0, 6.0 / 15.0), (1.290, -0.774, 4.0 / 15.0),
-              (0.565, -0.774, -1.0 / 15.0), (1.742, 0.403, 3.0 / 15.0))
 REPLAY_HASHSEED = "12345"                       # run_replay_certificate.py:194
 # the float32 monitor of the JAX test (8 layers x 20, 200 ticks) drifts from its float64 run by
 # ~1e-5 of R and ~2e-4 of lambda (ln of a ratio of V over n dt amplifies V's rounding); the
@@ -6825,34 +6862,12 @@ def environment(**values):
 
 
 def multi_machine_solves(device, dtype) -> dict:
-    """Lane 1 of ``validation/run_multi_machine.py``: the 65^2 multigrid
-    Picard solve on each :data:`MACHINES` geometry (the PF pattern scaled
-    by R0, the device Ip as the target); on the card in float32 kernels 2 and
-    3 run once each a Picard iteration.  By machine: (psi, converged,
-    iterations, psi span)."""
-    from scpn_fusion_tpu_torch.core.config import (
-        Coil, Dimensions, PhysicsParams, ReactorConfig, SolverParams,
-    )
-    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium
-    out = {}
-    for name, r0, a, ip, *_ in MACHINES:
-        coils = tuple(Coil(r=r0 * pr, z=r0 * pz, current=ip * pc, name=f"PF{i + 1}")
-                      for i, (pr, pz, pc) in enumerate(PF_PATTERN))
-        cfg = ReactorConfig(
-            reactor_name=name, grid_resolution=(65, 65),
-            dimensions=Dimensions(R_min=0.35 * r0, R_max=1.80 * r0, Z_min=-0.70 * r0,
-                                  Z_max=0.70 * r0),
-            coils=coils,
-            physics=PhysicsParams(plasma_current_target=ip, vacuum_permeability=1.0,
-                                  profile_mode="l-mode"),
-            solver=SolverParams(max_iterations=600, convergence_threshold=1e-4,
-                                relaxation_factor=0.1, solver_method="multigrid",
-                                inner_sweeps=1))
-        res = solve_equilibrium(cfg, dtype=dtype, device=device)
-        psi = res.psi.detach().cpu().to(dtype)
-        out[name] = (psi.numpy(), bool(res.converged), int(res.iterations),
-                     float(psi.max() - psi.min()))
-    return out
+    """Lane 1's solves of ``run_multi_machine`` (the port's module) in
+    ``dtype``: on the card in float32 kernels 2 and 3 run once each a Picard
+    iteration.  By machine: (psi, converged, iterations, psi span)."""
+    from scpn_fusion_tpu_torch.validation.run_multi_machine import machine_solves
+    return {name: (res.psi.detach().cpu().numpy(), bool(res.converged), int(res.iterations),
+                   span) for name, (res, span) in machine_solves(device, dtype).items()}
 
 
 def discharge_lane(lanes, label: str, cfg, dtype, device, n_steps: int, f32: bool = False):
@@ -6877,8 +6892,8 @@ def zl_lanes(device, psi_129=None) -> dict:
     500 iterations; the magnetic probes on ``psi_129`` (path (b)'s 129^2
     free-boundary psi, as float64); the quasi-3D chain at its defaults (720
     samples, 56 x 48 x 14, the zonal ratio, 48 x 120 two-fluid steps, the TBR
-    calibration) with ``run_quasi3d_contracts.py``'s force-balance lane;
-    lanes 2 and 3 of ``run_multi_machine.py``.  Float64 but where said; the
+    calibration) with ``run_quasi3d_contracts.py``'s force-balance lane.
+    Float64 but where said; the
     draws from ``torch.Generator``s on the CPU, so every device sees the same."""
     import torch
     from scpn_fusion_tpu_torch.bench_config import free_boundary_config
@@ -6888,7 +6903,6 @@ def zl_lanes(device, psi_129=None) -> dict:
     from scpn_fusion_tpu_torch.models.diagnostics import tomography as tomo
     from scpn_fusion_tpu_torch.models.physics import quasi3d as q3
     from scpn_fusion_tpu_torch.models.physics import stellarator as st
-    from scpn_fusion_tpu_torch.models.physics.scaling_burn import ipb98y2_tau_e
     from scpn_fusion_tpu_torch.models.transport.solver import TransportParams
     from scpn_fusion_tpu_torch.models.uq import mc, pce
     lanes, f32, f64 = Lanes(), torch.float32, torch.float64
@@ -7009,24 +7023,6 @@ def zl_lanes(device, psi_129=None) -> dict:
     lanes.put("q3d tbr", {k: v for k, v in tbr.items() if not isinstance(v, bool)})
     lanes.verdicts["q3d"] = (hall["backend"], tbr["calibration_triggered"])
 
-    # lanes 2 and 3 of run_multi_machine.py
-    def machines():
-        out = {}
-        for name, r0, a, ip, bt, kappa, ne19, ploss, _ in MACHINES:
-            out[f"tau {name}"] = ipb98y2_tau_e(ip, bt, ne19, ploss, r0, kappa, a / r0)
-            grid = Grid.from_bounds(129, 129, r0 - 1.2 * a, r0 + 1.2 * a, -1.2 * a * kappa,
-                                    1.2 * a * kappa, **kw)
-            rho = torch.sqrt(((grid.RR - r0) / a) ** 2 + (grid.ZZ / (a * kappa)) ** 2)
-            ne_map = ne19 * 1e19 * torch.clamp(1.0 - rho**2, min=0.0)
-            te_map = 10.0 * torch.clamp(1.0 - rho**2, min=0.0) ** 1.5
-            chord = torch.tensor([[[r0, -1.2 * a * kappa], [r0, 1.2 * a * kappa]]], **kw)
-            out[f"phase {name}"] = fw.interferometer_phase_shift(ne_map, grid, chord,
-                                                                 samples=513)[0]
-            out[f"thomson {name}"] = fw.thomson_scattering_voltage(
-                ne_map, te_map, grid, torch.tensor([[r0, 0.0]], **kw))[0]
-        return out
-
-    lanes.put("multi-machine", lanes.run("multi-machine lanes 2-3", machines))
     return lanes.as_dict()
 
 
@@ -7107,12 +7103,12 @@ def slice21_on_cpu(conn, psi_129) -> None:
     conn.close()
 
 
-def zl_gates(r: dict, machines: dict) -> dict:
+def zl_gates(r: dict) -> dict:
     """The gates of (zl): ``tests/test_wdm.py``, ``test_uq.py``,
     ``test_tomography.py``, ``test_quasi3d.py`` and
     ``test_diagnostics_surrogates.py``'s forward models, lane 4 of
-    ``run_physics_closures.py``, lanes 1-3 of ``run_multi_machine.py`` and
-    the force-balance lane of ``run_quasi3d_contracts.py``."""
+    ``run_physics_closures.py`` and the force-balance lane of
+    ``run_quasi3d_contracts.py``."""
     num, f32r, verdicts = r["num"], r["f32"], r["verdicts"]
     w_acc = num["wdm test accumulates w_impurity_total"]
     col = num["wdm test collapse collapsed"]
@@ -7131,17 +7127,6 @@ def zl_gates(r: dict, machines: dict) -> dict:
                 and abs(pk_t[1] - pk_r[1]) <= 2
                 and np.corrcoef(truth.reshape(-1), img.reshape(-1))[0, 1] > 0.6)
 
-    taus = {m[0]: float(num[f"multi-machine tau {m[0]}"]) for m in MACHINES}
-    order = ["ITER", "SPARC", "JET", "DIII-D", "MAST-U"]
-    nbar = {}
-    for name, r0, a, ip, bt, kappa, ne19, *_ in MACHINES:
-        z = np.linspace(-1.2 * a * kappa, 1.2 * a * kappa, 4097)
-        length = 2.0 * 1.2 * a * kappa
-        true = float(np.trapezoid(ne19 * 1e19 * np.maximum(1.0 - (z / (a * kappa)) ** 2, 0.0), z)
-                     / length)
-        rec = float(num[f"multi-machine phase {name}"]) / (2.8179403262e-15 * 1.064e-6 * length)
-        nbar[name] = abs(rec - true) / true
-    volts = sorted((m[6], float(num[f"multi-machine thomson {m[0]}"])) for m in MACHINES)
     ratio = float(num["closures lane 4 tau100"] / num["closures lane 4 tau50"])
     gates = {
         "wdm: inventory never decreases, time 0.01 k, redeposition in [0, 0.99]":
@@ -7193,14 +7178,6 @@ def zl_gates(r: dict, machines: dict) -> dict:
         "quasi-3D: calibrated TBR <= raw, factor in (0, 1]": float(num["q3d tbr calibrated_tbr"])
         <= float(num["q3d tbr raw_tbr"]) + 1e-9 and 0.0 < float(num["q3d tbr calibration_factor"])
         <= 1.0,
-        "multi-machine lane 1: every solve converges, span > 0, < 600 iterations":
-        all(conv and span > 0 and it < 600 for _, conv, it, span in machines.values()),
-        "multi-machine lane 2: tau in its window, ITER > SPARC > JET > DIII-D > MAST-U":
-        all(m[8][0] <= taus[m[0]] <= m[8][1] for m in MACHINES)
-        and all(taus[order[i]] > taus[order[i + 1]] for i in range(4)),
-        "multi-machine lane 3: nbar within 2 %, Thomson monotone in density":
-        all(v < 0.02 for v in nbar.values())
-        and all(b[1] > a_[1] for a_, b in zip(volts, volts[1:])),
     }
     if "probes psi" in num:
         gates["probes finite"] = all(bool(np.all(np.isfinite(num[f"probes {c}"])))
@@ -7296,10 +7273,12 @@ def phase_checks(dev, card: str, counted, by_path: dict, results: dict, timing: 
 
 def zl_checks(dev, card: str, counted, by_path: dict, twin: dict, psi_129) -> None:
     """(zl) on the card: :func:`zl_lanes` (row T on the transport and TEMHD
-    steps, no other kernel), the CLI's discharge in float32, lane 1 of
-    ``run_multi_machine.py`` in float32 (kernels 2 and 3 once each a Picard
-    iteration, counted exactly, against the CPU's plain float32 solves at
-    1e-3 of the span, iterations within one), the gates of :func:`zl_gates`;
+    steps, no other kernel), the CLI's discharge in float32, the
+    ``multi_machine`` campaign's lane 1 solves in float32 (kernels 2 and 3
+    once each a Picard iteration, counted exactly, against the CPU's plain
+    float32 solves at 1e-3 of the span, iterations within one; the campaign
+    itself, float64 as its script solves, runs in (zs)), the gates of
+    :func:`zl_gates`;
     float64 within 1e-9 of the CPU (``twin``: :func:`slice21_on_cpu`'s), the
     collapse times and verdicts equal, the float32 channels within 1e-5."""
     import torch
@@ -7321,9 +7300,9 @@ def zl_checks(dev, card: str, counted, by_path: dict, twin: dict, psi_129) -> No
                     if k not in ("fused_topology_source", "fused_coarse_vcycle")),
             f"(zl) multi-machine lane 1: calls {calls_mm} over {iters} Picard iterations, not one "
             f"source and one V-cycle an iteration")
-    by_path["multi_machine"] = calls_mm
+    by_path["multi_machine lane 1 f32"] = calls_mm
     cpu = twin["zl"]
-    gates = zl_gates(r, solves)
+    gates = zl_gates(r)
     num = r["num"]
     print(f"(zl) whole-device, UQ, diagnostics, tomography and quasi-3D lanes on the card: gates "
           f"{gates}; discharge 200 steps f64: Te core "
@@ -7338,7 +7317,7 @@ def zl_checks(dev, card: str, counted, by_path: dict, twin: dict, psi_129) -> No
           f"{float(num['q3d residual p95'])!r} %, cooling {float(num['q3d gain'])!r} %; row T "
           f"{calls['thomas_solve_batched']} launches {r['counts']}; {ms:.1f} ms (CUDA events) "
           f"[{card}]")
-    print(f"(zl) multi-machine lane 1 f32 through kernels 2 and 3: "
+    print(f"(zl) multi-machine lane 1's solves in f32 through kernels 2 and 3: "
           f"{ {k: v[1:] for k, v in solves.items()} } (converged, iterations, span); "
           f"{calls_mm['fused_topology_source']} source and {calls_mm['fused_coarse_vcycle']} "
           f"V-cycle calls = {iters} Picard iterations; launched {launched_mm}; {ms_mm:.1f} ms "
@@ -8044,16 +8023,7 @@ ENSEMBLE_SHAPES = (33, 129, 257)          # the batched kernels' check levels
 ENSEMBLE_CHECK_BATCHES = (1, 16, 256)
 ENSEMBLE_TIMED = (129, 16)                # the kernels line's shape: 129^2, B = 16
 PARITY_GATE = 5e-3          # run_batched_amortisation.py lane 1 (the fixed-point scale, f32)
-AMORTISATION_GATE = 0.5     # lane 2: per solve at B >= 16 below half the B = 1 cost
 MIXED_PARITY_GATE = 1e-5    # lane 4: element parity of the mixed batch
-REFERENCE_BATCHED_FP64_MS = 13.0   # lane 4: the reference's FP64 H100 batched row (BASELINE.md:17)
-SHARD_COUNTS = (1, 2, 4, 8)
-SHARD_GATE = 1e-10          # run_sharded_gs.py lanes 1, 2, 4 (f64)
-SHARDED_GATE = 1e-8         # run_sharded_convergence.py lanes 1 and 6
-TILED_GATE = 1e-5           # run_sharded_convergence.py lane 5
-FMG_GATE = 1e-3             # run_sharded_convergence.py lane 4
-SHARDED_GS_SIZE, SHARDED_GS_SWEEPS = 256, 200
-TILINGS = ((1, 8), (2, 4), (4, 2))
 
 
 def card_mesh(device, n: int, axes=("z",), sizes=None):
@@ -8093,37 +8063,6 @@ def ensemble_mixed_on_cpu(conn) -> None:
     out = mixed_batch(dev)
     conn.send({"psi": out.psi.numpy(), "converged": out.converged.numpy(),
                "iterations": out.iterations.numpy(), "s": time.perf_counter() - t0})
-    conn.close()
-
-
-def ensemble_cold_on_card(conn) -> None:
-    """(zo) lane 3 in a fresh process: the first B = 256 ensemble call of a
-    process (the CUDA context, the kernel library's load, the first
-    launches and allocations: the port's counterpart of JAX's trace and
-    compile of the batch program) and then three warm calls, host clock."""
-    import torch
-    sys.path.insert(0, str(ROOT))
-    from scpn_fusion_tpu_torch.bench_config import amortisation_config
-    from scpn_fusion_tpu_torch.core.grid import Grid
-    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
-
-    def solve():
-        cfg = amortisation_config(129)
-        grid = Grid.from_config(cfg, dtype=torch.float32, device="cuda")
-        cur, tgt = ensemble_case(256, torch.float32, "cuda")
-        out = solve_equilibrium_batch(cfg, grid, cur, tgt)
-        torch.cuda.synchronize()
-        return out
-
-    t0 = time.perf_counter()
-    out = solve()
-    cold = 1e3 * (time.perf_counter() - t0)
-    warm = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        solve()
-        warm.append(1e3 * (time.perf_counter() - t0))
-    conn.send({"cold_ms": cold, "warm_ms": warm, "converged": bool(out.converged.all())})
     conn.close()
 
 
@@ -8266,21 +8205,20 @@ def host_ms(run) -> tuple:
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu, cold_card) -> dict:
-    """(zo) lanes 1-4 of ``validation/run_batched_amortisation.py`` on the
-    card through the batched kernels 2 and 3, at the validation's gates, with
-    times at B = 1 / 16 / 64 / 256 and kernel launches an iteration; the
-    straggler freeze in float32 against standalone solves at the fixed-point
-    scale; the 16-batch over a 4-shard mesh of the one card against the
-    whole batch; the mixed B = 16 batch against its CPU twin (``mixed_cpu``);
-    lane 3, not applicable (the port compiles nothing), printed with the
-    first call of a fresh process (``cold_card``: :func:`ensemble_cold_on_card`).
-    Returns the batched kernels' counted calls, by kernel."""
+def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu) -> dict:
+    """(zo) the ``batched_amortisation`` campaign on the card (lanes 1-4: the
+    f32 batches through the batched kernels 2 and 3, the mixed batches'
+    V-cycles through the batched kernel 3, lane 3's cold call in a fresh
+    process), its status the committed report's; the straggler freeze in
+    float32 against standalone solves at the fixed-point scale; the 16-batch
+    over a 4-shard mesh of the one card against the whole batch; the mixed
+    B = 16 batch against its CPU twin (``mixed_cpu``).  Returns the batched
+    kernels' counted calls, by kernel."""
     import torch
-    from scpn_fusion_tpu_torch.bench_config import AMORTISATION_BATCHES, amortisation_config
+    from scpn_fusion_tpu_torch.bench_config import amortisation_config
     from scpn_fusion_tpu_torch.core.grid import Grid
-    from scpn_fusion_tpu_torch.ops import _cuda_build as cb
     from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR, run_batched_amortisation
 
     f32 = torch.float32
     cfg = amortisation_config(129)
@@ -8302,49 +8240,26 @@ def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu, cold_card
     def add(calls):
         for name in batched:
             total[name] += calls[name]
-    # lane 1: element 3 of the 16-batch against the batch of one
-    (out, calls, launched), one = counted(lambda: solve("parity")), solve("parity", slice(3, 4))
-    loop = int(out.iterations.max())
-    batched_only(calls, "lane 1", loop)
-    add(calls)
-    by_path["ensemble lane 1 B=16"] = calls
-    dev1 = span_rel(out.psi[3], one.psi[0])
-    conv = bool(out.converged.all()) and bool(one.converged[0])
-    print(f"(zo) lane 1 batched_element_parity (B = 16, 129^2 f32): element 3 "
-          f"{int(out.iterations[3])} iterations in the batch, {int(one.iterations[0])} alone, "
-          f"span-rel {dev1:.3e} (gate {PARITY_GATE}), all converged {conv}; iterations "
-          f"{out.iterations.tolist()} [{card}]")
-    require(conv and dev1 < PARITY_GATE, "(zo) lane 1 misses its gate")
 
-    # lanes 2 and 3: per-solve time at each B, cold and warm at B = 256
-    per_solve, cold = {}, None
-    for b in AMORTISATION_BATCHES:
-        (res, calls, launched), ms_cold = host_ms(lambda: counted(lambda: solve(b)))
-        loop = int(res.iterations.max())
-        batched_only(calls, f"lane 2 B={b}", loop)
-        add(calls)
-        by_path[f"ensemble lane 2 B={b}"] = calls
-        warm = [host_ms(lambda: solve(b))[1] for _ in range(3)]
-        per_solve[b] = min(warm) / b
-        cold = ms_cold if b == 256 else cold
-        print(f"(zo) lane 2 B = {b}: {loop} iterations, all converged "
-              f"{bool(res.converged.all())}, {sum(launched.values()) / loop:.2f} kernel "
-              f"launches an iteration ({launched}); cold {ms_cold:.3f} ms, warm "
-              f"{', '.join(f'{w:.3f}' for w in warm)} ms: {per_solve[b]:.4f} ms a solve "
-              f"[{card}]")
-        require(bool(res.converged.all()), f"(zo) lane 2: the B = {b} batch did not converge")
-    ratios = {b: per_solve[b] / per_solve[1] for b in AMORTISATION_BATCHES[1:]}
-    print(f"(zo) lane 2 batched_amortisation: per solve / B = 1 "
-          f"{', '.join(f'B={b} {r:.4f}' for b, r in ratios.items())} (gate < "
-          f"{AMORTISATION_GATE}) [{card}]")
-    require(all(r < AMORTISATION_GATE for r in ratios.values()), "(zo) lane 2 misses its gate")
-    fresh = cold_card()
-    print(f"(zo) lane 3 warm_cold: not applicable, the port compiles nothing; the first B = 256 "
-          f"call of a fresh process {fresh['cold_ms']:.3f} ms (the CUDA context, the library's "
-          f"load, the first launches), then {', '.join(f'{w:.3f}' for w in fresh['warm_ms'])} "
-          f"ms; in this process the first B = 256 call {cold:.3f} ms, warm "
-          f"{per_solve[256] * 256:.3f} ms [{card}]")
-    require(fresh["converged"], "(zo) lane 3: the fresh process's B = 256 batch did not converge")
+    # lanes 1-4: the campaign
+    (rc, ms), calls, launched = counted(lambda: host_ms(
+        lambda: run_batched_amortisation.main(device=dev)))
+    campaign_check("batched_amortisation", rc, card, "(zo)")
+    lanes = {lane["name"]: lane["metrics"] for lane in json.loads(
+        (REPORTS_DIR / "batched_amortisation.json").read_text())["lanes"]}
+    require(calls["fused_topology_source_batched"] > 0
+            and calls["fused_coarse_vcycle_batched"] > calls["fused_topology_source_batched"]
+            and all(v == 0 for k, v in calls.items() if k not in batched),
+            f"(zo) batched_amortisation: kernel calls {calls}, expected the batched kernels "
+            f"only (more 3b, the mixed lane's)")
+    add(calls)
+    by_path["batched_amortisation"] = calls
+    print(f"(zo) batched_amortisation (129^2): {ms / 1e3:.1f} s; lane 1 "
+          f"{lanes['batched_element_parity']}; "
+          f"lane 2 {lanes['batched_amortisation']}; lane 3 (cold: the first B = 256 call of a "
+          f"fresh process) {lanes['warm_cold_compile']}; lane 4 "
+          f"{lanes['batched_mixed_amortisation']}; batched kernel calls {calls}, launches "
+          f"{launched} [{card}]")
 
     # the straggler freeze: [base, base] at I_target 15 and 2
     base = torch.tensor([c.current for c in cfg.coils], dtype=f32, device=dev)
@@ -8385,248 +8300,56 @@ def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu, cold_card
     require(bool(sharded.converged.all()) and worst < PARITY_GATE,
             "(zo) the batch over a mesh differs from the whole batch")
 
-    # lane 4: the mixed batch at B = 16 and 64, the f32 V-cycles through the batched kernel 3
-    per_solve_mx, psi16 = {}, None
-    for b in (16, 64):
-        key = ("mixed", b)
-        (res, calls, launched), ms_cold = host_ms(lambda: counted(lambda: mixed_batch(dev, key)))
-        require(calls["fused_coarse_vcycle_batched"] > 0
-                and all(v == 0 for k, v in calls.items() if k != "fused_coarse_vcycle_batched"),
-                f"(zo) lane 4 B={b}: kernel calls {calls}")
-        add(calls)
-        by_path[f"ensemble lane 4 mixed B={b}"] = calls
-        warm = [host_ms(lambda: mixed_batch(dev, key))[1] for _ in range(3)]
-        per_solve_mx[b] = min(warm) / b
-        loop = int(res.iterations.max())
-        print(f"(zo) lane 4 mixed B = {b}: {loop} iterations, all converged "
-              f"{bool(res.converged.all())}, {calls['fused_coarse_vcycle_batched'] / loop:.2f} "
-              f"batched V-cycle launches an iteration; cold {ms_cold:.3f} ms, warm "
-              f"{', '.join(f'{w:.3f}' for w in warm)} ms: {per_solve_mx[b]:.4f} ms a solve "
-              f"(reference FP64 H100 batched row {REFERENCE_BATCHED_FP64_MS} ms) [{card}]")
-        require(bool(res.converged.all()), f"(zo) lane 4: the mixed B = {b} batch did not converge")
-        if b == 16:
-            psi16, res16 = res.psi, res
-    cur16, tgt16 = ensemble_case(("mixed", 16), torch.float64, dev)
-    from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch_mixed
-    alone = solve_equilibrium_batch_mixed(cfg, Grid.from_config(cfg, dtype=torch.float64,
-                                                                  device=dev),
-                                          cur16[3:4], tgt16[3:4])
-    dev4 = span_rel(psi16[3], alone.psi[0])
-    print(f"(zo) lane 4 batched_mixed_amortisation: element 3 span-rel {dev4:.3e} of its solve "
-          f"alone (gate {MIXED_PARITY_GATE}); per solve at B = 64 {per_solve_mx[64]:.4f} ms "
-          f"(gate <= {REFERENCE_BATCHED_FP64_MS}) [{card}]")
-    require(dev4 < MIXED_PARITY_GATE and bool(alone.converged[0]),
-            "(zo) lane 4 misses its element parity")
-    require(per_solve_mx[64] <= REFERENCE_BATCHED_FP64_MS,
-            f"(zo) lane 4: {per_solve_mx[64]:.4f} ms a solve at B = 64 misses the reference's "
-            f"{REFERENCE_BATCHED_FP64_MS} ms")
-
+    # the mixed B = 16 batch, its f32 V-cycles through the batched kernel 3,
+    # against its CPU twin (plain f32 V-cycles)
+    res16, calls, _ = counted(lambda: mixed_batch(dev))
+    require(calls["fused_coarse_vcycle_batched"] > 0
+            and all(v == 0 for k, v in calls.items() if k != "fused_coarse_vcycle_batched"),
+            f"(zo) mixed B = 16: kernel calls {calls}")
+    add(calls)
+    by_path["ensemble mixed B=16"] = calls
     twin = mixed_cpu()
     ref = torch.from_numpy(twin["psi"])
-    worst = max(span_rel(psi16[e].cpu(), ref[e]) for e in range(16))
+    worst = max(span_rel(res16.psi[e].cpu(), ref[e]) for e in range(16))
     print(f"(zo) mixed B = 16 against the CPU twin (plain f32 V-cycles, {twin['s']:.1f} s): worst "
           f"element span-rel {worst:.3e} (gate {MIXED_PARITY_GATE}); iterations card "
           f"{res16.iterations.tolist()}, CPU {twin['iterations'].tolist()}; converged "
           f"{bool(twin['converged'].all())} [{card}]")
-    require(worst < MIXED_PARITY_GATE and bool(twin["converged"].all()),
-            "(zo) the mixed batch differs from its CPU twin")
+    require(worst < MIXED_PARITY_GATE and bool(twin["converged"].all())
+            and bool(res16.converged.all()), "(zo) the mixed batch differs from its CPU twin")
     return total
 
 
-def sharded_lanes(device, n: int = 513, n_gs: int = SHARDED_GS_SIZE,
-                  sweeps: int = SHARDED_GS_SWEEPS, n_fb: int = 129) -> dict:
-    """``validation/run_sharded_gs.py`` lanes 1, 2 and 4 and
-    ``validation/run_sharded_convergence.py`` lanes 1, 2, 4, 5 and 6 on
-    ``device`` with :func:`card_mesh`'s virtual shards (the validations' sizes
-    by default), float64: each lane's measured numbers and its seconds."""
-    import dataclasses
-    import torch
-    from scpn_fusion_tpu_torch.bench_config import sharded_config
-    from scpn_fusion_tpu_torch.core.grid import Grid
-    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium
-    from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import solve_free_boundary
-    from scpn_fusion_tpu_torch.ops.stencil import gs_operator, gs_residual, sor_sweeps
-    from scpn_fusion_tpu_torch.parallel.halo import sharded_sor_solve
-    from scpn_fusion_tpu_torch.parallel.halo2d import optimal_process_grid, sharded_sor_solve_2d
-    from scpn_fusion_tpu_torch.parallel.sharded_fb import solve_free_boundary_sharded
-    from scpn_fusion_tpu_torch.parallel.sharded_mg import sharded_mg_solve
-    from scpn_fusion_tpu_torch.parallel.sharded_mg2d import solve_equilibrium_sharded_2d
-    from scpn_fusion_tpu_torch.parallel.sharded_solve import (
-        solve_equilibrium_sharded, solve_equilibrium_sharded_fmg,
-    )
-
-    f64 = torch.float64
-    out, t = {}, time.perf_counter()
-
-    def sync_s():
-        nonlocal t
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        s, t = now - t, now
-        return s
-
-    def dev_of(a, b) -> float:
-        return float((a - b).abs().max()) / float(b.max() - b.min())
-
-    # run_sharded_gs.py: 200 sweeps on 256 x 256 at omega 1.7
-    g = Grid.from_bounds(n_gs, n_gs, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=device)
-    exact = torch.exp(-((g.RR - 6.0) ** 2 + g.ZZ**2) / 3.0)
-    src = gs_operator(exact, g.R, g.dR, g.dZ)
-    psi0 = exact + torch.tensor(0.05 * np.random.default_rng(7).standard_normal(g.shape),
-                                dtype=f64, device=device)
-    span = float(exact.max() - exact.min())
-    fields, ms = {}, {}
-    for k in SHARD_COUNTS:
-        sync_s()
-        fields[k], _ = sharded_sor_solve(psi0, src, g.R, 1.7, mesh=card_mesh(device, k),
-                                         axis="z", d_r=g.dR, d_z=g.dZ, n_sweeps=sweeps,
-                                         nz_total=g.NZ)
-        ms[k] = 1e3 * sync_s() / sweeps
-    out["gs lane 1"] = {"max_dev": max(float((fields[k] - fields[1]).abs().max()) / span
-                                       for k in SHARD_COUNTS[1:]),
-                        "err_vs_exact": float((fields[8] - exact).abs().max()) / span,
-                        "ms_per_sweep": ms}
-    pz, pr = optimal_process_grid(8)
-    t2d, _ = sharded_sor_solve_2d(psi0, src, g.R, 1.7,
-                                  mesh=card_mesh(device, 8, ("tz", "tr"), (pz, pr)), d_r=g.dR,
-                                  d_z=g.dZ, n_sweeps=sweeps, nz_total=g.NZ, nr_total=g.NR)
-    out["gs lane 2"] = {"dev": float((t2d - fields[1]).abs().max()) / span, "grid": (pz, pr),
-                        "s": sync_s()}
-    plain = sor_sweeps(psi0, src, g.R, g.dR, g.dZ, 1.7, sweeps)
-    out["gs lane 4"] = {"dev": float((plain - fields[1]).abs().max()) / span,
-                        "ms_per_sweep_plain": 1e3 * sync_s() / sweeps}
-
-    # run_sharded_convergence.py at n x n
-    cfg = sharded_config(n)
-    ref = solve_equilibrium(cfg, dtype=f64, device=device)
-    out["ref"] = {"converged": bool(ref.converged), "iterations": int(ref.iterations),
-                  "s": sync_s()}
-    lane1 = {}
-    for k in SHARD_COUNTS:
-        res = solve_equilibrium_sharded(cfg, card_mesh(device, k), dtype=f64)
-        lane1[k] = {"converged": bool(res.converged), "iterations": int(res.iterations),
-                    "dev": dev_of(res.psi, ref.psi), "s": sync_s()}
-    out["conv lane 1"] = lane1
-
-    gm = Grid.from_bounds(n, n, 2.0, 10.0, -4.0, 4.0, dtype=f64, device=device)
-    exact = torch.exp(-((gm.RR - 6.0) ** 2 + gm.ZZ**2) / 3.0)
-    src = gs_operator(exact, gm.R, gm.dR, gm.dZ)
-    noise = 0.05 * np.random.default_rng(11).standard_normal(gm.shape)
-    noise[0, :] = noise[-1, :] = 0.0
-    noise[:, 0] = noise[:, -1] = 0.0
-    psi0 = exact + torch.tensor(noise, dtype=f64, device=device)
-    psi_f, res_rms, k = sharded_mg_solve(psi0, src, gm.R, mesh=card_mesh(device, 8), axis="z",
-                                         d_r=gm.dR, d_z=gm.dZ, tol=1e-9, max_cycles=80)
-    r = gs_residual(psi_f, src, gm.R, gm.dR, gm.dZ)
-    out["conv lane 2"] = {"res": float(res_rms), "cycles": int(k),
-                          "recomputed": float(torch.sqrt((r * r).sum()
-                                                         / ((gm.NZ - 2) * (gm.NR - 2)))),
-                          "err": dev_of(psi_f, exact), "s": sync_s()}
-
-    res, info = solve_equilibrium_sharded_fmg(cfg, card_mesh(device, 8), min_coarse=129,
-                                              dtype=f64)
-    out["conv lane 4"] = {"ladder": info, "dev": dev_of(res.psi, ref.psi), "s": sync_s()}
-
-    lane5 = {}
-    for shape in TILINGS:
-        res = solve_equilibrium_sharded_2d(cfg, card_mesh(device, 8, ("tz", "tr"), shape),
-                                           dtype=f64)
-        lane5[f"{shape[0]}x{shape[1]}"] = {"converged": bool(res.converged),
-                                          "iterations": int(res.iterations),
-                                          "dev": dev_of(res.psi, ref.psi), "s": sync_s()}
-    out["conv lane 5"] = lane5
-
-    cfg_fb = dataclasses.replace(cfg, grid_resolution=(n_fb, n_fb))
-    kw = dict(max_outer_iter=12, tol=1e-5, mu0_green=1.0, dtype=f64)
-    fb_ref = solve_free_boundary(cfg_fb, device=device, **kw)
-    lane6 = {"ref": {"converged": bool(fb_ref.converged),
-                     "outer_iterations": int(fb_ref.outer_iterations), "s": sync_s()}}
-    for k in SHARD_COUNTS:
-        fb = solve_free_boundary_sharded(cfg_fb, mesh=card_mesh(device, k), **kw)
-        lane6[k] = {"converged": bool(fb.converged), "outer_iterations": int(fb.outer_iterations),
-                    "dev": dev_of(fb.psi, fb_ref.psi), "s": sync_s()}
-    out["conv lane 6"] = lane6
-    return out
-
-
-def sharded_on_card(conn) -> None:
-    """(zp) in a spawned process: :func:`sharded_lanes` on the card, no kernel."""
+def sharded_on_card(conn, card: str) -> None:
+    """(zp) in a spawned process: the ``sharded_gs`` campaign on
+    ``Mesh((cuda:0,) * n)``, f64, no kernel, its status the committed
+    report's; sends its seconds and kernel launches."""
     import torch
     sys.path.insert(0, str(ROOT))
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR, run_sharded_gs
     t0 = time.perf_counter()
-    out = sharded_lanes(torch.device("cuda"))
-    out["launches"] = sum(cb.LAUNCHES.values())
-    out["s"] = time.perf_counter() - t0
-    conn.send(out)
+    cb.reset_launch_counts()
+    rc = run_sharded_gs.main(device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = sum(cb.LAUNCHES.values())
+    campaign_check("sharded_gs", rc, card, "(zp)")
+    lanes = json.loads((REPORTS_DIR / "sharded_gs.json").read_text())["lanes"]
+    for lane in lanes:
+        print(f"(zp) sharded_gs / {lane['name']}: {lane['status']} {lane['metrics']} [{card}]")
+    sys.stdout.flush()
+    conn.send({"s": time.perf_counter() - t0, "launches": launches})
     conn.close()
 
 
-def sharded_gates(r: dict) -> dict:
-    """The validations' gates of (zp)'s lanes, by lane: pass or fail."""
-    l1, l6 = r["conv lane 1"], r["conv lane 6"]
-    ref_it = r["ref"]["iterations"]
-    l5 = r["conv lane 5"]
-    l2 = r["conv lane 2"]
-    return {
-        "run_sharded_gs lane 1": r["gs lane 1"]["max_dev"] < SHARD_GATE,
-        "run_sharded_gs lane 2": r["gs lane 2"]["dev"] < SHARD_GATE,
-        "run_sharded_gs lane 4": r["gs lane 4"]["dev"] < SHARD_GATE,
-        "lane 1 sharded_headline_convergence": r["ref"]["converged"] and all(
-            v["converged"] and v["iterations"] == ref_it and v["dev"] < SHARDED_GATE
-            for v in l1.values()),
-        "lane 2 sharded_linear_residual_gate": l2["res"] < 1e-9 and l2["cycles"] < 80
-        and abs(l2["recomputed"] - l2["res"]) <= 1e-4 * max(l2["recomputed"], 1e-30),
-        "lane 4 sharded_fmg_cascade": all(lv["converged"] for lv in r["conv lane 4"]["ladder"])
-        and r["conv lane 4"]["dev"] < FMG_GATE
-        and r["conv lane 4"]["ladder"][-1]["iterations"] <= ref_it,
-        "lane 5 tile2d_grid_invariant_convergence": all(v["converged"] for v in l5.values())
-        and len({v["iterations"] for v in l5.values()}) == 1
-        and max(v["dev"] for v in l5.values()) < TILED_GATE,
-        "lane 6 sharded_free_boundary_forward": l6["ref"]["converged"] and all(
-            l6[k]["converged"] and l6[k]["outer_iterations"] == l6["ref"]["outer_iterations"]
-            and l6[k]["dev"] < SHARDED_GATE for k in SHARD_COUNTS),
-    }
-
-
 def sharded_checks(card: str, twin) -> None:
-    """(zp): the sharded lanes' numbers from :func:`sharded_on_card` against
-    the validations' f64 gates; no kernel may launch on them."""
+    """(zp): the sharded_gs campaign's seconds from :func:`sharded_on_card`;
+    no kernel may launch on it."""
     r = twin()
-    print(f"(zp) the sharded lanes on Mesh((cuda:0,) * n) (virtual shards of one card: the "
+    print(f"(zp) the sharded_gs campaign on Mesh((cuda:0,) * n) (virtual shards of one card: the "
           f"exchanges' arithmetic and the launch structure, no interconnect), f64, in a "
           f"spawned process: {r['s']:.1f} s, {r['launches']} kernel launches [{card}]")
-    l1 = r["gs lane 1"]
-    print(f"(zp) run_sharded_gs lane 1: {SHARDED_GS_SIZE}^2, {SHARDED_GS_SWEEPS} sweeps, max "
-          f"span-rel {l1['max_dev']:.3e} from 1 shard over 2/4/8 (gate {SHARD_GATE}), "
-          f"{l1['err_vs_exact']:.3e} from the manufactured solution; ms a sweep "
-          f"{', '.join(f'{k}: {v:.4f}' for k, v in l1['ms_per_sweep'].items())}; lane 2 "
-          f"{r['gs lane 2']['grid']} tiles span-rel {r['gs lane 2']['dev']:.3e}; lane 4 the plain "
-          f"sweep span-rel {r['gs lane 4']['dev']:.3e}, {r['gs lane 4']['ms_per_sweep_plain']:.4f} "
-          f"ms a sweep [{card}]")
-    print(f"(zp) run_sharded_convergence lane 1 (513^2 f64): single {r['ref']['iterations']} "
-          f"iterations ({r['ref']['s']:.2f} s); "
-          + "; ".join(f"{k} shards {v['iterations']} iterations, span-rel {v['dev']:.3e}, "
-                      f"{v['s']:.2f} s" for k, v in r["conv lane 1"].items())
-          + f" (gate {SHARDED_GATE}) [{card}]")
-    l2 = r["conv lane 2"]
-    print(f"(zp) lane 2: {l2['cycles']} V-cycles on 8 shards to residual {l2['res']:.3e} "
-          f"(recomputed {l2['recomputed']:.3e}), {l2['err']:.3e} from the manufactured "
-          f"solution, {l2['s']:.2f} s; lane 4 FMG {r['conv lane 4']['ladder']}, span-rel "
-          f"{r['conv lane 4']['dev']:.3e} (gate {FMG_GATE}), {r['conv lane 4']['s']:.2f} s [{card}]")
-    print("(zp) lane 5 tilings: " + "; ".join(
-        f"{k} {v['iterations']} iterations, span-rel {v['dev']:.3e}, {v['s']:.2f} s"
-        for k, v in r["conv lane 5"].items()) + f" (gate {TILED_GATE}) [{card}]")
-    l6 = r["conv lane 6"]
-    print(f"(zp) lane 6 free boundary 129^2: single {l6['ref']['outer_iterations']} outer "
-          f"({l6['ref']['s']:.2f} s); " + "; ".join(
-              f"{k} shards {l6[k]['outer_iterations']} outer, span-rel {l6[k]['dev']:.3e}, "
-              f"{l6[k]['s']:.2f} s" for k in SHARD_COUNTS) + f" (gate {SHARDED_GATE}) [{card}]")
-    gates = sharded_gates(r)
-    print(f"(zp) gates: {gates}")
     require(r["launches"] == 0, f"(zp): {r['launches']} kernel launches on the sharded lanes")
-    require(all(gates.values()), f"(zp) gates missed: {[k for k, v in gates.items() if not v]}")
 
 
 # ── the twenty-fourth slice: (zq) parallel/gk_shard on one card's virtual
@@ -8642,8 +8365,6 @@ GK_SHARD_SMALL = dict(n_kx=8, n_ky=8, n_theta=8, n_vpar=6, n_mu=8, n_steps=6, sa
                       nonlinear=True, collisions=True, dtype="complex128")   # the JAX test's
 GK_ENSEMBLE_SEEDS = (3, 11, 17, 29)
 GK_SHARD_TIMED_STEPS = 5
-PARITY_SPAN_GATE, PARITY_PAIR_GATE, PARITY_F32_GATE = 1e-13, 1e-8, 1e-5   # :116-175
-PARITY_CONVERGED, PARITY_F32_SWEEPS = 4000, 400
 
 
 def trace_dev(mono, sharded) -> float:
@@ -8659,16 +8380,16 @@ def phi_tiles(phi, shape):
             for t in [yb] * shape[2]]
 
 
-def gk_shard_checks(dev, card: str, counted, by_path: dict, spec32) -> tuple:
+def gk_shard_checks(dev, card: str, counted, by_path: dict, lane7: dict) -> tuple:
     """(zq) ``parallel/gk_shard`` on :func:`card_mesh`'s virtual shards of the
     card (the collectives' arithmetic and the launch structure, not an
-    interconnect): lane 7 of ``run_sharded_convergence.py`` at its full spec
-    (32x32x16x16x8, 2 species, c128, 50 steps, seed 5) on the (2, 2, 2) mesh
-    against the monolithic card run ``spec32`` (final f, trace of the
-    configuration of (u)'s 32^3 run), row G launched on every
-    shard (exactly 8 x 4 x 50); ``run_gk_scenario.py`` lanes 1 and 3 (lane 2
-    is (u)'s linear ITG lane); the (sy, v) = (2, 4) mesh and the (data, v) =
-    (2, 4) ensemble of 4 members, f64 at the JAX test's size, against their
+    interconnect): the pencil bracket on lane 7's initial state; lane 7 of
+    the ``sharded_convergence`` campaign (``lane7``: its runs, kept by the
+    campaign, and the campaign's kernel calls: row G on every shard, exactly
+    8 x 4 x 50, and 4 x 50 for its monolithic run); the ms of a sharded and a
+    monolithic step; ``run_gk_scenario.py`` lanes 1 and 3 (lane 2 is (u)'s
+    linear ITG lane); the (sy, v) = (2, 4) mesh and the (data, v) = (2, 4)
+    ensemble of 4 members, f64 at the JAX test's size, against their
     monolithic runs.  Returns (row G's launches on lane 7, lane 7's final
     state as a GKState, the lanes' LaneResults)."""
     import torch
@@ -8678,11 +8399,11 @@ def gk_shard_checks(dev, card: str, counted, by_path: dict, spec32) -> tuple:
     from scpn_fusion_tpu_torch.models.physics.integrated_scenario import run_shot
     from scpn_fusion_tpu_torch.parallel import gk_shard as gs
     from scpn_fusion_tpu_torch.utils.evidence import LaneResult
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR
 
     lanes = []
     cfg = nl.NonlinearGKConfig(**GK_SPEC_32)
     mesh = card_mesh(dev, 8, ("sx", "sy", "v"), GK_SHARD_MESH)
-    f_mono, tr_mono = spec32
     # before any drift is looked for: the pencil bracket on lane 7's initial state
     g = nl.build_grids(cfg, device=dev)
     st0 = nl.init_state(cfg, g, seed=GK_SPEC_32_SEED)
@@ -8696,41 +8417,27 @@ def gk_shard_checks(dev, card: str, counted, by_path: dict, spec32) -> tuple:
     br_equal, br_dev = torch.equal(bracket, ref_bracket), max_rel(bracket, ref_bracket)
     del run, bracket, ref_bracket, act
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ((fin, tr), ms), calls, launched = counted(lambda: events_ms(
-        lambda: gs.run_nonlinear_gk_spatial_sharded_3d(cfg, mesh, seed=GK_SPEC_32_SEED)))
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    dev_f, dev_t = max_rel(fin.f, f_mono), trace_dev(tr_mono, tr)
-    mem = gs.per_device_state_bytes(fin)
-    n_launch = 8 * 4 * cfg.n_steps
+    fin, tr = lane7["sharded"]
+    mono, tr_mono = lane7["mono"]
+    f_mono = mono.f
+    calls, launched = lane7["calls"], lane7["launched"]
+    lane = next(ln for ln in json.loads((REPORTS_DIR / "sharded_convergence.json").read_text())[
+        "lanes"] if ln["name"] == "gk_shard_memory")
+    n_launch = (8 + 1) * 4 * cfg.n_steps     # the 8 shards' run and the monolithic one
     print(f"(zq) lane 7 gk_shard_memory (run_sharded_convergence.py:323-383) on "
           f"Mesh((cuda:0,) * 8, (sx, sy, v) = {GK_SHARD_MESH}), virtual shards of one card (the "
           f"collectives' arithmetic and the launch structure, no interconnect): 2x32x32x16x16x8 "
-          f"c128, 50 steps, {ms:.1f} ms (CUDA events); state {dev_f:.3e} of max |f| (gate "
-          f"{GK_SHARD_STATE_GATE}), trace {dev_t:.3e} (gate {GK_SHARD_TRACE_GATE}) from the "
-          f"monolithic card run; memory {mem} (gate: reduction factor 8.0); row G launches "
-          f"{launched} (want {n_launch}); peak memory {peak:.1f} MiB; pencil bracket on the "
-          f"initial state torch.equal to exb_bracket: {br_equal} ({br_dev:.3e}) [{card}]")
+          f"c128, 50 steps, sharded and monolithic: {lane['status']} {lane['metrics']}; the "
+          f"campaign {lane7['ms'] / 1e3:.1f} s (CUDA events), row G launches {launched} (want "
+          f"{n_launch}: one a shard a stage, and the monolithic run's); peak memory "
+          f"{lane7['peak']:.1f} MiB; pencil bracket on the initial state torch.equal to "
+          f"exb_bracket: {br_equal} ({br_dev:.3e}) [{card}]")
     require(br_dev <= GK_SHARD_STATE_GATE, "(zq): the pencil bracket differs from exb_bracket")
     require(calls == {name: n_launch * (name == "gk_rhs") for name in KERNELS}
             and launched == {"scpn_gk_stage_c128": n_launch},
-            f"(zq) lane 7: {calls} / {launched}, not one row-G launch a shard a stage")
-    ok7 = dev_f < GK_SHARD_STATE_GATE and dev_t < GK_SHARD_TRACE_GATE \
-        and mem["reduction_factor"] == 8.0
-    lanes.append(LaneResult(
-        name="gk_shard_memory", status="pass" if ok7 else "fail",
-        metrics={"shape": "S2 x 32kx x 32ky x 16th x 16vpar x 8mu, 50 steps",
-                 "mesh": "(sx, sy, v) = (2, 2, 2), virtual shards of one card",
-                 "state_rel_dev_tile_vs_monolithic": dev_f, "trace_rel_dev_max": dev_t,
-                 "monolithic_state_bytes": mem["monolithic_bytes"],
-                 "bytes_per_device": mem["bytes_per_device"],
-                 "memory_reduction_factor": mem["reduction_factor"],
-                 "row_g_launches": calls["gk_rhs"]},
-        thresholds={"state_rel_dev_tile_vs_monolithic": GK_SHARD_STATE_GATE,
-                    "trace_rel_dev_max": GK_SHARD_TRACE_GATE, "memory_reduction_factor": 8.0},
-        notes="the port's sharded GK run against its monolithic run on the card"))
-    by_path["gk_shard_lane7"] = calls
+            f"(zq) sharded_convergence: {calls} / {launched}, not one row-G launch a shard a "
+            f"stage")
+    by_path["sharded_convergence"] = calls
 
     # ms a step: the sharded step and the monolithic one, in turns
     spec, gram_inv = nl.stage_spec(cfg, g), nl._gram_inv(cfg, g, f_mono.dtype)
@@ -8830,235 +8537,12 @@ def gk_shard_checks(dev, card: str, counted, by_path: dict, spec32) -> tuple:
     return calls["gk_rhs"], final7, lanes
 
 
-def parity_problem(n: int = 65):
-    """``run_implementation_parity.py``'s manufactured problem and its
-    perturbed start: (r_1d, d_r, d_z, psi_exact, source, psi0)."""
-    from scpn_fusion_tpu_torch.utils import npref
-    r_1d = np.linspace(2.0, 10.0, n)
-    z_1d = np.linspace(-4.0, 4.0, n)
-    d_r, d_z = float(r_1d[1] - r_1d[0]), float(z_1d[1] - z_1d[0])
-    rr, zz = np.meshgrid(r_1d, z_1d)
-    exact = np.exp(-((rr - 6.0) ** 2 + zz**2) / 3.0)
-    source = npref.gs_operator_np(exact, r_1d, d_r, d_z)
-    psi0 = exact + 0.1 * np.random.default_rng(42).standard_normal(exact.shape)
-    psi0[0, :], psi0[-1, :] = exact[0, :], exact[-1, :]
-    psi0[:, 0], psi0[:, -1] = exact[:, 0], exact[:, -1]
-    return r_1d, d_r, d_z, exact, source, psi0
-
-
-def implementation_parity_lanes(dev, card: str, counted, by_path: dict) -> list:
-    """``run_implementation_parity.py`` lanes 1-3 on the port: the C++ copy
-    (built with g++ on this host), the port's ``npref`` and the port's plain
-    float64 ``sor_step`` on the card; lane 3 kernel 1 (``sor_sweeps``, f32,
-    one launch) against ``npref`` at the same sweep count."""
-    import torch
-    from scpn_fusion_tpu_torch.native import runtime as native_rt
-    from scpn_fusion_tpu_torch.ops import cuda_stencil
-    from scpn_fusion_tpu_torch.ops.stencil import sor_step
-    from scpn_fusion_tpu_torch.utils import npref
-    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
-
-    r_1d, d_r, d_z, exact, source, psi0 = parity_problem()
-    span = float(exact.max() - exact.min())
-    require(native_rt.is_available(), "(zr): the native C++ runtime did not build with g++")
-
-    def native_sweeps(n, omega=1.6):
-        solver = native_rt.NativeGSSolver(r_1d, d_r, d_z, nz=psi0.shape[0])
-        solver.set_state(psi0, source)
-        solver.set_boundary(exact)
-        solver.sweeps(n, omega=omega)
-        return solver.psi
-
-    def numpy_sweeps(out, n, omega=1.6):
-        for _ in range(n):
-            out = npref.sor_step_np(out, source, r_1d, d_r, d_z, omega)
-        return out
-
-    def card_sweeps(n, omega=1.6):
-        f64 = torch.float64
-        out = torch.tensor(psi0, dtype=f64, device=dev)
-        s, r = torch.tensor(source, dtype=f64, device=dev), torch.tensor(r_1d, dtype=f64,
-                                                                          device=dev)
-        for _ in range(n):
-            out = sor_step(out, s, r, d_r, d_z, omega)
-        return out.cpu().numpy()
-
-    lanes = []
-    one_np = numpy_sweeps(psi0.copy(), 1)
-    devs = {"numpy_vs_port_card_f64_span_rel": float(np.max(np.abs(one_np - card_sweeps(1)))) / span,
-            "numpy_vs_cpp_span_rel": float(np.max(np.abs(one_np - native_sweeps(1)))) / span}
-    ok1 = all(v < PARITY_SPAN_GATE for v in devs.values())
-    lanes.append(LaneResult(name="sweep_trajectory_parity", status="pass" if ok1 else "fail",
-                            metrics=devs, thresholds={"span_rel": PARITY_SPAN_GATE},
-                            notes="one red-black SOR sweep from the identical state"))
-    np_f32 = numpy_sweeps(psi0.copy(), PARITY_F32_SWEEPS)
-    sols = {"numpy": numpy_sweeps(np_f32, PARITY_CONVERGED - PARITY_F32_SWEEPS),
-            "port_card_f64": card_sweeps(PARITY_CONVERGED), "cpp": native_sweeps(PARITY_CONVERGED)}
-    errs = {k: float(np.max(np.abs(v - exact))) / span for k, v in sols.items()}
-    keys = sorted(sols)
-    pair = {f"{a}_vs_{b}": float(np.max(np.abs(sols[a] - sols[b]))) / span
-            for i, a in enumerate(keys) for b in keys[i + 1:]}
-    best = min(errs.values())
-    ok2 = all(d < PARITY_PAIR_GATE for d in pair.values()) \
-        and all(e <= 1.5 * best + 1e-12 for e in errs.values())
-    lanes.append(LaneResult(
-        name="converged_cross_implementation", status="pass" if ok2 else "fail",
-        metrics={**{f"err_vs_exact_{k}": v for k, v in errs.items()},
-                 **{f"dev_{k}": v for k, v in pair.items()}, "implementations": keys},
-        thresholds={"pairwise_span_rel": PARITY_PAIR_GATE,
-                    "err_vs_exact": "<= 1.5x best implementation"},
-        notes=f"{PARITY_CONVERGED} SOR sweeps to the discrete fixed point"))
-    f32 = torch.float32
-    out, calls, launched = counted(lambda: cuda_stencil.sor_sweeps(
-        torch.tensor(psi0, dtype=f32, device=dev), torch.tensor(source, dtype=f32, device=dev),
-        torch.tensor(r_1d, dtype=f32, device=dev), d_r, d_z, 1.6, PARITY_F32_SWEEPS))
-    dev3 = float(np.max(np.abs(out.cpu().numpy().astype(np.float64) - np_f32))) / span
-    ok3 = dev3 < PARITY_F32_GATE
-    lanes.append(LaneResult(
-        name="tpu_f32_parity", status="pass" if ok3 else "fail",
-        metrics={"span_rel_dev_vs_numpy_f64": dev3, "n_sweeps": PARITY_F32_SWEEPS,
-                 "kernel_launches": sum(launched.values())},
-        thresholds={"span_rel_dev_vs_numpy_f64": PARITY_F32_GATE},
-        notes="kernel 1 (csrc/sor_band.cu, one launch) on the card vs the f64 NumPy twin"))
-    print(f"(zr) run_implementation_parity.py lane 1: {devs} (gate {PARITY_SPAN_GATE}); lane 2 "
-          f"({PARITY_CONVERGED} sweeps): errors {errs}, pairwise {pair} (gate {PARITY_PAIR_GATE}, "
-          f"each within 1.5x of the best); lane 3: kernel 1 f32, {PARITY_F32_SWEEPS} sweeps, "
-          f"span-rel {dev3:.3e} from npref (gate {PARITY_F32_GATE}), wrapper calls "
-          f"{ {k: v for k, v in calls.items() if v} }, launches {launched} [{card}]")
-    require(calls == {name: int(name == "sor_sweeps") for name in KERNELS}
-            and sum(launched.values()) == 1, f"(zr) lane 3: {calls} / {launched}")
-    by_path["implementation_parity"] = calls
-    return lanes
-
-
-def error_audit_lanes(dev, tmp: Path) -> list:
-    """``run_error_audit.py`` lanes 1-3 on the port (its probes, the
-    checkpoint's corrupt-payload and dtype-mismatch ones on card tensors)."""
-    import torch
-    from scpn_fusion_tpu_torch.control.vessel_rzip import required_feedback_gain
-    from scpn_fusion_tpu_torch.core.config import load_config
-    from scpn_fusion_tpu_torch.io import read_geqdsk
-    from scpn_fusion_tpu_torch.models.physics.divertor_lab import flow_velocity_scan
-    from scpn_fusion_tpu_torch.models.transport.aurora_parity import (
-        AuroraParityCase, derive_effective_source_closure, radial_transport_budget_diagnostic,
-    )
-    from scpn_fusion_tpu_torch.scpn.safety_interlocks import (
-        SafetyInterlockRuntime, build_safety_net, evaluate_transition_enablement,
-        safety_tokens_from_state,
-    )
-    from scpn_fusion_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
-
-    def probe(fn):
-        try:
-            fn()
-        except Exception as exc:           # noqa: BLE001 -- the lane asks that each raises
-            return True, type(exc).__name__
-        return False, "no exception"
-
-    def case(nr=8, nz=3, nt=3, bad_radius=False):
-        radius = np.array([0.2, 0.1] + [0.3 + 0.1 * i for i in range(nr - 2)]) \
-            if bad_radius else np.linspace(0.05, 0.6, nr)
-        return AuroraParityCase(
-            element="Ne", charge_states=np.arange(nz, dtype=float), radius_m=radius,
-            time_s=np.linspace(0.0, 0.1, nt), major_radius_m=1.65,
-            ne_t_r=np.full((nt, nr), 3e19), diffusion_m2_s_r_z=np.ones((nr, nz)),
-            convection_m_s_r_z=np.zeros((nr, nz)),
-            ionisation_m3_s_t_r_z=np.full((nt, nr, nz), 1e-15),
-            recombination_m3_s_t_r_z=np.full((nt, nr, nz), 5e-16))
-
-    good = case()
-    bad_cfg = tmp / "bad.json"
-    bad_cfg.write_text(json.dumps({"dimensions": {"R_min": -1.0, "R_max": 9.0,
-                                                  "Z_min": -3.0, "Z_max": 3.0}}))
-    nondict_cfg = tmp / "nondict.json"
-    nondict_cfg.write_text("[1, 2, 3]")
-    trunc_g = tmp / "trunc.geqdsk"
-    trunc_g.write_text("SCPN  17-Aug-26       3  65  65\n 1.0 2.0\n")
-    ckpt = tmp / "ok.ckpt"
-    state = {"psi": torch.ones((4, 4), dtype=torch.float64, device=dev)}
-    save_checkpoint(ckpt, state, metadata={"note": "audit"})
-    corrupt = tmp / "corrupt.ckpt"
-    blob = bytearray(Path(str(ckpt) + ".npz").read_bytes())
-    blob[len(blob) // 2] ^= 0xFF
-    Path(str(corrupt) + ".npz").write_bytes(bytes(blob))
-    Path(str(corrupt) + ".json").write_text(Path(str(ckpt) + ".json").read_text())
-    net = build_safety_net()
-    probes = [
-        ("config_negative_rmin", lambda: load_config(bad_cfg)),
-        ("config_top_level_not_object", lambda: load_config(nondict_cfg)),
-        ("config_size_cap", lambda: load_config(bad_cfg, max_bytes=4)),
-        ("geqdsk_truncated", lambda: read_geqdsk(trunc_g)),
-        ("checkpoint_corrupt_payload", lambda: load_checkpoint(corrupt, state)),
-        ("checkpoint_dtype_mismatch", lambda: load_checkpoint(
-            ckpt, {"psi": torch.ones((4, 4), dtype=torch.float32, device=dev)})),
-        ("aurora_nonincreasing_radius", lambda: case(bad_radius=True)),
-        ("aurora_nan_density", lambda: radial_transport_budget_diagnostic(
-            good, np.full((8, 3), np.nan), 1e-4, device=dev)),
-        ("aurora_negative_dt", lambda: radial_transport_budget_diagnostic(
-            good, np.ones((8, 3)), -1.0, device=dev)),
-        ("aurora_closure_wrong_shape", lambda: derive_effective_source_closure(
-            good, np.ones((2, 8, 3)), device=dev)),
-        ("vessel_gain_negative_gamma", lambda: required_feedback_gain(-1.0, 0.1, 1e-3)),
-        ("vessel_gain_nan_tau", lambda: required_feedback_gain(10.0, float("nan"), 1e-3)),
-        ("interlock_wrong_marking_shape",
-         lambda: evaluate_transition_enablement(net._compiled, np.zeros(3))),
-    ]
-    rows = []
-    for name, fn in probes:
-        raised, detail = probe(fn)
-        rows.append({"probe": name, "raised": raised, "exception": detail})
-    n_ok = sum(r["raised"] for r in rows)
-    lanes = [LaneResult(name="api_input_validation",
-                        status="pass" if n_ok == len(probes) else "fail",
-                        metrics={"probes": rows, "raised": n_ok, "total": len(probes)},
-                        thresholds={"raised": len(probes)},
-                        notes="every malformed-input probe must raise; silent returns fail")]
-
-    rng = np.random.default_rng(42)
-    flows, expansions = rng.uniform(0.0005, 0.05, 64), rng.uniform(9.0, 16.0, 64)
-    detected = []
-    for flow, exp_f in zip(flows, expansions):
-        st = flow_velocity_scan(np.array([flow]), 80.0, 2.1, 2.5, expansion_factor=float(exp_f),
-                                dtype=torch.float64, device=dev)
-        detected.append(not bool(st.is_stable[0]) or float(st.q_surface[0]) > 45.0e6
-                        or float(st.t_surface_c[0]) > 1400.0)
-    detect_rate = float(np.mean(detected))
-    rt = SafetyInterlockRuntime()
-    nominal = {"T_e": 10.0, "n_e": 5.0, "beta_N": 1.5, "I_p": 10.0, "dZ_dt": 0.0}
-    allowed_nominal = rt.update_from_state(nominal)
-    allowed_fault = rt.update_from_state(dict(nominal, T_e=40.0))
-    blocks = allowed_nominal.get("heat_ramp", False) and not allowed_fault.get("heat_ramp", True)
-    lanes.append(LaneResult(
-        name="overheat_fault_injection", status="pass" if detect_rate == 1.0 and blocks else "fail",
-        metrics={"n_episodes": 64, "detect_rate": detect_rate,
-                 "nominal_heat_allowed": bool(allowed_nominal.get("heat_ramp", False)),
-                 "fault_heat_blocked": bool(not allowed_fault.get("heat_ramp", True))},
-        thresholds={"detect_rate": 1.0},
-        notes="stagnant-flow fault window must always be detected; the interlock blocks heating"))
-
-    tokens = safety_tokens_from_state({"T_e": float("nan")})
-    no_spurious = all(v == 0.0 for v in tokens.values())
-    crashed, allowed = False, {}
-    try:
-        allowed = SafetyInterlockRuntime().update_from_state({"T_e": float("nan"),
-                                                              "dZ_dt": float("inf")})
-    except Exception:                          # noqa: BLE001 -- the lane records a crash
-        crashed = True
-    lanes.append(LaneResult(
-        name="nan_semantics_parity",
-        status="pass" if (no_spurious and not crashed and bool(allowed)) else "fail",
-        metrics={"nan_tokens_all_zero": no_spurious, "runtime_crashed": crashed,
-                 "n_actions_evaluated": len(allowed)},
-        thresholds={}, notes="non-finite channels map to defaults (no spurious trip, no crash)"))
-    return lanes
-
-
 def carried_lanes_checks(dev, card: str, counted, by_path: dict, gk_final, gk_lanes) -> None:
-    """(zr) the carried-over lanes: ``run_implementation_parity.py`` 1-3,
-    ``run_error_audit.py`` 1-3, a GKState checkpoint written from the card
-    (lane 7's final state) and loaded on the CPU, equal; every lane's report
-    (and (zq)'s ``gk_lanes``) written with the port's ``write_report`` into a
+    """(zr) the carried-over lanes: the ``implementation_parity`` campaign
+    (lane 3 one launch of kernel 1, nothing else) and ``error_audit`` (no
+    kernel), each its status the committed report's; a GKState checkpoint
+    written from the card (lane 7's final state) and loaded on the CPU, equal;
+    (zq)'s ``gk_lanes`` written with the port's ``write_report`` into a
     temporary directory and its checksum read back."""
     import hashlib
     import tempfile
@@ -9067,14 +8551,24 @@ def carried_lanes_checks(dev, card: str, counted, by_path: dict, gk_final, gk_la
     from scpn_fusion_tpu_torch.models.gyrokinetics.nonlinear import GKState
     from scpn_fusion_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from scpn_fusion_tpu_torch.utils.evidence import write_report
+    from scpn_fusion_tpu_torch.validation import run_error_audit, run_implementation_parity
 
     t0 = time.perf_counter()
-    parity = implementation_parity_lanes(dev, card, counted, by_path)
+    (rc, calls, launched) = counted(lambda: run_implementation_parity.main(device=dev))
+    campaign_check("implementation_parity", rc, card, "(zr)")
+    print(f"(zr) implementation_parity: lane 3's kernel 1 wrapper calls "
+          f"{ {k: v for k, v in calls.items() if v} }, launches {launched} [{card}]")
+    require(calls == {name: int(name == "sor_sweeps") for name in KERNELS}
+            and sum(launched.values()) == 1, f"(zr) lane 3: {calls} / {launched}")
+    by_path["implementation_parity"] = calls
     t_parity = time.perf_counter() - t0
+    (rc, audit_calls, _) = counted(lambda: run_error_audit.main(device=dev))
+    t_audit = time.perf_counter() - t0 - t_parity
+    campaign_check("error_audit", rc, card, "(zr)")
+    by_path["error_audit"] = audit_calls
+    require(sum(audit_calls.values()) == 0, f"(zr): the error audit launched {audit_calls}")
     with tempfile.TemporaryDirectory(prefix="smoke_zr_") as tmp:
         tmp = Path(tmp)
-        (audit, audit_calls, _) = counted(lambda: error_audit_lanes(dev, tmp))
-        by_path["error_audit"] = audit_calls
         save_checkpoint(tmp / "gk.ckpt", gk_final, metadata={"lane": "gk_shard_memory"})
         example = GKState(torch.zeros(gk_final.f.shape, dtype=gk_final.f.dtype),
                           torch.zeros((), dtype=gk_final.time.dtype))
@@ -9085,35 +8579,32 @@ def carried_lanes_checks(dev, card: str, counted, by_path: dict, gk_final, gk_la
               f"of f) written from the card, loaded on the CPU: equal {ck_equal}, metadata "
               f"{meta} [{card}]")
         require(ck_equal, "(zr): the GK checkpoint did not load back equal on the CPU")
-        reports = {}
-        for name, lanes in (("implementation_parity", parity), ("error_audit", audit),
-                            ("gk_scenario_and_shard", gk_lanes)):
-            path = write_report(name, lanes, out_dir=tmp)
-            payload = json.loads(path.read_text())
-            sha = payload.pop("payload_sha256")
-            again = hashlib.sha256(json.dumps(payload, sort_keys=True, default=str)
-                                   .encode()).hexdigest()
-            reports[name] = (payload["overall_status"], sha[:16], sha == again)
-            for lane in lanes:
-                print(f"(zr) {name} / {lane.name}: {lane.status} {lane.metrics}")
-    print(f"(zr) reports (status, sha256[:16], checksum read back): {reports}; parity lanes "
-          f"{t_parity:.1f} s [{card}]")
-    require(all(status == "pass" and ok for status, _, ok in reports.values()),
-            f"(zr): reports {reports}")
-    require(sum(audit_calls.values()) == 0, f"(zr): the error audit launched {audit_calls}")
+        path = write_report("gk_scenario_and_shard", gk_lanes, out_dir=tmp)
+        payload = json.loads(path.read_text())
+        sha = payload.pop("payload_sha256")
+        again = hashlib.sha256(json.dumps(payload, sort_keys=True, default=str)
+                               .encode()).hexdigest()
+        for lane in gk_lanes:
+            print(f"(zr) gk_scenario_and_shard / {lane.name}: {lane.status} {lane.metrics}")
+    print(f"(zr) gk_scenario_and_shard report: {payload['overall_status']}, sha256 {sha[:16]}, "
+          f"checksum read back {sha == again}; implementation_parity {t_parity:.1f} s, "
+          f"error_audit {t_audit:.1f} s [{card}]")
+    require(payload["overall_status"] == "pass" and sha == again,
+            f"(zr): the (zq) lanes' report {payload['overall_status']}")
 
 
 def slice24_on_card(conn, card: str) -> None:
     """(zq) and (zr) in a spawned process on the card, started in
-    :func:`late_twins` (host-bound Python beside (m)-(zp)): the monolithic
-    32^3 run as (u) runs it, :func:`gk_shard_checks` against it, then
-    :func:`carried_lanes_checks`; each prints its numbers and fails on its
-    gates; sends the port kernel calls by path and each phase's seconds."""
+    :func:`late_twins` (host-bound Python beside (m)-(zp)): the
+    ``sharded_convergence`` campaign (lanes 1-6 in f64 on virtual shards, no
+    kernel; lane 7's monolithic and sharded GK runs through row G), its
+    status the committed report's, :func:`gk_shard_checks` on its lane 7,
+    then :func:`carried_lanes_checks`; each prints its numbers and fails on
+    its gates; sends the port kernel calls by path and each phase's seconds."""
     import torch
     sys.path.insert(0, str(ROOT))
-    from scpn_fusion_tpu_torch.bench_config import GK_SPEC_32, GK_SPEC_32_SEED
-    from scpn_fusion_tpu_torch.models.gyrokinetics import nonlinear as nl
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
+    from scpn_fusion_tpu_torch.validation import run_sharded_convergence
 
     def counted(run):
         cb.reset_launch_counts()
@@ -9123,11 +8614,16 @@ def slice24_on_card(conn, card: str) -> None:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cfg = nl.NonlinearGKConfig(**GK_SPEC_32)
-    g = nl.build_grids(cfg, device=dev)
-    final, trace = nl._run(cfg, g, nl.init_state(cfg, g, seed=GK_SPEC_32_SEED))
+    keep = {}
+    torch.cuda.reset_peak_memory_stats()
+    (rc, ms), calls, launched = counted(lambda: events_ms(
+        lambda: run_sharded_convergence.main(device=dev, keep=keep)))
+    keep.update(calls=calls, launched=launched, ms=ms,
+                peak=torch.cuda.max_memory_allocated() / 2**20)
+    campaign_check("sharded_convergence", rc, card, "(zq)")
     by_path = {}
-    _, gk_final, lanes = gk_shard_checks(dev, card, counted, by_path, (final.f, trace))
+    _, gk_final, lanes = gk_shard_checks(dev, card, counted, by_path, keep)
+    del keep
     t1 = time.perf_counter()
     carried_lanes_checks(dev, card, counted, by_path, gk_final, lanes)
     sys.stdout.flush()
@@ -9144,7 +8640,80 @@ def slice24_on_card(conn, card: str) -> None:
 # fixed point at that load (1.16e8 W/m^2) in both packages: the iterate
 # follows the last-bit rounding of exp, and the card's lands off the lane's
 # gates where XLA's CPU exp (the report) and torch's CPU exp land inside.
-VALIDATE_STANDING = {("neg_triangularity", "divertor_contract")}
+#
+# free_boundary_forward's three 129^2 timing lanes gate the port's forward
+# against the original reference's H100 rows (BASELINE.md:13): 26.3 ms a
+# float32 solve, 13.0 ms in float64 and mixed precision.  The port's forward
+# is host-driven (one host read an outer iteration, an inner Picard loop of
+# small launches): 200.9 ms a float32 solve, 829.4 ms in float64 (plain
+# ops), 133.5 ms mixed on an H100 beside the smoke's other card work, each
+# short of its row (a finding for the speed work, ROADMAP Queue 1 item 7).
+VALIDATE_STANDING = {("neg_triangularity", "divertor_contract"),
+                     ("free_boundary_forward", "warm_forward_129_device"),
+                     ("free_boundary_forward", "warm_forward_129_device_f64"),
+                     ("free_boundary_forward", "warm_forward_129_device_mixed")}
+# Lanes that read the reference's data (validation/_lanes.REFERENCE_DATA in
+# the port), which the repository does not hold: blocked on the card as in
+# the JAX scripts off it.
+REFERENCE_BLOCKED = {("equilibrium_parity", "geqdsk_reconstruction"),
+                     ("io_roundtrip", "sparc_efit_reparse")}
+# The campaigns an earlier phase runs (each lane runs once a smoke); (zs)
+# runs the others through the CLI's validate mode.
+PHASE_CAMPAIGNS = {"resolution_scaling": "(5b)", "free_boundary_forward": "(8b)",
+                   "adjoint_fd": "(g)", "tracking_acceptance": "chip_smoke.py tracking",
+                   "batched_amortisation": "(zo)",
+                   "sharded_gs": "(zp)", "sharded_convergence": "(zq)",
+                   "implementation_parity": "(zr)", "error_audit": "(zr)"}
+# The exit rule of each campaign (its JAX script's): 0 when the overall
+# status is pass, or when every lane that is not blocked passes.
+OVERALL_RULE = {"equilibrium_parity", "io_roundtrip", "tracking_acceptance", "adjoint_fd",
+                "sharded_gs", "sharded_convergence", "precision_budget", "scpn_replay",
+                "stellarator_lane", "transport_conservation"}
+
+
+def campaign_check(name: str, rc: int | None, card: str, tag: str) -> dict:
+    """A campaign's report in ``validation/reports_torch/`` against the
+    committed JAX report: the same lanes in order, every lane's status the
+    JAX report's but the lanes of :data:`VALIDATE_STANDING` (printed with
+    their numbers beside their gates) and of :data:`REFERENCE_BLOCKED`
+    (blocked), and ``rc`` (unless None) the script's exit rule.  Returns
+    {lane: status}."""
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR
+    from scpn_fusion_tpu_torch.validation._lanes import REFERENCE_DATA
+    ours = json.loads((REPORTS_DIR / f"{name}.json").read_text())
+    ref = json.loads((ROOT / "validation" / "reports" / f"{name}.json").read_text())
+    ref_lanes = {lane["name"]: lane for lane in ref["lanes"]}
+    names = [lane["name"] for lane in ours["lanes"]]
+    require(names == list(ref_lanes),
+            f"{tag} {name}: lanes {names}, the committed JAX report's {list(ref_lanes)}")
+    off, statuses = [], {}
+    for lane in ours["lanes"]:
+        statuses[lane["name"]] = lane["status"]
+        ref_lane = ref_lanes[lane["name"]]
+        key = (name, lane["name"])
+        if key in VALIDATE_STANDING:
+            print(f"{tag} standing {name} / {lane['name']}: {lane['status']} {lane['metrics']} "
+                  f"beside its gates {lane['thresholds']} (the committed JAX report's "
+                  f"{ref_lane['status']} {ref_lane['metrics']}) [{card}]")
+            continue
+        if lane["status"] == ref_lane["status"]:
+            continue
+        if key in REFERENCE_BLOCKED and lane["status"] == "blocked" \
+                and not REFERENCE_DATA.exists():
+            print(f"{tag} {name} / {lane['name']}: blocked ({lane['notes']}), the committed "
+                  f"JAX report's {ref_lane['status']} ran on the reference's files")
+            continue
+        print(f"{tag} {name} / {lane['name']}: {lane['status']} {lane['metrics']} (thresholds "
+              f"{lane['thresholds']}; notes {lane['notes']!r}; the committed JAX report's "
+              f"{ref_lane['status']} {ref_lane['metrics']})")
+        off.append(lane["name"])
+    require(not off, f"{tag} {name}: lanes {off} differ in status from the committed JAX report's")
+    overall = ours["overall_status"]
+    rule = (int(overall != "pass") if name in OVERALL_RULE
+            else int(any(st == "fail" for st in statuses.values())))
+    require(rc is None or rc == rule, f"{tag} {name} exited {rc}, its script's rule gives {rule}")
+    print(f"{tag} {name}: {overall} (rc {rc}), lanes {statuses} [{card}]")
+    return statuses
 
 # The JAX CLI's JSON keys of each mode (``scpn_fusion_tpu/cli.py``; nested
 # objects flattened with dots), written here because the card host has no
@@ -9498,46 +9067,42 @@ def slice25_on_card(conn, card: str) -> None:
         t4 = time.perf_counter()
         secs["modes"] = t4 - t3
 
-        # ── validate --all: the port's eight campaigns in float64 on the card ──
-        rc, _, _ = cli_call(["validate", "--all"], parse=False)
-        statuses, standing = {}, {}
-        for name in sorted(CAMPAIGNS):
-            ours = json.loads((REPORTS_DIR / f"{name}.json").read_text())
-            ref = json.loads((ROOT / "validation" / "reports" / f"{name}.json").read_text())
-            ref_lanes = {lane["name"]: lane for lane in ref["lanes"]}
-            require([lane["name"] for lane in ours["lanes"]] == list(ref_lanes),
-                    f"(zs) {name}: lanes {[lane['name'] for lane in ours['lanes']]}, "
-                    f"the committed JAX report's {list(ref_lanes)}")
-            off = []
-            for lane in ours["lanes"]:
-                if lane["status"] == ref_lanes[lane["name"]]["status"]:
-                    continue
-                print(f"(zs) {name} / {lane['name']}: {lane['status']} {lane['metrics']} "
-                      f"(thresholds {lane['thresholds']}; the committed JAX report's "
-                      f"{ref_lanes[lane['name']]['status']} "
-                      f"{ref_lanes[lane['name']]['metrics']})")
-                if (name, lane["name"]) in VALIDATE_STANDING:
-                    standing[f"{name} / {lane['name']}"] = lane["status"]
-                else:
-                    off.append(lane["name"])
-            require(not off, f"(zs) {name}: lanes {off} differ in status from the committed "
-                             f"JAX report's")
-            statuses[name] = ours["overall_status"]
+        # ── validate: each campaign no earlier phase runs, one call of the
+        # mode each (the phases' campaigns run where their kernel gates are) ──
+        rest = sorted(set(CAMPAIGNS) - set(PHASE_CAMPAIGNS))
+        statuses, standing, camp_s, camp_calls = {}, {}, {}, {}
+        for name in rest:
+            t = time.perf_counter()
+            (rc, _, _), calls_v = counted(
+                lambda name=name: cli_call(["validate", "--campaign", name], parse=False))
+            camp_s[name] = time.perf_counter() - t
+            camp_calls[name] = calls_v
+            lanes = campaign_check(name, rc, card, "(zs)")
+            statuses[name] = json.loads((REPORTS_DIR / f"{name}.json").read_text())[
+                "overall_status"]
+            standing.update({f"{name} / {k}": v for k, v in lanes.items()
+                             if (name, k) in VALIDATE_STANDING})
             if name == "gk_eigenvalue_perf":
-                gk = ours["lanes"][0]["metrics"]
+                gk = json.loads((REPORTS_DIR / f"{name}.json").read_text())["lanes"][0]["metrics"]
             if name == "precision_budget":
-                pb = {lane["name"]: lane["metrics"] for lane in ours["lanes"]}
-        # the JAX rule: the worst campaign's exit code (1 from a failing lane)
-        require(rc == (1 if standing else 0) and all(
-            st == "pass" or name in {k.split(" / ")[0] for k in standing}
-            for name, st in statuses.items()),
-                f"(zs) validate --all exited {rc}; statuses {statuses}; standing {standing}")
+                pb = {lane["name"]: lane["metrics"] for lane in json.loads(
+                    (REPORTS_DIR / f"{name}.json").read_text())["lanes"]}
+        for name in ("equilibrium_parity", "io_roundtrip"):
+            require(camp_calls[name]["fused_coarse_vcycle"] > 0
+                    and camp_calls[name]["fused_topology_source"] > 0,
+                    f"(zs) {name}: kernels 2 and 3 not launched on its float32 solves: "
+                    f"{camp_calls[name]}")
+            by_path[name] = camp_calls[name]
         require((REPORTS_DIR / "RESULTS.md").exists(), "(zs) validate wrote no RESULTS.md")
         t5 = time.perf_counter()
         secs["validate"] = t5 - t4
-        print(f"(zs) validate --all exited {rc}: {statuses}, every lane's status the committed "
-              f"JAX report's but the standing differences {standing or 'none'} (ROADMAP "
-              f"Queue 3); "
+        print(f"(zs) validate --campaign, one call each: {statuses}, every lane's status the "
+              f"committed JAX report's but the standing differences {standing or 'none'} "
+              f"(ROADMAP Queue 3); seconds "
+              + ", ".join(f"{k} {v:.1f}" for k, v in camp_s.items())
+              + f"; kernel calls of equilibrium_parity "
+              f"{ {k: v for k, v in camp_calls['equilibrium_parity'].items() if v} }, io_roundtrip "
+              f"{ {k: v for k, v in camp_calls['io_roundtrip'].items() if v} }; "
               f"gk_eigenvalue_perf {gk['per_ky_solve_s']} s a k_y (gate 0.3); precision_budget "
               f"lane 1 (kernels 2, 3 at 129^2) f32 deviation "
               f"{pb['fixed_boundary_f32_penalty']['span_rel_deviation_f32_vs_f64']:.3e}, iterations "
@@ -9559,7 +9124,7 @@ def torch_from(a):
     return torch.from_numpy(np.asarray(a, np.float64))
 
 
-def early_twins(stack: contextlib.ExitStack) -> dict:
+def early_twins(stack: contextlib.ExitStack, card: str) -> dict:
     """Start, right after the build, the processes whose results later
     paths wait for: the CPU twins of (k), (o), (v), (z)-(zg) and (zo), and the host-bound
     card-side runs of (k)'s plain Thomas loop, (o)'s :data:`CARD_LANES` and (zf)'s plain
@@ -9571,7 +9136,8 @@ def early_twins(stack: contextlib.ExitStack) -> dict:
                "gk_lanes_cpu": gk_lanes_on_cpu, "slice16_cpu": slice16_on_cpu,
                "slice17_cpu": slice17_on_cpu, "slice18_cpu": slice18_on_cpu,
                "slice18_card": slice18_plain_on_card, "ensemble_cpu": ensemble_mixed_on_cpu}
-    return {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+    twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+    return twins
 
 
 def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
@@ -9580,7 +9146,7 @@ def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
     and W on the card (~230 s, ~40 s, ~300 s, ~20 s and ~12 s of host time),
     (zn)'s FNO and equilibrium trainers on the card (~50 s each) and the
     replay certificate's fresh process, (zp)'s sharded lanes, (zq)-(zr) on
-    the card (~20 s), (zs) on the card and (zo)'s lane 3 in a fresh process once the host-bound early paths,
+    the card (~20 s) and (zs) on the card once the host-bound early paths,
     (a)-(l), are done: started with the others, they slowed those paths on an
     8-core host with one H100 (the whole smoke 899 s, where it had taken 770 s
     without them)."""
@@ -9588,9 +9154,9 @@ def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
                "slice20_cpu": slice20_on_cpu, "slice20_card": slice20_plain_on_card,
                "slice21_card": slice21_plain_on_card, "slice22_card": slice22_plain_on_card,
                "slice22_cpu": slice22_on_cpu, "slice22_fno": slice22_fno_trainers_on_card,
-               "slice22_equilibrium": slice22_equilibrium_on_card,
-               "sharded_card": sharded_on_card, "ensemble_cold": ensemble_cold_on_card}
+               "slice22_equilibrium": slice22_equilibrium_on_card}
     twins = {name: stack.enter_context(cpu_twin(target)) for name, target in targets.items()}
+    twins["sharded_card"] = stack.enter_context(cpu_twin(sharded_on_card, card))
     twins["slice21_cpu"] = stack.enter_context(cpu_twin(slice21_on_cpu, psi_129))
     twins["slice24_card"] = stack.enter_context(cpu_twin(slice24_on_card, card))
     twins["slice25_card"] = stack.enter_context(cpu_twin(slice25_on_card, card))
@@ -9599,9 +9165,46 @@ def late_twins(stack: contextlib.ExitStack, psi_129, card: str) -> dict:
     return twins
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    """``chip_smoke.py``: every path but the ``tracking_acceptance``
+    campaign; ``chip_smoke.py tracking``: that campaign alone (see
+    :func:`tracking_main`)."""
+    if argv not in ([], ["tracking"]):
+        print("usage: chip_smoke.py [tracking]", file=sys.stderr)
+        return 2
     with contextlib.ExitStack() as stack:
-        return _main(stack)
+        return tracking_main(stack) if argv else _main(stack)
+
+
+def tracking_main(stack: contextlib.ExitStack) -> int:
+    """The second command of the smoke: (o)'s ``tracking_acceptance`` campaign
+    on the card, its 11 shots (132 ticks of seven f64 plant solves each,
+    host-bound launches) in the four processes of :data:`TRACKING_BINS`, its
+    lanes built by the module's ``finish``, its status the committed
+    report's.  Beside the main command, whose budget its shots' host time
+    does not fit."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    if not (ROOT / "scpn_fusion_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    twins = [stack.enter_context(cpu_twin(tracking_shots_on_card, card, indices))
+             for indices in TRACKING_BINS]
+    calls = tracking_campaign(card, twins)
+    print(f"(o) tracking_acceptance kernel calls {sum(calls.values())}; smoke seconds: "
+          f"{time.perf_counter() - t0:.1f} [{card}]")
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def _main(stack: contextlib.ExitStack) -> int:
@@ -9628,10 +9231,7 @@ def _main(stack: contextlib.ExitStack) -> int:
         solve_equilibrium, solve_equilibrium_fmg,
     )
     from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import (
-        coilset_from_config, interp_psi_at_points, mutual_inductance_matrix, solve_free_boundary,
-    )
-    from scpn_fusion_tpu_torch.models.equilibrium.mixed_precision import (
-        solve_equilibrium_mixed_fmg,
+        coilset_from_config, interp_psi_at_points, mutual_inductance_matrix,
     )
     from scpn_fusion_tpu_torch.models.equilibrium.newton import solve_equilibrium_newton
     from scpn_fusion_tpu_torch.models.equilibrium.profiles import ProfileCoeffs
@@ -9639,6 +9239,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     from scpn_fusion_tpu_torch.ops import cuda_mg, cuda_mg_tiled, cuda_source, cuda_stencil, leg_plan
     from scpn_fusion_tpu_torch.ops.cuda_mg import level_plan
     from scpn_fusion_tpu_torch.ops.multigrid import _vcycle_impl
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR
+    from scpn_fusion_tpu_torch.validation import run_free_boundary_forward as fbf
+    from scpn_fusion_tpu_torch.validation import run_resolution_scaling as rs
 
     phases: dict[str, float] = {}
     t_start = t_phase = time.perf_counter()
@@ -9659,6 +9262,9 @@ def _main(stack: contextlib.ExitStack) -> int:
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     print(f"card: {card}")
     dev = torch.device("cuda")
+    # this run's campaign reports only
+    for stale in list(REPORTS_DIR.glob("*.json")) + list(REPORTS_DIR.glob("*.md")):
+        stale.unlink()
     phase_done("preflight")
 
     # ── 2. build ──
@@ -9706,7 +9312,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     require(clusters >= 1, f"no cluster of the fused V-cycle fits the device ({clusters})")
     require(resident >= cb.source_blocks(1 << 30),
             f"the fused source's blocks are not all resident ({resident})")
-    twins = early_twins(stack)
+    twins = early_twins(stack, card)
     phase_done("build")
 
     # ── 3. kernels against their plain versions, float32, the paths' shapes ──
@@ -10273,12 +9879,14 @@ def _main(stack: contextlib.ExitStack) -> int:
     phase_done("513^2 slice")
 
     # ── 5. the second slice: FMG 129 -> ... -> 1025 (f32) -> 2049 mixed on the card ──
-    cfg2_k = bench_config(2049, use_pallas=True, gs_residual_threshold=GS_TOL)
-    cfg2_p = bench_config(2049, use_pallas=False, gs_residual_threshold=GS_TOL)
+    # the cascade of run_resolution_scaling.py's capability_2049_mixed lane
+    # (validation/run_resolution_scaling.py in the port), one element
+    cas2_k = rs.Cascade(2049, dev, mixed=True)
+    cas2_p = rs.Cascade(2049, dev, mixed=True, use_pallas=False)
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cb.reset_launch_counts()
-    res2_k, info2_k = solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+    res2_k, info2_k = cas2_k.solve()
     torch.cuda.synchronize()
     launches = {name: cb.CALLS[name] for name in KERNELS}
     peak_mb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e6
@@ -10319,7 +9927,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                              "a call")
 
     with staged_kernels():
-        res2_s, info2_s = solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+        res2_s, info2_s = cas2_k.solve()
     torch.cuda.synchronize()
     print(f"mixed 2049^2 cascade with the staged kernels: levels {info2_s}, final f64 GS "
           f"residual {float(res2_s.gs_residual)!r}; psi equal to the one-launch kernels' "
@@ -10330,7 +9938,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     fine2 = launches["fine_presmooth_restrict"]
     cb.reset_launch_counts()
     with staged_fine_legs():
-        res2_f, info2_f = solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+        res2_f, info2_f = cas2_k.solve()
     torch.cuda.synchronize()
     print(f"mixed 2049^2 cascade with the staged fine legs: levels {info2_f}, final f64 GS "
           f"residual {float(res2_f.gs_residual)!r}; psi equal to the one-launch legs' "
@@ -10344,7 +9952,7 @@ def _main(stack: contextlib.ExitStack) -> int:
 
     cb.reset_launch_counts()
     with first_design_tiled_legs():
-        res2_e, info2_e = solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+        res2_e, info2_e = cas2_k.solve()
     torch.cuda.synchronize()
     print(f"mixed 2049^2 cascade with the first design of the tiled legs: levels {info2_e}, "
           f"final f64 GS residual {float(res2_e.gs_residual)!r}; psi equal to the redesigned "
@@ -10358,8 +9966,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                 launches["tiled_presmooth_restrict"], launches["tiled_prolong_smooth"], 0, 0):
         raise AssertionError(f"the first-design run launched {dict(cb.LAUNCHES)}")
 
-    res2_p, info2_p = solve_equilibrium_mixed_fmg(cfg2_p, min_coarse=129, use_pallas=False,
-                                                  device=dev)
+    res2_p, info2_p = cas2_p.solve()
     torch.cuda.synchronize()
     dev2 = span_rel(psi2_k, res2_p.psi)
     print(f"mixed 2049^2 cascade plain: levels {info2_p}, final f64 GS residual "
@@ -10388,6 +9995,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     if cb.LAUNCHES["scpn_fused_vcycle"] != 1:
         raise AssertionError(f"2049^2 V-cycle made {dict(cb.LAUNCHES)}: not one fused launch")
     phase_done("2049^2 mixed slice")
+
 
     # ── 6. the anderson solver at 129^2: 50 sweeps of sor_sweeps an iteration ──
     def sor_cfg(use_pallas):
@@ -10482,9 +10090,10 @@ def _main(stack: contextlib.ExitStack) -> int:
         return out, {name: cb.CALLS[name] for name in KERNELS}, dict(cb.LAUNCHES)
 
     def fb_solve(n, use_pallas, dtype=f32, coils=None, **kw):
-        return solve_free_boundary(free_boundary_config(n, use_pallas=use_pallas), coils,
-                                   mu0_green=FREE_BOUNDARY_MU0_GREEN, dtype=dtype, device=dev,
-                                   **kw)
+        """The forward of run_free_boundary_forward.py's lanes (its module in
+        the port), Anderson's Gram in f32 where the solve is f64."""
+        return fbf.forward_solve(n, device=dev, dtype=dtype, use_pallas=use_pallas, coils=coils,
+                                 **kw)
 
     def fb_line(res):
         return (f"converged {res.converged} in {res.outer_iterations} outer iterations (last "
@@ -10534,7 +10143,7 @@ def _main(stack: contextlib.ExitStack) -> int:
 
     # (c): 129^2 float64, the plain f64 solve against the mixed solve (f64
     # outer loop and source, f32 V-cycles through the kernel, n_refine 2)
-    kw64 = dict(max_outer_iter=16, tol=1e-4, anderson_gram_f32=True)
+    kw64 = dict(max_outer_iter=16, tol=1e-4)
     res_64 = fb_solve(129, False, f64, **kw64)
     res_mx, calls_mx, launched_mx = counted(
         lambda: fb_solve(129, True, f64, mixed_n_refine=2, **kw64))
@@ -10595,6 +10204,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     shape_run = lambda: fb_solve(129, True, **kw_d)   # noqa: E731
     phase_done("free-boundary slice")
 
+
     # (e): the SPARC L-mode g-file on its 129 x 129 grid, float32, kernels
     # against plain float32
     eq_sparc = read_geqdsk(ROOT / "fuzz" / "seeds" / "geqdsk" / "sparc_lmode_hv.geqdsk")
@@ -10654,6 +10264,10 @@ def _main(stack: contextlib.ExitStack) -> int:
     # check last ──
     # (g) with its FD check and (h) run on the card in spawned processes beside
     # (i)-(l) (in line they took 130-190 s and ~120 s of host time)
+    # (5b) and (8b), the resolution_scaling and free_boundary_forward
+    # campaigns, in a spawned process beside (g)-(zo)
+    twins["equilibrium_campaigns"] = stack.enter_context(
+        cpu_twin(equilibrium_campaigns_on_card, card))
     with cpu_twin(adjoint_on_card, card) as adjoint_card, \
             cpu_twin(recon_on_card) as recon_card, cpu_twin(recon_on_cpu) as recon_cpu:
         small_lanes(dev, card, counted, by_path, fmg_513, cfg_k, fb_results["fb_129"],
@@ -10815,9 +10429,15 @@ def _main(stack: contextlib.ExitStack) -> int:
     # and 3, (zp) the sharded solves on one card's virtual shards ──
     batched_kernel_checks(dev, card, results, timing, measured_plain)
     phase_done("batched kernels 2 and 3 (zo)")
-    ensemble_calls = ensemble_checks(dev, card, counted, by_path, twins["ensemble_cpu"],
-                                     twins["ensemble_cold"])
+    ensemble_calls = ensemble_checks(dev, card, counted, by_path, twins["ensemble_cpu"])
     phase_done("ensemble lanes 1-4 and the straggler (zo)")
+    t_wait = time.perf_counter()
+    campaigns = twins["equilibrium_campaigns"]()
+    by_path.update(campaigns["by_path"])
+    print(f"(5b) and (8b) on the card in a spawned process (started before (g)): "
+          f"{campaigns['s']:.1f} s; the main line waited {time.perf_counter() - t_wait:.1f} s "
+          f"for it [{card}]")
+    phase_done("resolution_scaling (5b) and free_boundary_forward (8b), spawned")
     sharded_checks(card, twins["sharded_card"])
     phase_done("sharded solves on virtual shards (zp)")
 
@@ -10839,6 +10459,21 @@ def _main(stack: contextlib.ExitStack) -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in slice25["secs"].items())
           + f"; the main line waited {waited:.2f} s for it [{card}]")
     phase_done("the CLI and ui/ (zs), spawned")
+
+    # every campaign of the port but tracking_acceptance (the second command,
+    # ``chip_smoke.py tracking``) ran once on the card, in its phase or in
+    # (zs): each report's lanes against the committed JAX report's
+    from scpn_fusion_tpu_torch.validation import CAMPAIGNS, collect_results
+    overall = {}
+    for name in sorted(set(CAMPAIGNS) - {"tracking_acceptance"}):
+        require((REPORTS_DIR / f"{name}.json").exists(), f"campaign {name} wrote no report")
+        campaign_check(name, None, card, "(campaigns)")
+        overall[name] = json.loads((REPORTS_DIR / f"{name}.json").read_text())["overall_status"]
+    collect_results.main()
+    print(f"{len(overall)} of the {len(CAMPAIGNS)} campaigns ran once on the card (the "
+          f"20th, tracking_acceptance, is `chip_smoke.py tracking`), each lane's status the "
+          f"committed JAX report's but {sorted(VALIDATE_STANDING)} and the lanes blocked for "
+          f"want of the reference's data: {overall} [{card}]")
 
     # every kernel's launches over the path that runs it: kernels 2 and 3
     # over this slice's main path, the 257^2 free-boundary forward
@@ -10928,7 +10563,7 @@ def _main(stack: contextlib.ExitStack) -> int:
         solve_equilibrium_fmg(cfg_k, dtype=torch.float32, **fmg)
 
     def mixed_run():
-        solve_equilibrium_mixed_fmg(cfg2_k, min_coarse=129, device=dev)
+        cas2_k.solve()
 
     fmg_k, fmg_s = cuda_ms_pair(fmg_run, under(staged_kernels, fmg_run))
     fmg_p = cuda_ms(lambda: solve_equilibrium_fmg(cfg_p, dtype=torch.float32, **fmg),
@@ -10936,8 +10571,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     print(f"time FMG 129->257->513 f32: kernels {fmg_k:.3f} ms, with the staged kernels "
           f"{fmg_s:.3f} ms (in turns), plain {fmg_p:.3f} ms (median of {SLOW_REPS}) [{card}]")
     mix_k, mix_s = cuda_ms_pair(mixed_run, under(staged_kernels, mixed_run))
-    mix_p = cuda_ms(lambda: solve_equilibrium_mixed_fmg(cfg2_p, min_coarse=129,
-                                                        use_pallas=False, device=dev), reps=2)
+    mix_p = cuda_ms(cas2_p.solve, reps=2)
     print(f"time mixed FMG 129->...->2049: kernels {mix_k:.3f} ms, with the staged kernels "
           f"{mix_s:.3f} ms (in turns, median of 5), plain {mix_p:.3f} ms (median of 2) [{card}]")
     fmg_n, fmg_f = cuda_ms_pair(fmg_run, under(staged_fine_legs, fmg_run))
@@ -11000,4 +10634,4 @@ def _main(stack: contextlib.ExitStack) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -133,14 +133,14 @@ def amortisation_config(n: int = 129, *, use_pallas: bool = True) -> ReactorConf
     return config_from_dict(config_dict(n, **AMORTISATION_SOLVER, use_pallas=use_pallas))
 
 
-def amortisation_draws(n_coils: int = 6) -> dict:
+def amortisation_draws(n_coils: int = 6, batches=AMORTISATION_BATCHES) -> dict:
     """The validation's ensemble inputs, drawn in its order from one
     ``default_rng(AMORTISATION_SEED)``: the coil currents of element b are
     the machine's times ``1 + 0.05 x`` in float32 (x standard normal), every
     target current 15.  Keys: ``"parity"`` (lane 1's 16), each B of
-    :data:`AMORTISATION_BATCHES` (lanes 2-3), ``("mixed", 16)`` and
-    ``("mixed", 64)`` (lane 4); values (currents (B, n_coils), targets (B,))
-    as float32 numpy arrays."""
+    ``batches`` (lanes 2-3; :data:`AMORTISATION_BATCHES` by default),
+    ``("mixed", 16)`` and ``("mixed", 64)`` (lane 4); values (currents (B,
+    n_coils), targets (B,)) as float32 numpy arrays."""
     rng = np.random.default_rng(AMORTISATION_SEED)
     base = np.asarray([c["current"] for c in ITER_LIKE["coils"]], np.float32)
 
@@ -150,7 +150,7 @@ def amortisation_draws(n_coils: int = 6) -> dict:
         return base[None, :] * pert, np.full((b,), 15.0, np.float32)
 
     out = {"parity": draw(16)}
-    for b in AMORTISATION_BATCHES:
+    for b in batches:
         out[b] = draw(b)
     for b in (16, 64):
         out[("mixed", b)] = draw(b)

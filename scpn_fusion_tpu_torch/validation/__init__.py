@@ -3,8 +3,10 @@
 
 Each module is the lanes of the JAX package's ``validation/run_<name>.py``
 with the same gates, thresholds, lane names and report layout, run on the
-port's modules (in float64 on ``device``; the JAX scripts pin the CPU in
-float64 only because the TPU has none).  Each has
+port's modules (in float64 on ``device`` where the JAX script pins the CPU
+in float64, which it does only because the TPU has none; where the script
+switches on the TPU backend, the port switches on a CUDA ``device``: float32
+through the hand-written kernels and the script's TPU gates).  Each has
 ``main(*, device="cuda", out_dir=REPORTS_DIR) -> int`` with its script's
 exit rule.  Reports go to ``validation/reports_torch/`` of the checkout,
 never to ``validation/reports/``, whose JSON files are the JAX package's
@@ -19,9 +21,12 @@ from pathlib import Path
 REPORTS_DIR = Path(__file__).resolve().parents[2] / "validation" / "reports_torch"
 
 # the ``validate --campaign`` values; campaign ``name`` is module ``run_<name>``
-CAMPAIGNS = ("gk_eigenvalue_perf", "ida_stability", "mesh_convergence",
-             "neg_triangularity", "precision_budget", "scpn_replay",
-             "stellarator_lane", "transport_conservation")
+CAMPAIGNS = ("adjoint_fd", "batched_amortisation", "equilibrium_parity", "error_audit",
+             "free_boundary_forward", "gk_eigenvalue_perf", "ida_stability",
+             "implementation_parity", "io_roundtrip", "mesh_convergence", "multi_machine",
+             "neg_triangularity", "precision_budget", "resolution_scaling", "scpn_replay",
+             "sharded_convergence", "sharded_gs", "stellarator_lane", "tracking_acceptance",
+             "transport_conservation")
 
 
 def campaign_module(name: str):

@@ -62,6 +62,13 @@ RULES = {
 }
 HERE = ("ida_stability", "mesh_convergence", "neg_triangularity", "scpn_replay",
         "gk_eigenvalue_perf", "stellarator_lane")
+# the equilibrium campaigns, in files of their own
+# (tests/test_torch_campaigns_{equilibrium, io, audit, machines, adjoint, fb,
+# fb_jax, scaling, batched, tracking, sharded, sharded_gk}.py)
+EQUILIBRIUM_CAMPAIGNS = ("equilibrium_parity", "io_roundtrip", "free_boundary_forward",
+                         "resolution_scaling", "adjoint_fd", "batched_amortisation",
+                         "multi_machine", "tracking_acceptance", "sharded_gs",
+                         "sharded_convergence", "implementation_parity", "error_audit")
 
 
 def divertor_rules() -> dict:
@@ -105,7 +112,9 @@ def test_campaign_matches_the_committed_report(name, tmp_path):
 
 
 def test_registry_and_collect_results(tmp_path):
-    assert sorted(CAMPAIGNS) == sorted(HERE + ("precision_budget", "transport_conservation"))
+    assert sorted(CAMPAIGNS) == sorted(HERE + ("precision_budget", "transport_conservation")
+                                       + EQUILIBRIUM_CAMPAIGNS)
+    assert len(CAMPAIGNS) == 20
     for name in CAMPAIGNS:
         assert (ROOT / "validation" / f"run_{name}.py").exists()
     assert campaign_module("stellarator_lane").main(device="cpu", out_dir=tmp_path) == 0

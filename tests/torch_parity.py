@@ -208,3 +208,55 @@ def report_mismatches(ours: dict, ref: dict, rules: dict | None = None) -> dict:
             if not ok:
                 bad[(name, key)] = (x, y)
     return bad
+
+
+def flat_report(report: dict, rename: dict | None = None) -> dict:
+    """``report`` with each lane's nested metrics (dicts, lists of dicts)
+    flattened to dotted keys (``machines.0.iterations``), so that
+    :func:`report_mismatches` compares every leaf; ``rename`` maps metric
+    keys (after flattening) to the names the other report uses."""
+    def flat(prefix, v, out):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                flat(f"{prefix}.{k}" if prefix else str(k), x, out)
+        elif isinstance(v, list) and v and isinstance(v[0], dict):
+            for i, x in enumerate(v):
+                flat(f"{prefix}.{i}", x, out)
+        else:
+            out[prefix] = v
+        return out
+
+    rename = rename or {}
+    lanes = []
+    for lane in report["lanes"]:
+        metrics = {rename.get(k, k): v for k, v in flat("", lane["metrics"], {}).items()}
+        lanes.append({**lane, "metrics": metrics})
+    return {**report, "lanes": lanes}
+
+
+def layout_mismatches(ours: dict, ref: dict, blocked_notes: dict | None = None) -> dict:
+    """The layout differences of a port campaign report from the JAX
+    package's committed one where the statuses may differ (a report made
+    on the TPU against the port's CPU run): the lanes' names in order, and
+    for each lane the port runs, its thresholds, notes and metric keys;
+    each lane the port reports blocked must carry the note of
+    ``blocked_notes`` (lane name -> the JAX script's off-TPU note) and no
+    metrics."""
+    blocked_notes = blocked_notes or {}
+    lanes_o = {lane["name"]: lane for lane in ours["lanes"]}
+    lanes_r = {lane["name"]: lane for lane in ref["lanes"]}
+    if list(lanes_o) != list(lanes_r):
+        return {"lanes": (list(lanes_o), list(lanes_r))}
+    bad = {}
+    for name, lo in lanes_o.items():
+        lr = lanes_r[name]
+        if lo["status"] == "blocked":
+            if (lo["notes"], lo["metrics"], lo["thresholds"]) != (blocked_notes.get(name), {}, {}):
+                bad[name] = ("blocked", lo["notes"], lo["metrics"])
+            continue
+        for key in ("thresholds", "notes"):
+            if lo[key] != lr[key]:
+                bad[(name, key)] = (lo[key], lr[key])
+        if set(lo["metrics"]) != set(lr["metrics"]):
+            bad[(name, "metrics")] = sorted(set(lo["metrics"]) ^ set(lr["metrics"]))
+    return bad
