@@ -11,7 +11,8 @@ them:
   ending in the mixed-precision, GS-residual-gated 2049^2 solve (f64 master
   iterate, f32 V-cycle defect correction), the cascade of the
   ``resolution_scaling`` campaign, which runs kernels 2-7, the tiled 1025^2+
-  legs (kernels 6 and 7) included; (5b) the campaign itself, in a spawned process: 513^2,
+  legs (kernels 6 and 7) included, through ``solve_equilibrium_mixed_fmg``;
+  (5b) the campaign itself, after every other phase: 513^2,
   1025^2 against the f64 NumPy FMG twin, the mixed 2049^2 and 4097^2
   cascades (f64 GS residual < 3e-5; their time, iterations and peak device
   memory printed) and the per-point scaling;
@@ -295,14 +296,15 @@ them:
 Every one of the port's 20 campaigns runs once: the phases that hold a
 campaign's kernel gates call its module (:data:`PHASE_CAMPAIGNS`: (5b)
 ``resolution_scaling``, with the 4097^2 mixed solve, through kernels 2-7,
-and (8b) ``free_boundary_forward`` through kernels 2 and 3, in a spawned
-process started with (g); (g) ``adjoint_fd``; (zo)
-``batched_amortisation``; (zp) ``sharded_gs``; (zq) ``sharded_convergence``;
+and (8b) ``free_boundary_forward`` through kernels 2 and 3; (g)
+``adjoint_fd``; (zo) ``batched_amortisation``; (zp) ``sharded_gs``; (zq) ``sharded_convergence``;
 (zr) ``implementation_parity`` and ``error_audit``), (zs) the others, and
 after (zs) every report's lanes are held to the committed JAX report's
 (:func:`campaign_check`: the statuses equal but :data:`VALIDATE_STANDING`'s,
 printed with their numbers beside their gates, and the lanes blocked for
-want of the reference's data).  The twentieth, ``tracking_acceptance``
+want of the reference's data).  The three campaigns whose lanes gate a time
+((zo), (5b), (8b)) run after (zs), in the main line, once every spawned
+process has ended: the card does nothing else while they time.  The twentieth, ``tracking_acceptance``
 ((o)'s; 132 closed-loop ticks of seven f64 plant solves each, host-bound
 launches: 463-629 s in each of four processes on an H100), is the smoke's
 second command, ``python3 chip_smoke.py tracking``: its shots in four
@@ -871,19 +873,17 @@ def adjoint_on_card(conn, card: str) -> None:
     conn.close()
 
 
-def equilibrium_campaigns_on_card(conn, card: str) -> None:
-    """(5b) and (8b) in a spawned process on the card, started with (g) and
-    (h): the ``resolution_scaling`` campaign (anchor_513 through kernels 2-5,
-    capability_1025 through kernels 2-7 against the f64 NumPy FMG twin on the
-    host, the mixed 2049^2 and 4097^2 cascades, on_scaling) and the
-    ``free_boundary_forward`` campaign (the 129^2 forward in f32 through
-    kernels 2 and 3, in f64, mixed through kernel 3, the 257^2 forward, cold
-    against warm, its cold call in a fresh process and not counted here),
-    each its status the committed report's; prints the 4097^2 solve's time,
-    iterations, GS residual and peak memory; sends the kernel calls of
-    each."""
+def equilibrium_campaigns(card: str) -> dict:
+    """(5b) and (8b) on the card: the ``resolution_scaling`` campaign
+    (anchor_513 through kernels 2-5, capability_1025 through kernels 2-7
+    against the f64 NumPy FMG twin on the host, the mixed 2049^2 and 4097^2
+    cascades, on_scaling) and the ``free_boundary_forward`` campaign (the
+    129^2 forward in f32 through kernels 2 and 3, in f64, mixed through
+    kernel 3, the 257^2 forward, cold against warm, its cold call in a fresh
+    process and not counted here), each its status the committed report's;
+    prints the 4097^2 solve's time, iterations, GS residual and peak memory;
+    returns the kernel calls of each, by path."""
     import torch
-    sys.path.insert(0, str(ROOT))
     from scpn_fusion_tpu_torch.ops import _cuda_build as cb
     from scpn_fusion_tpu_torch.validation import REPORTS_DIR
     from scpn_fusion_tpu_torch.validation import run_free_boundary_forward as fbf
@@ -936,9 +936,7 @@ def equilibrium_campaigns_on_card(conn, card: str) -> None:
             f"(8b) free_boundary_forward: expected kernels 2 and 3 only (3 more, the mixed "
             f"lane's): {calls_fbf}")
     out["free_boundary_forward"] = calls_fbf
-    sys.stdout.flush()
-    conn.send({"by_path": out, "s": (ms_rs + ms_fbf) / 1e3})
-    conn.close()
+    return out
 
 
 def recon_on_card(conn) -> None:
@@ -8206,19 +8204,16 @@ def host_ms(run) -> tuple:
 
 
 def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu) -> dict:
-    """(zo) the ``batched_amortisation`` campaign on the card (lanes 1-4: the
-    f32 batches through the batched kernels 2 and 3, the mixed batches'
-    V-cycles through the batched kernel 3, lane 3's cold call in a fresh
-    process), its status the committed report's; the straggler freeze in
-    float32 against standalone solves at the fixed-point scale; the 16-batch
-    over a 4-shard mesh of the one card against the whole batch; the mixed
-    B = 16 batch against its CPU twin (``mixed_cpu``).  Returns the batched
-    kernels' counted calls, by kernel."""
+    """(zo) the straggler freeze in float32 against standalone solves at the
+    fixed-point scale; the 16-batch over a 4-shard mesh of the one card
+    against the whole batch; the mixed B = 16 batch against its CPU twin
+    (``mixed_cpu``).  Returns the batched kernels' counted calls, by kernel
+    (:func:`batched_campaign` runs the ``batched_amortisation`` campaign
+    once the card is otherwise idle)."""
     import torch
     from scpn_fusion_tpu_torch.bench_config import amortisation_config
     from scpn_fusion_tpu_torch.core.grid import Grid
     from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
-    from scpn_fusion_tpu_torch.validation import REPORTS_DIR, run_batched_amortisation
 
     f32 = torch.float32
     cfg = amortisation_config(129)
@@ -8240,26 +8235,6 @@ def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu) -> dict:
     def add(calls):
         for name in batched:
             total[name] += calls[name]
-
-    # lanes 1-4: the campaign
-    (rc, ms), calls, launched = counted(lambda: host_ms(
-        lambda: run_batched_amortisation.main(device=dev)))
-    campaign_check("batched_amortisation", rc, card, "(zo)")
-    lanes = {lane["name"]: lane["metrics"] for lane in json.loads(
-        (REPORTS_DIR / "batched_amortisation.json").read_text())["lanes"]}
-    require(calls["fused_topology_source_batched"] > 0
-            and calls["fused_coarse_vcycle_batched"] > calls["fused_topology_source_batched"]
-            and all(v == 0 for k, v in calls.items() if k not in batched),
-            f"(zo) batched_amortisation: kernel calls {calls}, expected the batched kernels "
-            f"only (more 3b, the mixed lane's)")
-    add(calls)
-    by_path["batched_amortisation"] = calls
-    print(f"(zo) batched_amortisation (129^2): {ms / 1e3:.1f} s; lane 1 "
-          f"{lanes['batched_element_parity']}; "
-          f"lane 2 {lanes['batched_amortisation']}; lane 3 (cold: the first B = 256 call of a "
-          f"fresh process) {lanes['warm_cold_compile']}; lane 4 "
-          f"{lanes['batched_mixed_amortisation']}; batched kernel calls {calls}, launches "
-          f"{launched} [{card}]")
 
     # the straggler freeze: [base, base] at I_target 15 and 2
     base = torch.tensor([c.current for c in cfg.coils], dtype=f32, device=dev)
@@ -8318,6 +8293,34 @@ def ensemble_checks(dev, card: str, counted, by_path: dict, mixed_cpu) -> dict:
     require(worst < MIXED_PARITY_GATE and bool(twin["converged"].all())
             and bool(res16.converged.all()), "(zo) the mixed batch differs from its CPU twin")
     return total
+
+
+def batched_campaign(dev, card: str, counted, by_path: dict) -> dict:
+    """(zo) the ``batched_amortisation`` campaign on the card (lanes 1-4: the
+    f32 batches through the batched kernels 2 and 3, the mixed batches'
+    V-cycles through the batched kernel 3, lane 3's cold call in a fresh
+    process), its status the committed report's.  Returns the batched
+    kernels' counted calls, by kernel."""
+    from scpn_fusion_tpu_torch.validation import REPORTS_DIR, run_batched_amortisation
+    batched = ("fused_topology_source_batched", "fused_coarse_vcycle_batched")
+    (rc, ms), calls, launched = counted(lambda: host_ms(
+        lambda: run_batched_amortisation.main(device=dev)))
+    campaign_check("batched_amortisation", rc, card, "(zo)")
+    lanes = {lane["name"]: lane["metrics"] for lane in json.loads(
+        (REPORTS_DIR / "batched_amortisation.json").read_text())["lanes"]}
+    require(calls["fused_topology_source_batched"] > 0
+            and calls["fused_coarse_vcycle_batched"] > calls["fused_topology_source_batched"]
+            and all(v == 0 for k, v in calls.items() if k not in batched),
+            f"(zo) batched_amortisation: kernel calls {calls}, expected the batched kernels "
+            f"only (more 3b, the mixed lane's)")
+    by_path["batched_amortisation"] = calls
+    print(f"(zo) batched_amortisation (129^2): {ms / 1e3:.1f} s; lane 1 "
+          f"{lanes['batched_element_parity']}; "
+          f"lane 2 {lanes['batched_amortisation']}; lane 3 (cold: the first B = 256 call of a "
+          f"fresh process) {lanes['warm_cold_compile']}; lane 4 "
+          f"{lanes['batched_mixed_amortisation']}; batched kernel calls {calls}, launches "
+          f"{launched} [{card}]")
+    return {name: calls[name] for name in batched}
 
 
 def sharded_on_card(conn, card: str) -> None:
@@ -8384,8 +8387,8 @@ def gk_shard_checks(dev, card: str, counted, by_path: dict, lane7: dict) -> tupl
     """(zq) ``parallel/gk_shard`` on :func:`card_mesh`'s virtual shards of the
     card (the collectives' arithmetic and the launch structure, not an
     interconnect): the pencil bracket on lane 7's initial state; lane 7 of
-    the ``sharded_convergence`` campaign (``lane7``: its runs, kept by the
-    campaign, and the campaign's kernel calls: row G on every shard, exactly
+    the ``sharded_convergence`` campaign (``lane7``: the campaign's
+    ``gk_runs``, and the campaign's kernel calls: row G on every shard, exactly
     8 x 4 x 50, and 4 x 50 for its monolithic run); the ms of a sharded and a
     monolithic step; ``run_gk_scenario.py`` lanes 1 and 3 (lane 2 is (u)'s
     linear ITG lane); the (sy, v) = (2, 4) mesh and the (data, v) = (2, 4)
@@ -8614,16 +8617,19 @@ def slice24_on_card(conn, card: str) -> None:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    keep = {}
     torch.cuda.reset_peak_memory_stats()
-    (rc, ms), calls, launched = counted(lambda: events_ms(
-        lambda: run_sharded_convergence.main(device=dev, keep=keep)))
-    keep.update(calls=calls, launched=launched, ms=ms,
-                peak=torch.cuda.max_memory_allocated() / 2**20)
+
+    def campaign():
+        runs = run_sharded_convergence.gk_runs(dev)
+        return runs, run_sharded_convergence.write_lanes(dev, runs)
+
+    ((lane7, rc), ms), calls, launched = counted(lambda: events_ms(campaign))
+    lane7.update(calls=calls, launched=launched, ms=ms,
+                 peak=torch.cuda.max_memory_allocated() / 2**20)
     campaign_check("sharded_convergence", rc, card, "(zq)")
     by_path = {}
-    _, gk_final, lanes = gk_shard_checks(dev, card, counted, by_path, keep)
-    del keep
+    _, gk_final, lanes = gk_shard_checks(dev, card, counted, by_path, lane7)
+    del lane7
     t1 = time.perf_counter()
     carried_lanes_checks(dev, card, counted, by_path, gk_final, lanes)
     sys.stdout.flush()
@@ -8645,9 +8651,9 @@ def slice24_on_card(conn, card: str) -> None:
 # against the original reference's H100 rows (BASELINE.md:13): 26.3 ms a
 # float32 solve, 13.0 ms in float64 and mixed precision.  The port's forward
 # is host-driven (one host read an outer iteration, an inner Picard loop of
-# small launches): 200.9 ms a float32 solve, 829.4 ms in float64 (plain
-# ops), 133.5 ms mixed on an H100 beside the smoke's other card work, each
-# short of its row (a finding for the speed work, ROADMAP Queue 1 item 7).
+# small launches): 74.8 ms a float32 solve, 1198.1 ms in float64 (plain
+# ops), 150.4 ms mixed on an H100 doing nothing else, each short of its row
+# (a finding for the speed work, ROADMAP Queue 1 item 7).
 VALIDATE_STANDING = {("neg_triangularity", "divertor_contract"),
                      ("free_boundary_forward", "warm_forward_129_device"),
                      ("free_boundary_forward", "warm_forward_129_device_f64"),
@@ -9880,7 +9886,8 @@ def _main(stack: contextlib.ExitStack) -> int:
 
     # ── 5. the second slice: FMG 129 -> ... -> 1025 (f32) -> 2049 mixed on the card ──
     # the cascade of run_resolution_scaling.py's capability_2049_mixed lane
-    # (validation/run_resolution_scaling.py in the port), one element
+    # (validation/run_resolution_scaling.py in the port), one element:
+    # solve_equilibrium_mixed_fmg from 129^2
     cas2_k = rs.Cascade(2049, dev, mixed=True)
     cas2_p = rs.Cascade(2049, dev, mixed=True, use_pallas=False)
     base_bytes = torch.cuda.memory_allocated()
@@ -10264,10 +10271,6 @@ def _main(stack: contextlib.ExitStack) -> int:
     # check last ──
     # (g) with its FD check and (h) run on the card in spawned processes beside
     # (i)-(l) (in line they took 130-190 s and ~120 s of host time)
-    # (5b) and (8b), the resolution_scaling and free_boundary_forward
-    # campaigns, in a spawned process beside (g)-(zo)
-    twins["equilibrium_campaigns"] = stack.enter_context(
-        cpu_twin(equilibrium_campaigns_on_card, card))
     with cpu_twin(adjoint_on_card, card) as adjoint_card, \
             cpu_twin(recon_on_card) as recon_card, cpu_twin(recon_on_cpu) as recon_cpu:
         small_lanes(dev, card, counted, by_path, fmg_513, cfg_k, fb_results["fb_129"],
@@ -10431,13 +10434,6 @@ def _main(stack: contextlib.ExitStack) -> int:
     phase_done("batched kernels 2 and 3 (zo)")
     ensemble_calls = ensemble_checks(dev, card, counted, by_path, twins["ensemble_cpu"])
     phase_done("ensemble lanes 1-4 and the straggler (zo)")
-    t_wait = time.perf_counter()
-    campaigns = twins["equilibrium_campaigns"]()
-    by_path.update(campaigns["by_path"])
-    print(f"(5b) and (8b) on the card in a spawned process (started before (g)): "
-          f"{campaigns['s']:.1f} s; the main line waited {time.perf_counter() - t_wait:.1f} s "
-          f"for it [{card}]")
-    phase_done("resolution_scaling (5b) and free_boundary_forward (8b), spawned")
     sharded_checks(card, twins["sharded_card"])
     phase_done("sharded solves on virtual shards (zp)")
 
@@ -10459,6 +10455,20 @@ def _main(stack: contextlib.ExitStack) -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in slice25["secs"].items())
           + f"; the main line waited {waited:.2f} s for it [{card}]")
     phase_done("the CLI and ui/ (zs), spawned")
+
+    # the campaigns whose lanes gate a time (the reference's H100 rows,
+    # on_scaling's ratio, batched amortisation, cold against warm) run here,
+    # every spawned process ended and the card doing nothing else: beside
+    # (g)-(zo) their times rose two to four times
+    import multiprocessing
+    print(f"(zo), (5b) and (8b): the timed campaigns in the main line, "
+          f"{len(multiprocessing.active_children())} other processes of the smoke alive "
+          f"[{card}]")
+    for name, calls in batched_campaign(dev, card, counted, by_path).items():
+        ensemble_calls[name] += calls
+    phase_done("batched_amortisation (zo), the card otherwise idle")
+    by_path.update(equilibrium_campaigns(card))
+    phase_done("resolution_scaling (5b) and free_boundary_forward (8b), the card otherwise idle")
 
     # every campaign of the port but tracking_acceptance (the second command,
     # ``chip_smoke.py tracking``) ran once on the card, in its phase or in

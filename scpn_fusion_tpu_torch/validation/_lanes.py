@@ -1,5 +1,5 @@
 """What the equilibrium campaigns share: the 6-coil ITER-like machine of the
-JAX scripts, the device switch that takes the place of their TPU switch, the
+JAX scripts (``bench_config.ITER_LIKE``), the device switch that takes the place of their TPU switch, the
 clock of their timing lanes, a call timed as the first of a fresh process,
 and their exit rule."""
 
@@ -20,9 +20,6 @@ ROOT = Path(__file__).resolve().parents[2]
 # when it is absent
 REFERENCE_DATA = Path("/root/reference/validation/reference_data")
 
-# (r, z, current) of the six coils every equilibrium script builds by hand
-ITER_COILS = ((3.5, 4.8, -1.0), (8.0, 4.8, 4.0), (10.8, 0.0, 6.0),
-              (8.0, -4.8, 4.0), (3.5, -4.8, -1.0), (10.8, 2.5, 3.0))
 NO_CARD = "TPU backend unavailable in this environment"
 
 
@@ -33,18 +30,14 @@ def on_card(device) -> bool:
 
 
 def iter_like(name: str, n: int, *, ip: float = 15.0, **solver):
-    """The scripts' ``ReactorConfig``: the ITER-like machine on an ``n`` x
-    ``n`` grid of (2, 10) x (-4, 4) m, ``ip`` the target current, mu0 = 1,
-    ``solver`` the ``SolverParams`` fields."""
-    from scpn_fusion_tpu_torch.core.config import (
-        Coil, Dimensions, PhysicsParams, ReactorConfig, SolverParams,
-    )
-    return ReactorConfig(
-        reactor_name=name, grid_resolution=(n, n),
-        dimensions=Dimensions(R_min=2.0, R_max=10.0, Z_min=-4.0, Z_max=4.0),
-        coils=tuple(Coil(r=r, z=z, current=i) for r, z, i in ITER_COILS),
-        physics=PhysicsParams(plasma_current_target=ip, vacuum_permeability=1.0),
-        solver=SolverParams(**solver))
+    """The scripts' ``ReactorConfig``: ``bench_config.ITER_LIKE`` (the six
+    coils every equilibrium script builds by hand, on (2, 10) x (-4, 4) m,
+    mu0 = 1) on an ``n`` x ``n`` grid, named ``name``, ``ip`` the target
+    current, ``solver`` the ``SolverParams`` fields."""
+    from scpn_fusion_tpu_torch.bench_config import ITER_LIKE, config_dict
+    from scpn_fusion_tpu_torch.core.config import config_from_dict
+    return config_from_dict({**config_dict(n, **solver), "reactor_name": name,
+                             "physics": {**ITER_LIKE["physics"], "plasma_current_target": ip}})
 
 
 def wall_ms(run, device) -> tuple:

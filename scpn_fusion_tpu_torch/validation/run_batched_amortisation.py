@@ -43,14 +43,13 @@ BATCHES = (1, 16, 64, 256)
 REF_PER_SOLVE_MS = 13.0
 
 
-def first_batch_ms(n: int, b: int, batches: list) -> dict:
+def first_batch_ms(n: int, b: int, batches: list, device: str) -> dict:
     """In a fresh process: the ms of the first B = ``b`` float32 batch call
-    of a process on the card when there is one, from before its first CUDA
-    work to its psi on the host, and whether it converged."""
+    of a process on ``device``, from before its first work there to its psi
+    on the host, and whether it converged."""
     from scpn_fusion_tpu_torch.bench_config import amortisation_config, amortisation_draws
     from scpn_fusion_tpu_torch.core.grid import Grid
     from scpn_fusion_tpu_torch.parallel.ensemble import solve_equilibrium_batch
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     cur, tgt = amortisation_draws(batches=tuple(batches))[b]
     t0 = time.perf_counter()
     cfg = amortisation_config(n)
@@ -119,7 +118,8 @@ def main(*, device: torch.device | str = "cuda", out_dir: str | Path = REPORTS_D
                  for _ in range(3)]
         per_solve[b] = min(times) / b
     b_top = batches[-1]
-    fresh = fresh_process(f"{__name__}:first_batch_ms", n=n, b=b_top, batches=list(batches))
+    fresh = fresh_process(f"{__name__}:first_batch_ms", n=n, b=b_top, batches=list(batches),
+                          device=str(torch.device(device)))
     cold_ms = fresh["cold_ms"]
 
     amort_ok = all(per_solve[b] < 0.5 * per_solve[1] for b in batches[1:])

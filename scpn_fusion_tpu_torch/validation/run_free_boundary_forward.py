@@ -41,43 +41,36 @@ import torch
 
 from scpn_fusion_tpu_torch.validation import REPORTS_DIR
 from scpn_fusion_tpu_torch.validation._lanes import (
-    NO_CARD, best_ms, exit_code, fresh_process, iter_like, on_card,
+    NO_CARD, best_ms, exit_code, fresh_process, on_card,
 )
 
 REF_WARM_MS = 13.0      # H100, with MG preconditioner
 REF_WARM_NOMG_MS = 26.3
 REF_COLD_MS = 164.8
 # (max_outer_iter, tol) of the float32 lanes at 129^2 and 257^2 and of the
-# float64 lanes (see forward_config)
+# float64 lanes.  The outer criterion is absolute max|dpsi| between
+# successive inner solves; the f32 fixed point is a limit cycle of ~25 ulps
+# of psi_axis (~42 here, ulp 3.8e-6 => cycle ~1e-4), so the f32 tol must
+# clear it: 2.5e-4 at 129^2 (~5e-6 span-relative), 3e-4 at 257^2 (psi span
+# ~50, ~6e-6 span-relative, matched to the f32 inner-solve noise floor
+# there).  The f64 lanes keep 1e-4 and converge in 3 outer iterations (no
+# cycle at f64 ulp scale).
 F32_129 = (16, 2.5e-4)
 F32_257 = (40, 3e-4)
 F64_129 = (16, 1e-4)
 
 
-def forward_config(n: int, *, use_pallas: bool = True):
-    """The forward's machine and inner solver at ``n`` x ``n``: anderson_mg,
-    depth 4, relaxation 1.0, update tolerance 1e-4, at most 400 inner
-    iterations.  The outer criterion is absolute max|dpsi| between
-    successive inner solves; the f32 fixed point is a limit cycle of ~25
-    ulps of psi_axis (~42 here, ulp 3.8e-6 => cycle ~1e-4), so the f32 tol
-    must clear it: 2.5e-4 at 129^2 (~5e-6 span-relative), 3e-4 at 257^2
-    (psi span ~50, ~6e-6 span-relative, matched to the f32 inner-solve
-    noise floor there).  The f64 lanes keep 1e-4 and converge in 3 outer
-    iterations (no cycle at f64 ulp scale)."""
-    return iter_like(f"fb-forward-{n}", n, max_iterations=400, convergence_threshold=1e-4,
-                     relaxation_factor=1.0, solver_method="anderson_mg", anderson_depth=4,
-                     use_pallas=use_pallas)
-
-
 def forward_solve(n: int, *, device, dtype: torch.dtype = torch.float32,
                   max_outer_iter: int = 16, tol: float = 1e-4, mixed_n_refine: int = 0,
                   use_pallas: bool = True, coils=None, grid=None, **kw):
-    """One forward of the lanes: ``solve_free_boundary`` of
-    :func:`forward_config` with Green's functions in mu0 = 1 (Anderson's
-    Gram in f32 where the solve is f64), ``coils`` the machine's unless
-    given; ``kw`` goes to ``solve_free_boundary``."""
+    """One forward of the lanes: ``solve_free_boundary`` of the forward's
+    machine and inner solver (``bench_config.free_boundary_config``) with
+    Green's functions in mu0 = 1 (Anderson's Gram in f32 where the solve is
+    f64), ``coils`` the machine's unless given; ``kw`` goes to
+    ``solve_free_boundary``."""
+    from scpn_fusion_tpu_torch.bench_config import free_boundary_config
     from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import solve_free_boundary
-    return solve_free_boundary(forward_config(n, use_pallas=use_pallas), coils, grid=grid,
+    return solve_free_boundary(free_boundary_config(n, use_pallas=use_pallas), coils, grid=grid,
                                max_outer_iter=max_outer_iter, tol=tol, mu0_green=1.0,
                                dtype=dtype, device=device,
                                anderson_gram_f32=dtype == torch.float64,
@@ -90,11 +83,12 @@ class Forward:
 
     def __init__(self, n: int, device, dtype: torch.dtype, max_outer: int, tol: float,
                  mixed_n_refine: int = 0):
+        from scpn_fusion_tpu_torch.bench_config import free_boundary_config
         from scpn_fusion_tpu_torch.core.grid import Grid
         from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import coilset_from_config
         self.n, self.device, self.dtype = n, torch.device(device), dtype
         self.kw = dict(max_outer_iter=max_outer, tol=tol, mixed_n_refine=mixed_n_refine)
-        cfg = forward_config(n)
+        cfg = free_boundary_config(n)
         self.grid = Grid.from_config(cfg, dtype=dtype, device=self.device)
         self.coils0 = coilset_from_config(cfg, dtype, self.device)
 
@@ -112,12 +106,10 @@ class Forward:
         return sums, [int(r.outer_iterations) for r in outs], [bool(r.converged) for r in outs]
 
 
-def first_call_ms(n: int, max_outer: int, tol: float) -> dict:
+def first_call_ms(n: int, max_outer: int, tol: float, device: str) -> dict:
     """In a fresh process (:func:`_lanes.fresh_process`): the ms of the first
-    float32 chain(1) of a process on the card when there is one, from before
-    its first CUDA work to its psi sum on the host, then the ms of the
-    same call warm."""
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    float32 chain(1) of a process on ``device``, from before its first work
+    there to its psi sum on the host, then the ms of the same call warm."""
     t0 = time.perf_counter()
     Forward(n, device, torch.float32, max_outer, tol).chain(1)
     cold = 1e3 * (time.perf_counter() - t0)
@@ -143,7 +135,7 @@ def measure(n: int, device, *, max_outer: int = 16, tol: float = 1e-4,
            "psi": lambda: fwd.solve().psi.detach().cpu().to(torch.float64).numpy()}
     if cold:
         out["fresh"] = fresh_process(f"{__name__}:first_call_ms", n=n, max_outer=max_outer,
-                                     tol=tol)
+                                     tol=tol, device=str(torch.device(device)))
         out["cold_ms"] = out["fresh"]["cold_ms"]
     return out
 

@@ -18,9 +18,10 @@ at 4x, 16x and 64x the grid points on one card:
 5. ``capability_4097_mixed`` — 16.8M points on one card, the same
    mixed-precision protocol as 2049^2, k=1 vs 2 chained.
 
-The cascades are the script's: each level a ``solve_fixed_boundary_impl``
-from the prolonged coarser iterate (the first seeded from the vacuum
-flux), coarse levels at 1e-3, per-element target currents 15 + 0.02 i.
+The cascades are the script's, run through the port's entry points
+``solve_equilibrium_fmg`` and ``solve_equilibrium_mixed_fmg``: each level
+from the prolonged coarser iterate (the first seeded from the vacuum flux),
+coarse levels at 1e-3, per-element target currents 15 + 0.02 i.
 Times are chained-solve slopes between CUDA events, the host's driving in.
 Off a CUDA device every lane reports blocked, as the script's do off the
 TPU.  On the card a lane that raises (a build, launch or out-of-memory
@@ -31,7 +32,6 @@ each cascade's peak device memory.  Writes into ``out_dir``.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from pathlib import Path
 
@@ -40,7 +40,7 @@ import torch
 
 from scpn_fusion_tpu_torch.validation import REPORTS_DIR
 from scpn_fusion_tpu_torch.validation._lanes import (
-    NO_CARD, best_ms, exit_code, iter_like, on_card,
+    NO_CARD, best_ms, exit_code, on_card,
 )
 
 COARSE_TOL = 1e-3
@@ -49,13 +49,14 @@ BLOCKED_NAMES = ("anchor_513", "capability_1025", "capability_2049", "capability
                  "on_scaling")
 
 
-def base_config(n: int):
-    """The headline machine and solver at ``n`` x ``n``: anderson_mg, depth
-    4, relaxation 1.0, (1,2) smoothing, update tolerance 1e-4, at most 600
-    iterations."""
-    return iter_like(f"res-scale-{n}", n, max_iterations=600, convergence_threshold=1e-4,
-                     relaxation_factor=1.0, solver_method="anderson_mg", anderson_depth=4,
-                     mg_pre_smooth=1, mg_post_smooth=2)
+def base_config(n: int, *, mixed: bool = False, use_pallas: bool = True):
+    """The headline configuration at ``n`` x ``n`` (``bench_config``:
+    anderson_mg, depth 4, relaxation 1.0, (1,2) smoothing, update tolerance
+    1e-4, at most 600 iterations); with ``mixed`` also converged on the f64
+    GS residual < 3e-5."""
+    from scpn_fusion_tpu_torch.bench_config import bench_config
+    return bench_config(n, use_pallas=use_pallas,
+                        gs_residual_threshold=GS_THRESHOLD if mixed else 0.0)
 
 
 def cascade_levels(n_fine: int, *, mixed: bool) -> list[int]:
@@ -68,88 +69,34 @@ def cascade_levels(n_fine: int, *, mixed: bool) -> list[int]:
 
 
 class Cascade:
-    """The script's FMG cascade at ``n_fine``: float32 levels from 129^2
-    (``use_pallas``: the hand-written kernels on a CUDA device), then with
-    ``mixed`` a float64 ``n_fine`` level converged on the update and the f64
+    """The script's FMG cascade at ``n_fine`` through the port's entry
+    points: ``solve_equilibrium_fmg`` from 129^2 in ``dtype`` (float32: the
+    hand-written kernels on a CUDA device; the CPU tests run float64), or
+    with ``mixed`` ``solve_equilibrium_mixed_fmg``: float32 levels from 129^2,
+    then a float64 ``n_fine`` level converged on the update and the f64
     GS-residual criteria, its elliptic step two rounds of f64 defect -> f32
-    V-cycle.  ``dtype`` is the float32 levels' (the CPU tests run them in
-    float64)."""
+    V-cycle.  ``use_pallas=False`` is the plain cascade."""
 
     def __init__(self, n_fine: int, device, *, mixed: bool = False, use_pallas: bool = True,
                  dtype: torch.dtype = torch.float32):
-        from scpn_fusion_tpu_torch.core.grid import Grid
-        from scpn_fusion_tpu_torch.models.equilibrium.mixed_precision import (
-            make_refinement_elliptic,
-        )
-        from scpn_fusion_tpu_torch.models.equilibrium.profiles import (
-            profile_coeffs_from_physics,
-        )
-        from scpn_fusion_tpu_torch.models.equilibrium.vacuum import vacuum_psi_from_config
-
         self.n_fine, self.mixed, self.dtype = n_fine, mixed, dtype
         self.device = torch.device(device)
         self.use_pallas = use_pallas and on_card(device)
-        self.cfg = cfg = base_config(n_fine)
-        self.levels = cascade_levels(n_fine, mixed=mixed)
-        self.grids, self.bcs = {}, {}
-        for m in self.levels:
-            level_cfg = dataclasses.replace(cfg, grid_resolution=(m, m))
-            self.grids[m] = Grid.from_config(level_cfg, dtype=dtype, device=self.device)
-            self.bcs[m] = vacuum_psi_from_config(self.grids[m], level_cfg).to(dtype)
-        self.coeffs = profile_coeffs_from_physics(cfg.physics, dtype, self.device)
-        if mixed:
-            f64 = torch.float64
-            self.grid64 = Grid.from_config(cfg, dtype=f64, device=self.device)
-            self.bc64 = vacuum_psi_from_config(self.grid64, cfg).to(f64)
-            self.coeffs64 = profile_coeffs_from_physics(cfg.physics, f64, self.device)
-            self.elliptic = make_refinement_elliptic(self.grid64, n_refine=2,
-                                                     use_pallas=self.use_pallas)
-
-    def _level(self, m: int, psi_init, i_t: float, tol: float, skip_seed: bool):
-        from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
-            _as_dtype, solve_fixed_boundary_impl,
-        )
-        sol, d = self.cfg.solver, self.dtype
-        return solve_fixed_boundary_impl(
-            self.grids[m], psi_init, self.bcs[m], torch.full((), i_t, dtype=d, device=self.device),
-            *self.coeffs, _as_dtype(tol, d), math.inf, _as_dtype(sol.relaxation_factor, d),
-            _as_dtype(sol.sor_omega, d), solver_method=sol.solver_method,
-            max_iter=sol.max_iterations, h_mode=False, inner_sweeps=sol.inner_sweeps,
-            anderson_m=sol.anderson_depth, mu0=1.0, use_gs_criterion=False,
-            use_pallas=self.use_pallas, skip_seed=skip_seed, mg_pre_smooth=sol.mg_pre_smooth,
-            mg_post_smooth=sol.mg_post_smooth, mg_min_grid=sol.mg_min_grid)
+        self.cfg = base_config(n_fine, mixed=mixed, use_pallas=use_pallas)
 
     def solve(self, i_t: float = 15.0) -> tuple:
         """One cascade at target current ``i_t``: (the finest level's result,
         [{"n", "iterations", "converged"}] by level)."""
-        from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import (
-            solve_fixed_boundary_impl,
-        )
-        from scpn_fusion_tpu_torch.ops.multigrid import prolongate_bilinear
-        sol = self.cfg.solver
-        info = []
-        res = None
-        for m in self.levels:
-            last = m == self.n_fine
-            psi_init = (self.bcs[m] if res is None
-                        else prolongate_bilinear(res.psi, m, m).contiguous())
-            tol = sol.convergence_threshold if (last and res is not None) else COARSE_TOL
-            res = self._level(m, psi_init, i_t, tol, res is not None)
-            info.append({"n": m, "iterations": int(res.iterations),
-                         "converged": bool(res.converged)})
         if self.mixed:
-            f64 = torch.float64
-            p_fine = prolongate_bilinear(res.psi, self.n_fine, self.n_fine).to(f64).contiguous()
-            res = solve_fixed_boundary_impl(
-                self.grid64, p_fine, self.bc64, torch.full((), i_t, dtype=f64, device=self.device),
-                *self.coeffs64, float(sol.convergence_threshold), GS_THRESHOLD, 1.0,
-                float(sol.sor_omega), solver_method="anderson_mg", max_iter=sol.max_iterations,
-                h_mode=False, inner_sweeps=sol.inner_sweeps, anderson_m=sol.anderson_depth,
-                mu0=1.0, use_gs_criterion=True, use_pallas=False, elliptic_fn=self.elliptic,
-                skip_seed=True, anderson_gram_f32=True)
-            info.append({"n": self.n_fine, "iterations": int(res.iterations),
-                         "converged": bool(res.converged)})
-        return res, info
+            from scpn_fusion_tpu_torch.models.equilibrium.mixed_precision import (
+                solve_equilibrium_mixed_fmg,
+            )
+            return solve_equilibrium_mixed_fmg(self.cfg, coarse_tol=COARSE_TOL, min_coarse=129,
+                                               i_target=i_t, n_refine=2,
+                                               use_pallas=self.use_pallas, device=self.device)
+        from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium_fmg
+        return solve_equilibrium_fmg(self.cfg, coarse_tol=COARSE_TOL, min_coarse=129,
+                                     i_target=i_t, dtype=self.dtype, device=self.device)
 
     def chain(self, k: int) -> tuple:
         """The script's ``solve_chain(k)``: k cascades at 15 + 0.02 i; (psi
@@ -178,15 +125,13 @@ def peak_bytes(run, device) -> tuple:
 def measure(n_fine: int, device, k_hi: int = 5) -> dict:
     """Slope-timed chained FMG cascade 129 -> ... -> n_fine in float32 (the
     bench protocol: per-element Ip perturbations; all elements must
-    converge), then one ``solve_equilibrium_fmg`` psi for parity checks."""
-    from scpn_fusion_tpu_torch.models.equilibrium.fixed_boundary import solve_equilibrium_fmg
+    converge), then one cascade's psi at Ip 15 for parity checks."""
     cas = Cascade(n_fine, device)
     t_lo = best_ms(lambda: cas.chain(1), device)
     t_hi = best_ms(lambda: cas.chain(k_hi), device)
     (_, iters, conv, _), peak = peak_bytes(lambda: cas.chain(k_hi), device)
     device_ms = max((t_hi - t_lo) / (k_hi - 1), 0.0)
-    res_solo, _ = solve_equilibrium_fmg(cas.cfg, min_coarse=129, dtype=torch.float32,
-                                        device=device)
+    res_solo, _ = cas.solve()
     psi = res_solo.psi.detach().cpu().to(torch.float64).numpy()
     return {"n": n_fine, "device_ms": device_ms, "iters": iters,
             "all_converged": bool(np.all(conv) and bool(res_solo.converged)),

@@ -221,26 +221,29 @@ def lane_free_boundary(device, h: dict, n_fb: int = 129):
               "CPU mesh")
 
 
-def lane_gk(device, spec: dict | None = None, keep: dict | None = None):
-    """Lane 7 at ``spec`` (the script's 32x32x16x16x8 c128, 50 steps by
-    default) on the (2, 2, 2) mesh of ``device`` against the monolithic run;
-    ``keep``, when given, receives both runs' (final state, trace) under
-    ``"mono"`` and ``"sharded"``."""
+def gk_runs(device, spec: dict | None = None) -> dict:
+    """Lane 7's two runs at ``spec`` (the script's 32x32x16x16x8 c128, 50
+    steps by default): the monolithic run and the run on the (2, 2, 2) mesh
+    of ``device``, each its (final state, trace), under ``"mono"`` and
+    ``"sharded"``, beside the ``"spec"``."""
     from scpn_fusion_tpu_torch.models.gyrokinetics.nonlinear import (
         NonlinearGKConfig, run_nonlinear_gk,
     )
-    from scpn_fusion_tpu_torch.parallel.gk_shard import (
-        per_device_state_bytes, run_nonlinear_gk_spatial_sharded_3d,
-    )
-    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
+    from scpn_fusion_tpu_torch.parallel.gk_shard import run_nonlinear_gk_spatial_sharded_3d
     spec = dict(GK_SPEC if spec is None else spec)
-    gk_steps = spec["n_steps"]
     gk_cfg = NonlinearGKConfig(**spec)
-    fin_1, tr_1 = run_nonlinear_gk(gk_cfg, seed=GK_SEED, device=device)
-    fin_s, tr_s = run_nonlinear_gk_spatial_sharded_3d(
+    mono = run_nonlinear_gk(gk_cfg, seed=GK_SEED, device=device)
+    sharded = run_nonlinear_gk_spatial_sharded_3d(
         gk_cfg, virtual_mesh(device, 8, ("sx", "sy", "v"), GK_MESH), seed=GK_SEED)
-    if keep is not None:
-        keep.update(mono=(fin_1, tr_1), sharded=(fin_s, tr_s))
+    return {"spec": spec, "mono": mono, "sharded": sharded}
+
+
+def lane_gk(runs: dict):
+    """Lane 7 from :func:`gk_runs`: the sharded run against the monolithic."""
+    from scpn_fusion_tpu_torch.parallel.gk_shard import per_device_state_bytes
+    from scpn_fusion_tpu_torch.utils.evidence import LaneResult
+    spec, (fin_1, tr_1), (fin_s, tr_s) = runs["spec"], runs["mono"], runs["sharded"]
+    gk_steps = spec["n_steps"]
     f_1, f_s = fin_1.f.cpu(), fin_s.f.cpu()
     scale = float(f_1.abs().max())
     dev_gk = float((f_s - f_1).abs().max()) / scale
@@ -268,16 +271,23 @@ def lane_gk(device, spec: dict | None = None, keep: dict | None = None):
               "multi-chip-mandatory claim as numbers, not assertion")
 
 
-def main(*, device: torch.device | str = "cuda", out_dir: str | Path = REPORTS_DIR,
-         n: int = 513, n_fb: int = 129, gk_spec: dict | None = None,
-         keep: dict | None = None) -> int:
-    """The campaign at the script's sizes (``n``, ``n_fb``, ``gk_spec``; the
-    CPU tests pass smaller ones); ``keep`` as :func:`lane_gk`'s."""
+def write_lanes(device, runs: dict, *, out_dir: str | Path = REPORTS_DIR, n: int = 513,
+                n_fb: int = 129) -> int:
+    """Lanes 1-6 at ``n`` and ``n_fb`` on ``device`` and lane 7 from ``runs``
+    (:func:`gk_runs`), written as the report; the script's exit code."""
     from scpn_fusion_tpu_torch.utils.evidence import write_report
     dev = torch.device(device)
     h = headline(dev, n)
     lanes = [lane_headline(h), lane_linear(dev, n), lane_scaling(h), lane_fmg(dev, h),
-             lane_tile2d(dev, h), lane_free_boundary(dev, h, n_fb), lane_gk(dev, gk_spec, keep)]
+             lane_tile2d(dev, h), lane_free_boundary(dev, h, n_fb), lane_gk(runs)]
     path = write_report("sharded_convergence", lanes, out_dir=out_dir)
     print(f"wrote {path}")
     return 0 if all(lane.status == "pass" for lane in lanes) else 1
+
+
+def main(*, device: torch.device | str = "cuda", out_dir: str | Path = REPORTS_DIR,
+         n: int = 513, n_fb: int = 129, gk_spec: dict | None = None) -> int:
+    """The campaign at the script's sizes (``n``, ``n_fb``, ``gk_spec``; the
+    CPU tests pass smaller ones)."""
+    return write_lanes(device, gk_runs(torch.device(device), gk_spec), out_dir=out_dir, n=n,
+                       n_fb=n_fb)

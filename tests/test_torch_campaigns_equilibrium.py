@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from scpn_fusion_tpu_torch.bench_config import ITER_LIKE
 from scpn_fusion_tpu_torch.validation import collect_results, run_equilibrium_parity
-from scpn_fusion_tpu_torch.validation._lanes import ITER_COILS
 from tests.torch_parity import layout_mismatches, span_rel
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -119,7 +119,7 @@ def test_twin_lane_against_jax():
     cfg = ReactorConfig(
         reactor_name="parity-65", grid_resolution=(65, 65),
         dimensions=Dimensions(R_min=2.0, R_max=10.0, Z_min=-4.0, Z_max=4.0),
-        coils=tuple(Coil(r=r, z=z, current=i) for r, z, i in ITER_COILS),
+        coils=tuple(Coil(**c) for c in ITER_LIKE["coils"]),
         physics=PhysicsParams(plasma_current_target=15.0, vacuum_permeability=1.0),
         solver=SolverParams(max_iterations=600, convergence_threshold=1e-4,
                             relaxation_factor=0.1, solver_method="multigrid"))

@@ -21,8 +21,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from scpn_fusion_tpu_torch.bench_config import ITER_LIKE
 from scpn_fusion_tpu_torch.validation import run_free_boundary_forward as fbf
-from scpn_fusion_tpu_torch.validation._lanes import ITER_COILS, NO_CARD
+from scpn_fusion_tpu_torch.validation._lanes import NO_CARD
 from tests.torch_parity import layout_mismatches
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -59,7 +60,7 @@ def jax_forward(n, tol, mixed):
     cfg = ReactorConfig(
         reactor_name=f"fb-forward-{n}", grid_resolution=(n, n),
         dimensions=Dimensions(R_min=2.0, R_max=10.0, Z_min=-4.0, Z_max=4.0),
-        coils=tuple(Coil(r=r, z=z, current=i) for r, z, i in ITER_COILS),
+        coils=tuple(Coil(**c) for c in ITER_LIKE["coils"]),
         physics=PhysicsParams(plasma_current_target=15.0, vacuum_permeability=1.0),
         solver=SolverParams(max_iterations=400, convergence_threshold=1e-4,
                             relaxation_factor=1.0, solver_method="anderson_mg",

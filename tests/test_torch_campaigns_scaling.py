@@ -3,14 +3,17 @@
 The committed ``validation/reports/resolution_scaling.json`` was made on the
 TPU; off it the JAX script reports its five lanes blocked under their
 off-TPU names, and so does the port off a CUDA device.  The lanes'
-arithmetic is held to the JAX script's cascade at 257^2 (the card runs
-513^2-4097^2), each level its ``_solve_fixed_boundary`` with the script's
-arguments, the float32 levels run in float64 on both sides: per-level
-iteration counts equal and psi within 1e-9 of its span.  The mixed cascade's
-fine level keeps its float32 V-cycle defect correction on both sides, whose
-XLA and torch roundings differ: there the counts are equal and psi is held
-within ``MIXED_TOL`` of its span (the float64 GS-residual criterion, 3e-5,
-bounds how far two converged iterates may lie apart).
+cascades run through the port's ``solve_equilibrium_fmg`` and
+``solve_equilibrium_mixed_fmg``; their arithmetic is held to the JAX
+package's same entry points at 257^2 (the card runs 513^2-4097^2) with the
+script's arguments.  The float32 cascade runs in float64 on both sides:
+per-level iteration counts equal and psi within 1e-9 of its span.  The
+mixed cascade keeps its float32 levels and its float32 V-cycle defect
+correction on both sides, whose XLA and torch roundings differ: there the
+counts are equal and psi is held within ``MIXED_TOL`` of its span (the
+float64 GS-residual criterion, 3e-5, bounds how far two converged iterates
+may lie apart; measured 2.8e-8).  ``test_torch_campaigns_scaling_script.py``
+holds the entry point to the script's own hand-written cascade.
 """
 
 import json
@@ -37,66 +40,23 @@ def test_cpu_run_blocks_every_lane(tmp_path):
 
 
 def jax_cascade(n_fine, mixed):
-    """The JAX script's cascade (``run_resolution_scaling.py:127-147, 185-240``)
-    at ``n_fine``, its float32 levels in float64."""
-    import dataclasses
+    """The JAX package's entry point that the port's lane calls, at
+    ``n_fine`` with the script's configuration: ``solve_equilibrium_fmg`` in
+    float64, or ``solve_equilibrium_mixed_fmg`` (the script's GS gate)."""
+    from scpn_fusion_tpu.core.config import config_from_dict
+    from scpn_fusion_tpu.models.equilibrium.fixed_boundary import solve_equilibrium_fmg
+    from scpn_fusion_tpu.models.equilibrium.mixed_precision import solve_equilibrium_mixed_fmg
+    from scpn_fusion_tpu_torch.bench_config import BENCH_SOLVER, config_dict
 
-    from scpn_fusion_tpu.core.config import (
-        Coil, Dimensions, PhysicsParams, ReactorConfig, SolverParams,
-    )
-    from scpn_fusion_tpu.core.grid import Grid
-    from scpn_fusion_tpu.models.equilibrium.fixed_boundary import _solve_fixed_boundary
-    from scpn_fusion_tpu.models.equilibrium.mixed_precision import make_refinement_elliptic
-    from scpn_fusion_tpu.models.equilibrium.profiles import profile_coeffs_from_physics
-    from scpn_fusion_tpu.models.equilibrium.vacuum import vacuum_psi_from_config
-    from scpn_fusion_tpu.ops.multigrid import prolongate_bilinear
-    from scpn_fusion_tpu_torch.validation._lanes import ITER_COILS
-
-    f64 = jnp.float64
-    cfg = ReactorConfig(
-        reactor_name=f"res-scale-{n_fine}", grid_resolution=(n_fine, n_fine),
-        dimensions=Dimensions(R_min=2.0, R_max=10.0, Z_min=-4.0, Z_max=4.0),
-        coils=tuple(Coil(r=r, z=z, current=i) for r, z, i in ITER_COILS),
-        physics=PhysicsParams(plasma_current_target=15.0, vacuum_permeability=1.0),
-        solver=SolverParams(max_iterations=600, convergence_threshold=1e-4,
-                            relaxation_factor=1.0, solver_method="anderson_mg",
-                            anderson_depth=4, mg_pre_smooth=1, mg_post_smooth=2))
-    sol = cfg.solver
-    levels = rs.cascade_levels(n_fine, mixed=mixed)
-    grids = {m: Grid.from_config(dataclasses.replace(cfg, grid_resolution=(m, m)),
-                                 dtype=np.float64) for m in levels}
-    bcs = {m: vacuum_psi_from_config(grids[m], dataclasses.replace(
-        cfg, grid_resolution=(m, m))).astype(f64) for m in levels}
-    p_c, ff_c = profile_coeffs_from_physics(cfg.physics, f64)
-    i_t = jnp.asarray(15.0, f64)
-
-    def level(m, psi_init, tol, skip_seed, **kw):
-        return _solve_fixed_boundary(
-            grids[m] if m in grids else kw.pop("grid"), psi_init,
-            bcs[m] if m in bcs else kw.pop("bc"), i_t, p_c, ff_c, jnp.asarray(tol, f64),
-            jnp.asarray(kw.pop("gs_tol", jnp.inf), f64), jnp.asarray(1.0, f64),
-            jnp.asarray(sol.sor_omega, f64), solver_method="anderson_mg",
-            max_iter=sol.max_iterations, h_mode=False, inner_sweeps=sol.inner_sweeps,
-            anderson_m=sol.anderson_depth, mu0=1.0, skip_seed=skip_seed, **kw)
-
-    info, res = [], None
-    for m in levels:
-        fine = m == n_fine and res is not None
-        psi_init = bcs[m] if res is None else prolongate_bilinear(res.psi, m, m)
-        res = level(m, psi_init, sol.convergence_threshold if fine else rs.COARSE_TOL,
-                    res is not None, use_gs_criterion=False, use_pallas=False,
-                    mg_pre_smooth=sol.mg_pre_smooth, mg_post_smooth=sol.mg_post_smooth)
-        info.append((m, int(res.iterations), bool(res.converged)))
+    cfg = config_from_dict(config_dict(n_fine, **BENCH_SOLVER,
+                                       gs_residual_threshold=rs.GS_THRESHOLD if mixed else 0.0))
     if mixed:
-        grid64 = Grid.from_config(cfg, dtype=np.float64)
-        bc64 = vacuum_psi_from_config(grid64, cfg).astype(f64)
-        res = level(n_fine, prolongate_bilinear(res.psi, n_fine, n_fine),
-                    sol.convergence_threshold, True, grid=grid64, bc=bc64,
-                    gs_tol=rs.GS_THRESHOLD, use_gs_criterion=True, use_pallas=False,
-                    elliptic_fn=make_refinement_elliptic(grid64, n_refine=2, use_pallas=False),
-                    anderson_gram_f32=True)
-        info.append((n_fine, int(res.iterations), bool(res.converged)))
-    return res, info
+        res, info = solve_equilibrium_mixed_fmg(cfg, coarse_tol=rs.COARSE_TOL, min_coarse=129,
+                                                i_target=15.0, n_refine=2)
+    else:
+        res, info = solve_equilibrium_fmg(cfg, coarse_tol=rs.COARSE_TOL, min_coarse=129,
+                                          i_target=15.0, dtype=jnp.float64)
+    return res, [(d["n"], int(d["iterations"]), bool(d["converged"])) for d in info]
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["f32-cascade", "mixed-cascade"])

@@ -30,7 +30,7 @@ def test_gk_lane_at_a_small_spec_against_jax():
     from scpn_fusion_tpu_torch.models.gyrokinetics.nonlinear import (
         GKState, NonlinearGKConfig, run_nonlinear_gk,
     )
-    lane = sc.lane_gk(torch.device("cpu"), SMALL)
+    lane = sc.lane_gk(sc.gk_runs(torch.device("cpu"), SMALL))
     m = lane.metrics
     assert lane.name == "gk_shard_memory" and lane.status == "pass"
     assert m["state_rel_dev_tile_vs_monolithic"] < 1e-12 and m["trace_rel_dev_max"] < 1e-9

@@ -93,7 +93,8 @@ def test_initial_plant_solve_against_jax():
     )
     from scpn_fusion_tpu_torch.core.grid import Grid
     from scpn_fusion_tpu_torch.models.equilibrium.free_boundary import coilset_from_config
-    from scpn_fusion_tpu_torch.validation._lanes import ITER_COILS, iter_like
+    from scpn_fusion_tpu_torch.bench_config import ITER_LIKE
+    from scpn_fusion_tpu_torch.validation._lanes import iter_like
 
     cfg = iter_like("tracking-acceptance", 33, ip=150.0, max_iterations=80,
                     convergence_threshold=1e-4, relaxation_factor=0.1, solver_method="multigrid")
@@ -103,7 +104,7 @@ def test_initial_plant_solve_against_jax():
     jcfg = ReactorConfig(
         reactor_name="tracking-acceptance", grid_resolution=(33, 33),
         dimensions=Dimensions(R_min=2.0, R_max=10.0, Z_min=-4.0, Z_max=4.0),
-        coils=tuple(Coil(r=r, z=z, current=i) for r, z, i in ITER_COILS),
+        coils=tuple(Coil(**c) for c in ITER_LIKE["coils"]),
         physics=PhysicsParams(plasma_current_target=150.0, vacuum_permeability=1.0),
         solver=SolverParams(max_iterations=80, convergence_threshold=1e-4,
                             relaxation_factor=0.1, solver_method="multigrid"))
